@@ -1,0 +1,157 @@
+"""Config system of the port: one dataclass, optional YAML, CLI override
+(the port's copy of dpot_tpu/utils/config.py). Field names, and so the CLI
+flags, are those of the JAX package. PyYAML is imported only when a YAML
+file is given."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Any, List, Optional, Sequence
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # model
+    model: str = "DPOT"
+    width: int = 512
+    n_layers: int = 4
+    modes: int = 32
+    patch_size: int = 8
+    n_blocks: int = 4
+    mlp_ratio: float = 1.0
+    out_layer_dim: int = 32
+    act: str = "gelu"
+    normalize: bool = False
+    time_agg: str = "exp_mlp"
+    use_ln: int = 0  # FNO GroupNorm(4) layers (reference configs use_ln)
+
+    # data
+    train_paths: List[str] = dataclasses.field(
+        default_factory=lambda: ["ns2d_fno_1e-5"]
+    )
+    test_paths: List[str] = dataclasses.field(default_factory=list)
+    ntrain_list: Optional[List[int]] = None
+    ntest_list: Optional[List[int]] = None
+    data_weights: List[int] = dataclasses.field(default_factory=lambda: [1])
+    res: int = 128
+    T_in: int = 10
+    T_ar: int = 1
+    T_bundle: int = 1
+    noise_scale: float = 0.0
+
+    # optimization
+    opt: str = "adam"
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    weight_decay: Optional[float] = None
+    lr_method: str = "cycle"
+    cycle_momentum: bool = True
+    lr_step_size: int = 20
+    step_size: int = 100
+    step_gamma: float = 0.5
+    warmup_epochs: int = 5
+    grad_clip: float = 10000.0
+    opt_moment_dtype: str = "float32"
+    batch_size: int = 8
+    steps_per_dispatch: int = 1
+    grad_accum: int = 1
+    epochs: int = 500
+    rollback_factor: float = 10.0
+    rollback_warmup_steps: int = 20
+    rollback_snapshot_steps: int = 0
+    async_ckpt: bool = True
+
+    # runtime
+    seed: int = 0
+    num_workers: int = 8
+    loader_prefetch: int = -1
+    loader_slot_ring: int = -1
+    n_channels: int = 4  # model input channels when no dataset infers them
+    dtype: str = "float32"  # compute dtype: float32 | bfloat16
+    wire_dtype: str = "auto"  # auto | float32 | bfloat16
+    remat: bool = False
+    mesh_data: Optional[int] = None
+    mesh_spatial: int = 1
+    mesh_model: int = 1
+    mesh_pipe: int = 1
+    pipe_microbatches: int = 0
+    shard_params: str = "replicate"
+
+    # logging / checkpoint
+    comment: str = ""
+    log_path: str = ""
+    use_writer: bool = False
+    viz_dir: str = ""
+    # the serve CLI reads model weights from a reference-layout .pth here
+    resume_path: str = ""
+    init_from: str = ""
+    load_components: List[str] = dataclasses.field(
+        default_factory=lambda: ["blocks", "pos", "time_agg"]
+    )
+    save_every: int = 1
+    ckpt_bucket_epochs: int = 0
+
+    def __post_init__(self):
+        if isinstance(self.train_paths, str):
+            self.train_paths = [self.train_paths]
+        if isinstance(self.test_paths, str):
+            self.test_paths = [self.test_paths]
+        if not self.test_paths:
+            self.test_paths = list(self.train_paths)
+        if len(self.data_weights) == 1 and len(self.train_paths) > 1:
+            self.data_weights = [self.data_weights[0]] * len(self.train_paths)
+        if self.opt_moment_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"opt_moment_dtype {self.opt_moment_dtype!r} must be float32 or bfloat16"
+            )
+        if self.grad_accum < 1 or self.batch_size % self.grad_accum:
+            raise ValueError(
+                f"batch_size {self.batch_size} must divide into "
+                f"grad_accum={self.grad_accum} microbatches"
+            )
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}")
+
+
+def _parser_for(cls) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--config_file", type=str, default=None)
+    for f in dataclasses.fields(cls):
+        name = f"--{f.name}"
+        t = str(f.type)
+        if f.type in ("bool", bool):
+            p.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
+                           default=None)
+        elif "List[str]" in t:
+            p.add_argument(name, type=str, nargs="+", default=None)
+        elif "List[int]" in t:
+            p.add_argument(name, type=int, nargs="+", default=None)
+        elif "int" in t:
+            p.add_argument(name, type=int, default=None)
+        elif "float" in t:
+            p.add_argument(name, type=float, default=None)
+        else:
+            p.add_argument(name, type=str, default=None)
+    return p
+
+
+def load_config(argv: Optional[Sequence[str]] = None, cls=TrainConfig):
+    """YAML (--config_file) < CLI flags. Reading the architecture from a
+    checkpoint directory (--config_from_ckpt in the JAX package) waits for
+    the checkpoint port."""
+    ns = _parser_for(cls).parse_args(argv)
+    base: dict[str, Any] = {}
+    fields = {f.name for f in dataclasses.fields(cls)}
+    if ns.config_file:
+        import yaml
+
+        with open(ns.config_file) as f:
+            y = yaml.safe_load(f)
+        base.update({k: v for k, v in y.items() if k in fields})
+    for name in fields:
+        v = getattr(ns, name)
+        if v is not None:
+            base[name] = v
+    return cls(**base)
