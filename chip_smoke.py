@@ -6,10 +6,17 @@ Phases, each printing its results as JSON lines:
   1. device and build: the card's name and power limit (nvidia-smi), then the
      nvcc build of every kernel in dpot_tpu_torch/csrc;
   2. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the shapes of DPOT-Ti serving (B in {1, 8}, bf16 with
-     tanh-GELU and f32 with erf-GELU), with its CUDA-event time, the device
-     time of each of its launches (torch.profiler), the plain version's time
-     and the least time the card could take (its bound);
+     the card, with its CUDA-event time, the device time of its launches
+     (torch.profiler), the plain version's time and the least time the card
+     could take (its bound):
+     - fused_gn_afno at the shapes of DPOT-Ti serving (B in {1, 8}, bf16 with
+       tanh-GELU and f32 with erf-GELU);
+     - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
+       torch.autograd through the plain version at the Ti block shapes of
+       training (B = 20), with the plain version made to raise while the
+       backward runs;
+     - bias_act, all nine activations in f32 and bf16, at (8, 64, 64, 512)
+       and at a ragged (3, 17, 5, 37), forward and gradient;
   3. serve: `python -m dpot_tpu_torch.cli.serve` in-process at DPOT-Ti full
      width and depth (seeded weights), bf16 and then f32 compute, each
      answering rollout requests over HTTP on 127.0.0.1; every served
@@ -18,7 +25,20 @@ Phases, each printing its results as JSON lines:
      applications, and the served model's forward on the card against the
      same weights' forward on the CPU (the plain versions there);
   4. step: where one model application's time goes at B = 1 and 8 (wall
-     time, device busy time and idle share, the fused kernel's part).
+     time, device busy time and idle share, the fused kernel's part);
+  5. train: `python -m dpot_tpu_torch.cli.train` in-process at DPOT-Ti full
+     width and depth on a synthetic 128x128 dataset (40 train and 4 test
+     trajectories of 21 frames, 4 channels) with the optimization of
+     configs/pretrain_tiny.yaml (adam, lr 1e-3, beta2 0.9, noise 5e-4,
+     batch 20, T_ar 1, OneCycle with 1 warm-up epoch) for 3 epochs, in f32
+     and then bf16: every loss finite, the kernel's launch count against
+     depth x (train + eval model applications), a resume from the last
+     checkpoint stepped twice from the same state giving the same losses,
+     and where a train step's time goes (wall, device busy, idle share,
+     samples/s; the shares of the fused kernel, its VJP and the optimizer);
+  6. train card vs CPU: one f32 Ti train step at B = 4 on shared weights,
+     batch and noise, on the card and on the CPU: the loss and every
+     parameter's gradient.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -30,17 +50,26 @@ from __future__ import annotations
 import copy
 import io
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from dpot_tpu_torch.ops.cuda import build
-from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno, fused_gn_afno_ref
+from dpot_tpu_torch.ops.bias_act import activation_funcs, bias_act_ref
+from dpot_tpu_torch.ops.cuda import afno_fused, build
+from dpot_tpu_torch.ops.cuda.afno_fused import (
+    fused_gn_afno,
+    fused_gn_afno_ref,
+    fused_gn_afno_vjp,
+)
+from dpot_tpu_torch.ops.cuda.bias_act import bias_act
 from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -65,6 +94,44 @@ BF16_EPS = 2.0 ** -7
 # whole forward, card against CPU on the same weights: f32 differs by
 # summation order through ~20 layers; bf16 by a few bf16 roundings per layer
 CPU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# VJP against autograd through the plain version, rel-L2 per cotangent: f32
+# differs by summation order; in bf16 the kernel's forward and the VJP's
+# recompute round z and h to bf16 independently, and a rounding that falls
+# the other way moves a cotangent by one bf16 ulp (2^-8) there
+VJP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bias_act kernel against its plain version, per element: the kernel
+# computes in f32 and rounds once, the plain version rounds after each op;
+# f32 agrees to 1e-6 relative, bf16 to two bf16 ulps of the value
+BIAS_ACT_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2.0 ** -6, 2.0 ** -9)}
+BIAS_ACT_SHAPES = ((8, 64, 64, 512), (3, 17, 5, 37))
+# f32 operations per element besides the bias add, gain and clamp (4): an
+# exp, tanh or log counts as one
+BIAS_ACT_OPS = dict(linear=0, relu=1, lrelu=2, tanh=1, sigmoid=3, elu=2, selu=4,
+                    softplus=5, swish=3)
+
+# DPOT-Ti pretraining on a synthetic 128^2 dataset, with the optimization of
+# configs/pretrain_tiny.yaml (its tasks: values; its 12 corpora are not here)
+TRAIN_SPEC = dict(name="synthetic_ti", train_size=40, test_size=4, t_total=21,
+                  t_test=10, in_size=(128, 128), n_channels=4)
+TRAIN = dict(batch=20, epochs=3, t_ar=1, t_bundle=1)
+TRAIN_FLAGS = [
+    "--model", "DPOT", "--train_paths", "synthetic_ti", "--res", "128",
+    "--patch_size", "8", "--width", "512", "--n_layers", "4", "--n_blocks", "4",
+    "--modes", "32", "--mlp_ratio", "1", "--T_in", "10",
+    "--T_ar", str(TRAIN["t_ar"]), "--T_bundle", str(TRAIN["t_bundle"]),
+    "--opt", "adam", "--lr", "1e-3", "--beta1", "0.9", "--beta2", "0.9",
+    "--noise_scale", "5e-4", "--batch_size", str(TRAIN["batch"]),
+    "--lr_method", "cycle", "--warmup_epochs", "1", "--epochs", str(TRAIN["epochs"]),
+    "--num_workers", "4", "--use_writer", "true", "--seed", "0",
+]
+# one Ti train step, card against CPU on shared weights, batch and noise: the
+# loss through ~20 layers differs by f32 summation order, and the gradients
+# by that order through the backward as well
+TRAIN_CPU_TOL = dict(loss=1e-5, grad=1e-4)
+# a resumed step on the card against the same step resumed again: the same
+# state and batch; cuBLAS may order a reduction differently from call to call
+RESUME_TOL = 1e-6
+RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def log(phase: str, **kv) -> None:
@@ -92,11 +159,10 @@ SUB_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
                "mode_out_kernel", "synthesis_kernel")
 
 
-def kernel_us(fn, runs: int) -> dict[str, float]:
-    """Device time in µs, summed over `runs` calls of fn, of each CUDA kernel
-    that fn launched, by name, from torch.profiler. The profiler now and
-    then returns no device activity; it is then asked again, up to three
-    times, and an empty result means that the time was not measured."""
+def profile_events(fn, runs: int) -> list:
+    """torch.profiler events of `runs` calls of fn. The profiler now and then
+    returns no device activity; it is then asked again, up to three times,
+    and an empty list means that the device time was not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,13 +171,22 @@ def kernel_us(fn, runs: int) -> dict[str, float]:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        times: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
-        if times:
-            return times
-    return {}
+        events = prof.events()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            return events
+    return []
+
+
+def kernel_us(fn, runs: int) -> dict[str, float]:
+    """Device time in µs, summed over `runs` calls of fn, of each CUDA kernel
+    that fn launched, by name, from torch.profiler ({}: not measured)."""
+    from torch.autograd import DeviceType
+
+    times: dict[str, float] = {}
+    for e in profile_events(fn, runs):
+        if e.device_type == DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return times
 
 
 def device_ms(fn, runs: int = 20) -> dict | None:
@@ -201,7 +276,7 @@ def phase_kernels() -> dict:
     """fused_gn_afno against its plain version; returns per-config numbers."""
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for B in (1, 8):
+        for B in (1, 8, TRAIN["batch"]):
             check_afno(B, dtype, 0.05, seed=100 + B)  # MLP-dominated weights
             r = check_afno(B, dtype, None, seed=B)     # the init's scale
             a, K, g, ap = r["args"], r["K"], r["groups"], r["approx"]
@@ -216,6 +291,116 @@ def phase_kernels() -> dict:
                 device_ms=dev, bound_ms=bound, bound_by=by,
             )
             log("kernel", name="fused_gn_afno", config=key, **results[key])
+    return results
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _plain_forbidden(*args, **kwargs):
+    raise AssertionError("the backward of fused_gn_afno ran its plain version")
+
+
+def phase_vjp() -> dict:
+    """The gradient of fused_gn_afno (its VJP, torch ops) against
+    torch.autograd through the plain version, at the Ti block shapes of a
+    train step (B = 20), in bf16/tanh and f32/erf. While the backward runs
+    the plain version raises, so it cannot be what the backward computes."""
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args, K, groups = afno_case(TRAIN["batch"], dtype, 0.05, seed=200)
+        approx = dtype == torch.bfloat16
+        leaves = [args[i].requires_grad_() for i in (0, 1, 2, 5, 6, 7, 8)]
+        out = fused_gn_afno(*args, K, groups, approx)
+        if type(out.grad_fn).__name__ != "FusedGnAfnoBackward":
+            raise AssertionError(f"fused_gn_afno on the card has grad_fn {out.grad_fn}")
+        gen = torch.Generator(device="cuda").manual_seed(201)
+        g = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+        afno_fused.fused_gn_afno_ref = _plain_forbidden
+        try:
+            got = torch.autograd.grad(out, leaves, g)
+        finally:
+            afno_fused.fused_gn_afno_ref = fused_gn_afno_ref
+        want = torch.autograd.grad(fused_gn_afno_ref(*args, K, groups, approx), leaves, g)
+        torch.cuda.synchronize()
+        names = ("x", "gscale", "gbias", "w1", "b1", "w2", "b2")
+        rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, want)}
+        bad = {n: r for n, r in rels.items() if not r <= VJP_TOL[dtype]}
+        if bad or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"fused_gn_afno VJP {dtype}: rel_l2 {bad} above "
+                                 f"{VJP_TOL[dtype]} or non-finite")
+        plain = [t.detach() for t in args]
+        ms = cuda_ms(lambda: fused_gn_afno_vjp(g, *plain, K, groups, approx))
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            fused_gn_afno_ref(*args, K, groups, approx), leaves, g))
+        key = str(dtype).replace("torch.", "")
+        results[key] = dict(batch=TRAIN["batch"], rel_l2=rels, limit=VJP_TOL[dtype],
+                            vjp_ms=ms, autograd_through_plain_ms=plain_ms)
+        log("vjp", name="fused_gn_afno_vjp", dtype=key, **results[key])
+    return results
+
+
+def bias_act_bound_ms(shape, dtype: torch.dtype, act: str) -> tuple[float, str]:
+    """Least time for one call: x read and the output written once (the
+    bias is C values), or its f32 operations over the f32 peak."""
+    n, C = math.prod(shape), shape[-1]
+    s = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (2 * n + C) * s / PEAK_BYTES * 1e3
+    t_ops = n * (4 + BIAS_ACT_OPS[act]) / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def phase_bias_act() -> dict:
+    """bias_act against its plain version: every activation, f32 and bf16,
+    without and with a clamp, forward and gradient (first order; the
+    Function's backward differentiates the plain composition). Timed at
+    (8, 64, 64, 512) without clamp."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for shape in BIAS_ACT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (2 * torch.randn(shape, device="cuda", generator=gen)).to(dtype)
+            b = torch.randn(shape[-1], device="cuda", generator=gen).to(dtype)
+            g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            rtol, atol = BIAS_ACT_TOL[dtype]
+            dname = str(dtype).replace("torch.", "")
+            for act in sorted(activation_funcs):
+                max_err = 0.0
+                for clamp in (None, 3.0):
+                    before = bias_act.launches
+                    got = bias_act(x, b, act, clamp=clamp)
+                    want = bias_act_ref(x, b, -1, act, clamp=clamp)
+                    torch.cuda.synchronize()
+                    if bias_act.launches != before + 1 or got.dtype != want.dtype:
+                        raise AssertionError(f"bias_act {act} {dtype}: no launch or dtype "
+                                             f"{got.dtype} != {want.dtype}")
+                    err = (got.float() - want.float()).abs()
+                    if not (err <= rtol * want.float().abs() + atol).all():
+                        raise AssertionError(
+                            f"bias_act {act} {dtype} {shape} clamp={clamp}: max error "
+                            f"{err.max().item()} above {rtol}|y| + {atol}")
+                    max_err = max(max_err, err.max().item())
+                xs, bs = x.clone().requires_grad_(), b.clone().requires_grad_()
+                got = torch.autograd.grad(bias_act(xs, bs, act), [xs, bs], g)
+                want = torch.autograd.grad(bias_act_ref(xs, bs, -1, act), [xs, bs], g)
+                grad_rel = max(rel_l2(a, w) for a, w in zip(got, want))
+                if not grad_rel <= 1e-6:
+                    raise AssertionError(f"bias_act {act} {dtype} gradient rel_l2 {grad_rel}")
+                row = dict(shape=list(shape), dtype=dname, act=act, max_abs_err=max_err,
+                           grad_rel_l2=grad_rel)
+                if shape == BIAS_ACT_SHAPES[0]:
+                    dev = kernel_us(lambda: bias_act(x, b, act), 20)
+                    bound, by = bias_act_bound_ms(shape, dtype, act)
+                    row.update(
+                        ms=cuda_ms(lambda: bias_act(x, b, act)),
+                        plain_ms=cuda_ms(lambda: bias_act_ref(x, b, -1, act)),
+                        device_ms=sum(v for k, v in dev.items() if "bias_act_kernel" in k)
+                        / 20 / 1e3 if dev else "not measured",
+                        bound_ms=bound, bound_by=by,
+                    )
+                    results[f"{dname}/{act}"] = row
+                log("kernel", name="bias_act", **row)
     return results
 
 
@@ -267,7 +452,7 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
     """Serve DPOT-Ti through the CLI and check every answer."""
     from dpot_tpu_torch.cli.serve import main as serve_main
 
-    fused_gn_afno.launches = 0
+    fused_gn_afno.launches = bias_act.launches = 0
     httpd, rs = serve_main(
         TI_FLAGS + ["--dtype", dtype, "--response_dtype", response_dtype,
                     "--device", "cuda"],
@@ -295,7 +480,7 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
                     if B == 1 and steps == 4 and kept is None:
                         kept = (x, pred)
         torch.cuda.synchronize()
-        launches = fused_gn_afno.launches
+        launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
         want_launches = TI["depth"] * applications
         if launches != want_launches:
             raise AssertionError(
@@ -322,7 +507,7 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
         out = dict(
             dtype=dtype, response_dtype=response_dtype, requests=len(lat),
             applications=applications, launches=launches,
-            client_p50_ms=statistics.median(lat), client_ms=lat,
+            bias_act_launches=bias_act_launches, client_p50_ms=statistics.median(lat), client_ms=lat,
             direct_loop_rel_l2=rel, card_vs_cpu_rel_l2=cpu_rel,
             card_vs_cpu_limit=CPU_TOL[dtype], metrics=metrics,
         )
@@ -378,6 +563,189 @@ def phase_step(dtype: str, runs: int = 10) -> list[dict]:
     return rows
 
 
+def read_metrics(log_dir: str) -> dict[str, list[float]]:
+    out: dict[str, list[float]] = {}
+    with open(Path(log_dir) / "metrics.jsonl") as f:
+        for rec in map(json.loads, f):
+            out.setdefault(rec["tag"], []).append(rec["value"])
+    return out
+
+
+def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
+    """Where a train step's time goes, over `runs` steps after a warm-up:
+    median wall time per step on the host clock (synchronised each step),
+    then one profiled window of `runs` steps for the device busy time and
+    the parts of it in the fused kernel, in its VJP (the autograd node
+    FusedGnAfnoBackward, which torch.profiler records) and in the optimizer
+    update (a profiler range around it)."""
+    from torch.autograd import DeviceType
+
+    def step():
+        return step_fn(state, batch)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    row = dict(wall_ms=wall, wall_ms_each=walls,
+               samples_per_s=batch["x"].shape[0] / wall * 1e3)
+
+    apply_gradients = state.apply_gradients
+
+    def traced_apply():
+        with torch.profiler.record_function("optimizer_update"):
+            apply_gradients()
+
+    state.apply_gradients = traced_apply
+    events = profile_events(step, runs)
+    del state.apply_gradients
+    if not events:
+        row.update(device_busy_ms="not measured")
+        return row
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA) / runs / 1e3
+    fused = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA
+                and any(k in e.name for k in SUB_KERNELS)) / runs / 1e3
+
+    def range_ms(prefix):
+        return sum(e.device_time_total for e in events
+                   if e.device_type == DeviceType.CPU and e.name.startswith(prefix)
+                   ) / runs / 1e3
+
+    vjp = range_ms("autograd::engine::evaluate_function: FusedGnAfnoBackward")
+    opt = range_ms("optimizer_update")
+    row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
+               fused_gn_afno_ms=fused, fused_gn_afno_share=fused / busy,
+               vjp_ms=vjp, vjp_share=vjp / busy, optimizer_ms=opt,
+               optimizer_share=opt / busy)
+    return row
+
+
+def phase_train(dtype: str) -> dict:
+    """Pretrain DPOT-Ti through the train CLI for a few epochs and check it."""
+    from dpot_tpu_torch.cli.train import main as train_main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.train.checkpoint import restore_checkpoint
+    from dpot_tpu_torch.train.loop import build_everything
+    from dpot_tpu_torch.train.step import make_train_step
+    from dpot_tpu_torch.utils.config import load_config
+
+    make_synthetic_spec(**TRAIN_SPEC)
+    argv = TRAIN_FLAGS + ["--dtype", dtype, "--log_path", str(RUN_DIR / f"train_{dtype}")]
+    t0 = time.perf_counter()
+    fused_gn_afno.launches = bias_act.launches = 0
+    out = train_main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
+    run_s = time.perf_counter() - t0
+
+    # model applications: T_ar / T_bundle per train step; per epoch and
+    # test batch, ceil(t_test / T_bundle) in the eval rollout
+    B, epochs = TRAIN["batch"], TRAIN["epochs"]
+    steps = epochs * math.ceil(TRAIN_SPEC["train_size"] / B)
+    train_apps = steps * (TRAIN["t_ar"] // TRAIN["t_bundle"])
+    eval_apps = (epochs * math.ceil(TRAIN_SPEC["test_size"] / B)
+                 * math.ceil(TRAIN_SPEC["t_test"] / TRAIN["t_bundle"]))
+    want_launches = TI["depth"] * (train_apps + eval_apps)
+    if out["state"].step != steps:
+        raise AssertionError(f"train took {out['state'].step} steps, expected {steps}")
+    if launches != want_launches:
+        raise AssertionError(
+            f"fused_gn_afno launched {launches} times in training, expected depth x "
+            f"(train + eval applications) = {want_launches}")
+    metrics = read_metrics(out["log_dir"])
+    losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
+    losses += [out["train_l2_step"], out["train_l2_full"], *out["test_l2_steps"],
+               *out["test_l2_fulls"]]
+    if len(metrics.get("train_loss_step", [])) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train losses missing or not finite: {metrics}")
+
+    # resume from the last checkpoint, twice, and take two steps each time
+    cfg = load_config(argv)
+    _, state, _, train_dl, _, train_ds = build_everything(cfg, "cuda")
+    x, y, _, cls = next(iter(train_dl))
+    wire = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    batch = {"x": torch.from_numpy(x).to("cuda", wire), "y": torch.from_numpy(y).cuda(),
+             "cls": torch.from_numpy(cls).cuda()}
+    if not train_ds.train_masks_are_ones:
+        raise AssertionError("the synthetic train masks are expected to be all ones")
+    step_fn = make_train_step(noise_scale=cfg.noise_scale, ones_mask=True,
+                              time_major=bool(train_ds.time_major_batches))
+    resumed = []
+    for _ in range(2):
+        restore_checkpoint(str(Path(out["log_dir"]) / "model"), state)
+        if state.step != steps:
+            raise AssertionError(f"checkpoint holds step {state.step}, expected {steps}")
+        resumed.append([step_fn(state, batch)[1]["loss_step"].item() for _ in range(2)])
+    diff = max(abs(a - b) / abs(b) for a, b in zip(*resumed))
+    if not diff <= RESUME_TOL:
+        raise AssertionError(f"two resumes from one checkpoint give losses {resumed}")
+
+    prof = train_step_profile(state, batch, step_fn)
+    row = dict(dtype=dtype, batch=B, steps=steps, train_applications=train_apps,
+               eval_applications=eval_apps, launches=launches,
+               bias_act_launches=bias_act_launches, run_s=run_s,
+               loop_step_s=out["step_seconds"], train_l2_step=out["train_l2_step"],
+               test_l2_steps=out["test_l2_steps"], resumed_losses=resumed,
+               resume_rel_diff=diff, **prof)
+    log("train", **row)
+    return row
+
+
+def phase_train_card_vs_cpu(B: int = 4) -> dict:
+    """One f32 Ti train step on the card (kernel + VJP) and on the CPU (plain
+    version + VJP), on the same weights, batch and noise draws."""
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    model = build_model(
+        "DPOT", preset="Ti", img_size=128, patch_size=8, in_channels=4,
+        in_timesteps=10, n_cls=1, dtype=torch.float32, device="cuda", seed=5,
+    )
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(22)
+    msk = np.ones((B, 128, 128, 1, 4), np.float32)
+    msk[0, ::2] = 0.0
+    batch = dict(
+        x=rng.standard_normal((B, 128, 128, 10, 4)).astype(np.float32),
+        y=rng.standard_normal((B, 128, 128, 1, 4)).astype(np.float32),
+        msk=msk, cls=np.zeros(B, np.int32),
+        noise=rng.standard_normal((1, B, 128, 128, 10, 4)).astype(np.float32),
+    )
+    step_fn = make_train_step(noise_scale=5e-4)
+    aux = {}
+    for name, m, dev in (("card", model, "cuda"), ("cpu", cpu_model, "cpu")):
+        state = TrainState.create(m, build_optimizer("adam", m.parameters(), 0.0), seed=0)
+        _, aux[name] = step_fn(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    loss_rel = abs(aux["card"]["loss_step"].item() - aux["cpu"]["loss_step"].item()) \
+        / abs(aux["cpu"]["loss_step"].item())
+    grads = {}
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if (p.grad is None) != (q.grad is None):
+            raise AssertionError(f"{name}: a gradient on one device only")
+        if p.grad is not None:
+            grads[name] = rel_l2(p.grad.cpu(), q.grad)
+    worst = max(grads, key=grads.get)
+    if not (loss_rel <= TRAIN_CPU_TOL["loss"] and grads[worst] <= TRAIN_CPU_TOL["grad"]):
+        raise AssertionError(
+            f"train step card vs CPU: loss rel {loss_rel} (limit {TRAIN_CPU_TOL['loss']}), "
+            f"{worst} gradient rel_l2 {grads[worst]} (limit {TRAIN_CPU_TOL['grad']})")
+    row = dict(batch=B, loss_rel=loss_rel, worst_grad=worst, worst_grad_rel_l2=grads[worst],
+               n_grads=len(grads), limits=TRAIN_CPU_TOL)
+    log("train_card_vs_cpu", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -397,25 +765,52 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
 
     k = phase_kernels()
+    vjp = phase_vjp()
+    ba = phase_bias_act()
     serve_bf16 = phase_serve("bfloat16", "float32")
     serve_f32 = phase_serve("float32", "float16")
     for dtype in ("bfloat16", "float32"):
         phase_step(dtype)
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    train = {dtype: phase_train(dtype) for dtype in ("float32", "bfloat16")}
+    shutil.rmtree(RUN_DIR)
+    phase_train_card_vs_cpu()
 
-    source = "dpot_tpu_torch/csrc/afno_fused.cu"
-    replaces = "dpot_tpu/ops/pallas/afno_fused.py:113"
     kernels = []
-    for name, key, served in (("fused_gn_afno[bf16,tanh]", "bfloat16/B8", serve_bf16),
-                              ("fused_gn_afno[f32,erf]", "float32/B8", serve_f32)):
-        r = k[key]
+    for name, dtype, served in (("fused_gn_afno[bf16,tanh]", "bfloat16", serve_bf16),
+                                ("fused_gn_afno[f32,erf]", "float32", serve_f32)):
+        r, r20 = k[f"{dtype}/B8"], k[f"{dtype}/B{TRAIN['batch']}"]
+        trained = train[dtype]
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=served["launches"], max_abs_err=r["max_abs_err"],
+            name=name, route="cuda", source="dpot_tpu_torch/csrc/afno_fused.cu",
+            replaces="dpot_tpu/ops/pallas/afno_fused.py:113",
+            launches=served["launches"] + trained["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            phase=f"serve[{dtype}] + train[{dtype}]", shapes=f"{dtype}/B8",
+            launches_serve=served["launches"], launches_train=trained["launches"],
+            check="pass", max_abs_limit=r["max_abs_limit"], rel_l2=r["rel_l2"],
+            device_ms=r["device_ms"] and r["device_ms"]["total"],
+            train_shape={key: r20[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "max_abs_err")},
+            vjp_ms=vjp[dtype]["vjp_ms"], vjp_rel_l2=vjp[dtype]["rel_l2"],
+        ))
+    # bias_act lies on no main path: its count over the serve and train runs
+    bias_act_launches = sum(r["bias_act_launches"]
+                            for r in (serve_bf16, serve_f32, *train.values()))
+    for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
+        r = ba[f"{dtype}/lrelu"]
+        kernels.append(dict(
+            name=f"bias_act[{short},lrelu]", route="cuda",
+            source="dpot_tpu_torch/csrc/bias_act.cu",
+            replaces="dpot_tpu/ops/pallas/bias_act_kernel.py:46",
+            launches=bias_act_launches,
+            max_abs_err=max(v["max_abs_err"] for key, v in ba.items()
+                            if key.startswith(dtype)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
-            phase=f"serve[{served['dtype']}]", shapes=key, check="pass",
-            max_abs_limit=r["max_abs_limit"], rel_l2=r["rel_l2"],
-            device_ms=r["device_ms"] and r["device_ms"]["total"],
+            phase="none: no main path calls bias_act", shapes=r["shape"],
+            check="pass", device_ms=r["device_ms"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -139,18 +139,21 @@ class Block(nn.Module):
 def grid_patches(H: int, W: int, T: int, p: int, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
     """Patchified (x, y, t) coordinate channels at latent resolution:
-    (h, w, T, p*p*3), flattened in the (a, b, c) order of PatchConv."""
+    (h, w, T, p*p*3), flattened in the (a, b, c) order of PatchConv. Made
+    outside inference mode, as the cached DFT operators are, so that a
+    training forward may use what an inference forward cached."""
     h, w = H // p, W // p
-    gx = torch.linspace(0, 1, H).reshape(h, p)
-    gy = torch.linspace(0, 1, W).reshape(w, p)
-    gt = torch.linspace(0, 1, T)
-    shape = (h, w, T, p, p)
-    g = torch.stack([
-        gx[:, None, None, :, None].expand(shape),
-        gy[None, :, None, None, :].expand(shape),
-        gt[None, None, :, None, None].expand(shape),
-    ], dim=-1)
-    return g.reshape(h, w, T, p * p * 3).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        gx = torch.linspace(0, 1, H).reshape(h, p)
+        gy = torch.linspace(0, 1, W).reshape(w, p)
+        gt = torch.linspace(0, 1, T)
+        shape = (h, w, T, p, p)
+        g = torch.stack([
+            gx[:, None, None, :, None].expand(shape),
+            gy[None, :, None, None, :].expand(shape),
+            gt[None, None, :, None, None].expand(shape),
+        ], dim=-1)
+        return g.reshape(h, w, T, p * p * 3).to(device=device, dtype=dtype)
 
 
 class PatchConv(nn.Module):

@@ -1,5 +1,5 @@
-"""Fused GroupNorm + AFNO spectral mixer: the Hopper kernel and its plain
-PyTorch version.
+"""Fused GroupNorm + AFNO spectral mixer: the Hopper kernel, its plain
+PyTorch version and its gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
 (dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches the
@@ -8,15 +8,24 @@ the current stream) or raises; for a CPU tensor it runs
 `fused_gn_afno_ref`, which repeats the kernel's arithmetic with torch ops and
 rounds at the same points. `fused_gn_afno.launches` counts the wrapper calls
 that launched the kernel.
+
+When gradients are wanted the call goes through a `torch.autograd.Function`
+whose backward is `fused_gn_afno_vjp`: an explicit vector-Jacobian product
+in torch ops that recomputes the forward's intermediates, as the JAX
+package's `_bwd` recomputes through `_xla_reference` (the TPU kernel has no
+backward kernel either). The backward never runs the plain forward, so on
+the card the plain version stays off the training path.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from dpot_tpu_torch.ops.norms import group_norm
 from dpot_tpu_torch.ops.spectral import COMBINED_MAX_PIXELS, complex_as_real_weight
@@ -113,29 +122,9 @@ def _kernel_fn():
     return fn
 
 
-def fused_gn_afno(
-    x: torch.Tensor,
-    gscale: torch.Tensor,
-    gbias: torch.Tensor,
-    A: torch.Tensor,
-    Ainv: torch.Tensor,
-    w1: torch.Tensor,
-    b1: torch.Tensor,
-    w2: torch.Tensor,
-    b2: torch.Tensor,
-    K: int,
-    groups: int = 8,
-    approximate: bool = True,
-) -> torch.Tensor:
-    """GroupNorm(groups) + AFNO mixer with its internal residual.
-
-    x: (B, HW, C) bf16 or f32, the operand type; A (2K, HW) and Ainv
-    (HW, 2K) of that type; gscale/gbias (C,) f32; w1/w2 (2, nb, bs, bs) and
-    b1/b2 (2, nb, bs) f32 in the reference layout. approximate selects
-    tanh-GELU (the TPU kernel) or erf-GELU (the JAX f32 path). Returns
-    (B, HW, C) of x's dtype."""
+def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     args = (x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
-    _check(*args, K, groups)
     if x.device.type == "cpu":
         return fused_gn_afno_ref(*args, K, groups, approximate)
     if x.device.type != "cuda":
@@ -160,6 +149,143 @@ def fused_gn_afno(
         raise RuntimeError(f"fused_gn_afno kernel launch failed: CUDA error {err}")
     fused_gn_afno.launches += 1
     return out
+
+
+def _gelu_grad(h: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """d gelu(h) / dh, tanh or erf form."""
+    if approximate:
+        c = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(c * (h + 0.044715 * h * h * h))
+        return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * h * h)
+    cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+    return cdf + h * torch.exp(-0.5 * h * h) * (1.0 / math.sqrt(2.0 * math.pi))
+
+
+def _real_form_grad(gW: torch.Tensor) -> torch.Tensor:
+    """Cotangent of the real form [[wr, wi], [-wi, wr]] (nb, 2bs, 2bs) ->
+    cotangent of the reference layout (2, nb, bs, bs)."""
+    bs = gW.shape[-1] // 2
+    gwr = gW[:, :bs, :bs] + gW[:, bs:, bs:]
+    gwi = gW[:, :bs, bs:] - gW[:, bs:, :bs]
+    return torch.stack([gwr, gwi])
+
+
+def fused_gn_afno_vjp(
+    g, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K: int, groups: int = 8,
+    approximate: bool = True, eps: float = 1e-5,
+):
+    """Vector-Jacobian product of `fused_gn_afno` for the output cotangent g
+    (B, HW, C). Returns the cotangents of (x, gscale, gbias, w1, b1, w2, b2),
+    x's of x's dtype and the rest f32 in the reference layout; A and Ainv are
+    constants. It recomputes the f32 GroupNorm, xn, z and the hidden layer,
+    rounded to x's dtype where the forward rounds them, then walks back
+    through Ainv, the second layer, GELU', the first layer and A, adds the
+    residual's cotangent to xn's and goes back through the GroupNorm. The
+    cotangents are rounded at the forward's rounding points, as
+    differentiating the forward (JAX's `_bwd`) rounds them; every product is
+    f32."""
+    cd = x.dtype
+    B, HW, C = x.shape
+    nb = w1.shape[1]
+    bs = C // nb
+    Cg = C // groups
+
+    def rnd(t):
+        return t.to(cd).float()
+
+    # forward recompute
+    xg = x.float().reshape(B, HW, groups, Cg)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt((xg - mean).square().mean(dim=(1, 3), keepdim=True) + eps)
+    xhat = ((xg - mean) * rstd).reshape(B, HW, C)
+    xnb = rnd(xhat * gscale + gbias)
+    A32, Ainv32 = A.float(), Ainv.float()
+    z = rnd(torch.matmul(A32, xnb))                                  # (B, 2K, C)
+    zj = torch.cat(
+        [z[:, :K].reshape(B, K, nb, bs), z[:, K:].reshape(B, K, nb, bs)], dim=-1
+    )
+    W1 = rnd(complex_as_real_weight(w1[0], w1[1]))
+    W2 = rnd(complex_as_real_weight(w2[0], w2[1]))
+    hpre = torch.einsum("bkji,jio->bkjo", zj, W1) + torch.cat([b1[0], b1[1]], dim=-1)
+    h = rnd(F.gelu(hpre, approximate="tanh" if approximate else "none"))
+
+    # backward
+    g32 = g.float()
+    gob = rnd(torch.matmul(Ainv32.t(), g32))                         # (B, 2K, C)
+    go = torch.cat(
+        [gob[:, :K].reshape(B, K, nb, bs), gob[:, K:].reshape(B, K, nb, bs)], dim=-1
+    )
+    gB2 = go.sum(dim=(0, 1))
+    gW2 = rnd(torch.einsum("bkji,bkjo->jio", h, go))
+    gh = rnd(torch.einsum("bkjo,jio->bkji", go, W2))
+    ghpre = gh * _gelu_grad(hpre, approximate)
+    gB1 = ghpre.sum(dim=(0, 1))
+    gW1 = rnd(torch.einsum("bkji,bkjo->jio", zj, ghpre))
+    gzj = rnd(torch.einsum("bkjo,jio->bkji", ghpre, W1))
+    gz = torch.cat([gzj[..., :bs].reshape(B, K, C), gzj[..., bs:].reshape(B, K, C)], dim=1)
+    gxn = rnd(torch.matmul(A32.t(), gz)) + g32                       # + residual
+    ggscale = (gxn * xhat).sum(dim=(0, 1))
+    ggbias = gxn.sum(dim=(0, 1))
+    gxh = (gxn * gscale).reshape(B, HW, groups, Cg)
+    xh = xhat.reshape(B, HW, groups, Cg)
+    gx = rstd * (
+        gxh - gxh.mean(dim=(1, 3), keepdim=True)
+        - xh * (gxh * xh).mean(dim=(1, 3), keepdim=True)
+    )
+    return (
+        gx.reshape(B, HW, C).to(cd), ggscale, ggbias,
+        _real_form_grad(gW1), torch.stack([gB1[..., :bs], gB1[..., bs:]]),
+        _real_form_grad(gW2), torch.stack([gB2[..., :bs], gB2[..., bs:]]),
+    )
+
+
+class FusedGnAfno(torch.autograd.Function):
+    """fused_gn_afno with its VJP: the forward launches the kernel (CUDA) or
+    runs the plain version (CPU); the backward is `fused_gn_afno_vjp` on
+    either device. A and Ainv get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate):
+        ctx.save_for_backward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
+        ctx.cfg = (K, groups, approximate)
+        return _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        gx, ggs, ggb, gw1, gb1, gw2, gb2 = fused_gn_afno_vjp(
+            g.contiguous(), *ctx.saved_tensors, *ctx.cfg
+        )
+        return gx, ggs, ggb, None, None, gw1, gb1, gw2, gb2, None, None, None
+
+
+def fused_gn_afno(
+    x: torch.Tensor,
+    gscale: torch.Tensor,
+    gbias: torch.Tensor,
+    A: torch.Tensor,
+    Ainv: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    K: int,
+    groups: int = 8,
+    approximate: bool = True,
+) -> torch.Tensor:
+    """GroupNorm(groups) + AFNO mixer with its internal residual.
+
+    x: (B, HW, C) bf16 or f32, the operand type; A (2K, HW) and Ainv
+    (HW, 2K) of that type; gscale/gbias (C,) f32; w1/w2 (2, nb, bs, bs) and
+    b1/b2 (2, nb, bs) f32 in the reference layout. approximate selects
+    tanh-GELU (the TPU kernel) or erf-GELU (the JAX f32 path). Returns
+    (B, HW, C) of x's dtype, with a `FusedGnAfno` grad_fn when grad mode is
+    on and an input requires grad."""
+    args = (x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
+    _check(*args, K, groups)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FusedGnAfno.apply(*args, K, groups, approximate)
+    return _forward(*args, K, groups, approximate)
 
 
 fused_gn_afno.launches = 0

@@ -57,7 +57,9 @@ def combined_spectral_ops_np(H: int, W: int, kh: int, kw: int):
 def combined_spectral_ops(
     H: int, W: int, kh: int, kw: int, dtype: torch.dtype, device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(A, Ainv) as tensors of `dtype` on `device`, uploaded once."""
+    """(A, Ainv) as tensors of `dtype` on `device`, uploaded once. They are
+    made outside inference mode even when the first caller runs in it, so
+    that a later training forward may save them for its backward."""
     if H * W > COMBINED_MAX_PIXELS:
         raise NotImplementedError(
             f"latent {H}x{W} exceeds {COMBINED_MAX_PIXELS} px: the separable "
@@ -65,10 +67,11 @@ def combined_spectral_ops(
             "separable-DFT item)"
         )
     A, Ainv = combined_spectral_ops_np(H, W, kh, kw)
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(m)).to(device=device, dtype=dtype)
-        for m in (A, Ainv)
-    )
+    with torch.inference_mode(False):
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(m)).to(device=device, dtype=dtype)
+            for m in (A, Ainv)
+        )
 
 
 def kept_modes(H: int, W: int, modes: int) -> tuple[int, int]:

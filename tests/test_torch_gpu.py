@@ -1,5 +1,6 @@
 """Tests of the port that need the card: each hand-written CUDA kernel
-against its plain PyTorch version, on CUDA tensors. They skip without a CUDA
+against its plain PyTorch version, on CUDA tensors, and the gradient of the
+fused op against autograd through its plain version. They skip without a CUDA
 device. The module imports neither JAX nor the JAX package, so on a machine
 with the card it runs alone:
 
@@ -10,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from dpot_tpu_torch.ops import bias_act as bias_act_op
+from dpot_tpu_torch.ops.cuda import afno_fused
 from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno, fused_gn_afno_ref
+from dpot_tpu_torch.ops.cuda.bias_act import bias_act
 from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes
 
 
@@ -82,3 +86,88 @@ def test_fused_gn_afno_raises_on_mixed_devices(cuda):
     args[1] = args[1].cpu()
     with pytest.raises(ValueError, match="cuda"):
         fused_gn_afno(*args)
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_gn_afno_gradient_matches_autograd_through_plain(cuda, dtype, monkeypatch):
+    """The forward launches the kernel and carries a FusedGnAfno grad_fn; its
+    backward (the VJP) never calls the plain version, which is made to raise.
+    Against autograd through fused_gn_afno_ref: f32 1e-4 rel-L2 (summation
+    order); bf16 2e-2 (the kernel's and the recompute's bf16 roundings of z,
+    h and o may fall apart by one ulp)."""
+    x, gs, gb, A, Ainv, w1, b1, w2, b2, K, groups = ti_block_args(4, dtype, cuda)
+    leaves = [t.requires_grad_() for t in (x, gs, gb, w1, b1, w2, b2)]
+    args = (x, gs, gb, A, Ainv, w1, b1, w2, b2, K, groups)
+    approx = dtype == torch.bfloat16
+    before = fused_gn_afno.launches
+    out = fused_gn_afno(*args, approximate=approx)
+    assert fused_gn_afno.launches == before + 1
+    assert type(out.grad_fn).__name__ == "FusedGnAfnoBackward"
+    g = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    g = g.to(dtype)
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran in the backward")
+
+    monkeypatch.setattr(afno_fused, "fused_gn_afno_ref", boom)
+    got = torch.autograd.grad(out, leaves, g)
+    monkeypatch.undo()
+    want = torch.autograd.grad(fused_gn_afno_ref(*args, approximate=approx), leaves, g)
+    torch.cuda.synchronize()
+    lim = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and rel_l2(a, b) <= lim
+
+
+ACTS = sorted(bias_act_op.activation_funcs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 512), (3, 17, 5, 37)])
+def test_bias_act_kernel_matches_plain_version(cuda, dtype, shape):
+    """All nine activations with clamp, the vector path (C = 512) and the
+    element path (C = 37). The kernel computes in f32 and rounds once; the
+    plain version rounds after each op (the bias add, the activation, the
+    gain: three half-ulp roundings, plus the kernel's one), so f32 differs
+    by 1e-6 relative and bf16 by two bf16 ulps of the value (an ulp is at
+    most 2^-7 |y|, so 2^-6 |y|) plus 2^-9, as chip_smoke.py holds it."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = (2 * torch.randn(shape, device=cuda, generator=gen)).to(dtype)
+    b = torch.randn(shape[-1], device=cuda, generator=gen).to(dtype)
+    for act in ACTS:
+        before = bias_act.launches
+        got = bias_act(x, b, act, clamp=3.0)
+        want = bias_act_op.bias_act_ref(x, b, -1, act, clamp=3.0)
+        torch.cuda.synchronize()
+        assert bias_act.launches == before + 1 and got.dtype == want.dtype
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            lim = 1e-6 * want.float().abs() + 1e-6
+        else:
+            lim = 2.0**-6 * want.float().abs() + 2.0**-9
+        assert (err <= lim).all(), act
+
+
+@pytest.mark.gpu
+def test_bias_act_gradients_on_the_card(cuda):
+    """First and second order through the Function on CUDA tensors, against
+    autograd through the plain version (f32, 1e-5 rel-L2)."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    x0 = torch.randn(6, 33, device=cuda, generator=gen)
+    b0 = torch.randn(33, device=cuda, generator=gen)
+    for act in ACTS:
+        res = []
+        for fn in (lambda x, b: bias_act(x, b, act),
+                   lambda x, b: bias_act_op.bias_act_ref(x, b, -1, act)):
+            x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+            g1 = torch.autograd.grad(torch.sin(fn(x, b)).sum(), [x, b], create_graph=True)
+            g2 = torch.autograd.grad((g1[0] ** 2).sum() + (g1[1] ** 2).sum(), [x, b])
+            res.append((*g1, *g2))
+        for a, w in zip(*res):
+            assert rel_l2(a, w) <= 1e-5, act
