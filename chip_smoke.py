@@ -9,8 +9,13 @@ Phases, each printing its results as JSON lines:
      the card, with its CUDA-event time, the device time of its launches
      (torch.profiler), the plain version's time and the least time the card
      could take (its bound):
-     - fused_gn_afno at the shapes of DPOT-Ti serving (B in {1, 8}, bf16 with
-       tanh-GELU and f32 with erf-GELU);
+     - fused_gn_afno at the Ti block shapes (B in {1, 8, 20}): bf16 with
+       tanh-GELU on the two-launch Hopper kernel (afno_hopper.cu) and, in
+       the same call, on the five-launch general kernel (afno_fused.cu),
+       timed old, new, new, old; f32 with erf-GELU on the general kernel;
+       each at the init's weight scale, at N(0, 0.05^2) weights and with a
+       non-GELU activation (silu); the shape gate against its mirror in the
+       CUDA source;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -22,8 +27,9 @@ Phases, each printing its results as JSON lines:
      answering rollout requests over HTTP on 127.0.0.1; every served
      rollout is checked for shape and finite values, one against a direct
      loop over model(x), the kernel's launch count against depth x model
-     applications, and the served model's forward on the card against the
-     same weights' forward on the CPU (the plain versions there);
+     applications (bf16 all on the Hopper path, f32 all on the general
+     one), and the served model's forward on the card against the same
+     weights' forward on the CPU (the plain versions there);
   4. step: where one model application's time goes at B = 1 and 8 (wall
      time, device busy time and idle share, the fused kernel's part);
   5. train: `python -m dpot_tpu_torch.cli.train` in-process at DPOT-Ti full
@@ -32,10 +38,12 @@ Phases, each printing its results as JSON lines:
      configs/pretrain_tiny.yaml (adam, lr 1e-3, beta2 0.9, noise 5e-4,
      batch 20, T_ar 1, OneCycle with 1 warm-up epoch) for 3 epochs, in f32
      and then bf16: every loss finite, the kernel's launch count against
-     depth x (train + eval model applications), a resume from the last
+     depth x (train + eval model applications), by path as in serving, a
+     resume from the last
      checkpoint stepped twice from the same state giving the same losses,
      and where a train step's time goes (wall, device busy, idle share,
-     samples/s; the shares of the fused kernel, its VJP and the optimizer);
+     samples/s; the shares of the fused kernel with its bf16 weight
+     copies, its VJP and the optimizer);
   6. train card vs CPU: one f32 Ti train step at B = 4 on shared weights,
      batch and noise, on the card and on the CPU: the loss and every
      parameter's gradient.
@@ -47,10 +55,13 @@ needs one CUDA device and exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import ctypes
 import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -68,6 +79,7 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno,
     fused_gn_afno_ref,
     fused_gn_afno_vjp,
+    hopper_supported,
 )
 from dpot_tpu_torch.ops.cuda.bias_act import bias_act
 from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes
@@ -155,8 +167,18 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-SUB_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
-               "mode_out_kernel", "synthesis_kernel")
+# fused_gn_afno's launches by kernel name: the general path's five and the
+# Hopper path's two
+GENERAL_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
+                   "mode_out_kernel", "synthesis_kernel")
+HOPPER_KERNELS = ("spectral_kernel", "tma_synthesis_kernel")
+SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS
+
+
+def sub_kernel(name: str) -> str | None:
+    """Which launch of fused_gn_afno a profiler event name is, or None."""
+    m = re.search(r"::(\w+_kernel)\b", name)
+    return m.group(1) if m and m.group(1) in SUB_KERNELS else None
 
 
 def profile_events(fn, runs: int) -> list:
@@ -177,6 +199,18 @@ def profile_events(fn, runs: int) -> list:
     return []
 
 
+def union_us(events) -> float:
+    """Device time in µs in which at least one of the events ran: the
+    union of their intervals, so that the Hopper path's two launches,
+    which overlap (programmatic dependent launch), count once."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def kernel_us(fn, runs: int) -> dict[str, float]:
     """Device time in µs, summed over `runs` calls of fn, of each CUDA kernel
     that fn launched, by name, from torch.profiler ({}: not measured)."""
@@ -190,17 +224,50 @@ def kernel_us(fn, runs: int) -> dict[str, float]:
 
 
 def device_ms(fn, runs: int = 20) -> dict | None:
-    """Device time per call of each of the wrapper's launches, in ms (None:
-    not measured)."""
+    """Device time per call of each launch of fused_gn_afno that fn made, in
+    ms (a launch that waits on an earlier one counts its wait), the device
+    time of the call (the union of its launches), and the launches per
+    call that the profiler counted (None: not measured)."""
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
-    times = kernel_us(fn, runs)
-    if not times:
+    events = profile_events(fn, runs)
+    if not events:
         return None
-    out = {k: sum(v for name, v in times.items() if k in name) / runs / 1e3
-           for k in SUB_KERNELS}
-    out["total"] = sum(out.values())
+    mine = [e for e in events if e.device_type == DeviceType.CUDA and sub_kernel(e.name)]
+    out: dict = {}
+    for e in mine:
+        k = sub_kernel(e.name)
+        out[k] = out.get(k, 0.0) + e.time_range.elapsed_us() / runs / 1e3
+    out["total"] = union_us(mine) / runs / 1e3
+    out["launches_per_call"] = len(mine) / runs
     return out
+
+
+def host_us(fn, runs: int = 200) -> float:
+    """Host time per call in µs: the time to enqueue `runs` calls back to
+    back, without waiting for the card (the wrapper's own cost)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / runs * 1e6
+
+
+@contextlib.contextmanager
+def forced_path(path: str):
+    """Send every fused_gn_afno call to one kernel, whatever the shape gate
+    says: to run the five-launch kernel where the Hopper kernel applies."""
+    real = afno_fused.kernel_path
+    afno_fused.kernel_path = lambda *shapes: path
+    try:
+        yield
+    finally:
+        afno_fused.kernel_path = real
 
 
 def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int):
@@ -232,65 +299,119 @@ def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int)
     return args, kh * kw, groups
 
 
-def afno_bound_ms(B: int, dtype: torch.dtype, K: int) -> tuple[float, str]:
-    """Least time for one call: operations over the peak for the operand
-    type, or bytes (each input read once, the output written once) over
-    HBM bandwidth, whichever is larger."""
+def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str) -> tuple[float, str]:
+    """Least time for one call on kernel `path`: operations over the peak
+    for the operand type, or bytes (each input read once, the output
+    written once) over HBM bandwidth, whichever is larger. The Hopper
+    kernel reads the cached bf16 copies of w1 and w2, the general kernel
+    the f32 weights."""
     HW, C, nb = TI["H"] * TI["W"], TI["C"], TI["nb"]
     bs = C // nb
     s = torch.empty((), dtype=dtype).element_size()
+    ws = 2 if path == "hopper" else 4
     flops = B * (2 * 2 * K * HW * C            # analysis A . xn
                  + 2 * 2 * K * (2 * bs) ** 2 * nb  # two MLP layers
                  + 2 * HW * 2 * K * C)          # synthesis Ainv . o
     nbytes = (2 * B * HW * C * s               # x in, out
               + 2 * 2 * K * HW * s             # A, Ainv
-              + 2 * (2 * nb * bs * bs + 2 * nb * bs) * 4  # w1, b1, w2, b2
+              + 2 * 2 * nb * bs * bs * ws      # w1, w2
+              + 2 * 2 * nb * bs * 4            # b1, b2
               + 2 * C * 4)                     # gscale, gbias
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_afno(B, dtype, weight_scale, seed) -> dict:
+def check_afno(B, dtype, weight_scale, seed, path, act="gelu") -> dict:
+    """One fused_gn_afno call on kernel `path` against the plain version."""
     args, K, groups = afno_case(B, dtype, weight_scale, seed)
     approx = dtype == torch.bfloat16
-    got = fused_gn_afno(*args, K, groups, approx).float()
-    want = fused_gn_afno_ref(*args, K, groups, approx).float()
+    before = fused_gn_afno.launches_by_path[path]
+    with forced_path(path):
+        got = fused_gn_afno(*args, K, groups, approx, act).float()
+    want = fused_gn_afno_ref(*args, K, groups, approx, act).float()
     torch.cuda.synchronize()
+    if fused_gn_afno.launches_by_path[path] != before + 1:
+        raise AssertionError(f"fused_gn_afno B={B} {dtype}: no launch on the {path} path")
     if not torch.isfinite(got).all():
-        raise AssertionError(f"fused_gn_afno B={B} {dtype}: non-finite output")
+        raise AssertionError(f"fused_gn_afno B={B} {dtype} {path}: non-finite output")
     max_abs = (got - want).abs().max().item()
     rel_l2 = ((got - want).norm() / want.norm()).item()
     tol = TOL[dtype]
     lim = tol.get("max_abs") or tol["max_abs_ulps"] * BF16_EPS * want.abs().max().item()
     if max_abs > lim or rel_l2 > tol["rel_l2"]:
         raise AssertionError(
-            f"fused_gn_afno B={B} {dtype} scale={weight_scale}: max_abs {max_abs} "
-            f"(limit {lim}), rel_l2 {rel_l2} (limit {tol['rel_l2']})"
+            f"fused_gn_afno B={B} {dtype} {path} {act} scale={weight_scale}: max_abs "
+            f"{max_abs} (limit {lim}), rel_l2 {rel_l2} (limit {tol['rel_l2']})"
         )
     return dict(args=args, K=K, groups=groups, approx=approx,
                 max_abs_err=max_abs, rel_l2=rel_l2, max_abs_limit=lim)
 
 
+def check_gate_mirror() -> int:
+    """hopper_supported against dpot_afno_hopper_supported, the same gate
+    in the CUDA source, on the presets and on shapes either may refuse."""
+    fn = build.load_library("afno_hopper").dpot_afno_hopper_supported
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    shapes = [(B, 256, C, 144, nb, 8) for B in (1, 20)
+              for C, nb in ((512, 4), (1024, 8), (1536, 16), (2048, 8))]
+    shapes += [(3, 64, 96, 9, 4, 8), (3, 48, 40, 15, 2, 4), (1, 128, 512, 40, 4, 8),
+               (1, 128, 512, 80, 4, 8), (1, 256, 512, 4, 4, 8), (1, 256, 512, 143, 4, 8),
+               (1, 256, 512, 160, 4, 8), (1, 256, 512, 164, 4, 8), (1, 256, 512, 144, 4, 2),
+               (1, 256, 512, 144, 4, 4), (1, 256, 512, 144, 4, 16), (1, 256, 512, 144, 4, 64),
+               (1, 256, 512, 144, 4, 128), (1, 256, 128, 144, 1, 8), (1, 256, 1024, 144, 8, 128),
+               (1, 1024, 512, 144, 4, 8), (0, 256, 512, 144, 4, 8)]
+    for sh in shapes:
+        if bool(fn(*sh)) != hopper_supported(*sh, torch.bfloat16):
+            raise AssertionError(f"shape gate differs from the CUDA source's at {sh}")
+    return len(shapes)
+
+
+def time_afno(r: dict, path: str) -> dict:
+    """CUDA-event time per call (synchronised each call), device time of its
+    launches and host time per call of fused_gn_afno on kernel `path`."""
+    a, K, g, ap = r["args"], r["K"], r["groups"], r["approx"]
+    with forced_path(path):
+        return dict(ms=cuda_ms(lambda: fused_gn_afno(*a, K, g, ap)),
+                    host_us=host_us(lambda: fused_gn_afno(*a, K, g, ap)),
+                    device_ms=device_ms(lambda: fused_gn_afno(*a, K, g, ap)))
+
+
 def phase_kernels() -> dict:
-    """fused_gn_afno against its plain version; returns per-config numbers."""
+    """fused_gn_afno against its plain version on each kernel that serves a
+    compute type at the Ti shapes, and timed; returns per-config numbers."""
+    log("kernel", name="fused_gn_afno", gate_mirror_shapes=check_gate_mirror())
     results = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, paths in ((torch.bfloat16, ("general", "hopper")),
+                         (torch.float32, ("general",))):
+        dname = str(dtype).replace("torch.", "")
         for B in (1, 8, TRAIN["batch"]):
-            check_afno(B, dtype, 0.05, seed=100 + B)  # MLP-dominated weights
-            r = check_afno(B, dtype, None, seed=B)     # the init's scale
+            checks = {}
+            for path in paths:
+                check_afno(B, dtype, 0.05, 100 + B, path)          # MLP-dominated weights
+                check_afno(B, dtype, 0.05, 300 + B, path, "silu")  # another activation
+                checks[path] = check_afno(B, dtype, None, B, path)  # the init's scale
+            r = checks[paths[0]]  # the same inputs (seed B) on every path
             a, K, g, ap = r["args"], r["K"], r["groups"], r["approx"]
-            ms = cuda_ms(lambda: fused_gn_afno(*a, K, g, ap))
+            # old, new, new, old: the five-launch kernel around the Hopper one
+            runs = [(p, time_afno(r, p)) for p in paths + paths[::-1]]
             plain_ms = cuda_ms(lambda: fused_gn_afno_ref(*a, K, g, ap))
-            dev = device_ms(lambda: fused_gn_afno(*a, K, g, ap))
-            bound, by = afno_bound_ms(B, dtype, K)
-            key = f"{str(dtype).replace('torch.', '')}/B{B}"
-            results[key] = dict(
-                max_abs_err=r["max_abs_err"], rel_l2=r["rel_l2"],
-                max_abs_limit=r["max_abs_limit"], ms=ms, plain_ms=plain_ms,
-                device_ms=dev, bound_ms=bound, bound_by=by,
-            )
-            log("kernel", name="fused_gn_afno", config=key, **results[key])
+            for path in paths:
+                bound, by = afno_bound_ms(B, dtype, K, path)
+                mine = [t for p, t in runs if p == path]
+                dev = [t["device_ms"] for t in mine if t["device_ms"]]
+                key = f"{dname}/{path}/B{B}"
+                results[key] = dict(
+                    max_abs_err=checks[path]["max_abs_err"], rel_l2=checks[path]["rel_l2"],
+                    max_abs_limit=checks[path]["max_abs_limit"],
+                    ms=statistics.median(t["ms"] for t in mine), ms_each=[t["ms"] for t in mine],
+                    host_us=statistics.median(t["host_us"] for t in mine),
+                    device_ms=dev[-1] if dev else None,
+                    device_ms_each=[d["total"] for d in dev],
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                )
+                log("kernel", name="fused_gn_afno", config=key, **results[key])
     return results
 
 
@@ -448,11 +569,27 @@ def card_vs_cpu_forward(model, x: np.ndarray) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
+def reset_launch_counts() -> None:
+    fused_gn_afno.launches = bias_act.launches = 0
+    fused_gn_afno.launches_by_path.update(hopper=0, general=0)
+
+
+def check_paths(dtype: str, launches: int) -> dict:
+    """Every launch of a bf16 Ti run went through the Hopper kernel, every
+    f32 one through the general kernel."""
+    want = "hopper" if dtype == "bfloat16" else "general"
+    by_path = dict(fused_gn_afno.launches_by_path)
+    if by_path[want] != launches or sum(by_path.values()) != launches:
+        raise AssertionError(f"{dtype}: launches by path {by_path}, expected all "
+                             f"{launches} on {want}")
+    return by_path
+
+
 def phase_serve(dtype: str, response_dtype: str) -> dict:
     """Serve DPOT-Ti through the CLI and check every answer."""
     from dpot_tpu_torch.cli.serve import main as serve_main
 
-    fused_gn_afno.launches = bias_act.launches = 0
+    reset_launch_counts()
     httpd, rs = serve_main(
         TI_FLAGS + ["--dtype", dtype, "--response_dtype", response_dtype,
                     "--device", "cuda"],
@@ -487,6 +624,7 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
                 f"fused_gn_afno launched {launches} times, expected depth x "
                 f"applications = {want_launches}"
             )
+        by_path = check_paths(dtype, launches)
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
             metrics = json.loads(r.read())
         # the same request, replayed as a direct loop over model(x)
@@ -506,7 +644,7 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
             )
         out = dict(
             dtype=dtype, response_dtype=response_dtype, requests=len(lat),
-            applications=applications, launches=launches,
+            applications=applications, launches=launches, launches_by_path=by_path,
             bias_act_launches=bias_act_launches, client_p50_ms=statistics.median(lat), client_ms=lat,
             direct_loop_rel_l2=rel, card_vs_cpu_rel_l2=cpu_rel,
             card_vs_cpu_limit=CPU_TOL[dtype], metrics=metrics,
@@ -524,6 +662,8 @@ def phase_step(dtype: str, runs: int = 10) -> list[dict]:
     B = 1 and B = 8 on the card. Wall time on the host clock (synchronised),
     device busy time and the fused kernel's part of it from torch.profiler;
     the device is idle for the rest of the wall time."""
+    from torch.autograd import DeviceType
+
     from dpot_tpu_torch.models import build_model
 
     model = build_model(
@@ -546,12 +686,14 @@ def phase_step(dtype: str, runs: int = 10) -> list[dict]:
                 step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / runs * 1e3
-            times = kernel_us(step, runs)
+            events = [e for e in profile_events(step, runs) if e.device_type == DeviceType.CUDA]
         row = dict(dtype=dtype, batch=B, wall_ms=wall)
-        if times:
-            busy = sum(times.values()) / runs / 1e3
-            fused = sum(v for k, v in times.items()
-                        if any(s in k for s in SUB_KERNELS)) / runs / 1e3
+        if events:
+            times: dict[str, float] = {}
+            for e in events:
+                times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+            busy = union_us(events) / runs / 1e3
+            fused = union_us([e for e in events if sub_kernel(e.name)]) / runs / 1e3
             top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
             row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
                        fused_gn_afno_ms=fused,
@@ -575,9 +717,10 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     """Where a train step's time goes, over `runs` steps after a warm-up:
     median wall time per step on the host clock (synchronised each step),
     then one profiled window of `runs` steps for the device busy time and
-    the parts of it in the fused kernel, in its VJP (the autograd node
-    FusedGnAfnoBackward, which torch.profiler records) and in the optimizer
-    update (a profiler range around it)."""
+    the parts of it in the fused kernel with the bf16 weight copies that
+    its Hopper path makes (a profiler range in the wrapper), in its VJP
+    (the autograd node FusedGnAfnoBackward, which torch.profiler records)
+    and in the optimizer update (a profiler range around it)."""
     from torch.autograd import DeviceType
 
     def step():
@@ -608,11 +751,9 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     if not events:
         row.update(device_busy_ms="not measured")
         return row
-    busy = sum(e.time_range.elapsed_us() for e in events
-               if e.device_type == DeviceType.CUDA) / runs / 1e3
-    fused = sum(e.time_range.elapsed_us() for e in events
-                if e.device_type == DeviceType.CUDA
-                and any(k in e.name for k in SUB_KERNELS)) / runs / 1e3
+    cuda_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = union_us(cuda_events) / runs / 1e3
+    fused = union_us([e for e in cuda_events if sub_kernel(e.name)]) / runs / 1e3
 
     def range_ms(prefix):
         return sum(e.device_time_total for e in events
@@ -621,8 +762,12 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
 
     vjp = range_ms("autograd::engine::evaluate_function: FusedGnAfnoBackward")
     opt = range_ms("optimizer_update")
+    # the Hopper path's bf16 weight copies, made once per step after the
+    # optimizer changes the weights: part of the forward's cost
+    casts = range_ms(afno_fused.BF16_BLOCKS_RANGE)
     row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
-               fused_gn_afno_ms=fused, fused_gn_afno_share=fused / busy,
+               fused_gn_afno_ms=fused + casts, fused_gn_afno_share=(fused + casts) / busy,
+               fused_gn_afno_kernels_ms=fused, weight_cast_ms=casts,
                vjp_ms=vjp, vjp_share=vjp / busy, optimizer_ms=opt,
                optimizer_share=opt / busy)
     return row
@@ -640,7 +785,7 @@ def phase_train(dtype: str) -> dict:
     make_synthetic_spec(**TRAIN_SPEC)
     argv = TRAIN_FLAGS + ["--dtype", dtype, "--log_path", str(RUN_DIR / f"train_{dtype}")]
     t0 = time.perf_counter()
-    fused_gn_afno.launches = bias_act.launches = 0
+    reset_launch_counts()
     out = train_main(argv + ["--device", "cuda"])
     torch.cuda.synchronize()
     launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
@@ -660,6 +805,7 @@ def phase_train(dtype: str) -> dict:
         raise AssertionError(
             f"fused_gn_afno launched {launches} times in training, expected depth x "
             f"(train + eval applications) = {want_launches}")
+    by_path = check_paths(dtype, launches)
     metrics = read_metrics(out["log_dir"])
     losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
     losses += [out["train_l2_step"], out["train_l2_full"], *out["test_l2_steps"],
@@ -690,7 +836,7 @@ def phase_train(dtype: str) -> dict:
 
     prof = train_step_profile(state, batch, step_fn)
     row = dict(dtype=dtype, batch=B, steps=steps, train_applications=train_apps,
-               eval_applications=eval_apps, launches=launches,
+               eval_applications=eval_apps, launches=launches, launches_by_path=by_path,
                bias_act_launches=bias_act_launches, run_s=run_s,
                loop_step_s=out["step_seconds"], train_l2_step=out["train_l2_step"],
                test_l2_steps=out["test_l2_steps"], resumed_losses=resumed,
@@ -777,22 +923,30 @@ def main() -> int:
     phase_train_card_vs_cpu()
 
     kernels = []
-    for name, dtype, served in (("fused_gn_afno[bf16,tanh]", "bfloat16", serve_bf16),
-                                ("fused_gn_afno[f32,erf]", "float32", serve_f32)):
-        r, r20 = k[f"{dtype}/B8"], k[f"{dtype}/B{TRAIN['batch']}"]
-        trained = train[dtype]
+    rows = (("fused_gn_afno[bf16,hopper]", "bfloat16", "hopper", "afno_hopper.cu"),
+            ("fused_gn_afno[bf16,general]", "bfloat16", "general", "afno_fused.cu"),
+            ("fused_gn_afno[f32,general]", "float32", "general", "afno_fused.cu"))
+    for name, dtype, path, src in rows:
+        r, r1, r20 = (k[f"{dtype}/{path}/B{B}"] for B in (8, 1, TRAIN["batch"]))
+        served, trained = (serve_bf16 if dtype == "bfloat16" else serve_f32), train[dtype]
+        launches_serve = served["launches_by_path"][path]
+        launches_train = trained["launches_by_path"][path]
         kernels.append(dict(
-            name=name, route="cuda", source="dpot_tpu_torch/csrc/afno_fused.cu",
-            replaces="dpot_tpu/ops/pallas/afno_fused.py:113",
-            launches=served["launches"] + trained["launches"],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            name=name, route="cuda", source=f"dpot_tpu_torch/csrc/{src}",
+            replaces="dpot_tpu/ops/pallas/afno_fused.py:114",
+            launches=launches_serve + launches_train,
+            max_abs_err=max(x["max_abs_err"] for x in (r1, r, r20)),
+            ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             phase=f"serve[{dtype}] + train[{dtype}]", shapes=f"{dtype}/B8",
-            launches_serve=served["launches"], launches_train=trained["launches"],
+            launches_serve=launches_serve, launches_train=launches_train,
             check="pass", max_abs_limit=r["max_abs_limit"], rel_l2=r["rel_l2"],
             device_ms=r["device_ms"] and r["device_ms"]["total"],
-            train_shape={key: r20[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "max_abs_err")},
+            launches_per_call=r["device_ms"] and r["device_ms"]["launches_per_call"],
+            host_us=r["host_us"],
+            by_batch={f"B{B}": {key: x[key] for key in ("ms", "device_ms_each", "host_us",
+                                                         "plain_ms", "bound_ms", "max_abs_err")}
+                      for B, x in ((1, r1), (8, r), (TRAIN["batch"], r20))},
             vjp_ms=vjp[dtype]["vjp_ms"], vjp_rel_l2=vjp[dtype]["rel_l2"],
         ))
     # bias_act lies on no main path: its count over the serve and train runs
@@ -803,7 +957,7 @@ def main() -> int:
         kernels.append(dict(
             name=f"bias_act[{short},lrelu]", route="cuda",
             source="dpot_tpu_torch/csrc/bias_act.cu",
-            replaces="dpot_tpu/ops/pallas/bias_act_kernel.py:46",
+            replaces="dpot_tpu/ops/pallas/bias_act_kernel.py:47",
             launches=bias_act_launches,
             max_abs_err=max(v["max_abs_err"] for key, v in ba.items()
                             if key.startswith(dtype)),

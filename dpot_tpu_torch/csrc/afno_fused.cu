@@ -10,9 +10,10 @@
 //     out = Ainv . round(o) + xn                            (xn kept in f32)
 //
 // where "round" is a cast to the operand type T (bf16 or f32), every
-// product accumulates in f32, and act is tanh-GELU (the TPU kernel) or erf-GELU
-// (the JAX f32 path). W1/W2 are read in the reference layout (2, nb, bs, bs)
-// and expanded to the real form [[wr, wi], [-wi, wr]] while their tiles load.
+// product accumulates in f32, and act is the model's activation (an ActId
+// of activation.cuh; the TPU kernel knows only tanh-GELU). W1/W2 are read in
+// the reference layout (2, nb, bs, bs) and expanded to the real form
+// [[wr, wi], [-wi, wr]] while their tiles load.
 //
 // What bounds it on this card. At DPOT-Ti (HW 256, C 512, K 144, nb 4) one
 // sample costs 302 MFLOP against ~0.7 MB of operands, so from B ~ 2 up the
@@ -40,14 +41,17 @@
 // integer division per element (the GroupNorm constants of a block's
 // channels and the offsets of its mode rows are gathered into shared memory
 // once), and each thread stages the next slab in registers while the current
-// one is multiplied. Keeping z, h and o on chip and feeding wgmma from TMA is
-// the work of a later change.
+// one is multiplied. For bf16 at the shapes `hopper_supported` admits,
+// afno_hopper.cu keeps z and h on chip and feeds wgmma from TMA instead;
+// this kernel stays as the path for f32 and for every other shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
+
+#include "activation.cuh"
 
 namespace {
 
@@ -69,14 +73,6 @@ template <> __device__ __forceinline__ bf16 to_op<bf16>(float v) {
 }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-template <bool APPROX> __device__ __forceinline__ float gelu(float v) {
-  if (APPROX) {
-    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-    return v * (0.5f * (1.0f + tanhf(k * (v + 0.044715f * v * v * v))));
-  }
-  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-}
 
 // 16 bytes of consecutive row elements: the unit in which tiles load.
 template <typename T> struct alignas(16) Vec {
@@ -395,7 +391,7 @@ __device__ void mode_rows(long long* row, int r0, int B, int K, int C, int j,
 // grid (ceil(B*K / BM), 2 bs / BN, nb): the first layer of the complex block
 // MLP, h = round(act([z_re | z_im]_j . W1_j + B1_j)), for 64 mode rows and
 // 64 hidden columns of block j. h is (B*K, nb, 2 bs).
-template <typename T, bool APPROX>
+template <typename T, int ACT>
 __global__ void __launch_bounds__(NT)
 mode_hidden_kernel(const T* z, const float* w1, const float* b1, T* h, int B,
                    int K, int C, int nb) {
@@ -429,7 +425,7 @@ mode_hidden_kernel(const T* z, const float* w1, const float* b1, T* h, int B,
         const int c = n0 + n;
         if (row[m] >= 0 && c < hid)
           h[((size_t)(r0 + m) * nb + j) * hid + c] =
-              to_op<T>(gelu<APPROX>(v + block_bias(b1, j, c, nb, bs)));
+              to_op<T>(activate<ACT>(v + block_bias(b1, j, c, nb, bs)));
       });
 }
 
@@ -501,7 +497,7 @@ synthesis_kernel(const T* Ainv, const T* o, const T* x, const float* stats,
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <typename T, bool APPROX>
+template <typename T, int ACT>
 cudaError_t launch(const void* x, const float* gscale, const float* gbias,
                    const void* A, const void* Ainv, const float* w1,
                    const float* b1, const float* w2, const float* b2,
@@ -517,7 +513,7 @@ cudaError_t launch(const void* x, const float* gscale, const float* gbias,
       HW, C, K2, groups);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const dim3 mode_grid(cdiv(B * K, BM), cdiv(hid, BN), nb);
-  mode_hidden_kernel<T, APPROX><<<mode_grid, NT, 0, s>>>(
+  mode_hidden_kernel<T, ACT><<<mode_grid, NT, 0, s>>>(
       static_cast<const T*>(z), w1, b1, static_cast<T*>(h), B, K, C, nb);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   mode_out_kernel<T><<<mode_grid, NT, 0, s>>>(
@@ -534,8 +530,8 @@ cudaError_t launch(const void* x, const float* gscale, const float* gbias,
 // x, out, A, Ainv and the scratch z, o (B, 2K, C) and h (B*K, nb, 2 bs) are
 // of the operand type (bf16 when is_bf16, else f32); gscale/gbias (C),
 // w1/w2 (2, nb, bs, bs), b1/b2 (2, nb, bs) and the stats scratch
-// (B * groups * 2) are f32. Returns the first CUDA error.
-extern "C" int dpot_fused_gn_afno(int is_bf16, int approximate, const void* x,
+// (B * groups * 2) are f32. act is an ActId. Returns the first CUDA error.
+extern "C" int dpot_fused_gn_afno(int is_bf16, int act, const void* x,
                                   const float* gscale, const float* gbias,
                                   const void* A, const void* Ainv,
                                   const float* w1, const float* b1,
@@ -543,16 +539,13 @@ extern "C" int dpot_fused_gn_afno(int is_bf16, int approximate, const void* x,
                                   void* z, void* h, void* o, void* out, int B,
                                   int HW, int C, int K, int nb, int groups,
                                   void* stream) {
+  if (act < 0 || act >= ACT_COUNT) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return approximate
-               ? launch<bf16, true>(x, gscale, gbias, A, Ainv, w1, b1, w2, b2,
-                                    stats, z, h, o, out, B, HW, C, K, nb, groups, s)
-               : launch<bf16, false>(x, gscale, gbias, A, Ainv, w1, b1, w2, b2,
-                                     stats, z, h, o, out, B, HW, C, K, nb, groups, s);
-  return approximate
-             ? launch<float, true>(x, gscale, gbias, A, Ainv, w1, b1, w2, b2,
-                                   stats, z, h, o, out, B, HW, C, K, nb, groups, s)
-             : launch<float, false>(x, gscale, gbias, A, Ainv, w1, b1, w2, b2,
-                                    stats, z, h, o, out, B, HW, C, K, nb, groups, s);
+  return dispatch_act(act, [&](auto tag) {
+    constexpr int ACT = decltype(tag)::id;
+    return is_bf16 ? launch<bf16, ACT>(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, stats, z,
+                                       h, o, out, B, HW, C, K, nb, groups, s)
+                   : launch<float, ACT>(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, stats, z,
+                                        h, o, out, B, HW, C, K, nb, groups, s);
+  });
 }

@@ -79,16 +79,18 @@ class GroupNorm(nn.Module):
 
 
 class AFNO2D(nn.Module):
-    """Adaptive FNO spectral mixer; w1/b1/w2/b2 in the reference layout.
-    Applied together with the block's norm1 through the fused kernel."""
+    """Adaptive FNO spectral mixer; w1/b1/w2/b2 in the reference layout,
+    `act` the mode MLP's activation. Applied together with the block's
+    norm1 through the fused kernel."""
 
     def __init__(self, width: int, num_blocks: int, modes: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, act: str = "gelu"):
         super().__init__()
         if width % num_blocks:
             raise ValueError(f"width {width} not divisible by {num_blocks} blocks")
         nb, bs = num_blocks, width // num_blocks
         self.modes = modes
+        self.act = act
         scale = 1.0 / (bs * bs)
         self.w1 = nn.Parameter(scaled_uniform((2, nb, bs, bs), scale, generator))
         self.b1 = nn.Parameter(scaled_uniform((2, nb, bs), scale, generator))
@@ -98,14 +100,15 @@ class AFNO2D(nn.Module):
     def forward(self, x: torch.Tensor, norm: GroupNorm) -> torch.Tensor:
         """norm(x) mixed, plus the normed x (the AFNO-internal residual).
         x: (B, H, W, C) of the compute dtype, which is the kernel's operand
-        type; tanh-GELU under bf16 and erf-GELU under f32, as ops/activations."""
+        type. The mode MLP applies `act` as ops/activations defines it for
+        that dtype: gelu is the tanh form under bf16 and erf under f32."""
         B, H, W, C = x.shape
         kh, kw = kept_modes(H, W, self.modes)
         A, Ainv = combined_spectral_ops(H, W, kh, kw, x.dtype, x.device)
         out = fused_gn_afno(
             x.reshape(B, H * W, C).contiguous(), norm.weight, norm.bias, A, Ainv,
             self.w1, self.b1, self.w2, self.b2, kh * kw, norm.num_groups,
-            approximate=x.dtype == torch.bfloat16,
+            approximate=x.dtype == torch.bfloat16, act=self.act,
         )
         return out.reshape(B, H, W, C)
 
@@ -119,7 +122,7 @@ class Block(nn.Module):
         super().__init__()
         hidden = int(width * mlp_ratio)
         self.norm1 = GroupNorm(norm_groups, width)
-        self.filter = AFNO2D(width, num_blocks, modes, generator)
+        self.filter = AFNO2D(width, num_blocks, modes, generator, act)
         self.norm2 = GroupNorm(norm_groups, width)
         self.mlp = nn.ModuleList([
             Dense(width, hidden, generator, conv=True, dtype=dtype),

@@ -1,13 +1,24 @@
-"""Fused GroupNorm + AFNO spectral mixer: the Hopper kernel, its plain
-PyTorch version and its gradient.
+"""Fused GroupNorm + AFNO spectral mixer: the Hopper kernels, their plain
+PyTorch version and their gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
-(dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches the
-hand-written kernel in `dpot_tpu_torch/csrc/afno_fused.cu` (five launches on
-the current stream) or raises; for a CPU tensor it runs
-`fused_gn_afno_ref`, which repeats the kernel's arithmetic with torch ops and
-rounds at the same points. `fused_gn_afno.launches` counts the wrapper calls
-that launched the kernel.
+(dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches one of
+two hand-written kernels, chosen from the shapes alone before any launch,
+or raises:
+  - "hopper" (`dpot_tpu_torch/csrc/afno_hopper.cu`): bf16 at the shapes
+    `hopper_supported` admits (AFNO blocks of 128 channels, DPOT-Ti, S and
+    M at a 16x16 latent); wgmma fed by TMA, two launches;
+  - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): f32, and bf16 at
+    every other shape; five launches.
+For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
+arithmetic with torch ops and rounds at the same points.
+`fused_gn_afno.launches` counts the wrapper calls that launched a kernel,
+`fused_gn_afno.launches_by_path` the same calls by path.
+
+The mode MLP's activation is the model's `act`, one of the registry
+`dpot_tpu_torch/ops/activations.py`; `approximate` picks tanh-GELU over
+erf-GELU when act is "gelu" (the model passes it for bf16, as the registry
+does).
 
 When gradients are wanted the call goes through a `torch.autograd.Function`
 whose backward is `fused_gn_afno_vjp`: an explicit vector-Jacobian product
@@ -27,16 +38,65 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from dpot_tpu_torch.ops.activations import get_activation
 from dpot_tpu_torch.ops.norms import group_norm
 from dpot_tpu_torch.ops.spectral import COMBINED_MAX_PIXELS, complex_as_real_weight
 
+# activation ids of dpot_tpu_torch/csrc/activation.cuh; "gelu" is 0 (tanh
+# form) or 1 (erf form) by `approximate`
+ACT_IDS = {"gelu": 0, "tanh": 2, "sigmoid": 3, "relu": 4, "leaky_relu": 5,
+           "softplus": 6, "ELU": 7, "elu": 7, "silu": 8}
+
+
+def act_id(act: str, approximate: bool) -> int:
+    """The kernels' id of activation `act`."""
+    if act not in ACT_IDS:
+        raise ValueError(f"unknown activation {act!r}; available: {sorted(ACT_IDS)}")
+    return ACT_IDS[act] + int(act == "gelu" and not approximate)
+
+
+def _act(act: str, approximate: bool):
+    """The activation in f32, as the kernels apply it."""
+    if act == "gelu":
+        return functools.partial(F.gelu, approximate="tanh" if approximate else "none")
+    return get_activation(act)
+
+
+def _act_grad(act: str, approximate: bool, h: torch.Tensor) -> torch.Tensor:
+    """d act(h) / dh, elementwise, as torch.autograd differentiates `_act`."""
+    if act == "gelu":
+        if approximate:
+            c = math.sqrt(2.0 / math.pi)
+            t = torch.tanh(c * (h + 0.044715 * h * h * h))
+            return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * h * h)
+        cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+        return cdf + h * torch.exp(-0.5 * h * h) * (1.0 / math.sqrt(2.0 * math.pi))
+    if act == "tanh":
+        return 1.0 - torch.tanh(h).square()
+    if act == "sigmoid":
+        s = torch.sigmoid(h)
+        return s * (1.0 - s)
+    if act == "relu":
+        return (h > 0).to(h.dtype)
+    if act == "leaky_relu":
+        return torch.where(h > 0, 1.0, 0.1).to(h.dtype)
+    if act == "softplus":
+        return torch.where(h > 20.0, 1.0, torch.sigmoid(h))
+    if act in ("elu", "ELU"):
+        return torch.where(h > 0, 1.0, torch.exp(h))
+    if act == "silu":
+        s = torch.sigmoid(h)
+        return s * (1.0 + h * (1.0 - s))
+    raise ValueError(f"unknown activation {act!r}; available: {sorted(ACT_IDS)}")
+
+
 def fused_gn_afno_ref(
     x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K: int, groups: int = 8,
-    approximate: bool = True,
+    approximate: bool = True, act: str = "gelu",
 ) -> torch.Tensor:
-    """Plain version of the kernel. Every product takes operands rounded to
+    """Plain version of the kernels. Every product takes operands rounded to
     x's dtype and accumulates in f32; xn, z, the hidden layer and o are
-    rounded where the kernel rounds them; the residual adds the f32 xn."""
+    rounded where the kernels round them; the residual adds the f32 xn."""
     cd = x.dtype
     B, HW, C = x.shape
     nb = w1.shape[1]
@@ -55,7 +115,7 @@ def fused_gn_afno_ref(
     B1 = torch.cat([b1[0], b1[1]], dim=-1)
     B2 = torch.cat([b2[0], b2[1]], dim=-1)
     h = torch.einsum("bkji,jio->bkjo", zj, W1) + B1
-    h = rnd(F.gelu(h, approximate="tanh" if approximate else "none"))
+    h = rnd(_act(act, approximate)(h))
     o = torch.einsum("bkji,jio->bkjo", h, W2) + B2
     ob = rnd(
         torch.cat([o[..., :bs].reshape(B, K, C), o[..., bs:].reshape(B, K, C)], dim=1)
@@ -64,7 +124,17 @@ def fused_gn_afno_ref(
     return (y + xn32).to(x.dtype)
 
 
-def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups):
+# signatures of argument lists that passed _check, so that a repeated call
+# pays for one tuple and one set lookup
+_CHECKED: set = set()
+
+
+def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, act):
+    args = (x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
+    sig = (K, groups, act,
+           *[(t.shape, t.dtype, t.get_device(), t.is_contiguous()) for t in args])
+    if sig in _CHECKED:
+        return
     if x.dim() != 3:
         raise ValueError(f"x must be (B, HW, C), got {tuple(x.shape)}")
     B, HW, C = x.shape
@@ -88,6 +158,7 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups):
             f"latent of {HW} px exceeds {COMBINED_MAX_PIXELS}: the separable DFT "
             "branch is not ported yet (ROADMAP, 'Modules to port')"
         )
+    act_id(act, True)
     shapes = {
         "gscale": (gscale, (C,), torch.float32),
         "gbias": (gbias, (C,), torch.float32),
@@ -109,56 +180,120 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups):
             raise ValueError(f"{name} must be contiguous")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+    if len(_CHECKED) > 256:
+        _CHECKED.clear()
+    _CHECKED.add(sig)
+
+
+# ---------------------------------------------------------------- the Hopper path
+HOPPER_BS = 128     # the AFNO block size afno_hopper.cu is written for
+HOPPER_MAX_NK = 5   # 64-row blocks of o (2K rows) a synthesis CTA holds: MAX_NK
+
+
+def hopper_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                     dtype: torch.dtype) -> bool:
+    """Whether afno_hopper.cu takes these shapes: bf16; AFNO blocks of 128
+    channels; a latent of 128 or 256 pixels (the x slab and the A rows fit
+    in shared memory); K a multiple of 4 (Ainv's rows are whole 16-byte
+    units) with 2K <= 320, so that all of o for one synthesis CTA fits in
+    shared memory; GroupNorm groups of a power of two channels between 8
+    and 128, so that a group lies inside one AFNO block. A pure function of
+    the shapes, mirrored by dpot_afno_hopper_supported in the source."""
+    if dtype != torch.bfloat16 or nb < 1 or C != nb * HOPPER_BS or not 1 <= B <= 65535:
+        return False
+    if HW not in (128, 256) or K < 1 or K % 4 or -(-2 * K // 64) > HOPPER_MAX_NK:
+        return False
+    if groups < 1 or C % groups:
+        return False
+    cpg = C // groups
+    return 8 <= cpg <= HOPPER_BS and not cpg & (cpg - 1)
+
+
+def kernel_path(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with these shapes launches: "hopper" or
+    "general"."""
+    return "hopper" if hopper_supported(B, HW, C, K, nb, groups, dtype) else "general"
+
+
+# the profiler range around the making of the bf16 weight copies, so that a
+# trace can count their device time with the Hopper kernel's
+BF16_BLOCKS_RANGE = "fused_gn_afno.bf16_blocks"
+
+
+def _bf16_blocks(w: torch.Tensor) -> torch.Tensor:
+    """w (2, nb, bs, bs) f32 as bf16 with each block transposed to (out, in),
+    the layout afno_hopper.cu loads with TMA. Cached on w until w changes
+    (its version counter or storage), so serving converts once and training
+    once per optimizer step."""
+    if w.is_inference():  # no version counter to watch: convert every call
+        return _convert_blocks(w)
+    key = (w.data_ptr(), w._version)
+    cached = getattr(w, "_dpot_bf16_blocks", None)
+    if cached is None or cached[0] != key:
+        cached = (key, _convert_blocks(w.detach()))
+        w._dpot_bf16_blocks = cached
+    return cached[1]
+
+
+def _convert_blocks(w: torch.Tensor) -> torch.Tensor:
+    with torch.profiler.record_function(BF16_BLOCKS_RANGE):
+        return w.transpose(-1, -2).to(torch.bfloat16).contiguous()
 
 
 @functools.cache
-def _kernel_fn():
+def _kernel_fn(path: str):
     from dpot_tpu_torch.ops.cuda.build import load_library
 
-    fn = load_library("afno_fused").dpot_fused_gn_afno
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i] + [p] * 14 + [i] * 6 + [p]
+    if path == "hopper":
+        fn = load_library("afno_hopper").dpot_afno_hopper
+        fn.argtypes = [i] + [p] * 12 + [i] * 6 + [p]
+    else:
+        fn = load_library("afno_fused").dpot_fused_gn_afno
+        fn.argtypes = [i, i] + [p] * 14 + [i] * 6 + [p]
     fn.restype = i
     return fn
 
 
-def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, act):
+    """A kernel on a CUDA tensor, the plain version on a CPU tensor."""
     args = (x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
     if x.device.type == "cpu":
-        return fused_gn_afno_ref(*args, K, groups, approximate)
+        return fused_gn_afno_ref(*args, K, groups, approximate, act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_gn_afno runs on cuda or cpu, not {x.device}")
     B, HW, C = x.shape
     nb = w1.shape[1]
+    aid = act_id(act, approximate)
+    dev = x.device
     # The scratch is freed on return, before the kernels have run; the caching
     # allocator hands it out again only to later work on this same stream.
-    stats = torch.empty(B * groups * 2, device=x.device, dtype=torch.float32)
-    z = torch.empty((B, 2 * K, C), device=x.device, dtype=x.dtype)
-    h = torch.empty((B * K, nb, 2 * (C // nb)), device=x.device, dtype=x.dtype)
-    o = torch.empty_like(z)
+    stats = torch.empty(B * groups * 2, device=dev, dtype=torch.float32)
+    o = torch.empty((B, 2 * K, C), device=dev, dtype=x.dtype)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _kernel_fn()(
-            int(x.dtype == torch.bfloat16), int(approximate),
-            *(t.data_ptr() for t in (*args, stats, z, h, o, out)),
-            B, HW, C, K, nb, groups,
-            torch.cuda.current_stream(x.device).cuda_stream,
+    path = kernel_path(B, HW, C, K, nb, groups, x.dtype)
+    if path == "hopper":
+        ptrs = (x, gscale, gbias, A, Ainv, _bf16_blocks(w1), b1, _bf16_blocks(w2), b2,
+                stats, o, out)
+        flags = (aid,)
+    else:
+        z = torch.empty_like(o)
+        h = torch.empty((B * K, nb, 2 * (C // nb)), device=dev, dtype=x.dtype)
+        ptrs = (*args, stats, z, h, o, out)
+        flags = (int(x.dtype == torch.bfloat16), aid)
+    with torch.cuda.device(dev):
+        err = _kernel_fn(path)(
+            *flags, *[t.data_ptr() for t in ptrs], B, HW, C, K, nb, groups,
+            torch._C._cuda_getCurrentRawStream(dev.index),
         )
     if err != 0:
-        raise RuntimeError(f"fused_gn_afno kernel launch failed: CUDA error {err}")
+        what = (f"tensor-map encoding failed: CUresult {err - 10000}" if err >= 10000
+                else f"CUDA error {err}")
+        raise RuntimeError(f"fused_gn_afno {path} kernel launch failed: {what}")
     fused_gn_afno.launches += 1
+    fused_gn_afno.launches_by_path[path] += 1
     return out
-
-
-def _gelu_grad(h: torch.Tensor, approximate: bool) -> torch.Tensor:
-    """d gelu(h) / dh, tanh or erf form."""
-    if approximate:
-        c = math.sqrt(2.0 / math.pi)
-        t = torch.tanh(c * (h + 0.044715 * h * h * h))
-        return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * h * h)
-    cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
-    return cdf + h * torch.exp(-0.5 * h * h) * (1.0 / math.sqrt(2.0 * math.pi))
 
 
 def _real_form_grad(gW: torch.Tensor) -> torch.Tensor:
@@ -172,14 +307,14 @@ def _real_form_grad(gW: torch.Tensor) -> torch.Tensor:
 
 def fused_gn_afno_vjp(
     g, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K: int, groups: int = 8,
-    approximate: bool = True, eps: float = 1e-5,
+    approximate: bool = True, act: str = "gelu", eps: float = 1e-5,
 ):
     """Vector-Jacobian product of `fused_gn_afno` for the output cotangent g
     (B, HW, C). Returns the cotangents of (x, gscale, gbias, w1, b1, w2, b2),
     x's of x's dtype and the rest f32 in the reference layout; A and Ainv are
     constants. It recomputes the f32 GroupNorm, xn, z and the hidden layer,
     rounded to x's dtype where the forward rounds them, then walks back
-    through Ainv, the second layer, GELU', the first layer and A, adds the
+    through Ainv, the second layer, act', the first layer and A, adds the
     residual's cotangent to xn's and goes back through the GroupNorm. The
     cotangents are rounded at the forward's rounding points, as
     differentiating the forward (JAX's `_bwd`) rounds them; every product is
@@ -207,7 +342,7 @@ def fused_gn_afno_vjp(
     W1 = rnd(complex_as_real_weight(w1[0], w1[1]))
     W2 = rnd(complex_as_real_weight(w2[0], w2[1]))
     hpre = torch.einsum("bkji,jio->bkjo", zj, W1) + torch.cat([b1[0], b1[1]], dim=-1)
-    h = rnd(F.gelu(hpre, approximate="tanh" if approximate else "none"))
+    h = rnd(_act(act, approximate)(hpre))
 
     # backward
     g32 = g.float()
@@ -218,7 +353,7 @@ def fused_gn_afno_vjp(
     gB2 = go.sum(dim=(0, 1))
     gW2 = rnd(torch.einsum("bkji,bkjo->jio", h, go))
     gh = rnd(torch.einsum("bkjo,jio->bkji", go, W2))
-    ghpre = gh * _gelu_grad(hpre, approximate)
+    ghpre = gh * _act_grad(act, approximate, hpre)
     gB1 = ghpre.sum(dim=(0, 1))
     gW1 = rnd(torch.einsum("bkji,bkjo->jio", zj, ghpre))
     gzj = rnd(torch.einsum("bkjo,jio->bkji", ghpre, W1))
@@ -245,10 +380,10 @@ class FusedGnAfno(torch.autograd.Function):
     either device. A and Ainv get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate):
+    def forward(ctx, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, act):
         ctx.save_for_backward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
-        ctx.cfg = (K, groups, approximate)
-        return _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate)
+        ctx.cfg = (K, groups, approximate, act)
+        return _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, act)
 
     @staticmethod
     @once_differentiable
@@ -256,7 +391,7 @@ class FusedGnAfno(torch.autograd.Function):
         gx, ggs, ggb, gw1, gb1, gw2, gb2 = fused_gn_afno_vjp(
             g.contiguous(), *ctx.saved_tensors, *ctx.cfg
         )
-        return gx, ggs, ggb, None, None, gw1, gb1, gw2, gb2, None, None, None
+        return gx, ggs, ggb, None, None, gw1, gb1, gw2, gb2, None, None, None, None
 
 
 def fused_gn_afno(
@@ -272,20 +407,23 @@ def fused_gn_afno(
     K: int,
     groups: int = 8,
     approximate: bool = True,
+    act: str = "gelu",
 ) -> torch.Tensor:
     """GroupNorm(groups) + AFNO mixer with its internal residual.
 
     x: (B, HW, C) bf16 or f32, the operand type; A (2K, HW) and Ainv
     (HW, 2K) of that type; gscale/gbias (C,) f32; w1/w2 (2, nb, bs, bs) and
-    b1/b2 (2, nb, bs) f32 in the reference layout. approximate selects
-    tanh-GELU (the TPU kernel) or erf-GELU (the JAX f32 path). Returns
-    (B, HW, C) of x's dtype, with a `FusedGnAfno` grad_fn when grad mode is
-    on and an input requires grad."""
+    b1/b2 (2, nb, bs) f32 in the reference layout. act is the mode MLP's
+    activation (a name of the registry); for "gelu", approximate selects
+    the tanh form (the TPU kernel, bf16) or the erf form (the JAX f32
+    path). Returns (B, HW, C) of x's dtype, with a `FusedGnAfno` grad_fn
+    when grad mode is on and an input requires grad."""
     args = (x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
-    _check(*args, K, groups)
+    _check(*args, K, groups, act)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return FusedGnAfno.apply(*args, K, groups, approximate)
-    return _forward(*args, K, groups, approximate)
+        return FusedGnAfno.apply(*args, K, groups, approximate, act)
+    return _forward(*args, K, groups, approximate, act)
 
 
 fused_gn_afno.launches = 0
+fused_gn_afno.launches_by_path = {"hopper": 0, "general": 0}

@@ -81,6 +81,75 @@ def test_fused_gn_afno_ragged_shapes_match_plain_version(cuda, dtype, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 20])
+def test_hopper_kernel_matches_plain_version(cuda, B):
+    """bf16 at the Ti block shapes takes the two-launch Hopper kernel
+    (afno_hopper.cu); against the plain version within 4 bf16 ulps of the
+    output's magnitude, as above."""
+    args = ti_block_args(B, torch.bfloat16, cuda, seed=20 + B)
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=True).float()
+    want = fused_gn_afno_ref(*args, approximate=True).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper"] == before["hopper"] + 1
+    assert fused_gn_afno.launches_by_path["general"] == before["general"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(C=1024, nb=8),                      # S/M width: groups of 128 channels
+    dict(H=16, W=8, modes=8),                # 128 px, K 40: one short mode chunk
+    dict(H=16, W=8, modes=16),               # 128 px, K 80: a partial second chunk
+    dict(H=32, W=8, modes=32),               # K 160: 2K = 320, the most o rows
+    dict(modes=2),                           # K 4: 2K = 8
+    dict(groups=4),                          # groups of 128 channels at Ti
+    dict(groups=16),                         # groups of 32
+    dict(groups=64),                         # groups of 8
+    dict(C=128, nb=1),                       # one AFNO block
+    dict(C=1024, nb=8, groups=128),          # S/M width, groups of 8
+])
+def test_hopper_kernel_at_admitted_edge_shapes(cuda, shape):
+    """Each kind of shape that hopper_supported admits besides Ti runs on
+    the Hopper kernel and matches the plain version: 4 bf16 ulps of the
+    output's magnitude, as above, and 4e-3 relative L2, as chip_smoke.py
+    holds it."""
+    args = ti_block_args(2, torch.bfloat16, cuda, seed=41, **shape)
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=True).float()
+    want = fused_gn_afno_ref(*args, approximate=True).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper"] == before["hopper"] + 1
+    assert fused_gn_afno.launches_by_path["general"] == before["general"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+    assert rel_l2(got, want) <= 4e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,dtype,shape", [
+    ("hopper", torch.bfloat16, {}),
+    ("general", torch.float32, {}),
+    ("general", torch.bfloat16, dict(H=8, W=8, C=96, nb=4, modes=3, groups=8)),
+])
+@pytest.mark.parametrize("act", ["silu", "tanh", "relu", "sigmoid", "leaky_relu",
+                                 "softplus", "elu", "gelu"])
+def test_non_gelu_activations_on_both_paths(cuda, path, dtype, shape, act):
+    """The mode MLP applies the act it is given on either kernel: Ti bf16
+    (Hopper), Ti f32 and a ragged bf16 shape (general); every activation
+    of the registry, gelu in its erf form. Tolerances as above."""
+    args = ti_block_args(3, dtype, cuda, seed=31, **shape)
+    before = fused_gn_afno.launches_by_path[path]
+    got = fused_gn_afno(*args, approximate=False, act=act).float()
+    want = fused_gn_afno_ref(*args, approximate=False, act=act).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path[path] == before + 1
+    lim = 5e-5 if dtype == torch.float32 else 4 * 2.0**-7 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= lim
+
+
+@pytest.mark.gpu
 def test_fused_gn_afno_raises_on_mixed_devices(cuda):
     args = list(ti_block_args(1, torch.float32, cuda))
     args[1] = args[1].cpu()
