@@ -10,12 +10,13 @@ Phases, each printing its results as JSON lines:
      (torch.profiler), the plain version's time and the least time the card
      could take (its bound):
      - fused_gn_afno at the Ti block shapes (B in {1, 8, 20}): bf16 with
-       tanh-GELU on the two-launch Hopper kernel (afno_hopper.cu) and, in
-       the same call, on the five-launch general kernel (afno_fused.cu),
-       timed old, new, new, old; f32 with erf-GELU on the general kernel;
+       tanh-GELU on the two-launch Hopper kernel (afno_hopper.cu) and f32
+       with erf-GELU on the two-launch f32 Hopper kernel (afno_hopper_f32.cu,
+       3xTF32 products), each in the same call as the five-launch general
+       kernel (afno_fused.cu) on the same inputs, timed old, new, new, old;
        each at the init's weight scale, at N(0, 0.05^2) weights and with a
-       non-GELU activation (silu); the shape gate against its mirror in the
-       CUDA source;
+       non-GELU activation (silu); both shape gates against their mirrors in
+       the CUDA sources;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -27,8 +28,8 @@ Phases, each printing its results as JSON lines:
      answering rollout requests over HTTP on 127.0.0.1; every served
      rollout is checked for shape and finite values, one against a direct
      loop over model(x), the kernel's launch count against depth x model
-     applications (bf16 all on the Hopper path, f32 all on the general
-     one), and the served model's forward on the card against the same
+     applications (bf16 all on the Hopper path, f32 all on the f32 Hopper
+     path), and the served model's forward on the card against the same
      weights' forward on the CPU (the plain versions there);
   4. step: where one model application's time goes at B = 1 and 8 (wall
      time, device busy time and idle share, the fused kernel's part);
@@ -79,13 +80,16 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno,
     fused_gn_afno_ref,
     fused_gn_afno_vjp,
+    hopper_f32_supported,
     hopper_supported,
 )
 from dpot_tpu_torch.ops.cuda.bias_act import bias_act
 from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes
 
-# H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM3
+# H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM3;
+# TF32 tensor cores, which the f32 Hopper kernel runs three times per product
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 # DPOT-Ti serving geometry: 128^2 grid, patch 8 -> 16x16 latent, modes 32
@@ -168,11 +172,12 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 
 
 # fused_gn_afno's launches by kernel name: the general path's five and the
-# Hopper path's two
+# two of each Hopper path
 GENERAL_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
                    "mode_out_kernel", "synthesis_kernel")
 HOPPER_KERNELS = ("spectral_kernel", "tma_synthesis_kernel")
-SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS
+HOPPER_F32_KERNELS = ("spectral_f32_kernel", "synthesis_f32_kernel")
+SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS + HOPPER_F32_KERNELS
 
 
 def sub_kernel(name: str) -> str | None:
@@ -261,7 +266,7 @@ def host_us(fn, runs: int = 200) -> float:
 @contextlib.contextmanager
 def forced_path(path: str):
     """Send every fused_gn_afno call to one kernel, whatever the shape gate
-    says: to run the five-launch kernel where the Hopper kernel applies."""
+    says: to run the five-launch kernel where a Hopper kernel applies."""
     real = afno_fused.kernel_path
     afno_fused.kernel_path = lambda *shapes: path
     try:
@@ -302,9 +307,11 @@ def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int)
 def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str) -> tuple[float, str]:
     """Least time for one call on kernel `path`: operations over the peak
     for the operand type, or bytes (each input read once, the output
-    written once) over HBM bandwidth, whichever is larger. The Hopper
-    kernel reads the cached bf16 copies of w1 and w2, the general kernel
-    the f32 weights."""
+    written once) over HBM bandwidth, whichever is larger. The bf16 Hopper
+    kernel reads the cached bf16 copies of w1 and w2, the other kernels the
+    f32 weights. The f32 Hopper kernel does each product three times (3xTF32)
+    on the TF32 tensor cores (495 TFLOP/s); the general kernel's f32
+    products run on the FMA pipes (67 TFLOP/s)."""
     HW, C, nb = TI["H"] * TI["W"], TI["C"], TI["nb"]
     bs = C // nb
     s = torch.empty((), dtype=dtype).element_size()
@@ -317,7 +324,10 @@ def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str) -> tuple[float,
               + 2 * 2 * nb * bs * bs * ws      # w1, w2
               + 2 * 2 * nb * bs * 4            # b1, b2
               + 2 * C * 4)                     # gscale, gbias
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if path == "hopper_f32":
+        t_ops = 3 * flops / PEAK_TF32 * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -349,11 +359,17 @@ def check_afno(B, dtype, weight_scale, seed, path, act="gelu") -> dict:
 
 
 def check_gate_mirror() -> int:
-    """hopper_supported against dpot_afno_hopper_supported, the same gate
-    in the CUDA source, on the presets and on shapes either may refuse."""
-    fn = build.load_library("afno_hopper").dpot_afno_hopper_supported
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_int
+    """hopper_supported and hopper_f32_supported against
+    dpot_afno_hopper_supported and dpot_afno_hopper_f32_supported, the same
+    gates in the CUDA sources, on the presets and on shapes either may
+    refuse."""
+    gates = []
+    for lib, gate, dtype in (("afno_hopper", hopper_supported, torch.bfloat16),
+                             ("afno_hopper_f32", hopper_f32_supported, torch.float32)):
+        fn = getattr(build.load_library(lib), f"dpot_{lib}_supported")
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_int
+        gates.append((fn, gate, dtype))
     shapes = [(B, 256, C, 144, nb, 8) for B in (1, 20)
               for C, nb in ((512, 4), (1024, 8), (1536, 16), (2048, 8))]
     shapes += [(3, 64, 96, 9, 4, 8), (3, 48, 40, 15, 2, 4), (1, 128, 512, 40, 4, 8),
@@ -362,9 +378,13 @@ def check_gate_mirror() -> int:
                (1, 256, 512, 144, 4, 4), (1, 256, 512, 144, 4, 16), (1, 256, 512, 144, 4, 64),
                (1, 256, 512, 144, 4, 128), (1, 256, 128, 144, 1, 8), (1, 256, 1024, 144, 8, 128),
                (1, 1024, 512, 144, 4, 8), (0, 256, 512, 144, 4, 8)]
-    for sh in shapes:
-        if bool(fn(*sh)) != hopper_supported(*sh, torch.bfloat16):
-            raise AssertionError(f"shape gate differs from the CUDA source's at {sh}")
+    shapes += [(2, 64, 512, 16, 4, 8), (2, 4096, 512, 144, 4, 8), (1, 8192, 512, 144, 4, 8),
+               (1, 96, 512, 40, 4, 8), (1, 32, 512, 10, 4, 8), (1, 256, 512, 9, 4, 8),
+               (1, 256, 512, 2, 4, 8), (65535, 256, 512, 144, 4, 8), (65536, 256, 512, 144, 4, 8)]
+    for fn, gate, dtype in gates:
+        for sh in shapes:
+            if bool(fn(*sh)) != gate(*sh, dtype):
+                raise AssertionError(f"{gate.__name__} differs from the CUDA source's at {sh}")
     return len(shapes)
 
 
@@ -384,7 +404,7 @@ def phase_kernels() -> dict:
     log("kernel", name="fused_gn_afno", gate_mirror_shapes=check_gate_mirror())
     results = {}
     for dtype, paths in ((torch.bfloat16, ("general", "hopper")),
-                         (torch.float32, ("general",))):
+                         (torch.float32, ("general", "hopper_f32"))):
         dname = str(dtype).replace("torch.", "")
         for B in (1, 8, TRAIN["batch"]):
             checks = {}
@@ -394,7 +414,7 @@ def phase_kernels() -> dict:
                 checks[path] = check_afno(B, dtype, None, B, path)  # the init's scale
             r = checks[paths[0]]  # the same inputs (seed B) on every path
             a, K, g, ap = r["args"], r["K"], r["groups"], r["approx"]
-            # old, new, new, old: the five-launch kernel around the Hopper one
+            # old, new, new, old: the five-launch kernel around a Hopper one
             runs = [(p, time_afno(r, p)) for p in paths + paths[::-1]]
             plain_ms = cuda_ms(lambda: fused_gn_afno_ref(*a, K, g, ap))
             for path in paths:
@@ -411,6 +431,8 @@ def phase_kernels() -> dict:
                     device_ms_each=[d["total"] for d in dev],
                     plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 )
+                if path == "hopper_f32":  # its work against the FMA peak too
+                    results[key]["bound_fma_ms"] = afno_bound_ms(B, dtype, K, "general")[0]
                 log("kernel", name="fused_gn_afno", config=key, **results[key])
     return results
 
@@ -571,13 +593,13 @@ def card_vs_cpu_forward(model, x: np.ndarray) -> float:
 
 def reset_launch_counts() -> None:
     fused_gn_afno.launches = bias_act.launches = 0
-    fused_gn_afno.launches_by_path.update(hopper=0, general=0)
+    fused_gn_afno.launches_by_path.update(hopper=0, hopper_f32=0, general=0)
 
 
 def check_paths(dtype: str, launches: int) -> dict:
     """Every launch of a bf16 Ti run went through the Hopper kernel, every
-    f32 one through the general kernel."""
-    want = "hopper" if dtype == "bfloat16" else "general"
+    f32 one through the f32 Hopper kernel."""
+    want = "hopper" if dtype == "bfloat16" else "hopper_f32"
     by_path = dict(fused_gn_afno.launches_by_path)
     if by_path[want] != launches or sum(by_path.values()) != launches:
         raise AssertionError(f"{dtype}: launches by path {by_path}, expected all "
@@ -925,6 +947,7 @@ def main() -> int:
     kernels = []
     rows = (("fused_gn_afno[bf16,hopper]", "bfloat16", "hopper", "afno_hopper.cu"),
             ("fused_gn_afno[bf16,general]", "bfloat16", "general", "afno_fused.cu"),
+            ("fused_gn_afno[f32,hopper]", "float32", "hopper_f32", "afno_hopper_f32.cu"),
             ("fused_gn_afno[f32,general]", "float32", "general", "afno_fused.cu"))
     for name, dtype, path, src in rows:
         r, r1, r20 = (k[f"{dtype}/{path}/B{B}"] for B in (8, 1, TRAIN["batch"]))
@@ -945,7 +968,8 @@ def main() -> int:
             launches_per_call=r["device_ms"] and r["device_ms"]["launches_per_call"],
             host_us=r["host_us"],
             by_batch={f"B{B}": {key: x[key] for key in ("ms", "device_ms_each", "host_us",
-                                                         "plain_ms", "bound_ms", "max_abs_err")}
+                                                         "plain_ms", "bound_ms", "bound_fma_ms",
+                                                         "max_abs_err") if key in x}
                       for B, x in ((1, r1), (8, r), (TRAIN["batch"], r20))},
             vjp_ms=vjp[dtype]["vjp_ms"], vjp_rel_l2=vjp[dtype]["rel_l2"],
         ))

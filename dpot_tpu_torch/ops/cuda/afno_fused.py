@@ -3,13 +3,17 @@ PyTorch version and their gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
 (dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches one of
-two hand-written kernels, chosen from the shapes alone before any launch,
+three hand-written kernels, chosen from the shapes alone before any launch,
 or raises:
   - "hopper" (`dpot_tpu_torch/csrc/afno_hopper.cu`): bf16 at the shapes
     `hopper_supported` admits (AFNO blocks of 128 channels, DPOT-Ti, S and
     M at a 16x16 latent); wgmma fed by TMA, two launches;
-  - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): f32, and bf16 at
-    every other shape; five launches.
+  - "hopper_f32" (`dpot_tpu_torch/csrc/afno_hopper_f32.cu`): f32 at the
+    shapes `hopper_f32_supported` admits (AFNO blocks of 128 channels, a
+    latent of a multiple of 64 pixels); every product as 3xTF32 on the
+    tensor cores (the split `tf32_split` states), two launches;
+  - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): every other shape, in
+    either type; five launches.
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
 arithmetic with torch ops and rounds at the same points.
 `fused_gn_afno.launches` counts the wrapper calls that launched a kernel,
@@ -186,34 +190,77 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, act):
 
 
 # ---------------------------------------------------------------- the Hopper path
-HOPPER_BS = 128     # the AFNO block size afno_hopper.cu is written for
+HOPPER_BS = 128     # the AFNO block size both Hopper kernels are written for
 HOPPER_MAX_NK = 5   # 64-row blocks of o (2K rows) a synthesis CTA holds: MAX_NK
 
 
-def hopper_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
-                     dtype: torch.dtype) -> bool:
-    """Whether afno_hopper.cu takes these shapes: bf16; AFNO blocks of 128
-    channels; a latent of 128 or 256 pixels (the x slab and the A rows fit
-    in shared memory); K a multiple of 4 (Ainv's rows are whole 16-byte
-    units) with 2K <= 320, so that all of o for one synthesis CTA fits in
-    shared memory; GroupNorm groups of a power of two channels between 8
-    and 128, so that a group lies inside one AFNO block. A pure function of
-    the shapes, mirrored by dpot_afno_hopper_supported in the source."""
-    if dtype != torch.bfloat16 or nb < 1 or C != nb * HOPPER_BS or not 1 <= B <= 65535:
-        return False
-    if HW not in (128, 256) or K < 1 or K % 4 or -(-2 * K // 64) > HOPPER_MAX_NK:
-        return False
-    if groups < 1 or C % groups:
+def _hopper_blocks(B: int, C: int, nb: int, groups: int) -> bool:
+    """The layout both Hopper kernels are written for: AFNO blocks of 128
+    channels, a batch that fits a grid's z dimension, and GroupNorm groups
+    of a power of two channels between 8 and 128, so that a group lies
+    inside one AFNO block."""
+    if nb < 1 or C != nb * HOPPER_BS or not 1 <= B <= 65535 or groups < 1 or C % groups:
         return False
     cpg = C // groups
     return 8 <= cpg <= HOPPER_BS and not cpg & (cpg - 1)
 
 
+def hopper_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                     dtype: torch.dtype) -> bool:
+    """Whether afno_hopper.cu takes these shapes: bf16; the blocks and
+    groups of `_hopper_blocks`; a latent of 128 or 256 pixels (the x slab
+    and the A rows fit in shared memory); K a multiple of 4 (Ainv's rows are
+    whole 16-byte units) with 2K <= 320, so that all of o for one synthesis
+    CTA fits in shared memory. A pure function of the shapes, mirrored by
+    dpot_afno_hopper_supported in the source."""
+    return (dtype == torch.bfloat16 and HW in (128, 256) and K >= 1 and not K % 4
+            and -(-2 * K // 64) <= HOPPER_MAX_NK and _hopper_blocks(B, C, nb, groups))
+
+
+HOPPER_F32_TILE_P = 64      # pixels per synthesis CTA of afno_hopper_f32.cu: TP
+
+
+def hopper_f32_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                         dtype: torch.dtype) -> bool:
+    """Whether afno_hopper_f32.cu takes these shapes: f32; the blocks and
+    groups of `_hopper_blocks`; a latent of a multiple of 64 pixels up to
+    COMBINED_MAX_PIXELS (x and A stream through shared memory in 32-pixel
+    chunks, and the synthesis tiles are 64 pixels); K even, so that Ainv's
+    rows are whole 16-byte units. A pure function of the shapes, mirrored by
+    dpot_afno_hopper_f32_supported in the source."""
+    return (dtype == torch.float32 and HOPPER_F32_TILE_P <= HW <= COMBINED_MAX_PIXELS
+            and not HW % HOPPER_F32_TILE_P and K >= 1 and not K % 2
+            and _hopper_blocks(B, C, nb, groups))
+
+
 def kernel_path(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                 dtype: torch.dtype) -> str:
-    """The kernel a CUDA call with these shapes launches: "hopper" or
-    "general"."""
-    return "hopper" if hopper_supported(B, HW, C, K, nb, groups, dtype) else "general"
+    """The kernel a CUDA call with these shapes launches: "hopper",
+    "hopper_f32" or "general"."""
+    if hopper_supported(B, HW, C, K, nb, groups, dtype):
+        return "hopper"
+    if hopper_f32_supported(B, HW, C, K, nb, groups, dtype):
+        return "hopper_f32"
+    return "general"
+
+
+def tf32_split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """a (f32) as hi + lo, both TF32 values (10 explicit mantissa bits, the
+    low 13 bits zero), each rounded to nearest with ties away from zero
+    (cvt.rna's rounding): what afno_hopper_f32.cu does, by the same integer
+    ops on the bits, to every operand it loads.
+    hi + lo equals a to about 2^-22 relative, so the three products
+    lo.hi' + hi.lo' + hi.hi' (3xTF32) are as close to an f32 product as
+    f32 is to f64, where hi.hi' alone (single-pass TF32) keeps about three
+    decimal digits."""
+
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    a = a.float()
+    hi = rna(a)
+    return hi, rna(a - hi)
 
 
 # the profiler range around the making of the bf16 weight copies, so that a
@@ -246,8 +293,8 @@ def _kernel_fn(path: str):
     from dpot_tpu_torch.ops.cuda.build import load_library
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    if path == "hopper":
-        fn = load_library("afno_hopper").dpot_afno_hopper
+    if path in ("hopper", "hopper_f32"):
+        fn = getattr(load_library("afno_" + path), "dpot_afno_" + path)
         fn.argtypes = [i] + [p] * 12 + [i] * 6 + [p]
     else:
         fn = load_library("afno_fused").dpot_fused_gn_afno
@@ -276,6 +323,9 @@ def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, 
     if path == "hopper":
         ptrs = (x, gscale, gbias, A, Ainv, _bf16_blocks(w1), b1, _bf16_blocks(w2), b2,
                 stats, o, out)
+        flags = (aid,)
+    elif path == "hopper_f32":
+        ptrs = (*args, stats, o, out)
         flags = (aid,)
     else:
         z = torch.empty_like(o)
@@ -426,4 +476,4 @@ def fused_gn_afno(
 
 
 fused_gn_afno.launches = 0
-fused_gn_afno.launches_by_path = {"hopper": 0, "general": 0}
+fused_gn_afno.launches_by_path = {"hopper": 0, "hopper_f32": 0, "general": 0}

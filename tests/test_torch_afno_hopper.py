@@ -87,9 +87,12 @@ def test_ragged_and_unfit_shapes_are_refused(shapes):
 
 @pytest.mark.parametrize("name", ["Ti", "S", "M", "L", "H"])
 def test_f32_always_takes_the_general_kernel(name):
+    """f32 never takes the bf16 Hopper kernel: Ti, S and M (AFNO blocks of
+    128 channels) take the f32 Hopper kernel (afno_hopper_f32.cu), L and H
+    the five-launch general kernel."""
     shapes = preset_shapes(name)
     assert not hopper_supported(*shapes, F32)
-    assert kernel_path(*shapes, F32) == "general"
+    assert kernel_path(*shapes, F32) == ("hopper_f32" if name in ("Ti", "S", "M") else "general")
 
 
 def test_gate_is_a_pure_function_of_shapes():
@@ -121,7 +124,7 @@ def test_bf16_weight_blocks_are_cached_until_the_weight_changes():
 
 
 def test_launch_counts_by_path_start_at_zero_keys():
-    assert set(afno_fused.fused_gn_afno.launches_by_path) == {"hopper", "general"}
+    assert set(afno_fused.fused_gn_afno.launches_by_path) == {"hopper", "hopper_f32", "general"}
 
 
 def test_bf16_weight_copies_are_made_inside_a_profiler_range():

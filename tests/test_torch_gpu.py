@@ -128,17 +128,72 @@ def test_hopper_kernel_at_admitted_edge_shapes(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 20])
+def test_hopper_f32_kernel_matches_plain_version(cuda, B):
+    """f32 at the Ti block shapes takes the two-launch f32 Hopper kernel
+    (afno_hopper_f32.cu, 3xTF32 products); against the plain version within
+    5e-5 absolute and 1e-5 relative L2, as chip_smoke.py holds it: 3xTF32
+    products are as close to f32 ones as f32 is to f64, so what remains is
+    summation order."""
+    args = ti_block_args(B, torch.float32, cuda, seed=60 + B)
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=False)
+    want = fused_gn_afno_ref(*args, approximate=False)
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper_f32"] == before["hopper_f32"] + 1
+    assert fused_gn_afno.launches_by_path["general"] == before["general"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 5e-5
+    assert rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+@pytest.mark.parametrize("shape", [
+    dict(C=1024, nb=8),                      # S/M width: groups of 128 channels
+    dict(H=16, W=8, modes=8),                # 128 px, K 40: one partial mode chunk
+    dict(H=16, W=8, modes=16),               # 128 px, K 80: a partial third chunk
+    dict(H=32, W=8, modes=32),               # K 160: five whole chunks
+    dict(modes=2),                           # K 4: 2K = 8, one partial synthesis stage
+    dict(H=8, W=8, modes=4),                 # 64 px, K 16: one synthesis pixel tile
+    dict(H=32, W=32, modes=12),              # 1024 px, K 144: 32 pixel chunks
+    dict(groups=4),                          # groups of 128 channels at Ti
+    dict(groups=16),                         # groups of 32
+    dict(groups=64),                         # groups of 8
+    dict(C=128, nb=1),                       # one AFNO block
+    dict(C=1024, nb=8, groups=128),          # S/M width, groups of 8
+])
+def test_hopper_f32_kernel_at_admitted_edge_shapes(cuda, shape, act):
+    """Each kind of shape that hopper_f32_supported admits besides Ti
+    (tests/test_torch_afno_f32.py::ADMITTED_F32_EDGES lists the same kinds)
+    runs on the f32 Hopper kernel and matches the plain version, with the
+    erf-GELU and with silu; tolerances as above."""
+    args = ti_block_args(2, torch.float32, cuda, seed=43, **shape)
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=False, act=act)
+    want = fused_gn_afno_ref(*args, approximate=False, act=act)
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper_f32"] == before["hopper_f32"] + 1
+    assert fused_gn_afno.launches_by_path["general"] == before["general"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 5e-5
+    assert rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("path,dtype,shape", [
     ("hopper", torch.bfloat16, {}),
-    ("general", torch.float32, {}),
+    ("hopper_f32", torch.float32, {}),
+    ("general", torch.float32, dict(H=8, W=8, C=96, nb=4, modes=3, groups=8)),
     ("general", torch.bfloat16, dict(H=8, W=8, C=96, nb=4, modes=3, groups=8)),
 ])
 @pytest.mark.parametrize("act", ["silu", "tanh", "relu", "sigmoid", "leaky_relu",
                                  "softplus", "elu", "gelu"])
 def test_non_gelu_activations_on_both_paths(cuda, path, dtype, shape, act):
-    """The mode MLP applies the act it is given on either kernel: Ti bf16
-    (Hopper), Ti f32 and a ragged bf16 shape (general); every activation
-    of the registry, gelu in its erf form. Tolerances as above."""
+    """The mode MLP applies the act it is given on every kernel: Ti bf16
+    (Hopper), Ti f32 (f32 Hopper) and a ragged shape in f32 and bf16
+    (general); every activation of the registry, gelu in its erf form.
+    Tolerances as above."""
     args = ti_block_args(3, dtype, cuda, seed=31, **shape)
     before = fused_gn_afno.launches_by_path[path]
     got = fused_gn_afno(*args, approximate=False, act=act).float()
