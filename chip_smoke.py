@@ -15,8 +15,10 @@ Phases, each printing its results as JSON lines:
        3xTF32 products), each in the same call as the five-launch general
        kernel (afno_fused.cu) on the same inputs, timed old, new, new, old;
        each at the init's weight scale, at N(0, 0.05^2) weights and with a
-       non-GELU activation (silu); both shape gates against their mirrors in
-       the CUDA sources;
+       non-GELU activation (silu); and at the DPOT-H block shapes (C 2048,
+       8 AFNO blocks of 256 channels) bf16 on the two-launch kernel for
+       256-channel blocks (afno_hopper_wide.cu) in the same way; the three
+       shape gates against their mirrors in the CUDA sources;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -47,7 +49,16 @@ Phases, each printing its results as JSON lines:
      copies, its VJP and the optimizer);
   6. train card vs CPU: one f32 Ti train step at B = 4 on shared weights,
      batch and noise, on the card and on the CPU: the loss and every
-     parameter's gradient.
+     parameter's gradient;
+  7. DPOT-H (preset H: embed 2048, depth 27, 1.03 B parameters, seeded
+     weights drawn once and reused) in bf16: served through the serve CLI
+     (batches 1 and 2, steps 1 and 4), every answer against the same
+     rollout on the card with fused_gn_afno's plain version, launches =
+     depth x model applications, all on afno_hopper_wide.cu; one model
+     application profiled at B = 1 and 8 as in phase 4; three adam train
+     steps (noise 5e-4) at B = 64 through make_train_step: finite losses,
+     launches = depth x steps on the same kernel, and where a step's time
+     goes as in phase 5.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -82,6 +93,7 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno_vjp,
     hopper_f32_supported,
     hopper_supported,
+    hopper_wide_supported,
 )
 from dpot_tpu_torch.ops.cuda.bias_act import bias_act
 from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes
@@ -94,12 +106,31 @@ PEAK_BYTES = 3.35e12
 
 # DPOT-Ti serving geometry: 128^2 grid, patch 8 -> 16x16 latent, modes 32
 TI = dict(H=16, W=16, C=512, nb=4, modes=32, groups=8, depth=4)
+# DPOT-H (preset H) on the same grid: AFNO blocks of 256 channels
+DPOT_H = dict(H=16, W=16, C=2048, nb=8, modes=32, groups=8, depth=27)
 TI_FLAGS = [
     "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "512",
     "--n_layers", "4", "--n_blocks", "4", "--modes", "32", "--mlp_ratio", "1",
     "--out_layer_dim", "32", "--T_in", "10", "--n_channels", "4",
     "--host", "127.0.0.1", "--port", "0",
 ]
+# DPOT-H serving: preset H (embed 2048, depth 27, 8 blocks, mlp_ratio
+# 3.951171875, out_layer_dim 128) on the same grid, at full width and depth
+H_FLAGS = [
+    "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "2048",
+    "--n_layers", "27", "--n_blocks", "8", "--modes", "32", "--mlp_ratio", "3.951171875",
+    "--out_layer_dim", "128", "--T_in", "10", "--n_channels", "4",
+    "--host", "127.0.0.1", "--port", "0",
+]
+# a served DPOT-H answer against the same rollout on the card with
+# fused_gn_afno's plain version: a few bf16 roundings per layer that fall
+# the other way, as card against CPU for Ti
+H_SERVE_TOL = 3e-2
+# DPOT-H train steps: adam with noise 5e-4 (configs/pretrain_tiny.yaml's
+# optimizer). A step peaked at 29.0 GB at B = 16, 46.9 GB at B = 64 and
+# 79.1 GB at B = 128 on the 80 GiB (85.9 GB) card: 64 is the largest power
+# of two that leaves the allocator room (128 ran, within 7 GB of the card)
+H_TRAIN = dict(batch=64, steps=3, lr=1e-4)
 # kernel vs plain version: f32 differs by summation order only; bf16 may
 # differ where one rounding of z, h or o to bf16 falls the other way
 TOL = {
@@ -175,7 +206,7 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 # two of each Hopper path
 GENERAL_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
                    "mode_out_kernel", "synthesis_kernel")
-HOPPER_KERNELS = ("spectral_kernel", "tma_synthesis_kernel")
+HOPPER_KERNELS = ("spectral_kernel", "spectral_wide_kernel", "tma_synthesis_kernel")
 HOPPER_F32_KERNELS = ("spectral_f32_kernel", "synthesis_f32_kernel")
 SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS + HOPPER_F32_KERNELS
 
@@ -204,6 +235,14 @@ def profile_events(fn, runs: int) -> list:
     return []
 
 
+def is_kernel(e) -> bool:
+    """A device event of the card's own work: not the span that a profiler
+    range (record_function) also draws on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+
+
 def union_us(events) -> float:
     """Device time in µs in which at least one of the events ran: the
     union of their intervals, so that the Hopper path's two launches,
@@ -219,11 +258,9 @@ def union_us(events) -> float:
 def kernel_us(fn, runs: int) -> dict[str, float]:
     """Device time in µs, summed over `runs` calls of fn, of each CUDA kernel
     that fn launched, by name, from torch.profiler ({}: not measured)."""
-    from torch.autograd import DeviceType
-
     times: dict[str, float] = {}
     for e in profile_events(fn, runs):
-        if e.device_type == DeviceType.CUDA:
+        if is_kernel(e):
             times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
     return times
 
@@ -275,13 +312,15 @@ def forced_path(path: str):
         afno_fused.kernel_path = real
 
 
-def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int):
-    """Seeded kernel arguments at the Ti geometry. weight_scale None draws
-    the AFNO weights as the init does, scale * U[0, 1) with scale 1/bs^2;
-    a number draws them from N(0, weight_scale^2) so the mode MLP matters."""
-    H, W, C, nb, groups = TI["H"], TI["W"], TI["C"], TI["nb"], TI["groups"]
+def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int,
+              geo: dict = TI):
+    """Seeded kernel arguments at the block geometry `geo` (TI or DPOT_H).
+    weight_scale None draws the AFNO weights as the init does, scale *
+    U[0, 1) with scale 1/bs^2; a number draws them from N(0,
+    weight_scale^2) so the mode MLP matters."""
+    H, W, C, nb, groups = geo["H"], geo["W"], geo["C"], geo["nb"], geo["groups"]
     bs = C // nb
-    kh, kw = kept_modes(H, W, TI["modes"])
+    kh, kw = kept_modes(H, W, geo["modes"])
     rng = np.random.default_rng(seed)
 
     def t(a, dt=torch.float32):
@@ -304,18 +343,19 @@ def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int)
     return args, kh * kw, groups
 
 
-def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str) -> tuple[float, str]:
-    """Least time for one call on kernel `path`: operations over the peak
-    for the operand type, or bytes (each input read once, the output
-    written once) over HBM bandwidth, whichever is larger. The bf16 Hopper
-    kernel reads the cached bf16 copies of w1 and w2, the other kernels the
-    f32 weights. The f32 Hopper kernel does each product three times (3xTF32)
-    on the TF32 tensor cores (495 TFLOP/s); the general kernel's f32
-    products run on the FMA pipes (67 TFLOP/s)."""
-    HW, C, nb = TI["H"] * TI["W"], TI["C"], TI["nb"]
+def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str,
+                  geo: dict = TI) -> tuple[float, str]:
+    """Least time for one call on kernel `path` at the block geometry `geo`:
+    operations over the peak for the operand type, or bytes (each input
+    read once, the output written once) over HBM bandwidth, whichever is
+    larger. The bf16 Hopper kernels read the cached bf16 copies of w1 and
+    w2, the other kernels the f32 weights. The f32 Hopper kernel does each
+    product three times (3xTF32) on the TF32 tensor cores (495 TFLOP/s);
+    the general kernel's f32 products run on the FMA pipes (67 TFLOP/s)."""
+    HW, C, nb = geo["H"] * geo["W"], geo["C"], geo["nb"]
     bs = C // nb
     s = torch.empty((), dtype=dtype).element_size()
-    ws = 2 if path == "hopper" else 4
+    ws = 2 if path in ("hopper", "hopper_wide") else 4
     flops = B * (2 * 2 * K * HW * C            # analysis A . xn
                  + 2 * 2 * K * (2 * bs) ** 2 * nb  # two MLP layers
                  + 2 * HW * 2 * K * C)          # synthesis Ainv . o
@@ -332,9 +372,9 @@ def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str) -> tuple[float,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_afno(B, dtype, weight_scale, seed, path, act="gelu") -> dict:
+def check_afno(B, dtype, weight_scale, seed, path, act="gelu", geo=TI) -> dict:
     """One fused_gn_afno call on kernel `path` against the plain version."""
-    args, K, groups = afno_case(B, dtype, weight_scale, seed)
+    args, K, groups = afno_case(B, dtype, weight_scale, seed, geo)
     approx = dtype == torch.bfloat16
     before = fused_gn_afno.launches_by_path[path]
     with forced_path(path):
@@ -351,7 +391,8 @@ def check_afno(B, dtype, weight_scale, seed, path, act="gelu") -> dict:
     lim = tol.get("max_abs") or tol["max_abs_ulps"] * BF16_EPS * want.abs().max().item()
     if max_abs > lim or rel_l2 > tol["rel_l2"]:
         raise AssertionError(
-            f"fused_gn_afno B={B} {dtype} {path} {act} scale={weight_scale}: max_abs "
+            f"fused_gn_afno C={args[0].shape[-1]} B={B} {dtype} {path} {act} "
+            f"scale={weight_scale}: max_abs "
             f"{max_abs} (limit {lim}), rel_l2 {rel_l2} (limit {tol['rel_l2']})"
         )
     return dict(args=args, K=K, groups=groups, approx=approx,
@@ -359,12 +400,13 @@ def check_afno(B, dtype, weight_scale, seed, path, act="gelu") -> dict:
 
 
 def check_gate_mirror() -> int:
-    """hopper_supported and hopper_f32_supported against
-    dpot_afno_hopper_supported and dpot_afno_hopper_f32_supported, the same
-    gates in the CUDA sources, on the presets and on shapes either may
-    refuse."""
+    """hopper_supported, hopper_wide_supported and hopper_f32_supported
+    against dpot_afno_hopper_supported, dpot_afno_hopper_wide_supported and
+    dpot_afno_hopper_f32_supported, the same gates in the CUDA sources, on
+    the presets and on shapes any of them may refuse."""
     gates = []
     for lib, gate, dtype in (("afno_hopper", hopper_supported, torch.bfloat16),
+                             ("afno_hopper_wide", hopper_wide_supported, torch.bfloat16),
                              ("afno_hopper_f32", hopper_f32_supported, torch.float32)):
         fn = getattr(build.load_library(lib), f"dpot_{lib}_supported")
         fn.argtypes = [ctypes.c_int] * 6
@@ -381,6 +423,13 @@ def check_gate_mirror() -> int:
     shapes += [(2, 64, 512, 16, 4, 8), (2, 4096, 512, 144, 4, 8), (1, 8192, 512, 144, 4, 8),
                (1, 96, 512, 40, 4, 8), (1, 32, 512, 10, 4, 8), (1, 256, 512, 9, 4, 8),
                (1, 256, 512, 2, 4, 8), (65535, 256, 512, 144, 4, 8), (65536, 256, 512, 144, 4, 8)]
+    # the wide gate's edges: groups of 8 to 256 channels, one block, a
+    # 128-px latent, groups that straddle blocks, ragged K, a latent too big
+    shapes += [(1, 256, 2048, 144, 8, g) for g in (1, 4, 16, 64, 256, 512)]
+    shapes += [(2, 128, 2048, 40, 8, 8), (2, 256, 256, 144, 1, 1), (2, 256, 256, 144, 1, 32),
+               (2, 256, 512, 144, 2, 1), (2, 256, 2048, 160, 8, 8), (2, 256, 2048, 164, 8, 8),
+               (2, 256, 2048, 142, 8, 8), (2, 512, 2048, 144, 8, 8), (2, 64, 2048, 16, 8, 8),
+               (65535, 256, 2048, 144, 8, 8), (65536, 256, 2048, 144, 8, 8)]
     for fn, gate, dtype in gates:
         for sh in shapes:
             if bool(fn(*sh)) != gate(*sh, dtype):
@@ -398,30 +447,37 @@ def time_afno(r: dict, path: str) -> dict:
                     device_ms=device_ms(lambda: fused_gn_afno(*a, K, g, ap)))
 
 
+# the kernel phase's cases: (key prefix, block geometry, dtype, the
+# five-launch kernel and the kernel that serves the shapes)
+KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
+                ("", TI, torch.float32, ("general", "hopper_f32")),
+                ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")))
+
+
 def phase_kernels() -> dict:
     """fused_gn_afno against its plain version on each kernel that serves a
-    compute type at the Ti shapes, and timed; returns per-config numbers."""
+    compute type at the Ti shapes, and in bf16 at the DPOT-H shapes, and
+    timed; returns per-config numbers."""
     log("kernel", name="fused_gn_afno", gate_mirror_shapes=check_gate_mirror())
     results = {}
-    for dtype, paths in ((torch.bfloat16, ("general", "hopper")),
-                         (torch.float32, ("general", "hopper_f32"))):
+    for prefix, geo, dtype, paths in KERNEL_CASES:
         dname = str(dtype).replace("torch.", "")
         for B in (1, 8, TRAIN["batch"]):
             checks = {}
             for path in paths:
-                check_afno(B, dtype, 0.05, 100 + B, path)          # MLP-dominated weights
-                check_afno(B, dtype, 0.05, 300 + B, path, "silu")  # another activation
-                checks[path] = check_afno(B, dtype, None, B, path)  # the init's scale
+                check_afno(B, dtype, 0.05, 100 + B, path, geo=geo)          # MLP-dominated
+                check_afno(B, dtype, 0.05, 300 + B, path, "silu", geo=geo)  # another act
+                checks[path] = check_afno(B, dtype, None, B, path, geo=geo)  # the init's scale
             r = checks[paths[0]]  # the same inputs (seed B) on every path
             a, K, g, ap = r["args"], r["K"], r["groups"], r["approx"]
             # old, new, new, old: the five-launch kernel around a Hopper one
             runs = [(p, time_afno(r, p)) for p in paths + paths[::-1]]
             plain_ms = cuda_ms(lambda: fused_gn_afno_ref(*a, K, g, ap))
             for path in paths:
-                bound, by = afno_bound_ms(B, dtype, K, path)
+                bound, by = afno_bound_ms(B, dtype, K, path, geo)
                 mine = [t for p, t in runs if p == path]
                 dev = [t["device_ms"] for t in mine if t["device_ms"]]
-                key = f"{dname}/{path}/B{B}"
+                key = f"{prefix}{dname}/{path}/B{B}"
                 results[key] = dict(
                     max_abs_err=checks[path]["max_abs_err"], rel_l2=checks[path]["rel_l2"],
                     max_abs_limit=checks[path]["max_abs_limit"],
@@ -432,7 +488,7 @@ def phase_kernels() -> dict:
                     plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 )
                 if path == "hopper_f32":  # its work against the FMA peak too
-                    results[key]["bound_fma_ms"] = afno_bound_ms(B, dtype, K, "general")[0]
+                    results[key]["bound_fma_ms"] = afno_bound_ms(B, dtype, K, "general", geo)[0]
                 log("kernel", name="fused_gn_afno", config=key, **results[key])
     return results
 
@@ -593,18 +649,39 @@ def card_vs_cpu_forward(model, x: np.ndarray) -> float:
 
 def reset_launch_counts() -> None:
     fused_gn_afno.launches = bias_act.launches = 0
-    fused_gn_afno.launches_by_path.update(hopper=0, hopper_f32=0, general=0)
+    fused_gn_afno.launches_by_path.update(hopper=0, hopper_wide=0, hopper_f32=0, general=0)
 
 
-def check_paths(dtype: str, launches: int) -> dict:
-    """Every launch of a bf16 Ti run went through the Hopper kernel, every
-    f32 one through the f32 Hopper kernel."""
-    want = "hopper" if dtype == "bfloat16" else "hopper_f32"
+def check_paths(dtype: str, launches: int, want: str | None = None) -> dict:
+    """Every launch of a run went through one kernel: by default, for Ti,
+    the Hopper kernel in bf16 and the f32 Hopper kernel in f32."""
+    want = want or ("hopper" if dtype == "bfloat16" else "hopper_f32")
     by_path = dict(fused_gn_afno.launches_by_path)
     if by_path[want] != launches or sum(by_path.values()) != launches:
         raise AssertionError(f"{dtype}: launches by path {by_path}, expected all "
                              f"{launches} on {want}")
     return by_path
+
+
+def send_requests(port: int, batches, response_dtype: str, seed: int = 7) -> list[dict]:
+    """Rollout requests of each batch size at steps 1 and 4, each sent as an
+    f32 and as a bf16 .npy body; every answer checked for shape, dtype and
+    finite values. Returns the requests with their answers."""
+    rng = np.random.default_rng(seed)
+    sent = []
+    for B in batches:
+        for steps in (1, 4):
+            x = rng.standard_normal((B, 128, 128, 10, 4)).astype(np.float32)
+            for body in (npy(x), bf16_npy(x)):
+                pred, ms = post_rollout(port, body, steps)
+                if pred.shape != (B, 128, 128, steps, 4):
+                    raise AssertionError(f"served shape {pred.shape}")
+                if pred.dtype != np.dtype(response_dtype):
+                    raise AssertionError(f"served dtype {pred.dtype}")
+                if not np.isfinite(pred).all():
+                    raise AssertionError("served rollout has non-finite values")
+                sent.append(dict(x=x, steps=steps, pred=pred, ms=ms))
+    return sent
 
 
 def phase_serve(dtype: str, response_dtype: str) -> dict:
@@ -619,25 +696,12 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
     )
     try:
         port = httpd.server_address[1]
-        applications = len(rs._warmup_steps)  # one max-bucket batch per step count
-        rng = np.random.default_rng(7)
-        lat = []
-        kept = None
-        for B in (1, 2, 4):
-            for steps in (1, 4):
-                x = rng.standard_normal((B, 128, 128, 10, 4)).astype(np.float32)
-                for body in (npy(x), bf16_npy(x)):
-                    pred, ms = post_rollout(port, body, steps)
-                    applications += steps
-                    lat.append(ms)
-                    if pred.shape != (B, 128, 128, steps, 4):
-                        raise AssertionError(f"served shape {pred.shape}")
-                    if pred.dtype != np.dtype(response_dtype):
-                        raise AssertionError(f"served dtype {pred.dtype}")
-                    if not np.isfinite(pred).all():
-                        raise AssertionError("served rollout has non-finite values")
-                    if B == 1 and steps == 4 and kept is None:
-                        kept = (x, pred)
+        sent = send_requests(port, (1, 2, 4), response_dtype)
+        # one max-bucket batch per warm-up step count, then the requests
+        applications = len(rs._warmup_steps) + sum(r["steps"] for r in sent)
+        lat = [r["ms"] for r in sent]
+        kept = next((r["x"], r["pred"]) for r in sent
+                    if r["x"].shape[0] == 1 and r["steps"] == 4)
         torch.cuda.synchronize()
         launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
         want_launches = TI["depth"] * applications
@@ -679,19 +743,78 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
         httpd.server_close()
 
 
-def phase_step(dtype: str, runs: int = 10) -> list[dict]:
-    """Where one rollout step's time goes: one Ti model application at
-    B = 1 and B = 8 on the card. Wall time on the host clock (synchronised),
-    device busy time and the fused kernel's part of it from torch.profiler;
-    the device is idle for the rest of the wall time."""
-    from torch.autograd import DeviceType
+@contextlib.contextmanager
+def plain_mixer():
+    """Every fused_gn_afno call of the model runs its plain version, on the
+    card: the reference rollout of the DPOT-H serve phase."""
+    from dpot_tpu_torch.models import dpot
 
+    real = dpot.fused_gn_afno
+    dpot.fused_gn_afno = fused_gn_afno_ref
+    try:
+        yield
+    finally:
+        dpot.fused_gn_afno = real
+
+
+def phase_serve_h() -> tuple[dict, torch.nn.Module]:
+    """Serve DPOT-H in bf16 through the CLI: every launch on the kernel for
+    AFNO blocks of 256 channels, depth x model applications of them, and
+    every answer against the same rollout on the card in which
+    fused_gn_afno runs its plain version. Returns the row and the served
+    model, which the H step and train phases reuse (1.03 B parameters,
+    drawn once)."""
+    from dpot_tpu_torch.cli.serve import main as serve_main
+
+    reset_launch_counts()
+    httpd, rs = serve_main(
+        H_FLAGS + ["--dtype", "bfloat16", "--response_dtype", "float32", "--device", "cuda"],
+        wait=False,
+    )
+    try:
+        sent = send_requests(httpd.server_address[1], (1, 2), "float32", seed=8)
+        torch.cuda.synchronize()
+        launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
+        applications = len(rs._warmup_steps) + sum(r["steps"] for r in sent)
+        if launches != DPOT_H["depth"] * applications:
+            raise AssertionError(
+                f"DPOT-H: fused_gn_afno launched {launches} times, expected depth x "
+                f"applications = {DPOT_H['depth'] * applications}")
+        by_path = check_paths("bfloat16", launches, "hopper_wide")
+        wire = torch.bfloat16 if rs.wire_dtype == "bfloat16" else torch.float32
+    finally:
+        rs.stop(drain=True)
+        httpd.shutdown()
+        httpd.server_close()
+    with plain_mixer():
+        rels = [rel_l2(torch.from_numpy(r["pred"]),
+                       direct_rollout(rs.model, r["x"], r["steps"], wire).cpu())
+                for r in sent]
+    if not max(rels) <= H_SERVE_TOL:
+        raise AssertionError(f"DPOT-H answers differ from the plain mixer's rollout: rel_l2 "
+                             f"{rels} (limit {H_SERVE_TOL})")
+    out = dict(dtype="bfloat16", requests=len(sent), applications=applications,
+               launches=launches, launches_by_path=by_path, bias_act_launches=bias_act_launches,
+               client_p50_ms=statistics.median(r["ms"] for r in sent),
+               client_ms=[r["ms"] for r in sent], plain_mixer_rel_l2=rels,
+               plain_mixer_limit=H_SERVE_TOL, params_m=rs.n_params / 1e6)
+    log("serve_h", **out)
+    return out, rs.model
+
+
+def phase_step(dtype: str, runs: int = 10, model=None, preset: str = "Ti") -> list[dict]:
+    """Where one rollout step's time goes: one model application (Ti, or the
+    given model) at B = 1 and B = 8 on the card. Wall time on the host clock
+    (synchronised), device busy time and the fused kernel's part of it from
+    torch.profiler; the device is idle for the rest of the wall time."""
     from dpot_tpu_torch.models import build_model
 
-    model = build_model(
-        "DPOT", preset="Ti", img_size=128, patch_size=8, in_channels=4,
-        in_timesteps=10, n_cls=1, dtype=getattr(torch, dtype), device="cuda", seed=0,
-    ).eval()
+    if model is None:
+        model = build_model(
+            "DPOT", preset="Ti", img_size=128, patch_size=8, in_channels=4,
+            in_timesteps=10, n_cls=1, dtype=getattr(torch, dtype), device="cuda", seed=0,
+        )
+    model.eval()
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for B in (1, 8):
@@ -708,8 +831,8 @@ def phase_step(dtype: str, runs: int = 10) -> list[dict]:
                 step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / runs * 1e3
-            events = [e for e in profile_events(step, runs) if e.device_type == DeviceType.CUDA]
-        row = dict(dtype=dtype, batch=B, wall_ms=wall)
+            events = [e for e in profile_events(step, runs) if is_kernel(e)]
+        row = dict(preset=preset, dtype=dtype, batch=B, wall_ms=wall)
         if events:
             times: dict[str, float] = {}
             for e in events:
@@ -735,6 +858,9 @@ def read_metrics(log_dir: str) -> dict[str, list[float]]:
     return out
 
 
+EVAL_FN = "autograd::engine::evaluate_function: "
+
+
 def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     """Where a train step's time goes, over `runs` steps after a warm-up:
     median wall time per step on the host clock (synchronised each step),
@@ -742,7 +868,12 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     the parts of it in the fused kernel with the bf16 weight copies that
     its Hopper path makes (a profiler range in the wrapper), in its VJP
     (the autograd node FusedGnAfnoBackward, which torch.profiler records)
-    and in the optimizer update (a profiler range around it)."""
+    and in the optimizer update. The update is timed by CUDA events around
+    it in the timed steps (from when the card reaches it to its end: its
+    device time where the card runs behind the host, as at DPOT-H, plus the
+    host's gaps where it does not, as at Ti) and by a profiler range around
+    it in the profiled window, whose device time the profiler attributed
+    wrongly at DPOT-H (more than the whole step)."""
     from torch.autograd import DeviceType
 
     def step():
@@ -751,6 +882,17 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    apply_gradients = state.apply_gradients
+    updates = []
+
+    def timed_apply():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        apply_gradients()
+        end.record()
+        updates.append((start, end))
+
+    state.apply_gradients = timed_apply
     walls = []
     for _ in range(runs):
         t0 = time.perf_counter()
@@ -758,10 +900,9 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
+    opt = statistics.median(s.elapsed_time(e) for s, e in updates)
     row = dict(wall_ms=wall, wall_ms_each=walls,
                samples_per_s=batch["x"].shape[0] / wall * 1e3)
-
-    apply_gradients = state.apply_gradients
 
     def traced_apply():
         with torch.profiler.record_function("optimizer_update"):
@@ -773,7 +914,7 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     if not events:
         row.update(device_busy_ms="not measured")
         return row
-    cuda_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    cuda_events = [e for e in events if is_kernel(e)]
     busy = union_us(cuda_events) / runs / 1e3
     fused = union_us([e for e in cuda_events if sub_kernel(e.name)]) / runs / 1e3
 
@@ -782,16 +923,28 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
                    if e.device_type == DeviceType.CPU and e.name.startswith(prefix)
                    ) / runs / 1e3
 
-    vjp = range_ms("autograd::engine::evaluate_function: FusedGnAfnoBackward")
-    opt = range_ms("optimizer_update")
+    vjp = range_ms(EVAL_FN + "FusedGnAfnoBackward")
+    opt_profiled = range_ms("optimizer_update")
     # the Hopper path's bf16 weight copies, made once per step after the
     # optimizer changes the weights: part of the forward's cost
     casts = range_ms(afno_fused.BF16_BLOCKS_RANGE)
+    # the dense layers (the pointwise MLP, which dominates, the embeddings
+    # and heads): forward products under aten::linear, and the backward
+    # nodes with the most device time (their products and the rest)
+    linear = range_ms("aten::linear")
+    nodes: dict[str, float] = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(EVAL_FN):
+            name = e.name[len(EVAL_FN):]
+            nodes[name] = nodes.get(name, 0.0) + e.device_time_total / runs / 1e3
+    top = dict(sorted(nodes.items(), key=lambda kv: -kv[1])[:6])
     row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
                fused_gn_afno_ms=fused + casts, fused_gn_afno_share=(fused + casts) / busy,
                fused_gn_afno_kernels_ms=fused, weight_cast_ms=casts,
                vjp_ms=vjp, vjp_share=vjp / busy, optimizer_ms=opt,
-               optimizer_share=opt / busy)
+               optimizer_share=opt / busy, optimizer_profiled_ms=opt_profiled,
+               linear_forward_ms=linear,
+               linear_forward_share=linear / busy, backward_nodes_ms=top)
     return row
 
 
@@ -864,6 +1017,47 @@ def phase_train(dtype: str) -> dict:
                test_l2_steps=out["test_l2_steps"], resumed_losses=resumed,
                resume_rel_diff=diff, **prof)
     log("train", **row)
+    return row
+
+
+def phase_train_h(model) -> dict:
+    """A few bf16 train steps of DPOT-H at full width and depth on the card
+    (the served model, its weights as drawn), through make_train_step on a
+    synthetic batch: adam, noise 5e-4. Every loss finite and every
+    fused_gn_afno launch on the kernel for AFNO blocks of 256 channels,
+    depth x steps of them; then where a step's time goes, as for Ti. No
+    checkpoint: the Ti train phase checks the CLI's, and a full DPOT-H state
+    is 16.5 GB."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    B = H_TRAIN["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"x": torch.randn((B, 128, 128, 10, 4), generator=gen, device="cuda")
+             .to(torch.bfloat16),
+             "y": torch.randn((B, 128, 128, 1, 4), generator=gen, device="cuda"),
+             "cls": torch.zeros(B, dtype=torch.int32, device="cuda")}
+    model.train()
+    state = TrainState.create(model, build_optimizer("adam", model.parameters(), H_TRAIN["lr"]),
+                              seed=0)
+    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [step_fn(state, batch)[1]["loss_step"].item() for _ in range(H_TRAIN["steps"])]
+    torch.cuda.synchronize()
+    launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
+    if launches != DPOT_H["depth"] * H_TRAIN["steps"]:
+        raise AssertionError(f"DPOT-H train: fused_gn_afno launched {launches} times, expected "
+                             f"depth x steps = {DPOT_H['depth'] * H_TRAIN['steps']}")
+    by_path = check_paths("bfloat16", launches, "hopper_wide")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"DPOT-H train losses not finite: {losses}")
+    row = dict(dtype="bfloat16", batch=B, steps=H_TRAIN["steps"], losses=losses,
+               launches=launches, launches_by_path=by_path, bias_act_launches=bias_act_launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **train_step_profile(state, batch, step_fn, runs=5))
+    log("train_h", **row)
     return row
 
 
@@ -943,15 +1137,32 @@ def main() -> int:
     train = {dtype: phase_train(dtype) for dtype in ("float32", "bfloat16")}
     shutil.rmtree(RUN_DIR)
     phase_train_card_vs_cpu()
+    serve_h, model_h = phase_serve_h()
+    phase_step("bfloat16", model=model_h, preset="H")
+    train_h = phase_train_h(model_h)
+    del model_h
+
+    def by_batch(prefix, dtype, path):
+        return {f"B{B}": {key: x[key] for key in ("ms", "device_ms_each", "host_us", "plain_ms",
+                                                  "bound_ms", "bound_fma_ms", "max_abs_err")
+                          if key in x}
+                for B in (1, 8, TRAIN["batch"]) for x in [k[f"{prefix}{dtype}/{path}/B{B}"]]}
 
     kernels = []
-    rows = (("fused_gn_afno[bf16,hopper]", "bfloat16", "hopper", "afno_hopper.cu"),
-            ("fused_gn_afno[bf16,general]", "bfloat16", "general", "afno_fused.cu"),
-            ("fused_gn_afno[f32,hopper]", "float32", "hopper_f32", "afno_hopper_f32.cu"),
-            ("fused_gn_afno[f32,general]", "float32", "general", "afno_fused.cu"))
-    for name, dtype, path, src in rows:
-        r, r1, r20 = (k[f"{dtype}/{path}/B{B}"] for B in (8, 1, TRAIN["batch"]))
-        served, trained = (serve_bf16 if dtype == "bfloat16" else serve_f32), train[dtype]
+    # (name, kernel-phase key prefix, dtype, path, source, the serve and train
+    # rows whose launches count)
+    rows = (("fused_gn_afno[bf16,hopper]", "", "bfloat16", "hopper", "afno_hopper.cu",
+             serve_bf16, train["bfloat16"]),
+            ("fused_gn_afno[bf16,hopper_wide]", "H/", "bfloat16", "hopper_wide",
+             "afno_hopper_wide.cu", serve_h, train_h),
+            ("fused_gn_afno[bf16,general]", "", "bfloat16", "general", "afno_fused.cu",
+             serve_bf16, train["bfloat16"]),
+            ("fused_gn_afno[f32,hopper]", "", "float32", "hopper_f32", "afno_hopper_f32.cu",
+             serve_f32, train["float32"]),
+            ("fused_gn_afno[f32,general]", "", "float32", "general", "afno_fused.cu",
+             serve_f32, train["float32"]))
+    for name, prefix, dtype, path, src, served, trained in rows:
+        r, r1, r20 = (k[f"{prefix}{dtype}/{path}/B{B}"] for B in (8, 1, TRAIN["batch"]))
         launches_serve = served["launches_by_path"][path]
         launches_train = trained["launches_by_path"][path]
         kernels.append(dict(
@@ -961,21 +1172,22 @@ def main() -> int:
             max_abs_err=max(x["max_abs_err"] for x in (r1, r, r20)),
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            phase=f"serve[{dtype}] + train[{dtype}]", shapes=f"{dtype}/B8",
+            phase=f"serve[{dtype}] + train[{dtype}]" + (" at DPOT-H" if prefix else ""),
+            shapes=f"{prefix}{dtype}/B8",
             launches_serve=launches_serve, launches_train=launches_train,
             check="pass", max_abs_limit=r["max_abs_limit"], rel_l2=r["rel_l2"],
             device_ms=r["device_ms"] and r["device_ms"]["total"],
             launches_per_call=r["device_ms"] and r["device_ms"]["launches_per_call"],
             host_us=r["host_us"],
-            by_batch={f"B{B}": {key: x[key] for key in ("ms", "device_ms_each", "host_us",
-                                                         "plain_ms", "bound_ms", "bound_fma_ms",
-                                                         "max_abs_err") if key in x}
-                      for B, x in ((1, r1), (8, r), (TRAIN["batch"], r20))},
+            by_batch=by_batch(prefix, dtype, path),
             vjp_ms=vjp[dtype]["vjp_ms"], vjp_rel_l2=vjp[dtype]["rel_l2"],
         ))
+        if name == "fused_gn_afno[bf16,general]":  # its times at the DPOT-H shapes too
+            kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
     # bias_act lies on no main path: its count over the serve and train runs
     bias_act_launches = sum(r["bias_act_launches"]
                             for r in (serve_bf16, serve_f32, *train.values()))
+    bias_act_launches += serve_h["bias_act_launches"] + train_h["bias_act_launches"]
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

@@ -3,11 +3,15 @@ PyTorch version and their gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
 (dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches one of
-three hand-written kernels, chosen from the shapes alone before any launch,
+four hand-written kernels, chosen from the shapes alone before any launch,
 or raises:
   - "hopper" (`dpot_tpu_torch/csrc/afno_hopper.cu`): bf16 at the shapes
     `hopper_supported` admits (AFNO blocks of 128 channels, DPOT-Ti, S and
     M at a 16x16 latent); wgmma fed by TMA, two launches;
+  - "hopper_wide" (`dpot_tpu_torch/csrc/afno_hopper_wide.cu`): bf16 at the
+    shapes `hopper_wide_supported` admits (AFNO blocks of 256 channels,
+    DPOT-H at a 16x16 latent); wgmma fed by TMA, the block weights streamed
+    through a ring in shared memory, two launches;
   - "hopper_f32" (`dpot_tpu_torch/csrc/afno_hopper_f32.cu`): f32 at the
     shapes `hopper_f32_supported` admits (AFNO blocks of 128 channels, a
     latent of a multiple of 64 pixels); every product as 3xTF32 on the
@@ -190,31 +194,49 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, act):
 
 
 # ---------------------------------------------------------------- the Hopper path
-HOPPER_BS = 128     # the AFNO block size both Hopper kernels are written for
-HOPPER_MAX_NK = 5   # 64-row blocks of o (2K rows) a synthesis CTA holds: MAX_NK
+HOPPER_BS = 128       # the AFNO block size of afno_hopper.cu and afno_hopper_f32.cu
+HOPPER_WIDE_BS = 256  # the AFNO block size of afno_hopper_wide.cu
+HOPPER_MAX_NK = 5     # 64-row blocks of o (2K rows) a synthesis CTA holds: MAX_NK
 
 
-def _hopper_blocks(B: int, C: int, nb: int, groups: int) -> bool:
-    """The layout both Hopper kernels are written for: AFNO blocks of 128
+def _hopper_blocks(B: int, C: int, nb: int, groups: int, bs: int = HOPPER_BS) -> bool:
+    """The layout the Hopper kernels are written for: AFNO blocks of bs
     channels, a batch that fits a grid's z dimension, and GroupNorm groups
-    of a power of two channels between 8 and 128, so that a group lies
+    of a power of two channels between 8 and bs, so that a group lies
     inside one AFNO block."""
-    if nb < 1 or C != nb * HOPPER_BS or not 1 <= B <= 65535 or groups < 1 or C % groups:
+    if nb < 1 or C != nb * bs or not 1 <= B <= 65535 or groups < 1 or C % groups:
         return False
     cpg = C // groups
-    return 8 <= cpg <= HOPPER_BS and not cpg & (cpg - 1)
+    return 8 <= cpg <= bs and not cpg & (cpg - 1)
+
+
+def _bf16_hopper_shapes(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                        dtype: torch.dtype, bs: int) -> bool:
+    """The shapes both bf16 Hopper kernels take, for AFNO blocks of bs
+    channels: bf16; the blocks and groups of `_hopper_blocks`; a latent of
+    128 or 256 pixels (the x slab and the A rows fit in shared memory); K a
+    multiple of 4 (Ainv's rows are whole 16-byte units) with 2K <= 320, so
+    that all of o for one CTA of their shared synthesis launch fits in
+    shared memory."""
+    return (dtype == torch.bfloat16 and HW in (128, 256) and K >= 1 and not K % 4
+            and -(-2 * K // 64) <= HOPPER_MAX_NK and _hopper_blocks(B, C, nb, groups, bs))
 
 
 def hopper_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                      dtype: torch.dtype) -> bool:
-    """Whether afno_hopper.cu takes these shapes: bf16; the blocks and
-    groups of `_hopper_blocks`; a latent of 128 or 256 pixels (the x slab
-    and the A rows fit in shared memory); K a multiple of 4 (Ainv's rows are
-    whole 16-byte units) with 2K <= 320, so that all of o for one synthesis
-    CTA fits in shared memory. A pure function of the shapes, mirrored by
-    dpot_afno_hopper_supported in the source."""
-    return (dtype == torch.bfloat16 and HW in (128, 256) and K >= 1 and not K % 4
-            and -(-2 * K // 64) <= HOPPER_MAX_NK and _hopper_blocks(B, C, nb, groups))
+    """Whether afno_hopper.cu takes these shapes: `_bf16_hopper_shapes` with
+    AFNO blocks of 128 channels (groups of 8 to 128). A pure function of the
+    shapes, mirrored by dpot_afno_hopper_supported in the source."""
+    return _bf16_hopper_shapes(B, HW, C, K, nb, groups, dtype, HOPPER_BS)
+
+
+def hopper_wide_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                          dtype: torch.dtype) -> bool:
+    """Whether afno_hopper_wide.cu takes these shapes: `_bf16_hopper_shapes`
+    with AFNO blocks of 256 channels (groups of 8 to 256). A pure function
+    of the shapes, mirrored by dpot_afno_hopper_wide_supported in the
+    source."""
+    return _bf16_hopper_shapes(B, HW, C, K, nb, groups, dtype, HOPPER_WIDE_BS)
 
 
 HOPPER_F32_TILE_P = 64      # pixels per synthesis CTA of afno_hopper_f32.cu: TP
@@ -236,9 +258,11 @@ def hopper_f32_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
 def kernel_path(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                 dtype: torch.dtype) -> str:
     """The kernel a CUDA call with these shapes launches: "hopper",
-    "hopper_f32" or "general"."""
+    "hopper_wide", "hopper_f32" or "general"."""
     if hopper_supported(B, HW, C, K, nb, groups, dtype):
         return "hopper"
+    if hopper_wide_supported(B, HW, C, K, nb, groups, dtype):
+        return "hopper_wide"
     if hopper_f32_supported(B, HW, C, K, nb, groups, dtype):
         return "hopper_f32"
     return "general"
@@ -270,7 +294,7 @@ BF16_BLOCKS_RANGE = "fused_gn_afno.bf16_blocks"
 
 def _bf16_blocks(w: torch.Tensor) -> torch.Tensor:
     """w (2, nb, bs, bs) f32 as bf16 with each block transposed to (out, in),
-    the layout afno_hopper.cu loads with TMA. Cached on w until w changes
+    the layout afno_hopper.cu and afno_hopper_wide.cu load with TMA. Cached on w until w changes
     (its version counter or storage), so serving converts once and training
     once per optimizer step."""
     if w.is_inference():  # no version counter to watch: convert every call
@@ -293,7 +317,7 @@ def _kernel_fn(path: str):
     from dpot_tpu_torch.ops.cuda.build import load_library
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    if path in ("hopper", "hopper_f32"):
+    if path in ("hopper", "hopper_wide", "hopper_f32"):
         fn = getattr(load_library("afno_" + path), "dpot_afno_" + path)
         fn.argtypes = [i] + [p] * 12 + [i] * 6 + [p]
     else:
@@ -320,7 +344,7 @@ def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, 
     o = torch.empty((B, 2 * K, C), device=dev, dtype=x.dtype)
     out = torch.empty_like(x)
     path = kernel_path(B, HW, C, K, nb, groups, x.dtype)
-    if path == "hopper":
+    if path in ("hopper", "hopper_wide"):
         ptrs = (x, gscale, gbias, A, Ainv, _bf16_blocks(w1), b1, _bf16_blocks(w2), b2,
                 stats, o, out)
         flags = (aid,)
@@ -476,4 +500,5 @@ def fused_gn_afno(
 
 
 fused_gn_afno.launches = 0
-fused_gn_afno.launches_by_path = {"hopper": 0, "hopper_f32": 0, "general": 0}
+fused_gn_afno.launches_by_path = {"hopper": 0, "hopper_wide": 0, "hopper_f32": 0,
+                                  "general": 0}

@@ -63,10 +63,12 @@ def test_admitted_edge_shapes(shapes):
 
 @pytest.mark.parametrize("name", ["L", "H"])
 def test_presets_with_other_block_sizes_take_the_general_kernel(name):
-    """L (blocks of 96 channels) and H (256) are refused in bf16."""
+    """L (blocks of 96 channels) and H (256) are refused by the gate of
+    blocks of 128 channels in bf16: L takes the general kernel, H the
+    kernel for blocks of 256 channels (afno_hopper_wide.cu)."""
     shapes = preset_shapes(name)
     assert not hopper_supported(*shapes, BF16)
-    assert kernel_path(*shapes, BF16) == "general"
+    assert kernel_path(*shapes, BF16) == ("hopper_wide" if name == "H" else "general")
 
 
 @pytest.mark.parametrize("shapes", [
@@ -124,7 +126,8 @@ def test_bf16_weight_blocks_are_cached_until_the_weight_changes():
 
 
 def test_launch_counts_by_path_start_at_zero_keys():
-    assert set(afno_fused.fused_gn_afno.launches_by_path) == {"hopper", "hopper_f32", "general"}
+    assert set(afno_fused.fused_gn_afno.launches_by_path) == {
+        "hopper", "hopper_wide", "hopper_f32", "general"}
 
 
 def test_bf16_weight_copies_are_made_inside_a_profiler_range():

@@ -75,6 +75,10 @@ def jax_args(c):
 @pytest.mark.parametrize("shape", [
     dict(B=2, H=8, W=8, C=128, nb=2, modes=8, groups=8),
     dict(B=3, H=4, W=8, C=64, nb=4, modes=3, groups=4),
+    # AFNO blocks of 256 channels (the wide kernel's): one block and group,
+    # and DPOT-H's layout of one group per block
+    dict(B=2, H=8, W=8, C=256, nb=1, modes=4, groups=1),
+    dict(B=2, H=8, W=8, C=512, nb=2, modes=4, groups=2),
 ])
 def test_f32_matches_tpu_kernel_interpret_and_xla_reference(shape, monkeypatch):
     """approximate=True (tanh-GELU) in f32 == the TPU kernel in interpret

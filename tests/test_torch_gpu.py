@@ -204,6 +204,60 @@ def test_non_gelu_activations_on_both_paths(cuda, path, dtype, shape, act):
     assert (got - want).abs().max().item() <= lim
 
 
+# DPOT-H's block shapes: 8 AFNO blocks of 256 channels, GroupNorm(8)
+H_BLOCK = dict(C=2048, nb=8)
+
+
+def check_wide(args, act="gelu"):
+    """One call on the kernel for blocks of 256 channels (afno_hopper_wide.cu)
+    against the plain version: 4 bf16 ulps of the output's magnitude and
+    4e-3 relative L2, as chip_smoke.py holds it."""
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=True, act=act).float()
+    want = fused_gn_afno_ref(*args, approximate=True, act=act).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper_wide"] == before["hopper_wide"] + 1
+    assert fused_gn_afno.launches_by_path["general"] == before["general"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+    assert rel_l2(got, want) <= 4e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 20])
+def test_hopper_wide_kernel_matches_plain_version(cuda, B):
+    """bf16 at the DPOT-H block shapes takes the two-launch kernel for AFNO
+    blocks of 256 channels."""
+    check_wide(ti_block_args(B, torch.bfloat16, cuda, seed=80 + B, **H_BLOCK))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(H_BLOCK, H=16, W=8, modes=8),       # 128 px, K 40: one short mode chunk
+    dict(H_BLOCK, H=16, W=8, modes=16),      # 128 px, K 80: a partial second chunk
+    dict(H_BLOCK, H=32, W=8, modes=32),      # K 160: 2K = 320, the most o rows
+    dict(H_BLOCK, modes=2),                  # K 4: 2K = 8
+    dict(H_BLOCK, groups=16),                # groups of 128 channels, two per block
+    dict(H_BLOCK, groups=256),               # groups of 8
+    dict(C=256, nb=1, groups=1),             # one AFNO block, one group
+    dict(C=512, nb=2, groups=2),             # two blocks, a group each
+])
+def test_hopper_wide_kernel_at_admitted_edge_shapes(cuda, shape):
+    """Each kind of shape that hopper_wide_supported admits besides H
+    (tests/test_torch_afno_wide.py::ADMITTED_WIDE_EDGES lists the same
+    kinds) runs on the wide kernel and matches the plain version."""
+    check_wide(ti_block_args(2, torch.bfloat16, cuda, seed=42, **shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu", "tanh", "relu", "sigmoid", "leaky_relu",
+                                 "softplus", "elu", "gelu"])
+def test_non_gelu_activations_on_the_wide_kernel(cuda, act):
+    """The wide kernel's mode MLP applies the act it is given, at the DPOT-H
+    block shapes; gelu in its tanh form (approximate, as bf16 runs it)."""
+    check_wide(ti_block_args(3, torch.bfloat16, cuda, seed=32, **H_BLOCK), act)
+
+
 @pytest.mark.gpu
 def test_fused_gn_afno_raises_on_mixed_devices(cuda):
     args = list(ti_block_args(1, torch.float32, cuda))

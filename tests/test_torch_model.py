@@ -83,6 +83,26 @@ def test_forward_bf16_matches_jax_bf16(normalize):
     assert rel < 2e-2
 
 
+# AFNO blocks of 256 channels, DPOT-H's (the card runs its bf16 mixer on
+# afno_hopper_wide.cu): embed 512 in 2 blocks, depth 2, 64^2 grid, patch 8
+WIDE_BLOCKS = dict(SMALL, img_size=64, patch_size=8, embed_dim=512, depth=2, n_blocks=2,
+                   modes=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_with_256_channel_blocks_matches_jax(dtype):
+    """f32 at the interop bar (2e-4 absolute); bf16 at the bf16 bar above
+    (relative L2 below 2e-2: the two packages round at different points)."""
+    x = rand_x((2, 64, 64, 6, 3), seed=7)
+    (ty, tc), (jy, jc) = both(x, dtype=dtype, cfg=WIDE_BLOCKS)
+    assert ty.shape == jy.shape == (2, 64, 64, 2, 3) and np.isfinite(ty).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(ty, jy, atol=2e-4, rtol=0)
+        np.testing.assert_allclose(tc, jc, atol=2e-4, rtol=0)
+    else:
+        assert np.linalg.norm(ty - jy) / np.linalg.norm(jy) < 2e-2
+
+
 def test_forward_ti_entry_config_matches_jax():
     """The flagship geometry of __graft_entry__.entry() at full width and
     depth: preset Ti on a 128^2 grid, patch 8, T_in 10, 4 channels."""
