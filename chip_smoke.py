@@ -58,7 +58,30 @@ Phases, each printing its results as JSON lines:
      application profiled at B = 1 and 8 as in phase 4; three adam train
      steps (noise 5e-4) at B = 64 through make_train_step: finite losses,
      launches = depth x steps on the same kernel, and where a step's time
-     goes as in phase 5.
+     goes as in phase 5;
+  8. eval_L: DPOT-L (preset L: embed 1536, depth 24, 16 AFNO blocks of 96
+     channels, GroupNorm groups of 192; seeded weights written as a
+     reference-layout .pth) evaluated through `python -m
+     dpot_tpu_torch.cli.evaluate --metrics` in-process on a synthetic 128^2
+     test set (24 trajectories, t_test 10, batch 8), bf16 and then f32:
+     every number finite, launches = depth x applications, all on the
+     five-launch kernel, loss_full and loss_step against the same
+     evaluation with the mixer's plain version on the card, one
+     application profiled at B = 1 and 8 as in phase 4, peak memory;
+  9. finetune_S: `python -m dpot_tpu_torch.cli.finetune` from a seeded
+     4-channel DPOT-S .pth onto a synthetic 3-channel 128^2 set (40 train,
+     8 test) with configs/dpot_finetune.yaml's optimization (load_components
+     all) for 2 epochs in bf16: the units copied, finite losses, launches
+     all on the Hopper kernel; then cli.evaluate --config_from_ckpt on the
+     run's checkpoint directory, whose loss_full equals the loop's last
+     test metric;
+  10. varyres_Ti: cli.evaluate --varyres at DPOT-Ti over the 11 default
+     resolutions, every loss finite, two of them (odd and even) against the
+     same sweep with the mixer's plain version;
+  11. convert_resume_serve: cli.convert turns the S .pth into a checkpoint
+     directory, cli.train --resume_path takes one epoch from it from step
+     0, cli.serve --resume_path serves it over HTTP, the answer against a
+     direct loop over model(x).
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -70,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import functools
 import io
 import json
 import math
@@ -108,6 +132,13 @@ PEAK_BYTES = 3.35e12
 TI = dict(H=16, W=16, C=512, nb=4, modes=32, groups=8, depth=4)
 # DPOT-H (preset H) on the same grid: AFNO blocks of 256 channels
 DPOT_H = dict(H=16, W=16, C=2048, nb=8, modes=32, groups=8, depth=27)
+# DPOT-S (preset S) on the same grid: 8 AFNO blocks of 128 channels, each
+# one GroupNorm(8) group
+DPOT_S = dict(H=16, W=16, C=1024, nb=8, modes=32, groups=8, depth=6)
+# DPOT-L (preset L) on the same grid: 16 AFNO blocks of 96 channels, so that
+# GroupNorm(8)'s groups of 192 channels straddle two blocks; no Hopper gate
+# admits it, so it runs the five-launch kernel
+DPOT_L = dict(H=16, W=16, C=1536, nb=16, modes=32, groups=8, depth=24)
 TI_FLAGS = [
     "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "512",
     "--n_layers", "4", "--n_blocks", "4", "--modes", "32", "--mlp_ratio", "1",
@@ -122,6 +153,58 @@ H_FLAGS = [
     "--out_layer_dim", "128", "--T_in", "10", "--n_channels", "4",
     "--host", "127.0.0.1", "--port", "0",
 ]
+TI_ARCH = TI_FLAGS[:TI_FLAGS.index("--host")]
+# DPOT-L (preset L: mlp_ratio 4, out_layer_dim 128) and DPOT-S (preset S) at
+# full width and depth on the same grid
+L_ARCH = [
+    "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "1536",
+    "--n_layers", "24", "--n_blocks", "16", "--modes", "32", "--mlp_ratio", "4",
+    "--out_layer_dim", "128", "--T_in", "10",
+]
+S_ARCH = [
+    "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "1024",
+    "--n_layers", "6", "--n_blocks", "8", "--modes", "32", "--mlp_ratio", "1",
+    "--out_layer_dim", "32", "--T_in", "10",
+]
+# the evaluations' synthetic 128^2 test sets: three batches of 8 of one shape
+# for L (one batch per shape would report avg_step_time 0.0); the fine-tune
+# target with the 3 channels of ns2d_cond_pda; the resolution sweep's
+EVAL_L_SPEC = dict(name="synthetic_eval_l", train_size=8, test_size=24, t_total=20,
+                   t_test=10, in_size=(128, 128), n_channels=4)
+FT_SPEC = dict(name="synthetic_ft_s", train_size=40, test_size=8, t_total=20, t_test=10,
+               in_size=(128, 128), n_channels=3)
+VARYRES_SPEC = dict(name="synthetic_varyres", train_size=8, test_size=8, t_total=20,
+                    t_test=10, in_size=(128, 128), n_channels=4)
+EVAL_BATCH = 8
+# the evaluations' plain-mixer comparisons: every AFNO weight of the
+# smoke's copy of the model drawn from N(0, MIXER_SCALE^2), the kernel
+# phase's MLP-dominated case (at the init's scale, U[0, 1) / bs^2, the mixer
+# adds almost nothing to the normed input and a wrong one would pass); the
+# rollout's predictions on the kernel against the plain mixer's, relative
+# L2, at most MIXER_TOL[model/dtype]; the faults of MIXER_CAUGHT, plain
+# mixers computed wrong on purpose, must land above it. Each limit lies
+# between the readings on the card (NVIDIA H100 80GB HBM3, 700 W): L bf16
+# kernel 4.7e-3, faults 3.7e-2 and up; L f32 kernel 8.7e-7, faults 1.9e-3
+# and up; the Ti sweep at 41 px kernel 1.1e-3, faults 3.5e-3 and up
+MIXER_SCALE = 0.05
+MIXER_TOL = {"L/bfloat16": 1.3e-2, "L/float32": 2e-4, "Ti/bfloat16": 2e-3}
+MIXER_FAULTS = ("block_groups", "conj_w2", "drop_mode")
+# bf16 rounding through the model moves the predictions by about as much as
+# the kernel's reading, whatever changes upstream: a fault smaller than that
+# (drop_mode, 1.9e-3 at L in f32) is logged in bf16 but not required; the
+# f32 comparison and the kernel phase's single calls catch it
+MIXER_CAUGHT = {"float32": MIXER_FAULTS, "bfloat16": ("block_groups", "conj_w2")}
+# the sweep's resolutions compared with the plain mixer's: one odd, one even
+VARYRES_CHECKED = (41, 50)
+# the fine-tune's copied units (JAX names), from the shapes: everything but
+# the patch embedding and the last output layer, whose shapes follow the
+# channel count
+FT_COPIED = sorted([f"blocks_{i}" for i in range(DPOT_S["depth"])] + [
+    "pos_embed", "time_agg", "cls_head_0", "cls_head_1", "cls_head_2", "out_deconv",
+    "out_conv1"])
+# the evaluator's loss_full against the train loop's last test metric on the
+# same weights and rollout
+FT_EVAL_TOL = 1e-3
 # a served DPOT-H answer against the same rollout on the card with
 # fused_gn_afno's plain version: a few bf16 roundings per layer that fall
 # the other way, as card against CPU for Ti
@@ -314,7 +397,8 @@ def forced_path(path: str):
 
 def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int,
               geo: dict = TI):
-    """Seeded kernel arguments at the block geometry `geo` (TI or DPOT_H).
+    """Seeded kernel arguments at the block geometry `geo` (TI, DPOT_S,
+    DPOT_H or DPOT_L).
     weight_scale None draws the AFNO weights as the init does, scale *
     U[0, 1) with scale 1/bs^2; a number draws them from N(0,
     weight_scale^2) so the mode MLP matters."""
@@ -451,13 +535,17 @@ def time_afno(r: dict, path: str) -> dict:
 # five-launch kernel and the kernel that serves the shapes)
 KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
                 ("", TI, torch.float32, ("general", "hopper_f32")),
-                ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")))
+                ("S/", DPOT_S, torch.bfloat16, ("general", "hopper")),
+                ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")),
+                ("L/", DPOT_L, torch.bfloat16, ("general",)),
+                ("L/", DPOT_L, torch.float32, ("general",)))
 
 
 def phase_kernels() -> dict:
     """fused_gn_afno against its plain version on each kernel that serves a
-    compute type at the Ti shapes, and in bf16 at the DPOT-H shapes, and
-    timed; returns per-config numbers."""
+    compute type at the Ti shapes, in bf16 at the DPOT-S and DPOT-H shapes
+    and in both types at the DPOT-L shapes (the five-launch kernel alone), and timed;
+    returns per-config numbers."""
     log("kernel", name="fused_gn_afno", gate_mirror_shapes=check_gate_mirror())
     results = {}
     for prefix, geo, dtype, paths in KERNEL_CASES:
@@ -471,6 +559,7 @@ def phase_kernels() -> dict:
             r = checks[paths[0]]  # the same inputs (seed B) on every path
             a, K, g, ap = r["args"], r["K"], r["groups"], r["approx"]
             # old, new, new, old: the five-launch kernel around a Hopper one
+            # (at L the five-launch kernel alone, twice)
             runs = [(p, time_afno(r, p)) for p in paths + paths[::-1]]
             plain_ms = cuda_ms(lambda: fused_gn_afno_ref(*a, K, g, ap))
             for path in paths:
@@ -744,17 +833,83 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
 
 
 @contextlib.contextmanager
-def plain_mixer():
-    """Every fused_gn_afno call of the model runs its plain version, on the
-    card: the reference rollout of the DPOT-H serve phase."""
+def plain_mixer(mixer=fused_gn_afno_ref):
+    """Every fused_gn_afno call of the model runs `mixer`, by default its
+    plain version, on the card: the reference rollout of the DPOT-H serve
+    phase and of the evaluations."""
     from dpot_tpu_torch.models import dpot
 
     real = dpot.fused_gn_afno
-    dpot.fused_gn_afno = fused_gn_afno_ref
+    dpot.fused_gn_afno = mixer
     try:
         yield
     finally:
         dpot.fused_gn_afno = real
+
+
+def faulty_mixer(fault: str):
+    """fused_gn_afno's plain version with one fault a kernel could make:
+    GroupNorm statistics per AFNO block instead of per group
+    ("block_groups"), the second layer's imaginary weights negated
+    ("conj_w2"), or the last kept mode left out of the synthesis
+    ("drop_mode")."""
+
+    def mix(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups=8, approximate=True,
+            act="gelu"):
+        if fault == "block_groups":
+            groups = w1.shape[1]
+        elif fault == "conj_w2":
+            w2 = torch.stack([w2[0], -w2[1]])
+        elif fault == "drop_mode":
+            Ainv = Ainv.clone()
+            Ainv[:, [K - 1, 2 * K - 1]] = 0
+        else:
+            raise ValueError(fault)
+        return fused_gn_afno_ref(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups,
+                                 approximate, act)
+
+    return mix
+
+
+def draw_mixer_weights(model, seed: int) -> None:
+    """Every AFNO weight and bias of `model` from N(0, MIXER_SCALE^2)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.blocks:
+            for w in (blk.filter.w1, blk.filter.b1, blk.filter.w2, blk.filter.b2):
+                w.copy_(torch.randn(w.shape, generator=g) * MIXER_SCALE)
+
+
+def mixer_readings(preds, model: str, dtype: str, what: str) -> dict:
+    """Relative L2 of the predictions `preds()` (B, H, W, T, C) on the
+    kernel and with each faulty plain mixer from the plain mixer's, over
+    the rollout and per step; the kernel's must be at most
+    MIXER_TOL[model/dtype] and each fault of MIXER_CAUGHT[dtype] above it.
+    The plain runs must launch no kernel."""
+    limit = MIXER_TOL[f"{model}/{dtype}"]
+    got = preds()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite predictions on the kernel")
+    before = fused_gn_afno.launches
+    with plain_mixer():
+        want = preds()
+    runs = {"kernel": got}
+    for fault in MIXER_FAULTS:
+        with plain_mixer(faulty_mixer(fault)):
+            runs[fault] = preds()
+    check_no_launch(before, f"{what} with the plain mixers")
+    norm = functools.partial(torch.linalg.vector_norm, dim=(0, 1, 2, 4))
+    readings = {name: dict(rel_l2=rel_l2(p, want), per_step=(
+        norm(p.float() - want.float()) / norm(want.float())).tolist())
+        for name, p in runs.items()}
+    log("mixer_check", what=what, limit=limit, caught=MIXER_CAUGHT[dtype], **readings)
+    wrong = min(readings[f]["rel_l2"] for f in MIXER_CAUGHT[dtype])
+    if not readings["kernel"]["rel_l2"] <= limit < wrong:
+        raise AssertionError(
+            f"{what}: predictions' rel-L2 from the plain mixer's {readings['kernel']['rel_l2']} "
+            f"on the kernel, {wrong} at the least with a fault of {MIXER_CAUGHT[dtype]}: the "
+            f"limit {limit} must lie between")
+    return {name: r["rel_l2"] for name, r in readings.items()}
 
 
 def phase_serve_h() -> tuple[dict, torch.nn.Module]:
@@ -1108,6 +1263,291 @@ def phase_train_card_vs_cpu(B: int = 4) -> dict:
     return row
 
 
+def preset_model(preset: str, dtype: str, seed: int, device: str = "cuda"):
+    """A seeded DPOT of a registry preset on the 128^2 grid (patch 8, T_in
+    10, 4 channels, one dataset class)."""
+    from dpot_tpu_torch.models import build_model
+
+    return build_model("DPOT", preset=preset, img_size=128, patch_size=8, in_channels=4,
+                       in_timesteps=10, n_cls=1, dtype=getattr(torch, dtype),
+                       device=device, seed=seed)
+
+
+def save_reference_pth(model, path: Path) -> str:
+    """The model's weights as a reference-layout .pth ({'model': state dict})."""
+    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+               path)
+    return str(path)
+
+
+def eval_applications(spec: dict, batch: int = EVAL_BATCH) -> int:
+    """Model applications of one evaluation: t_test per batch (T_bundle 1)."""
+    return math.ceil(spec["test_size"] / batch) * spec["t_test"]
+
+
+def finite(values) -> bool:
+    return bool(np.isfinite(np.asarray(list(values), np.float64)).all())
+
+
+def check_no_launch(before: int, what: str) -> None:
+    """The plain-mixer run that a result is compared with launched no kernel."""
+    if fused_gn_afno.launches != before:
+        raise AssertionError(f"{what} launched fused_gn_afno "
+                             f"{fused_gn_afno.launches - before} times")
+
+
+def phase_eval_l(dtype: str) -> dict:
+    """DPOT-L through the evaluate CLI with --metrics: all launches on the
+    five-launch kernel, finite numbers, one application's time, and peak
+    memory. The smoke's own copy of the model (the same seed) writes the
+    .pth and runs the profile; then, its AFNO weights redrawn so that the
+    mixer matters, the evaluation's rollout of the first test batch against
+    the plain mixer's on the card."""
+    from dpot_tpu_torch.cli.evaluate import main as evaluate_main
+    from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.train.step import make_eval_rollout
+
+    name = EVAL_L_SPEC["name"]
+    make_synthetic_spec(**EVAL_L_SPEC)
+    t0 = time.perf_counter()
+    model = preset_model("L", dtype, seed=0)
+    pth = RUN_DIR / "L.pth"
+    if not pth.exists():
+        save_reference_pth(model, pth)
+    build_s = time.perf_counter() - t0
+    argv = L_ARCH + ["--dtype", dtype, "--resume_path", str(pth), "--test_paths", name,
+                     "--batch_size", str(EVAL_BATCH), "--num_workers", "4", "--metrics",
+                     "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_main(argv)
+    torch.cuda.synchronize()
+    launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
+    bias_act_launches = bias_act.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    apps = eval_applications(EVAL_L_SPEC)
+    if launches != DPOT_L["depth"] * apps:
+        raise AssertionError(f"DPOT-L eval: fused_gn_afno launched {launches} times, "
+                             f"expected depth x applications = {DPOT_L['depth'] * apps}")
+    by_path = check_paths(dtype, launches, "general")
+    vals = got[name]
+    if not finite([*vals.values(), got["avg_step_time"]]) or not got["avg_step_time"] > 0:
+        raise AssertionError(f"DPOT-L eval {dtype}: {got}")
+    steps = phase_step(dtype, model=model, preset="L")
+    ds = MixedTemporalDataset([name], res=128, t_in=10, t_ar=-1, n_channels=4, train=False)
+    x, y, msk, _ = next(iter(DataLoader(ds, EVAL_BATCH, shuffle=False, num_workers=0)))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in (("x", x), ("y", y), ("msk", msk))}
+    roll = make_eval_rollout()
+    draw_mixer_weights(model, seed=5)
+    rels = mixer_readings(lambda: roll(model, batch)["pred"], "L", dtype,
+                          f"DPOT-L eval {dtype}")
+    row = dict(dtype=dtype, applications=apps, launches=launches, launches_by_path=by_path,
+               bias_act_launches=bias_act_launches, results=vals,
+               avg_step_time_s=got["avg_step_time"], plain_mixer_rel_l2=rels,
+               plain_mixer_limit=MIXER_TOL[f"L/{dtype}"], run_s=run_s,
+               build_and_write_s=build_s, peak_memory_gb=peak,
+               params_m=sum(q.numel() for q in model.parameters()) / 1e6,
+               step_b8=steps[-1])
+    log("eval_l", **row)
+    return row
+
+
+def phase_finetune_s() -> dict:
+    """DPOT-S fine-tuned through the finetune CLI from a seeded 4-channel
+    .pth onto a 3-channel set, with the optimization of
+    configs/dpot_finetune.yaml (only the data and the epochs cut), then its
+    checkpoint evaluated through the evaluate CLI with --config_from_ckpt."""
+    from dpot_tpu_torch.cli.evaluate import main as evaluate_main
+    from dpot_tpu_torch.cli.finetune import main as finetune_main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+
+    name = FT_SPEC["name"]
+    make_synthetic_spec(**FT_SPEC)
+    src = save_reference_pth(preset_model("S", "float32", seed=1, device="cpu"),
+                             RUN_DIR / "S.pth")
+    argv = ["--config_file", str(Path(__file__).resolve().parent / "configs" /
+                                 "dpot_finetune.yaml"),
+            "--resume_path", src, "--train_paths", name, "--test_paths", name,
+            "--epochs", "2", "--warmup_epochs", "40", "--batch_size", "8",
+            "--noise_scale", "0", "--T_in", "10", "--dtype", "bfloat16", "--seed", "0",
+            "--num_workers", "4", "--log_path", str(RUN_DIR / "finetune"),
+            "--device", "cuda"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = finetune_main(argv)
+    torch.cuda.synchronize()
+    launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
+    bias_act_launches = bias_act.launches
+    train_apps = 2 * math.ceil(FT_SPEC["train_size"] / 8)
+    eval_apps = 2 * eval_applications(FT_SPEC)
+    if launches != DPOT_S["depth"] * (train_apps + eval_apps):
+        raise AssertionError(f"finetune: fused_gn_afno launched {launches} times, expected "
+                             f"depth x applications = {DPOT_S['depth'] * (train_apps + eval_apps)}")
+    by_path = check_paths("bfloat16", launches, "hopper")
+    if sorted(out["copied"]) != FT_COPIED:
+        raise AssertionError(f"finetune copied {sorted(out['copied'])}, expected {FT_COPIED}")
+    metrics = read_metrics(out["log_dir"])
+    losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
+    if not losses or not finite(losses + out["test_l2_fulls"] + [out["train_l2_step"]]):
+        raise AssertionError(f"finetune losses missing or not finite: {metrics}")
+
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_main(["--config_from_ckpt", "true", "--resume_path",
+                             str(Path(out["log_dir"]) / "model"), "--test_paths", name,
+                             "--batch_size", "8", "--dtype", "bfloat16", "--num_workers", "4",
+                             "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_launches = fused_gn_afno.launches
+    bias_act_launches += bias_act.launches
+    if eval_launches != DPOT_S["depth"] * eval_applications(FT_SPEC):
+        raise AssertionError(f"finetune eval: {eval_launches} launches")
+    eval_by_path = check_paths("bfloat16", eval_launches, "hopper")
+    rel = abs(got[name]["loss_full"] - out["test_l2_fulls"][-1]) / out["test_l2_fulls"][-1]
+    if not rel <= FT_EVAL_TOL:
+        raise AssertionError(f"evaluate's loss_full {got[name]['loss_full']} against the loop's "
+                             f"{out['test_l2_fulls'][-1]}: rel {rel} (limit {FT_EVAL_TOL})")
+    row = dict(dtype="bfloat16", copied=sorted(out["copied"]), steps=out["state"].step,
+               launches=launches, train_launches_by_path=by_path, eval_launches=eval_launches,
+               eval_launches_by_path=eval_by_path, bias_act_launches=bias_act_launches,
+               launches_by_path={k: v + eval_by_path[k] for k, v in by_path.items()},
+               run_s=run_s, train_l2_step=out["train_l2_step"],
+               test_l2_fulls=out["test_l2_fulls"], evaluate_loss_full=got[name]["loss_full"],
+               evaluate_rel=rel, evaluate_limit=FT_EVAL_TOL)
+    log("finetune_s", **row)
+    return row
+
+
+def phase_varyres_ti() -> dict:
+    """The resolution sweep at DPOT-Ti in bf16 through the evaluate CLI;
+    then, the smoke's copy's AFNO weights redrawn so that the mixer
+    matters, the sweep's rollout of one batch at two resolutions against
+    the plain mixer's on the card."""
+    from dpot_tpu_torch.cli.evaluate import main as evaluate_main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.ops.spectral import resize_temporal
+    from dpot_tpu_torch.train.evaluator import VARYRES_LIST, make_varyres_rollout
+
+    name = VARYRES_SPEC["name"]
+    make_synthetic_spec(**VARYRES_SPEC)
+    model = preset_model("Ti", "bfloat16", seed=2)
+    pth = save_reference_pth(model, RUN_DIR / "Ti.pth")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_main(TI_ARCH + ["--varyres", "--resume_path", pth, "--dtype",
+                                       "bfloat16", "--test_paths", name, "--batch_size",
+                                       str(EVAL_BATCH), "--num_workers", "4",
+                                       "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
+    apps = len(VARYRES_LIST) * eval_applications(VARYRES_SPEC)
+    if launches != TI["depth"] * apps:
+        raise AssertionError(f"varyres: {launches} launches, expected depth x applications "
+                             f"= {TI['depth'] * apps}")
+    by_path = check_paths("bfloat16", launches, "hopper")
+    if list(got) != list(VARYRES_LIST) or not finite(
+            v for r in got.values() for v in r[name].values()):
+        raise AssertionError(f"varyres results: {got}")
+    step = make_varyres_rollout(128)
+    x0 = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (EVAL_BATCH, 128, 128, 10, 4)).astype(np.float32)).to("cuda")
+
+    def sweep_preds(res: int) -> torch.Tensor:
+        x, preds = resize_temporal(x0, (res, res)), []
+        for _ in range(VARYRES_SPEC["t_test"]):
+            preds.append(step(model, x, res))
+            x = torch.cat([x[..., 1:, :], preds[-1].to(x.dtype)], dim=-2)
+        return torch.cat(preds, dim=-2)
+
+    draw_mixer_weights(model, seed=6)
+    rels = {res: mixer_readings(lambda: sweep_preds(res), "Ti", "bfloat16",
+                                f"varyres at {res}")
+            for res in VARYRES_CHECKED}
+    row = dict(dtype="bfloat16", resolutions=list(got), applications=apps,
+               launches=launches, launches_by_path=by_path, run_s=run_s,
+               loss_full={res: got[res][name]["loss_full"] for res in got},
+               plain_mixer_rel_l2=rels, plain_mixer_limit=MIXER_TOL["Ti/bfloat16"])
+    log("varyres_ti", **row)
+    return row
+
+
+def phase_convert_resume_serve() -> dict:
+    """The S .pth through cli.convert; cli.train --resume_path on the
+    directory for one epoch from step 0 (on the 4-channel Ti training set);
+    cli.serve --resume_path on it, one answer against a direct loop."""
+    from dpot_tpu_torch.cli.convert import main as convert_main
+    from dpot_tpu_torch.cli.serve import main as serve_main
+    from dpot_tpu_torch.cli.train import main as train_main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.train.checkpoint import restore_params
+
+    ckpt = str(RUN_DIR / "S_converted")
+    src = str(RUN_DIR / "S.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_main(S_ARCH + ["--n_channels", "4", "--resume_path", src, "--out_path", ckpt,
+                               "--device", "cuda"])
+    make_synthetic_spec(**TRAIN_SPEC)
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train_main(S_ARCH + ["--train_paths", TRAIN_SPEC["name"], "--resume_path",
+                                   ckpt, "--epochs", "1", "--batch_size", "20",
+                                   "--dtype", "bfloat16", "--num_workers", "4",
+                                   "--use_writer", "true", "--log_path",
+                                   str(RUN_DIR / "resume"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_launches = fused_gn_afno.launches
+    steps = math.ceil(TRAIN_SPEC["train_size"] / 20)
+    apps = steps + math.ceil(TRAIN_SPEC["test_size"] / 20) * TRAIN_SPEC["t_test"]
+    if out["state"].step != steps or train_launches != DPOT_S["depth"] * apps:
+        raise AssertionError(f"resume from the converted directory: step {out['state'].step}"
+                             f" (expected {steps}), {train_launches} launches "
+                             f"(expected {DPOT_S['depth'] * apps})")
+    train_by_path = check_paths("bfloat16", train_launches, "hopper")
+    logs = (Path(out["log_dir"]) / "logs.txt").read_text()
+    if "step 0, continuing at epoch 0" not in logs or not finite(
+            [out["train_l2_step"], *out["test_l2_fulls"]]):
+        raise AssertionError(f"resume did not start at step 0 with finite losses: {logs}")
+
+    reset_launch_counts()
+    httpd, rs = serve_main(S_ARCH + ["--n_channels", "4", "--resume_path", ckpt, "--dtype",
+                                     "bfloat16", "--host", "127.0.0.1", "--port", "0",
+                                     "--device", "cuda"], wait=False)
+    try:
+        x = np.random.default_rng(13).standard_normal((2, 128, 128, 10, 4)).astype(np.float32)
+        pred, ms = post_rollout(httpd.server_address[1], npy(x), 3)
+        torch.cuda.synchronize()
+        serve_launches = fused_gn_afno.launches
+        applications = len(rs._warmup_steps) + 3
+        wire = torch.bfloat16 if rs.wire_dtype == "bfloat16" else torch.float32
+    finally:
+        rs.stop(drain=True)
+        httpd.shutdown()
+        httpd.server_close()
+    if serve_launches != DPOT_S["depth"] * applications:
+        raise AssertionError(f"serve: {serve_launches} launches, expected "
+                             f"{DPOT_S['depth'] * applications}")
+    serve_by_path = check_paths("bfloat16", serve_launches, "hopper")
+    want_sd = restore_params(src)
+    if not all(torch.equal(v.cpu(), want_sd[k]) for k, v in rs.model.state_dict().items()):
+        raise AssertionError("the served weights are not the converted .pth's")
+    rel = rel_l2(torch.from_numpy(pred), direct_rollout(rs.model, x, 3, wire).cpu())
+    if not (pred.shape == (2, 128, 128, 3, 4) and rel <= 1e-5):
+        raise AssertionError(f"served answer {pred.shape} differs from a direct loop: {rel}")
+    row = dict(dtype="bfloat16", train_steps=out["state"].step, train_launches=train_launches,
+               train_launches_by_path=train_by_path, train_l2_step=out["train_l2_step"],
+               serve_applications=applications, serve_launches=serve_launches,
+               serve_launches_by_path=serve_by_path, client_ms=ms, direct_loop_rel_l2=rel,
+               launches_by_path={k: v + serve_by_path[k] for k, v in train_by_path.items()})
+    log("convert_resume_serve", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1141,6 +1581,12 @@ def main() -> int:
     phase_step("bfloat16", model=model_h, preset="H")
     train_h = phase_train_h(model_h)
     del model_h
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    eval_l = {dtype: phase_eval_l(dtype) for dtype in ("bfloat16", "float32")}
+    finetune_s = phase_finetune_s()
+    varyres = phase_varyres_ti()
+    convert = phase_convert_resume_serve()
+    shutil.rmtree(RUN_DIR)
 
     def by_batch(prefix, dtype, path):
         return {f"B{B}": {key: x[key] for key in ("ms", "device_ms_each", "host_us", "plain_ms",
@@ -1149,32 +1595,39 @@ def main() -> int:
                 for B in (1, 8, TRAIN["batch"]) for x in [k[f"{prefix}{dtype}/{path}/B{B}"]]}
 
     kernels = []
-    # (name, kernel-phase key prefix, dtype, path, source, the serve and train
-    # rows whose launches count)
-    rows = (("fused_gn_afno[bf16,hopper]", "", "bfloat16", "hopper", "afno_hopper.cu",
-             serve_bf16, train["bfloat16"]),
-            ("fused_gn_afno[bf16,hopper_wide]", "H/", "bfloat16", "hopper_wide",
-             "afno_hopper_wide.cu", serve_h, train_h),
-            ("fused_gn_afno[bf16,general]", "", "bfloat16", "general", "afno_fused.cu",
-             serve_bf16, train["bfloat16"]),
-            ("fused_gn_afno[f32,hopper]", "", "float32", "hopper_f32", "afno_hopper_f32.cu",
-             serve_f32, train["float32"]),
-            ("fused_gn_afno[f32,general]", "", "float32", "general", "afno_fused.cu",
-             serve_f32, train["float32"]))
-    for name, prefix, dtype, path, src, served, trained in rows:
-        r, r1, r20 = (k[f"{prefix}{dtype}/{path}/B{B}"] for B in (8, 1, TRAIN["batch"]))
-        launches_serve = served["launches_by_path"][path]
-        launches_train = trained["launches_by_path"][path]
+    # the runs of the main path in each compute type, whose launches count
+    bf16_runs = {"serve[bfloat16]": serve_bf16, "train[bfloat16]": train["bfloat16"],
+                 "finetune_s": finetune_s, "varyres_ti": varyres,
+                 "convert_resume_serve": convert}
+    f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"]}
+    # (name, kernel-phase key prefixes of the shapes its main path gives it,
+    # the first the one whose times the row carries, dtype, path, source,
+    # the runs whose launches count)
+    rows = (("fused_gn_afno[bf16,hopper]", ("", "S/"), "bfloat16", "hopper", "afno_hopper.cu",
+             bf16_runs),
+            ("fused_gn_afno[bf16,hopper_wide]", ("H/",), "bfloat16", "hopper_wide",
+             "afno_hopper_wide.cu", {"serve_h": serve_h, "train_h": train_h}),
+            ("fused_gn_afno[bf16,general]", ("L/",), "bfloat16", "general", "afno_fused.cu",
+             {"eval_l[bfloat16]": eval_l["bfloat16"], **bf16_runs}),
+            ("fused_gn_afno[f32,hopper]", ("",), "float32", "hopper_f32", "afno_hopper_f32.cu",
+             f32_runs),
+            ("fused_gn_afno[f32,general]", ("L/",), "float32", "general", "afno_fused.cu",
+             {"eval_l[float32]": eval_l["float32"], **f32_runs}))
+    for name, prefixes, dtype, path, src, runs in rows:
+        prefix = prefixes[0]
+        r = k[f"{prefix}{dtype}/{path}/B8"]
+        by_phase = {phase: run["launches_by_path"][path] for phase, run in runs.items()}
         kernels.append(dict(
             name=name, route="cuda", source=f"dpot_tpu_torch/csrc/{src}",
             replaces="dpot_tpu/ops/pallas/afno_fused.py:114",
-            launches=launches_serve + launches_train,
-            max_abs_err=max(x["max_abs_err"] for x in (r1, r, r20)),
+            launches=sum(by_phase.values()),
+            max_abs_err=max(k[f"{p}{dtype}/{path}/B{B}"]["max_abs_err"]
+                            for p in prefixes for B in (1, 8, TRAIN["batch"])),
+            max_abs_err_over=[p or "Ti/" for p in prefixes],
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            phase=f"serve[{dtype}] + train[{dtype}]" + (" at DPOT-H" if prefix else ""),
-            shapes=f"{prefix}{dtype}/B8",
-            launches_serve=launches_serve, launches_train=launches_train,
+            phase=" + ".join(p for p, n in by_phase.items() if n),
+            shapes=f"{prefix or 'Ti/'}{dtype}/B8", launches_by_phase=by_phase,
             check="pass", max_abs_limit=r["max_abs_limit"], rel_l2=r["rel_l2"],
             device_ms=r["device_ms"] and r["device_ms"]["total"],
             launches_per_call=r["device_ms"] and r["device_ms"]["launches_per_call"],
@@ -1182,12 +1635,17 @@ def main() -> int:
             by_batch=by_batch(prefix, dtype, path),
             vjp_ms=vjp[dtype]["vjp_ms"], vjp_rel_l2=vjp[dtype]["rel_l2"],
         ))
-        if name == "fused_gn_afno[bf16,general]":  # its times at the DPOT-H shapes too
-            kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
+        if "S/" in prefixes:
+            kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
+        if path == "general":  # forced on at the Ti, S and H shapes too
+            kernels[-1]["by_batch_at_ti"] = by_batch("", dtype, path)
+            if dtype == "bfloat16":
+                kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
+                kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
     # bias_act lies on no main path: its count over the serve and train runs
-    bias_act_launches = sum(r["bias_act_launches"]
-                            for r in (serve_bf16, serve_f32, *train.values()))
-    bias_act_launches += serve_h["bias_act_launches"] + train_h["bias_act_launches"]
+    bias_act_launches = sum(r["bias_act_launches"] for r in (
+        serve_bf16, serve_f32, *train.values(), serve_h, train_h, *eval_l.values(),
+        finetune_s))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

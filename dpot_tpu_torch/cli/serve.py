@@ -2,7 +2,7 @@
 (port of dpot_tpu/cli/serve.py).
 
 Single model, weights drawn from --seed or loaded from a reference-layout
-.pth:
+.pth or a checkpoint directory that the port's trainer wrote:
 
     python -m dpot_tpu_torch.cli.serve --model DPOT --res 128 --width 512 \
         --n_layers 4 [--resume_path dpot_ti.pth] [--dtype bfloat16] --port 8476
@@ -21,23 +21,17 @@ GET /metrics, POST /rollout?steps=N[&model=NAME] (dpot_tpu_torch/serve).
 from __future__ import annotations
 
 import dataclasses
-import os
 import sys
 
 import torch
 
 
 def _build_served(cfg, device: str):
-    """The served model for one TrainConfig: seeded weights, or the
-    reference-layout .pth at cfg.resume_path."""
+    """The served model for one TrainConfig: seeded weights, or those at
+    cfg.resume_path (a reference-layout .pth, or a checkpoint directory that
+    the port wrote or its model.pth)."""
     from dpot_tpu_torch.models import build_model
 
-    if cfg.resume_path and os.path.isdir(cfg.resume_path):
-        raise NotImplementedError(
-            f"{cfg.resume_path!r} is a checkpoint directory: restoring orbax "
-            "checkpoints is not ported yet (ROADMAP, 'Modules to port', item 8); "
-            "pass a reference-layout .pth"
-        )
     model = build_model(
         cfg.model, img_size=cfg.res, patch_size=cfg.patch_size,
         in_channels=cfg.n_channels, in_timesteps=cfg.T_in,
@@ -49,37 +43,28 @@ def _build_served(cfg, device: str):
         device=device, seed=cfg.seed,
     )
     if cfg.resume_path:
-        from dpot_tpu_torch.train.interop import load_reference_checkpoint
+        from dpot_tpu_torch.train.interop import params_from_any
 
-        load_reference_checkpoint(model, cfg.resume_path)
+        model.load_state_dict(params_from_any(cfg.resume_path, model), strict=True)
     return model
 
 
 def main(argv=None, wait=True):
     """wait=False returns (httpd, server) instead of blocking until SIGTERM:
     the in-process hook for tests and chip_smoke.py."""
-    from dpot_tpu_torch.utils.config import TrainConfig, load_config
+    from dpot_tpu_torch.utils.config import TrainConfig, load_config, pop_flag
 
     argv = list(argv if argv is not None else sys.argv[1:])
-
-    def take(flag, default, cast=str):
-        if flag in argv:
-            i = argv.index(flag)
-            v = cast(argv[i + 1])
-            del argv[i : i + 2]
-            return v
-        return default
-
-    host = take("--host", "127.0.0.1")
-    port = take("--port", 8476, int)
-    auth_token = take("--auth_token", None)
-    max_steps = take("--max_steps", 64, int)
-    ssl_certfile = take("--ssl_certfile", None)
-    ssl_keyfile = take("--ssl_keyfile", None)
-    wire_dtype = take("--wire_dtype", "auto")
-    response_dtype = take("--response_dtype", "float32")
-    device = take("--device", "cuda")
-    models_yaml = take("--models", None)
+    host = pop_flag(argv, "--host", "127.0.0.1")
+    port = pop_flag(argv, "--port", 8476, int)
+    auth_token = pop_flag(argv, "--auth_token", None)
+    max_steps = pop_flag(argv, "--max_steps", 64, int)
+    ssl_certfile = pop_flag(argv, "--ssl_certfile", None)
+    ssl_keyfile = pop_flag(argv, "--ssl_keyfile", None)
+    wire_dtype = pop_flag(argv, "--wire_dtype", "auto")
+    response_dtype = pop_flag(argv, "--response_dtype", "float32")
+    device = pop_flag(argv, "--device", "cuda")
+    models_yaml = pop_flag(argv, "--models", None)
     server_kw = dict(max_steps=max_steps, wire_dtype=wire_dtype,
                      response_dtype=response_dtype, device=device)
 

@@ -15,14 +15,10 @@ import sys
 
 def main(argv=None):
     from dpot_tpu_torch.train.loop import train
-    from dpot_tpu_torch.utils.config import load_config
+    from dpot_tpu_torch.utils.config import load_config, pop_flag
 
     argv = list(argv if argv is not None else sys.argv[1:])
-    device = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        del argv[i: i + 2]
+    device = pop_flag(argv, "--device", "cuda")
     cfg = load_config(argv)
     print("config", vars(cfg), "device", device, flush=True)
     return train(cfg, device=device)

@@ -7,6 +7,9 @@ and Ainv (HW, 2K). They are built once with numpy's FFT and cached as device
 tensors per (H, W, kh, kw, dtype, device), so an eager forward never copies
 them from the host again. The separable per-axis DFT for larger latents is
 not ported yet (ROADMAP, "Modules to port", separable-DFT item).
+
+`spectral_resize` and `resize_temporal` resample a field in Fourier space,
+for the evaluator's resolution sweep.
 """
 
 from __future__ import annotations
@@ -135,3 +138,41 @@ def afno_filter_2d(
     o = torch.cat([o_re.reshape(B, K, C), o_im.reshape(B, K, C)], dim=1)
     y = torch.matmul(Ainv.float(), o.to(mm).float()).reshape(B, H, W, C)
     return (y + x32).to(x.dtype)
+
+
+def _resize_axes(x: torch.Tensor, out_size: tuple[int, int], dims: tuple[int, int]):
+    """Fourier-domain resample of the real tensor x over `dims` (the
+    reference's `resize`, utils/utilities.py:277-305): rfft2 with
+    'backward' norm in f32, the low-frequency top and bottom bands copied
+    into a zero spectrum of the target size, irfft2, the amplitude rescaled
+    by (oh / H) * (ow / W), cast back to x's dtype. As numpy's and torch's
+    irfft do, the inverse reads only the real part of the DC and Nyquist
+    columns of the last axis."""
+    d0, d1 = dims
+    H, W = x.shape[d0], x.shape[d1]
+    oh, ow = out_size
+    f = torch.fft.rfft2(x.float(), dim=dims, norm="backward")
+    top1 = min((H + 1) // 2, (oh + 1) // 2)
+    top2 = min(f.shape[d1], ow // 2 + 1)
+    bot1 = min(H // 2, oh // 2)
+    shape = list(f.shape)
+    shape[d0], shape[d1] = oh, ow // 2 + 1
+    fz = f.new_zeros(shape)
+    fz.narrow(d0, 0, top1).narrow(d1, 0, top2).copy_(
+        f.narrow(d0, 0, top1).narrow(d1, 0, top2))
+    fz.narrow(d0, oh - bot1, bot1).narrow(d1, 0, top2).copy_(
+        f.narrow(d0, H - bot1, bot1).narrow(d1, 0, top2))
+    y = torch.fft.irfft2(fz, s=(oh, ow), dim=dims, norm="backward")
+    return (y * (oh / H) * (ow / W)).to(x.dtype)
+
+
+def spectral_resize(x: torch.Tensor, out_size: tuple[int, int]) -> torch.Tensor:
+    """Fourier-domain resample over the last two axes: x (..., H, W) ->
+    (..., oh, ow)."""
+    return _resize_axes(x, out_size, (x.dim() - 2, x.dim() - 1))
+
+
+def resize_temporal(x: torch.Tensor, out_size: tuple[int, int]) -> torch.Tensor:
+    """Spectral resize of a channels-last field (B, X, Y, T, C) over its
+    spatial axes, the layout kept end to end."""
+    return _resize_axes(x, out_size, (1, 2))

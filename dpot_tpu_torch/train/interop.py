@@ -5,6 +5,9 @@ The port's DPOTNet keeps the reference torch state dict's names and shapes,
 so a reference `.pth` loads directly. `state_dict_from_jax` maps the JAX
 package's DPOTNet params (a pytree of numpy arrays) to that layout; it is
 the exact inverse of the JAX package's `dpot_params_from_torch`.
+`params_from_any` reads the weights of a reference `.pth` or of a port
+checkpoint for a model at hand, its position embedding resized to the
+model's latent grid.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from dpot_tpu_torch.data.resize import resize_linear_nd
 
 
 def strip_module_prefix(sd: Mapping[str, Any]) -> dict[str, Any]:
@@ -90,7 +95,28 @@ def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     return strip_module_prefix(sd)
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load a reference-layout `.pth` into `model` (strict)."""
-    model.load_state_dict(load_reference_state_dict(path), strict=True)
-    return model
+def resize_pos_embed(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The position embedding (1, D, h0, w0) resized bilinearly (half-pixel
+    centres, as torch's interpolate with align_corners=False) to (1, D, h, w):
+    a checkpoint trained at another resolution (the reference's
+    resize_pos_embed, models/dpot.py:424-441)."""
+    if pos.shape[2:] == (h, w):
+        return pos
+    nhwc = pos[0].permute(1, 2, 0).float().numpy()
+    out = resize_linear_nd(nhwc, (h, w))
+    return torch.from_numpy(np.ascontiguousarray(out)).permute(2, 0, 1)[None].to(pos.dtype)
+
+
+def params_from_any(path: str, model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The state dict for `model` from a reference `.pth`, a port checkpoint
+    directory or its model.pth (the port's counterpart of load_params_any in
+    dpot_tpu/cli/evaluate.py), pos_embed resized to the model's latent grid.
+    Load it with strict=True: any other key or shape that does not match
+    raises there, naming both shapes."""
+    from dpot_tpu_torch.train.checkpoint import restore_params
+
+    sd = restore_params(path)
+    if "pos_embed" in sd:
+        sd["pos_embed"] = resize_pos_embed(sd["pos_embed"],
+                                           *model.state_dict()["pos_embed"].shape[2:])
+    return sd

@@ -22,7 +22,7 @@ import torch
 
 from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 from dpot_tpu_torch.models import build_model
-from dpot_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from dpot_tpu_torch.train.checkpoint import restore_checkpoint, restore_params, save_checkpoint
 from dpot_tpu_torch.train.optimizers import build_optimizer
 from dpot_tpu_torch.train.schedules import build_schedule, onecycle_momentum
 from dpot_tpu_torch.train.state import TrainState
@@ -50,7 +50,6 @@ def check_ported(cfg: TrainConfig) -> None:
          f"steps_per_dispatch > 1: CUDA-graph capture ({item} 6)"),
         (cfg.remat, f"remat (activation recomputation) ({item} 8)"),
         (bool(cfg.viz_dir), f"viz_dir (utils/viz.py) ({item} 13)"),
-        (bool(cfg.init_from), f"init_from (params-only warm start) ({item} 9)"),
     ]
     for bad, what in missing:
         if bad:
@@ -133,10 +132,17 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
 
 
 def train(cfg: TrainConfig, log_dir: Optional[str] = None,
-          device: str | torch.device = "cuda") -> dict:
+          device: str | torch.device = "cuda",
+          init_state_dict: Optional[dict[str, torch.Tensor]] = None) -> dict:
     """Train on `device` (CUDA unless the caller asks for the CPU). Returns
     the state, the model, the last epoch's metrics, the log directory and
-    the host time of every loop iteration (`step_seconds`)."""
+    the host time of every loop iteration (`step_seconds`).
+
+    The run starts from, in this order of precedence: `init_state_dict`
+    (the caller's weights, e.g. cli/finetune's merge), cfg.resume_path (a
+    full resume: weights, moments, step, noise stream) or cfg.init_from (a
+    checkpoint's weights only). A warm start from weights keeps fresh
+    moments, step 0 and the schedule from its start."""
     model, state, sched, train_dl, test_dls, train_ds = build_everything(cfg, device)
     device = next(model.parameters()).device
     if log_dir is None and cfg.use_writer:
@@ -149,7 +155,13 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
 
     steps_per_epoch = max(len(train_dl), 1)
     start_epoch = 0
-    if cfg.resume_path:
+    if init_state_dict is None and cfg.init_from and not cfg.resume_path:
+        init_state_dict = restore_params(cfg.init_from)
+        writer.text(f"warm start: params from {cfg.init_from}")
+    if init_state_dict is not None:
+        # params only: the moments, step and schedule start afresh
+        model.load_state_dict(init_state_dict, strict=True)
+    elif cfg.resume_path:
         # full resume: params, moments, step (schedule position), noise
         # stream, and the loader positioned on the checkpoint's epoch
         restore_checkpoint(cfg.resume_path, state)

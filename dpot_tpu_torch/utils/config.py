@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 from typing import Any, List, Optional, Sequence
 
 
@@ -115,9 +117,31 @@ class TrainConfig:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}")
 
 
+def pop_flag(argv: list[str], flag: str, default: Any = None, cast=str) -> Any:
+    """Remove `flag VALUE` from argv and return VALUE cast, or `default`
+    when the flag is absent: the CLIs' own flags beside TrainConfig's."""
+    if flag not in argv:
+        return default
+    i = argv.index(flag)
+    value = cast(argv[i + 1])
+    del argv[i:i + 2]
+    return value
+
+
+def pop_switch(argv: list[str], flag: str) -> bool:
+    """Remove a bare `flag` from argv; whether it was there."""
+    present = flag in argv
+    if present:
+        argv.remove(flag)
+    return present
+
+
 def _parser_for(cls) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--config_file", type=str, default=None)
+    # adopt --resume_path's saved model architecture as the base config
+    p.add_argument("--config_from_ckpt", type=lambda s: s.lower() in ("1", "true", "yes"),
+                   default=False)
     for f in dataclasses.fields(cls):
         name = f"--{f.name}"
         t = str(f.type)
@@ -137,13 +161,33 @@ def _parser_for(cls) -> argparse.ArgumentParser:
     return p
 
 
+# the fields that define a model's architecture, which --config_from_ckpt
+# adopts from a checkpoint (not its schedule or datasets)
+ARCH_KEYS = ("model", "res", "patch_size", "width", "n_layers", "n_blocks", "modes", "T_in",
+             "T_bundle", "mlp_ratio", "out_layer_dim", "act", "use_ln", "normalize", "time_agg")
+
+
+def ckpt_config_base(resume_path: str) -> dict:
+    """The architecture fields of the config.json that the port saved beside
+    a checkpoint in directory `resume_path` ({} when there is none): an
+    evaluation or a served model takes the checkpoint's shape, and an act
+    or normalize typed wrong cannot change its predictions unnoticed."""
+    path = os.path.join(resume_path, "config.json")
+    if not os.path.isfile(path):
+        return {}
+    with open(path) as f:
+        saved = json.load(f)
+    return {k: saved[k] for k in ARCH_KEYS if k in saved}
+
+
 def load_config(argv: Optional[Sequence[str]] = None, cls=TrainConfig):
-    """YAML (--config_file) < CLI flags. Reading the architecture from a
-    checkpoint directory (--config_from_ckpt in the JAX package) waits for
-    the checkpoint port."""
+    """The checkpoint's architecture (--config_from_ckpt true with a
+    --resume_path directory) < YAML (--config_file) < CLI flags."""
     ns = _parser_for(cls).parse_args(argv)
     base: dict[str, Any] = {}
     fields = {f.name for f in dataclasses.fields(cls)}
+    if ns.config_from_ckpt and ns.resume_path:
+        base.update(ckpt_config_base(ns.resume_path))
     if ns.config_file:
         import yaml
 

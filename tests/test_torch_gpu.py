@@ -258,6 +258,56 @@ def test_non_gelu_activations_on_the_wide_kernel(cuda, act):
     check_wide(ti_block_args(3, torch.bfloat16, cuda, seed=32, **H_BLOCK), act)
 
 
+# DPOT-L's block shapes: 16 AFNO blocks of 96 channels, GroupNorm(8)'s groups
+# of 192 channels straddling two blocks each
+L_BLOCK = dict(C=1536, nb=16, groups=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 20])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_general_kernel_at_the_dpot_l_block_shapes(cuda, dtype, B):
+    """L takes the five-launch kernel (no Hopper gate admits 96-channel
+    blocks), whose statistics are per group whatever the blocks: against
+    the plain version within the limits above (f32 5e-5 absolute; bf16 4
+    bf16 ulps of the output's magnitude and 4e-3 relative L2)."""
+    args = ti_block_args(B, dtype, cuda, seed=90 + B, **L_BLOCK)
+    approx = dtype == torch.bfloat16
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=approx).float()
+    want = fused_gn_afno_ref(*args, approximate=approx).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["general"] == before["general"] + 1
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 1
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 5e-5
+    else:
+        assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+        assert rel_l2(got, want) <= 4e-3
+
+
+@pytest.mark.gpu
+def test_evaluate_on_the_card_matches_the_cpu(cuda):
+    """evaluate() of one small f32 DPOT on the card (the kernels) and on the
+    CPU (their plain versions), same weights and test set: every number
+    within 2e-4 relative, the repo's interop bar."""
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.evaluator import evaluate
+
+    make_synthetic_spec("synthetic_gpu_eval", train_size=4, test_size=6, t_total=12,
+                        t_test=4, in_size=(32, 32), n_channels=2)
+    kw = dict(img_size=32, patch_size=4, in_channels=2, in_timesteps=6, embed_dim=256,
+              depth=2, n_blocks=2, modes=4, n_cls=1, seed=3)
+    got = evaluate(build_model("DPOT", device="cuda", **kw), ["synthetic_gpu_eval"],
+                   res=32, t_in=6, batch_size=3, num_workers=1, full_metrics=True)
+    want = evaluate(build_model("DPOT", device="cpu", **kw), ["synthetic_gpu_eval"],
+                    res=32, t_in=6, batch_size=3, num_workers=1, full_metrics=True)
+    for k, w in want["synthetic_gpu_eval"].items():
+        assert abs(got["synthetic_gpu_eval"][k] - w) <= 2e-4 * abs(w), k
+
+
 @pytest.mark.gpu
 def test_fused_gn_afno_raises_on_mixed_devices(cuda):
     args = list(ti_block_args(1, torch.float32, cuda))

@@ -17,7 +17,7 @@ from dpot_tpu.train.interop import dpot_params_from_torch
 from dpot_tpu_torch.models import build_model
 from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno
 from dpot_tpu_torch.train.interop import (
-    load_reference_checkpoint,
+    params_from_any,
     state_dict_from_jax,
     strip_module_prefix,
 )
@@ -159,7 +159,8 @@ def test_reference_pth_loads_strict(tmp_path):
     sd = {f"module.{k}": v for k, v in m.state_dict().items()}
     path = tmp_path / "model.pth"
     torch.save({"args": argparse.Namespace(width=64), "model": sd, "optimizer": {}}, path)
-    fresh = load_reference_checkpoint(build_model("DPOT", device="cpu", seed=7, **SMALL), str(path))
+    fresh = build_model("DPOT", device="cpu", seed=7, **SMALL)
+    fresh.load_state_dict(params_from_any(str(path), fresh), strict=True)
     for k, v in m.state_dict().items():
         torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
     assert strip_module_prefix({"module.a": 1, "b": 2}) == {"a": 1, "b": 2}

@@ -325,7 +325,8 @@ CLI_FLAGS = ["--model", "DPOT", "--res", "16", "--patch_size", "4", "--width", "
 
 def test_cli_serves_seeded_and_pth_weights(tmp_path):
     """main(wait=False) serves a seeded model; --resume_path serves the
-    weights of a reference-layout .pth; an orbax directory is refused."""
+    weights of a reference-layout .pth; a directory without the model.pth
+    of a port checkpoint is refused, naming what was expected."""
     from dpot_tpu_torch.cli.serve import main
 
     httpd, rs = main(CLI_FLAGS + ["--seed", "3", "--dtype", "bfloat16",
@@ -356,8 +357,71 @@ def test_cli_serves_seeded_and_pth_weights(tmp_path):
         rs.stop(drain=True)
         httpd.server_close()
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(FileNotFoundError, match="without model.pth"):
         main(CLI_FLAGS + ["--resume_path", str(tmp_path)], wait=False)
+
+
+def test_cli_serves_the_checkpoint_directory_the_trainer_wrote(tmp_path):
+    """cli.serve --resume_path <run>/model, the directory that cli.train
+    writes, serves its weights: the answer equals a direct loop over the
+    trained model."""
+    from dpot_tpu_torch.cli.serve import main
+    from dpot_tpu_torch.cli.train import main as train_main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+
+    make_synthetic_spec("synthetic_tserve", train_size=4, test_size=2, t_total=8, t_test=2,
+                        in_size=(16, 16), n_channels=2)
+    arch = CLI_FLAGS[:CLI_FLAGS.index("--n_channels")]
+    out = train_main(arch + ["--train_paths", "synthetic_tserve", "--batch_size", "4",
+                             "--num_workers", "1", "--epochs", "1", "--warmup_epochs", "1",
+                             "--use_writer", "true", "--log_path", str(tmp_path),
+                             "--device", "cpu"])
+    httpd, rs = main(CLI_FLAGS + ["--resume_path", f"{out['log_dir']}/model"], wait=False)
+    try:
+        for k, v in out["model"].state_dict().items():
+            assert torch.equal(rs.model.state_dict()[k], v), k
+        x = rand((2, *SHAPE), 5)
+        pred = post(httpd.server_address[1], npy(x), 2)
+    finally:
+        httpd.shutdown()
+        rs.stop(drain=True)
+        httpd.server_close()
+    carry, want = torch.from_numpy(x), []
+    with torch.inference_mode():
+        for _ in range(2):
+            im = out["model"].eval()(carry)[0]
+            want.append(im)
+            carry = torch.cat([carry[..., 1:, :], im], dim=-2)
+    np.testing.assert_array_equal(pred, torch.cat(want, dim=-2).numpy())
+
+
+def test_cli_serve_loads_a_pth_as_evaluate_does(tmp_path):
+    """serve and evaluate share one loader: a .pth written at res 16 (4x4
+    latent) serves at res 32, its pos_embed resized to the 8x8 latent as
+    params_from_any resizes it, every other weight as saved."""
+    from dpot_tpu_torch.cli.serve import main
+    from dpot_tpu_torch.train.interop import resize_pos_embed
+
+    sd = small_model(seed=4).state_dict()
+    path = tmp_path / "w.pth"
+    torch.save({"model": sd}, path)
+    flags = list(CLI_FLAGS)
+    flags[flags.index("--res") + 1] = "32"
+    httpd, rs = main(flags + ["--resume_path", str(path)], wait=False)
+    try:
+        got = rs.model.state_dict()
+        pred = post(httpd.server_address[1], npy(rand((1, 32, 32, 4, 2), 6)), 1)
+    finally:
+        httpd.shutdown()
+        rs.stop(drain=True)
+        httpd.server_close()
+    assert got["pos_embed"].shape == (1, 32, 8, 8)
+    torch.testing.assert_close(got["pos_embed"], resize_pos_embed(sd["pos_embed"], 8, 8),
+                               rtol=0, atol=0)
+    for k, v in sd.items():
+        if k != "pos_embed":
+            assert torch.equal(got[k], v), k
+    assert pred.shape == (1, 32, 32, 1, 2) and np.isfinite(pred).all()
 
 
 def test_cli_multi_model_yaml(tmp_path):
