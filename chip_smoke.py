@@ -17,8 +17,11 @@ Phases, each printing its results as JSON lines:
        each at the init's weight scale, at N(0, 0.05^2) weights and with a
        non-GELU activation (silu); and at the DPOT-H block shapes (C 2048,
        8 AFNO blocks of 256 channels) bf16 on the two-launch kernel for
-       256-channel blocks (afno_hopper_wide.cu) in the same way; the three
-       shape gates against their mirrors in the CUDA sources;
+       256-channel blocks (afno_hopper_wide.cu) in the same way; at the
+       DPOT-L block shapes (C 1536, 16 AFNO blocks of 96 channels, groups
+       of 192) bf16 on afno_hopper_l.cu and f32 on afno_hopper_f32_l.cu in
+       the same way; the five shape gates against their mirrors in the
+       CUDA sources;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -65,9 +68,11 @@ Phases, each printing its results as JSON lines:
      dpot_tpu_torch.cli.evaluate --metrics` in-process on a synthetic 128^2
      test set (24 trajectories, t_test 10, batch 8), bf16 and then f32:
      every number finite, launches = depth x applications, all on the
-     five-launch kernel, loss_full and loss_step against the same
-     evaluation with the mixer's plain version on the card, one
-     application profiled at B = 1 and 8 as in phase 4, peak memory;
+     kernel for 96-channel blocks of the compute type (afno_hopper_l.cu,
+     afno_hopper_f32_l.cu), a rollout with AFNO weights redrawn against
+     the same rollout with the mixer's plain version on the card and with
+     plain mixers wrong on purpose, one application profiled at B = 1 and
+     8 as in phase 4, peak memory;
   9. finetune_S: `python -m dpot_tpu_torch.cli.finetune` from a seeded
      4-channel DPOT-S .pth onto a synthetic 3-channel 128^2 set (40 train,
      8 test) with configs/dpot_finetune.yaml's optimization (load_components
@@ -115,7 +120,9 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno,
     fused_gn_afno_ref,
     fused_gn_afno_vjp,
+    hopper_f32_l_supported,
     hopper_f32_supported,
+    hopper_l_supported,
     hopper_supported,
     hopper_wide_supported,
 )
@@ -136,8 +143,8 @@ DPOT_H = dict(H=16, W=16, C=2048, nb=8, modes=32, groups=8, depth=27)
 # one GroupNorm(8) group
 DPOT_S = dict(H=16, W=16, C=1024, nb=8, modes=32, groups=8, depth=6)
 # DPOT-L (preset L) on the same grid: 16 AFNO blocks of 96 channels, so that
-# GroupNorm(8)'s groups of 192 channels straddle two blocks; no Hopper gate
-# admits it, so it runs the five-launch kernel
+# GroupNorm(8)'s groups of 192 channels straddle two blocks (the kernels for
+# 96-channel blocks, afno_hopper_l.cu and afno_hopper_f32_l.cu)
 DPOT_L = dict(H=16, W=16, C=1536, nb=16, modes=32, groups=8, depth=24)
 TI_FLAGS = [
     "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "512",
@@ -176,6 +183,8 @@ FT_SPEC = dict(name="synthetic_ft_s", train_size=40, test_size=8, t_total=20, t_
 VARYRES_SPEC = dict(name="synthetic_varyres", train_size=8, test_size=8, t_total=20,
                     t_test=10, in_size=(128, 128), n_channels=4)
 EVAL_BATCH = 8
+# the kernel that serves DPOT-L's mixer in each compute type
+L_PATH = {"bfloat16": "hopper_l", "float32": "hopper_f32_l"}
 # the evaluations' plain-mixer comparisons: every AFNO weight of the
 # smoke's copy of the model drawn from N(0, MIXER_SCALE^2), the kernel
 # phase's MLP-dominated case (at the init's scale, U[0, 1) / bs^2, the mixer
@@ -289,8 +298,9 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 # two of each Hopper path
 GENERAL_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
                    "mode_out_kernel", "synthesis_kernel")
-HOPPER_KERNELS = ("spectral_kernel", "spectral_wide_kernel", "tma_synthesis_kernel")
-HOPPER_F32_KERNELS = ("spectral_f32_kernel", "synthesis_f32_kernel")
+HOPPER_KERNELS = ("spectral_kernel", "spectral_wide_kernel", "spectral_l_kernel",
+                  "tma_synthesis_kernel")
+HOPPER_F32_KERNELS = ("spectral_f32_kernel", "spectral_f32_l_kernel", "synthesis_f32_kernel")
 SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS + HOPPER_F32_KERNELS
 
 
@@ -427,19 +437,25 @@ def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int,
     return args, kh * kw, groups
 
 
+# the kernels that read the bf16 weight copies, and those whose products are
+# 3xTF32 on the tensor cores
+BF16_WEIGHT_PATHS = ("hopper", "hopper_wide", "hopper_l")
+TF32_PATHS = ("hopper_f32", "hopper_f32_l")
+
+
 def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str,
                   geo: dict = TI) -> tuple[float, str]:
     """Least time for one call on kernel `path` at the block geometry `geo`:
     operations over the peak for the operand type, or bytes (each input
     read once, the output written once) over HBM bandwidth, whichever is
     larger. The bf16 Hopper kernels read the cached bf16 copies of w1 and
-    w2, the other kernels the f32 weights. The f32 Hopper kernel does each
+    w2, the other kernels the f32 weights. The f32 Hopper kernels do each
     product three times (3xTF32) on the TF32 tensor cores (495 TFLOP/s);
     the general kernel's f32 products run on the FMA pipes (67 TFLOP/s)."""
     HW, C, nb = geo["H"] * geo["W"], geo["C"], geo["nb"]
     bs = C // nb
     s = torch.empty((), dtype=dtype).element_size()
-    ws = 2 if path in ("hopper", "hopper_wide") else 4
+    ws = 2 if path in BF16_WEIGHT_PATHS else 4
     flops = B * (2 * 2 * K * HW * C            # analysis A . xn
                  + 2 * 2 * K * (2 * bs) ** 2 * nb  # two MLP layers
                  + 2 * HW * 2 * K * C)          # synthesis Ainv . o
@@ -448,7 +464,7 @@ def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str,
               + 2 * 2 * nb * bs * bs * ws      # w1, w2
               + 2 * 2 * nb * bs * 4            # b1, b2
               + 2 * C * 4)                     # gscale, gbias
-    if path == "hopper_f32":
+    if path in TF32_PATHS:
         t_ops = 3 * flops / PEAK_TF32 * 1e3
     else:
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -484,14 +500,16 @@ def check_afno(B, dtype, weight_scale, seed, path, act="gelu", geo=TI) -> dict:
 
 
 def check_gate_mirror() -> int:
-    """hopper_supported, hopper_wide_supported and hopper_f32_supported
-    against dpot_afno_hopper_supported, dpot_afno_hopper_wide_supported and
-    dpot_afno_hopper_f32_supported, the same gates in the CUDA sources, on
-    the presets and on shapes any of them may refuse."""
+    """Each Hopper kernel's gate in afno_fused.py (hopper_supported, ...,
+    hopper_f32_l_supported) against its mirror in the CUDA source
+    (dpot_afno_hopper_supported, ...), on the presets and on shapes any of
+    them may refuse."""
     gates = []
     for lib, gate, dtype in (("afno_hopper", hopper_supported, torch.bfloat16),
                              ("afno_hopper_wide", hopper_wide_supported, torch.bfloat16),
-                             ("afno_hopper_f32", hopper_f32_supported, torch.float32)):
+                             ("afno_hopper_l", hopper_l_supported, torch.bfloat16),
+                             ("afno_hopper_f32", hopper_f32_supported, torch.float32),
+                             ("afno_hopper_f32_l", hopper_f32_l_supported, torch.float32)):
         fn = getattr(build.load_library(lib), f"dpot_{lib}_supported")
         fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
@@ -514,6 +532,19 @@ def check_gate_mirror() -> int:
                (2, 256, 512, 144, 2, 1), (2, 256, 2048, 160, 8, 8), (2, 256, 2048, 164, 8, 8),
                (2, 256, 2048, 142, 8, 8), (2, 512, 2048, 144, 8, 8), (2, 64, 2048, 16, 8, 8),
                (65535, 256, 2048, 144, 8, 8), (65536, 256, 2048, 144, 8, 8)]
+    # the edges of the gates for 96-channel blocks: a group per block or
+    # per pair, groups over three blocks or of 48 channels, C not a
+    # multiple of 128 (bf16's synthesis tile) or of 64 (f32's), ragged K,
+    # 2K at the bf16 limit and past it, latents of 64, 128, 512 and 1024 px
+    shapes += [(2, 256, 384, 144, 4, g) for g in (1, 2, 4, 8)]
+    shapes += [(2, 256, 1536, 144, 16, g) for g in (4, 16, 32)]
+    shapes += [(2, 256, 192, 144, 2, 1), (2, 256, 192, 144, 2, 2), (2, 256, 96, 144, 1, 1),
+               (2, 256, 576, 144, 6, 3), (2, 256, 1536, 160, 16, 8),
+               (2, 256, 1536, 164, 16, 8), (2, 256, 1536, 142, 16, 8),
+               (2, 256, 1536, 143, 16, 8), (2, 128, 384, 40, 4, 4), (2, 64, 384, 16, 4, 4),
+               (2, 512, 384, 144, 4, 4), (2, 1024, 384, 144, 4, 4), (2, 96, 384, 40, 4, 4),
+               (65535, 256, 1536, 144, 16, 8), (65536, 256, 1536, 144, 16, 8),
+               (0, 256, 1536, 144, 16, 8)]
     for fn, gate, dtype in gates:
         for sh in shapes:
             if bool(fn(*sh)) != gate(*sh, dtype):
@@ -537,15 +568,15 @@ KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
                 ("", TI, torch.float32, ("general", "hopper_f32")),
                 ("S/", DPOT_S, torch.bfloat16, ("general", "hopper")),
                 ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")),
-                ("L/", DPOT_L, torch.bfloat16, ("general",)),
-                ("L/", DPOT_L, torch.float32, ("general",)))
+                ("L/", DPOT_L, torch.bfloat16, ("general", "hopper_l")),
+                ("L/", DPOT_L, torch.float32, ("general", "hopper_f32_l")))
 
 
 def phase_kernels() -> dict:
     """fused_gn_afno against its plain version on each kernel that serves a
     compute type at the Ti shapes, in bf16 at the DPOT-S and DPOT-H shapes
-    and in both types at the DPOT-L shapes (the five-launch kernel alone), and timed;
-    returns per-config numbers."""
+    and in both types at the DPOT-L shapes, each beside the five-launch
+    kernel, and timed; returns per-config numbers."""
     log("kernel", name="fused_gn_afno", gate_mirror_shapes=check_gate_mirror())
     results = {}
     for prefix, geo, dtype, paths in KERNEL_CASES:
@@ -559,7 +590,6 @@ def phase_kernels() -> dict:
             r = checks[paths[0]]  # the same inputs (seed B) on every path
             a, K, g, ap = r["args"], r["K"], r["groups"], r["approx"]
             # old, new, new, old: the five-launch kernel around a Hopper one
-            # (at L the five-launch kernel alone, twice)
             runs = [(p, time_afno(r, p)) for p in paths + paths[::-1]]
             plain_ms = cuda_ms(lambda: fused_gn_afno_ref(*a, K, g, ap))
             for path in paths:
@@ -576,7 +606,7 @@ def phase_kernels() -> dict:
                     device_ms_each=[d["total"] for d in dev],
                     plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 )
-                if path == "hopper_f32":  # its work against the FMA peak too
+                if path in TF32_PATHS:  # its work against the FMA peak too
                     results[key]["bound_fma_ms"] = afno_bound_ms(B, dtype, K, "general", geo)[0]
                 log("kernel", name="fused_gn_afno", config=key, **results[key])
     return results
@@ -738,7 +768,7 @@ def card_vs_cpu_forward(model, x: np.ndarray) -> float:
 
 def reset_launch_counts() -> None:
     fused_gn_afno.launches = bias_act.launches = 0
-    fused_gn_afno.launches_by_path.update(hopper=0, hopper_wide=0, hopper_f32=0, general=0)
+    fused_gn_afno.launches_by_path.update(dict.fromkeys(afno_fused.PATHS, 0))
 
 
 def check_paths(dtype: str, launches: int, want: str | None = None) -> dict:
@@ -1298,11 +1328,11 @@ def check_no_launch(before: int, what: str) -> None:
 
 def phase_eval_l(dtype: str) -> dict:
     """DPOT-L through the evaluate CLI with --metrics: all launches on the
-    five-launch kernel, finite numbers, one application's time, and peak
-    memory. The smoke's own copy of the model (the same seed) writes the
-    .pth and runs the profile; then, its AFNO weights redrawn so that the
-    mixer matters, the evaluation's rollout of the first test batch against
-    the plain mixer's on the card."""
+    kernel for 96-channel blocks of the compute type, finite numbers, one
+    application's time, and peak memory. The smoke's own copy of the model
+    (the same seed) writes the .pth and runs the profile; then, its AFNO
+    weights redrawn so that the mixer matters, the evaluation's rollout of
+    the first test batch against the plain mixer's on the card."""
     from dpot_tpu_torch.cli.evaluate import main as evaluate_main
     from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
     from dpot_tpu_torch.data.registry import make_synthetic_spec
@@ -1333,7 +1363,7 @@ def phase_eval_l(dtype: str) -> dict:
     if launches != DPOT_L["depth"] * apps:
         raise AssertionError(f"DPOT-L eval: fused_gn_afno launched {launches} times, "
                              f"expected depth x applications = {DPOT_L['depth'] * apps}")
-    by_path = check_paths(dtype, launches, "general")
+    by_path = check_paths(dtype, launches, L_PATH[dtype])
     vals = got[name]
     if not finite([*vals.values(), got["avg_step_time"]]) or not got["avg_step_time"] > 0:
         raise AssertionError(f"DPOT-L eval {dtype}: {got}")
@@ -1607,10 +1637,14 @@ def main() -> int:
              bf16_runs),
             ("fused_gn_afno[bf16,hopper_wide]", ("H/",), "bfloat16", "hopper_wide",
              "afno_hopper_wide.cu", {"serve_h": serve_h, "train_h": train_h}),
+            ("fused_gn_afno[bf16,hopper_l]", ("L/",), "bfloat16", "hopper_l",
+             "afno_hopper_l.cu", {"eval_l[bfloat16]": eval_l["bfloat16"]}),
             ("fused_gn_afno[bf16,general]", ("L/",), "bfloat16", "general", "afno_fused.cu",
              {"eval_l[bfloat16]": eval_l["bfloat16"], **bf16_runs}),
             ("fused_gn_afno[f32,hopper]", ("",), "float32", "hopper_f32", "afno_hopper_f32.cu",
              f32_runs),
+            ("fused_gn_afno[f32,hopper_l]", ("L/",), "float32", "hopper_f32_l",
+             "afno_hopper_f32_l.cu", {"eval_l[float32]": eval_l["float32"]}),
             ("fused_gn_afno[f32,general]", ("L/",), "float32", "general", "afno_fused.cu",
              {"eval_l[float32]": eval_l["float32"], **f32_runs}))
     for name, prefixes, dtype, path, src, runs in rows:
@@ -1626,7 +1660,8 @@ def main() -> int:
             max_abs_err_over=[p or "Ti/" for p in prefixes],
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            phase=" + ".join(p for p, n in by_phase.items() if n),
+            phase=" + ".join(p for p, n in by_phase.items() if n)
+            or "none: no main path takes it (forced on in the kernel phase)",
             shapes=f"{prefix or 'Ti/'}{dtype}/B8", launches_by_phase=by_phase,
             check="pass", max_abs_limit=r["max_abs_limit"], rel_l2=r["rel_l2"],
             device_ms=r["device_ms"] and r["device_ms"]["total"],
@@ -1637,7 +1672,7 @@ def main() -> int:
         ))
         if "S/" in prefixes:
             kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
-        if path == "general":  # forced on at the Ti, S and H shapes too
+        if path == "general":  # forced on at the L, Ti, S and H shapes
             kernels[-1]["by_batch_at_ti"] = by_batch("", dtype, path)
             if dtype == "bfloat16":
                 kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)

@@ -570,6 +570,11 @@ cudaError_t launch(int dev, const float* x, const float* gscale, const float* gb
 
 }  // namespace
 
+// afno_hopper_f32_l.cu (AFNO blocks of 96 channels) includes this file for
+// the parts above and defines AFNO_HOPPER_F32_PARTS, which leaves out the
+// entry points below and so every instance of spectral_f32_kernel.
+#ifndef AFNO_HOPPER_F32_PARTS
+
 // The shapes this kernel takes, as `hopper_f32_supported` in
 // dpot_tpu_torch/ops/cuda/afno_fused.py states them (the dtype is f32).
 extern "C" int dpot_afno_hopper_f32_supported(int B, int HW, int C, int K, int nb, int groups) {
@@ -613,3 +618,5 @@ extern "C" int dpot_afno_hopper_f32(int act, const float* x, const float* gscale
                                   B, HW, C, K, nb, groups, s);
   });
 }
+
+#endif  // AFNO_HOPPER_F32_PARTS

@@ -1,5 +1,6 @@
-// What the two bf16 Hopper kernels of fused_gn_afno share: afno_hopper.cu
-// (AFNO blocks of 128 channels) and afno_hopper_wide.cu (256 channels).
+// What the bf16 Hopper kernels of fused_gn_afno share: afno_hopper.cu
+// (AFNO blocks of 128 channels), afno_hopper_wide.cu (256 channels) and
+// afno_hopper_l.cu (96 channels).
 //
 //   - PTX wrappers for mbarriers, TMA loads and stores, programmatic
 //     dependent launch and wgmma (m64n128k16, bf16 in, f32 accumulate);

@@ -3,7 +3,7 @@ PyTorch version and their gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
 (dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches one of
-four hand-written kernels, chosen from the shapes alone before any launch,
+six hand-written kernels, chosen from the shapes alone before any launch,
 or raises:
   - "hopper" (`dpot_tpu_torch/csrc/afno_hopper.cu`): bf16 at the shapes
     `hopper_supported` admits (AFNO blocks of 128 channels, DPOT-Ti, S and
@@ -12,10 +12,17 @@ or raises:
     shapes `hopper_wide_supported` admits (AFNO blocks of 256 channels,
     DPOT-H at a 16x16 latent); wgmma fed by TMA, the block weights streamed
     through a ring in shared memory, two launches;
+  - "hopper_l" (`dpot_tpu_torch/csrc/afno_hopper_l.cu`): bf16 at the shapes
+    `hopper_l_supported` admits (AFNO blocks of 96 channels, GroupNorm
+    groups of one block or a block pair, DPOT-L at a 16x16 latent); wgmma
+    fed by TMA, each CTA computing its group's statistics, two launches;
   - "hopper_f32" (`dpot_tpu_torch/csrc/afno_hopper_f32.cu`): f32 at the
     shapes `hopper_f32_supported` admits (AFNO blocks of 128 channels, a
     latent of a multiple of 64 pixels); every product as 3xTF32 on the
     tensor cores (the split `tf32_split` states), two launches;
+  - "hopper_f32_l" (`dpot_tpu_torch/csrc/afno_hopper_f32_l.cu`): f32 at the
+    shapes `hopper_f32_l_supported` admits (AFNO blocks of 96 channels, as
+    "hopper_l"); "hopper_f32"'s arithmetic, two launches;
   - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): every other shape, in
     either type; five launches.
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
@@ -196,75 +203,121 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, act):
 # ---------------------------------------------------------------- the Hopper path
 HOPPER_BS = 128       # the AFNO block size of afno_hopper.cu and afno_hopper_f32.cu
 HOPPER_WIDE_BS = 256  # the AFNO block size of afno_hopper_wide.cu
+HOPPER_L_BS = 96      # the AFNO block size of afno_hopper_l.cu and afno_hopper_f32_l.cu
 HOPPER_MAX_NK = 5     # 64-row blocks of o (2K rows) a synthesis CTA holds: MAX_NK
+HOPPER_TILE_C = 128   # channels per bf16 synthesis CTA (hopper_tma.cuh): TILE_C
+HOPPER_F32_TILE_P = 64  # pixels per synthesis CTA of afno_hopper_f32.cu: MAX_TP
+HOPPER_F32_TILE_C = 64  # channels per f32 synthesis CTA: TC
 
 
 def _hopper_blocks(B: int, C: int, nb: int, groups: int, bs: int = HOPPER_BS) -> bool:
-    """The layout the Hopper kernels are written for: AFNO blocks of bs
-    channels, a batch that fits a grid's z dimension, and GroupNorm groups
-    of a power of two channels between 8 and bs, so that a group lies
-    inside one AFNO block."""
+    """The layout the Hopper kernels for blocks of 128 and 256 channels are
+    written for: AFNO blocks of bs channels, a batch that fits a grid's z
+    dimension, and GroupNorm groups of a power of two channels between 8
+    and bs, so that a group lies inside one AFNO block."""
     if nb < 1 or C != nb * bs or not 1 <= B <= 65535 or groups < 1 or C % groups:
         return False
     cpg = C // groups
     return 8 <= cpg <= bs and not cpg & (cpg - 1)
 
 
-def _bf16_hopper_shapes(B: int, HW: int, C: int, K: int, nb: int, groups: int,
-                        dtype: torch.dtype, bs: int) -> bool:
-    """The shapes both bf16 Hopper kernels take, for AFNO blocks of bs
-    channels: bf16; the blocks and groups of `_hopper_blocks`; a latent of
-    128 or 256 pixels (the x slab and the A rows fit in shared memory); K a
-    multiple of 4 (Ainv's rows are whole 16-byte units) with 2K <= 320, so
-    that all of o for one CTA of their shared synthesis launch fits in
-    shared memory."""
-    return (dtype == torch.bfloat16 and HW in (128, 256) and K >= 1 and not K % 4
-            and -(-2 * K // 64) <= HOPPER_MAX_NK and _hopper_blocks(B, C, nb, groups, bs))
+def _l_blocks(B: int, C: int, nb: int, groups: int, tile_c: int) -> bool:
+    """The layout the kernels for blocks of 96 channels are written for:
+    AFNO blocks of 96 channels, C a multiple of their synthesis launch's
+    channel tile `tile_c`, a batch that fits a grid's z dimension, and
+    GroupNorm groups of one block or of a block pair (96 or 192 channels;
+    DPOT-L's GroupNorm(8) over 1536 channels), so that each block lies
+    inside one group and a CTA reads its whole group for the statistics."""
+    if (nb < 1 or C != nb * HOPPER_L_BS or C % tile_c or not 1 <= B <= 65535
+            or groups < 1 or C % groups):
+        return False
+    return C // groups in (HOPPER_L_BS, 2 * HOPPER_L_BS)
+
+
+def _bf16_hopper_latent(HW: int, K: int) -> bool:
+    """The latent and modes every bf16 Hopper kernel takes: 128 or 256
+    pixels (the x slab and the A rows fit in shared memory); K a multiple
+    of 4 (Ainv's rows are whole 16-byte units) with 2K <= 320, so that all
+    of o for one CTA of their shared synthesis launch fits in shared
+    memory."""
+    return HW in (128, 256) and K >= 1 and not K % 4 and -(-2 * K // 64) <= HOPPER_MAX_NK
+
+
+def _f32_hopper_latent(HW: int, K: int) -> bool:
+    """The latent and modes both f32 Hopper kernels take: a multiple of 64
+    pixels up to COMBINED_MAX_PIXELS (x and A stream through shared memory
+    in 32-pixel chunks, and the synthesis tiles are 64 pixels); K even, so
+    that Ainv's rows are whole 16-byte units."""
+    return (HOPPER_F32_TILE_P <= HW <= COMBINED_MAX_PIXELS and not HW % HOPPER_F32_TILE_P
+            and K >= 1 and not K % 2)
 
 
 def hopper_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                      dtype: torch.dtype) -> bool:
-    """Whether afno_hopper.cu takes these shapes: `_bf16_hopper_shapes` with
-    AFNO blocks of 128 channels (groups of 8 to 128). A pure function of the
-    shapes, mirrored by dpot_afno_hopper_supported in the source."""
-    return _bf16_hopper_shapes(B, HW, C, K, nb, groups, dtype, HOPPER_BS)
+    """Whether afno_hopper.cu takes these shapes: bf16, `_bf16_hopper_latent`,
+    AFNO blocks of 128 channels with groups of 8 to 128 (`_hopper_blocks`).
+    A pure function of the shapes, mirrored by dpot_afno_hopper_supported in
+    the source."""
+    return (dtype == torch.bfloat16 and _bf16_hopper_latent(HW, K)
+            and _hopper_blocks(B, C, nb, groups, HOPPER_BS))
 
 
 def hopper_wide_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                           dtype: torch.dtype) -> bool:
-    """Whether afno_hopper_wide.cu takes these shapes: `_bf16_hopper_shapes`
-    with AFNO blocks of 256 channels (groups of 8 to 256). A pure function
-    of the shapes, mirrored by dpot_afno_hopper_wide_supported in the
+    """Whether afno_hopper_wide.cu takes these shapes: bf16,
+    `_bf16_hopper_latent`, AFNO blocks of 256 channels with groups of 8 to
+    256. A pure function of the shapes, mirrored by
+    dpot_afno_hopper_wide_supported in the source."""
+    return (dtype == torch.bfloat16 and _bf16_hopper_latent(HW, K)
+            and _hopper_blocks(B, C, nb, groups, HOPPER_WIDE_BS))
+
+
+def hopper_l_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                       dtype: torch.dtype) -> bool:
+    """Whether afno_hopper_l.cu takes these shapes: bf16,
+    `_bf16_hopper_latent`, AFNO blocks of 96 channels with groups of one
+    block or a block pair and C a multiple of 128 (`_l_blocks`). A pure
+    function of the shapes, mirrored by dpot_afno_hopper_l_supported in the
     source."""
-    return _bf16_hopper_shapes(B, HW, C, K, nb, groups, dtype, HOPPER_WIDE_BS)
-
-
-HOPPER_F32_TILE_P = 64      # pixels per synthesis CTA of afno_hopper_f32.cu: TP
+    return (dtype == torch.bfloat16 and _bf16_hopper_latent(HW, K)
+            and _l_blocks(B, C, nb, groups, HOPPER_TILE_C))
 
 
 def hopper_f32_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                          dtype: torch.dtype) -> bool:
-    """Whether afno_hopper_f32.cu takes these shapes: f32; the blocks and
-    groups of `_hopper_blocks`; a latent of a multiple of 64 pixels up to
-    COMBINED_MAX_PIXELS (x and A stream through shared memory in 32-pixel
-    chunks, and the synthesis tiles are 64 pixels); K even, so that Ainv's
-    rows are whole 16-byte units. A pure function of the shapes, mirrored by
+    """Whether afno_hopper_f32.cu takes these shapes: f32,
+    `_f32_hopper_latent`, AFNO blocks of 128 channels with groups of 8 to
+    128 (`_hopper_blocks`). A pure function of the shapes, mirrored by
     dpot_afno_hopper_f32_supported in the source."""
-    return (dtype == torch.float32 and HOPPER_F32_TILE_P <= HW <= COMBINED_MAX_PIXELS
-            and not HW % HOPPER_F32_TILE_P and K >= 1 and not K % 2
+    return (dtype == torch.float32 and _f32_hopper_latent(HW, K)
             and _hopper_blocks(B, C, nb, groups))
+
+
+def hopper_f32_l_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether afno_hopper_f32_l.cu takes these shapes: f32,
+    `_f32_hopper_latent`, AFNO blocks of 96 channels with groups of one
+    block or a block pair and C a multiple of 64 (`_l_blocks`). A pure
+    function of the shapes, mirrored by dpot_afno_hopper_f32_l_supported in
+    the source."""
+    return (dtype == torch.float32 and _f32_hopper_latent(HW, K)
+            and _l_blocks(B, C, nb, groups, HOPPER_F32_TILE_C))
+
+
+# every kernel a call may launch, in the order kernel_path asks the gates
+PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l", "general")
+_GATES = (hopper_supported, hopper_wide_supported, hopper_l_supported,
+          hopper_f32_supported, hopper_f32_l_supported)
 
 
 def kernel_path(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                 dtype: torch.dtype) -> str:
-    """The kernel a CUDA call with these shapes launches: "hopper",
-    "hopper_wide", "hopper_f32" or "general"."""
-    if hopper_supported(B, HW, C, K, nb, groups, dtype):
-        return "hopper"
-    if hopper_wide_supported(B, HW, C, K, nb, groups, dtype):
-        return "hopper_wide"
-    if hopper_f32_supported(B, HW, C, K, nb, groups, dtype):
-        return "hopper_f32"
+    """The kernel a CUDA call with these shapes launches: the path of the
+    first gate that admits them (the gates admit disjoint shapes), else
+    "general"."""
+    for path, gate in zip(PATHS, _GATES):
+        if gate(B, HW, C, K, nb, groups, dtype):
+            return path
     return "general"
 
 
@@ -294,7 +347,7 @@ BF16_BLOCKS_RANGE = "fused_gn_afno.bf16_blocks"
 
 def _bf16_blocks(w: torch.Tensor) -> torch.Tensor:
     """w (2, nb, bs, bs) f32 as bf16 with each block transposed to (out, in),
-    the layout afno_hopper.cu and afno_hopper_wide.cu load with TMA. Cached on w until w changes
+    the layout the bf16 Hopper kernels load with TMA. Cached on w until w changes
     (its version counter or storage), so serving converts once and training
     once per optimizer step."""
     if w.is_inference():  # no version counter to watch: convert every call
@@ -317,7 +370,7 @@ def _kernel_fn(path: str):
     from dpot_tpu_torch.ops.cuda.build import load_library
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    if path in ("hopper", "hopper_wide", "hopper_f32"):
+    if path != "general":
         fn = getattr(load_library("afno_" + path), "dpot_afno_" + path)
         fn.argtypes = [i] + [p] * 12 + [i] * 6 + [p]
     else:
@@ -344,11 +397,11 @@ def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, 
     o = torch.empty((B, 2 * K, C), device=dev, dtype=x.dtype)
     out = torch.empty_like(x)
     path = kernel_path(B, HW, C, K, nb, groups, x.dtype)
-    if path in ("hopper", "hopper_wide"):
+    if path in ("hopper", "hopper_wide", "hopper_l"):
         ptrs = (x, gscale, gbias, A, Ainv, _bf16_blocks(w1), b1, _bf16_blocks(w2), b2,
                 stats, o, out)
         flags = (aid,)
-    elif path == "hopper_f32":
+    elif path in ("hopper_f32", "hopper_f32_l"):
         ptrs = (*args, stats, o, out)
         flags = (aid,)
     else:
@@ -500,5 +553,4 @@ def fused_gn_afno(
 
 
 fused_gn_afno.launches = 0
-fused_gn_afno.launches_by_path = {"hopper": 0, "hopper_wide": 0, "hopper_f32": 0,
-                                  "general": 0}
+fused_gn_afno.launches_by_path = dict.fromkeys(PATHS, 0)

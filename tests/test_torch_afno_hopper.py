@@ -64,11 +64,12 @@ def test_admitted_edge_shapes(shapes):
 @pytest.mark.parametrize("name", ["L", "H"])
 def test_presets_with_other_block_sizes_take_the_general_kernel(name):
     """L (blocks of 96 channels) and H (256) are refused by the gate of
-    blocks of 128 channels in bf16: L takes the general kernel, H the
-    kernel for blocks of 256 channels (afno_hopper_wide.cu)."""
+    blocks of 128 channels in bf16: L takes the kernel for blocks of 96
+    channels (afno_hopper_l.cu), H the one for blocks of 256 channels
+    (afno_hopper_wide.cu)."""
     shapes = preset_shapes(name)
     assert not hopper_supported(*shapes, BF16)
-    assert kernel_path(*shapes, BF16) == ("hopper_wide" if name == "H" else "general")
+    assert kernel_path(*shapes, BF16) == ("hopper_wide" if name == "H" else "hopper_l")
 
 
 @pytest.mark.parametrize("shapes", [
@@ -90,11 +91,13 @@ def test_ragged_and_unfit_shapes_are_refused(shapes):
 @pytest.mark.parametrize("name", ["Ti", "S", "M", "L", "H"])
 def test_f32_always_takes_the_general_kernel(name):
     """f32 never takes the bf16 Hopper kernel: Ti, S and M (AFNO blocks of
-    128 channels) take the f32 Hopper kernel (afno_hopper_f32.cu), L and H
-    the five-launch general kernel."""
+    128 channels) take the f32 Hopper kernel (afno_hopper_f32.cu), L (96)
+    the f32 kernel for 96-channel blocks (afno_hopper_f32_l.cu), H the
+    five-launch general kernel."""
     shapes = preset_shapes(name)
     assert not hopper_supported(*shapes, F32)
-    assert kernel_path(*shapes, F32) == ("hopper_f32" if name in ("Ti", "S", "M") else "general")
+    want = {"L": "hopper_f32_l", "H": "general"}.get(name, "hopper_f32")
+    assert kernel_path(*shapes, F32) == want
 
 
 def test_gate_is_a_pure_function_of_shapes():
@@ -127,7 +130,7 @@ def test_bf16_weight_blocks_are_cached_until_the_weight_changes():
 
 def test_launch_counts_by_path_start_at_zero_keys():
     assert set(afno_fused.fused_gn_afno.launches_by_path) == {
-        "hopper", "hopper_wide", "hopper_f32", "general"}
+        "hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l", "general"}
 
 
 def test_bf16_weight_copies_are_made_inside_a_profiler_range():

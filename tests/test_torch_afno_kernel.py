@@ -79,6 +79,11 @@ def jax_args(c):
     # and DPOT-H's layout of one group per block
     dict(B=2, H=8, W=8, C=256, nb=1, modes=4, groups=1),
     dict(B=2, H=8, W=8, C=512, nb=2, modes=4, groups=2),
+    # AFNO blocks of 96 channels (the kernels for DPOT-L's blocks) with
+    # GroupNorm groups that straddle blocks: one group over a block pair,
+    # and two groups each over a pair, as DPOT-L's groups of 192
+    dict(B=2, H=8, W=8, C=192, nb=2, modes=4, groups=1),
+    dict(B=2, H=8, W=8, C=384, nb=4, modes=4, groups=2),
 ])
 def test_f32_matches_tpu_kernel_interpret_and_xla_reference(shape, monkeypatch):
     """approximate=True (tanh-GELU) in f32 == the TPU kernel in interpret

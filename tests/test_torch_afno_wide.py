@@ -44,12 +44,15 @@ def test_blocks_of_128_still_take_the_hopper_kernel(name, B):
 
 @pytest.mark.parametrize("name,dtype", [("L", BF16), ("L", F32), ("H", F32)])
 def test_l_and_f32_h_keep_the_general_kernel(name, dtype):
-    """L (blocks of 96 channels) has no Hopper kernel in either type, and
-    f32 at H (blocks of 256) none either: the five-launch kernel."""
+    """L (blocks of 96 channels) takes the kernel for 96-channel blocks of
+    its type (hopper_l, hopper_f32_l); f32 at H (blocks of 256) has no
+    Hopper kernel and keeps the five-launch one. Neither takes the wide or
+    the 128-channel kernels."""
     shapes = preset_shapes(name)
     assert not hopper_wide_supported(*shapes, dtype)
     assert not hopper_supported(*shapes, dtype) and not hopper_f32_supported(*shapes, dtype)
-    assert kernel_path(*shapes, dtype) == "general"
+    want = {"L": {BF16: "hopper_l", F32: "hopper_f32_l"}, "H": {F32: "general"}}[name][dtype]
+    assert kernel_path(*shapes, dtype) == want
 
 
 # each kind of shape the wide gate admits besides H, as
@@ -86,8 +89,10 @@ def test_admitted_wide_edge_shapes(shapes):
     (65536, 256, 2048, 144, 8, 8),  # a batch beyond the grid's z dimension
 ])
 def test_ragged_and_unfit_wide_shapes_are_refused(shapes):
+    """Refused by the wide gate: the five-launch kernel, but for L's blocks
+    of 96 channels, which take their own kernel (tests/test_torch_afno_l.py)."""
     assert not hopper_wide_supported(*shapes, BF16)
-    assert kernel_path(*shapes, BF16) == "general"
+    assert kernel_path(*shapes, BF16) == ("hopper_l" if shapes[2] == 1536 else "general")
 
 
 def test_f32_never_takes_the_wide_kernel():

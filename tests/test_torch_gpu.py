@@ -266,11 +266,13 @@ L_BLOCK = dict(C=1536, nb=16, groups=8)
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 8, 20])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_general_kernel_at_the_dpot_l_block_shapes(cuda, dtype, B):
-    """L takes the five-launch kernel (no Hopper gate admits 96-channel
-    blocks), whose statistics are per group whatever the blocks: against
-    the plain version within the limits above (f32 5e-5 absolute; bf16 4
-    bf16 ulps of the output's magnitude and 4e-3 relative L2)."""
+def test_general_kernel_at_the_dpot_l_block_shapes(cuda, dtype, B, monkeypatch):
+    """The five-launch kernel, forced on at L (which takes the kernels for
+    96-channel blocks), computes its statistics per group whatever the
+    blocks: against the plain version within the limits above (f32 5e-5
+    absolute; bf16 4 bf16 ulps of the output's magnitude and 4e-3 relative
+    L2)."""
+    monkeypatch.setattr(afno_fused, "kernel_path", lambda *shapes: "general")
     args = ti_block_args(B, dtype, cuda, seed=90 + B, **L_BLOCK)
     approx = dtype == torch.bfloat16
     before = dict(fused_gn_afno.launches_by_path)
@@ -285,6 +287,83 @@ def test_general_kernel_at_the_dpot_l_block_shapes(cuda, dtype, B):
     else:
         assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
         assert rel_l2(got, want) <= 4e-3
+
+
+# the kernels for AFNO blocks of 96 channels, by compute type
+L_PATHS = {torch.bfloat16: "hopper_l", torch.float32: "hopper_f32_l"}
+
+
+def check_l(args, dtype, act="gelu"):
+    """One call on the kernel for 96-channel blocks of the compute type
+    (afno_hopper_l.cu, afno_hopper_f32_l.cu) against the plain version, as
+    chip_smoke.py holds them: f32 5e-5 absolute and 1e-5 relative L2 (3xTF32
+    products, so summation order); bf16 4 bf16 ulps of the output's
+    magnitude and 4e-3 relative L2 (a rounding of z, h or o that falls the
+    other way)."""
+    path, approx = L_PATHS[dtype], dtype == torch.bfloat16
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=approx, act=act).float()
+    want = fused_gn_afno_ref(*args, approximate=approx, act=act).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path[path] == before[path] + 1
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 1
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 5e-5
+        assert rel_l2(got, want) <= 1e-5
+    else:
+        assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+        assert rel_l2(got, want) <= 4e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 20])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_l_kernels_at_the_dpot_l_block_shapes(cuda, dtype, B):
+    """L in each compute type takes its kernel for 96-channel blocks, whose
+    CTAs compute the statistics of groups that span two blocks."""
+    check_l(ti_block_args(B, dtype, cuda, seed=110 + B, **L_BLOCK), dtype)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [
+    (BF16, dict(C=384, nb=4, groups=4)),               # a group per block
+    (BF16, dict(C=384, nb=4, groups=2)),               # a group per block pair
+    (BF16, dict(L_BLOCK, groups=16)),                  # L's width, a group per block
+    (BF16, dict(L_BLOCK, H=16, W=8, modes=8)),         # 128 px, K 40: one short chunk
+    (BF16, dict(L_BLOCK, H=32, W=8, modes=32)),        # K 160: 2K = 320, the most o rows
+    (BF16, dict(L_BLOCK, modes=2)),                    # K 4: 2K = 8
+    (F32, dict(C=192, nb=2, groups=1)),                # one block pair, C 192
+    (F32, dict(C=384, nb=4, groups=4)),                # a group per block
+    (F32, dict(L_BLOCK, groups=16)),                   # L's width, a group per block
+    (F32, dict(L_BLOCK, H=16, W=8, modes=16)),         # 128 px, K 80: a partial chunk
+    (F32, dict(L_BLOCK, H=8, W=8, modes=4)),           # 64 px, K 16: one pixel tile
+    (F32, dict(C=384, nb=4, groups=2, H=32, W=32, modes=12)),  # 1024 px: 32 pixel chunks
+    (F32, dict(L_BLOCK, modes=2)),                     # K 4: 2K = 8
+])
+def test_l_kernels_at_admitted_edge_shapes(cuda, dtype, shape):
+    """Each kind of shape that hopper_l_supported and hopper_f32_l_supported
+    admit besides L (tests/test_torch_afno_l.py lists the same kinds) runs
+    on its kernel and matches the plain version."""
+    args = ti_block_args(2, dtype, cuda, seed=44, **shape)
+    x, *_, K, groups = args
+    B, HW, C = x.shape
+    assert afno_fused.kernel_path(B, HW, C, K, shape["nb"], groups, dtype) == L_PATHS[dtype]
+    check_l(args, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["silu", "tanh", "relu", "sigmoid", "leaky_relu",
+                                 "softplus", "elu", "gelu"])
+def test_non_gelu_activations_on_the_l_kernels(cuda, dtype, act):
+    """The mode MLP of both kernels for 96-channel blocks applies the act it
+    is given, at the DPOT-L block shapes; gelu in its tanh form in bf16 and
+    its erf form in f32, as the model runs them."""
+    check_l(ti_block_args(3, dtype, cuda, seed=33, **L_BLOCK), dtype, act)
 
 
 @pytest.mark.gpu
@@ -346,6 +425,31 @@ def test_fused_gn_afno_gradient_matches_autograd_through_plain(cuda, dtype, monk
     got = torch.autograd.grad(out, leaves, g)
     monkeypatch.undo()
     want = torch.autograd.grad(fused_gn_afno_ref(*args, approximate=approx), leaves, g)
+    torch.cuda.synchronize()
+    lim = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and rel_l2(a, b) <= lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gradient_at_the_dpot_l_block_shapes(cuda, dtype):
+    """At L the forward that FusedGnAfno saves for its VJP runs on the kernel
+    for 96-channel blocks: the gradient against autograd through the plain
+    version, limits as above."""
+    x, gs, gb, A, Ainv, w1, b1, w2, b2, K, groups = ti_block_args(4, dtype, cuda, seed=7,
+                                                                   **L_BLOCK)
+    leaves = [t.requires_grad_() for t in (x, gs, gb, w1, b1, w2, b2)]
+    args = (x, gs, gb, A, Ainv, w1, b1, w2, b2, K, groups)
+    approx = dtype == torch.bfloat16
+    before = fused_gn_afno.launches_by_path[L_PATHS[dtype]]
+    out = fused_gn_afno(*args, approximate=approx)
+    assert fused_gn_afno.launches_by_path[L_PATHS[dtype]] == before + 1
+    assert type(out.grad_fn).__name__ == "FusedGnAfnoBackward"
+    g = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    got = torch.autograd.grad(out, leaves, g.to(dtype))
+    want = torch.autograd.grad(fused_gn_afno_ref(*args, approximate=approx), leaves,
+                               g.to(dtype))
     torch.cuda.synchronize()
     lim = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, want):

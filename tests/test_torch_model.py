@@ -103,6 +103,26 @@ def test_forward_with_256_channel_blocks_matches_jax(dtype):
         assert np.linalg.norm(ty - jy) / np.linalg.norm(jy) < 2e-2
 
 
+# DPOT-L's layout in miniature: 16 AFNO blocks and GroupNorm(8), so that each
+# group spans two blocks (the card runs its mixer on afno_hopper_l.cu and
+# afno_hopper_f32_l.cu): embed 192 in blocks of 12, depth 2, 32^2 grid
+L_LAYOUT = dict(SMALL, embed_dim=192, depth=2, n_blocks=16, modes=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_with_groups_spanning_two_blocks_matches_jax(dtype):
+    """f32 at the interop bar (2e-4 absolute); bf16 at the bf16 bar above
+    (relative L2 below 2e-2)."""
+    x = rand_x((2, 32, 32, 6, 3), seed=8)
+    (ty, tc), (jy, jc) = both(x, dtype=dtype, cfg=L_LAYOUT)
+    assert ty.shape == jy.shape == (2, 32, 32, 2, 3) and np.isfinite(ty).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(ty, jy, atol=2e-4, rtol=0)
+        np.testing.assert_allclose(tc, jc, atol=2e-4, rtol=0)
+    else:
+        assert np.linalg.norm(ty - jy) / np.linalg.norm(jy) < 2e-2
+
+
 def test_forward_ti_entry_config_matches_jax():
     """The flagship geometry of __graft_entry__.entry() at full width and
     depth: preset Ti on a 128^2 grid, patch 8, T_in 10, 4 channels."""
