@@ -20,8 +20,8 @@ Phases, each printing its results as JSON lines:
        256-channel blocks (afno_hopper_wide.cu) in the same way; at the
        DPOT-L block shapes (C 1536, 16 AFNO blocks of 96 channels, groups
        of 192) bf16 on afno_hopper_l.cu and f32 on afno_hopper_f32_l.cu in
-       the same way; the five shape gates against their mirrors in the
-       CUDA sources;
+       the same way, bf16 also at B = 16 (L's pretraining batch); the five
+       shape gates against their mirrors in the CUDA sources;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -73,17 +73,33 @@ Phases, each printing its results as JSON lines:
      the same rollout with the mixer's plain version on the card and with
      plain mixers wrong on purpose, one application profiled at B = 1 and
      8 as in phase 4, peak memory;
-  9. finetune_S: `python -m dpot_tpu_torch.cli.finetune` from a seeded
+  9. train_L: `python -m dpot_tpu_torch.cli.sweep --config_file <copy of
+     configs/pretrain_large.yaml>` in-process, the copy's data cut (twelve
+     synthetic sets of their namesakes' grids, channels and lengths, 2
+     train and 2 test trajectories each, 2 epochs) and every other key the
+     file's: DPOT-L at full width and depth, bf16, lamb, batch 16, remat.
+     The steps exact, launches = depth x (2 x train + eval applications),
+     all on afno_hopper_l.cu, every loss finite, the checkpoint restoring
+     through restore_params; where a step's time goes as in phase 5, with
+     the dense layers' f32->bf16 weight copies, and peak memory;
+  10. remat_L: one bf16 L step at batch 16 with remat and without, from the
+     same weights, batch and noise: the losses and every gradient compared
+     (expected identical), each way's step time and peak memory;
+  11. params_lp_L: five bf16 lamb L steps at batch 16 with the bf16 working
+     copy of the parameters and without: each loss within 5 %, the copy the
+     master's exact cast after every step, all launches on afno_hopper_l.cu,
+     each way's step profile and weight-copy time;
+  12. finetune_S: `python -m dpot_tpu_torch.cli.finetune` from a seeded
      4-channel DPOT-S .pth onto a synthetic 3-channel 128^2 set (40 train,
      8 test) with configs/dpot_finetune.yaml's optimization (load_components
      all) for 2 epochs in bf16: the units copied, finite losses, launches
      all on the Hopper kernel; then cli.evaluate --config_from_ckpt on the
      run's checkpoint directory, whose loss_full equals the loop's last
      test metric;
-  10. varyres_Ti: cli.evaluate --varyres at DPOT-Ti over the 11 default
+  13. varyres_Ti: cli.evaluate --varyres at DPOT-Ti over the 11 default
      resolutions, every loss finite, two of them (odd and even) against the
      same sweep with the mixer's plain version;
-  11. convert_resume_serve: cli.convert turns the S .pth into a checkpoint
+  14. convert_resume_serve: cli.convert turns the S .pth into a checkpoint
      directory, cli.train --resume_path takes one epoch from it from step
      0, cli.serve --resume_path serves it over HTTP, the answer against a
      direct loop over model(x).
@@ -270,7 +286,32 @@ TRAIN_CPU_TOL = dict(loss=1e-5, grad=1e-4)
 # a resumed step on the card against the same step resumed again: the same
 # state and batch; cuBLAS may order a reduction differently from call to call
 RESUME_TOL = 1e-6
-RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+ROOT = Path(__file__).resolve().parent
+RUN_DIR = ROOT / "build" / "chip_smoke"
+# DPOT-L pretraining through the sweep CLI from a copy of
+# configs/pretrain_large.yaml with only its data cut: each of the file's
+# twelve corpora is stood in for by an in-memory synthetic set with its
+# namesake's grid, channels and trajectory and rollout lengths (the port's
+# data registry), `ntrain` trajectories to train (ntrain_list) and `ntest`
+# to test, for `epochs` epochs; the run's logs go under the smoke's
+# directory (log_path). Every other key is the file's: width 1536, depth 24,
+# 16 blocks, bf16, lamb, remat, batch 16, noise 5e-4, lr 5e-4, cycle
+L_CONFIG = ROOT / "configs" / "pretrain_large.yaml"
+TRAIN_L = dict(epochs=2, ntrain=2, ntest=2)
+# one bf16 L step at batch 16 with remat and without, from the same weights,
+# batch and noise: the recomputation runs the same kernels on the same
+# inputs, so the two are expected to be identical
+REMAT_TOL = dict(loss=1e-6, grad=1e-3)
+# five bf16 L steps (lamb, batch 16, batches of the cut corpora) with the
+# bf16 working copy and without: each loss within 5 % (JAX's bar for the
+# working copy, tests/test_bf16_params.py). lr is a tenth of the file's
+# peak, a point of its warm-up: this lamb has no trust ratio, so at the
+# peak every weight moves by about lr a step, 2 % of a typical L weight
+# (1/sqrt(1536)); the file reaches the peak after 200 warm-up epochs, and
+# a fresh L taken there at once diverges, with the working copy or without
+# (PERF.md, section 6)
+PARAMS_LP = dict(steps=5, loss_rel=0.05, lr=5e-5)
+L_BATCH = 16
 
 
 def log(phase: str, **kv) -> None:
@@ -310,15 +351,17 @@ def sub_kernel(name: str) -> str | None:
     return m.group(1) if m and m.group(1) in SUB_KERNELS else None
 
 
-def profile_events(fn, runs: int) -> list:
-    """torch.profiler events of `runs` calls of fn. The profiler now and then
-    returns no device activity; it is then asked again, up to three times,
-    and an empty list means that the device time was not measured."""
+def profile_events(fn, runs: int, record_shapes: bool = False) -> list:
+    """torch.profiler events of `runs` calls of fn (with their inputs' shapes
+    and types when `record_shapes`). The profiler now and then returns no
+    device activity; it is then asked again, up to three times, and an
+    empty list means that the device time was not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=record_shapes) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
@@ -570,6 +613,9 @@ KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
                 ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")),
                 ("L/", DPOT_L, torch.bfloat16, ("general", "hopper_l")),
                 ("L/", DPOT_L, torch.float32, ("general", "hopper_f32_l")))
+KERNEL_BATCHES = (1, 8, TRAIN["batch"])
+# the batches of each case: L in bf16 also at the batch of its pretraining
+CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"])}
 
 
 def phase_kernels() -> dict:
@@ -581,7 +627,7 @@ def phase_kernels() -> dict:
     results = {}
     for prefix, geo, dtype, paths in KERNEL_CASES:
         dname = str(dtype).replace("torch.", "")
-        for B in (1, 8, TRAIN["batch"]):
+        for B in CASE_BATCHES.get((prefix, dtype), KERNEL_BATCHES):
             checks = {}
             for path in paths:
                 check_afno(B, dtype, 0.05, 100 + B, path, geo=geo)          # MLP-dominated
@@ -1046,7 +1092,38 @@ def read_metrics(log_dir: str) -> dict[str, list[float]]:
 EVAL_FN = "autograd::engine::evaluate_function: "
 
 
-def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
+def weight_shapes(model) -> set[tuple[int, ...]]:
+    """The shapes of the model's parameters and of the 2-D views in which
+    the dense layers cast them ((out, rest) and (rest, last))."""
+    shapes = set()
+    for p in model.parameters():
+        n = p.numel()
+        shapes |= {tuple(p.shape), (p.shape[0], n // p.shape[0]), (n // p.shape[-1], p.shape[-1])}
+    return shapes
+
+
+# c10::ScalarType::BFloat16, as a profile that records shapes lists a dtype
+# argument among an op's concrete inputs
+BF16_SCALAR_TYPE = 15
+
+
+def weight_copy_ms(events, shapes: set, runs: int) -> float | str:
+    """Device time per step of the dense layers' casts of their weights to
+    bf16: the aten::to calls to bf16 on a tensor of a parameter's shape (or
+    its 2-D view), from a profile that recorded shapes (a call on a tensor
+    that is bf16 already copies nothing and takes no device time)."""
+    from torch.autograd import DeviceType
+
+    casts = [e for e in events if e.device_type == DeviceType.CPU and e.name == "aten::to"
+             and e.input_shapes and tuple(e.input_shapes[0]) in shapes]
+    if casts and not any(getattr(e, "concrete_inputs", None) for e in casts):
+        return "not measured"
+    return sum(e.device_time_total for e in casts
+               if list(e.concrete_inputs[1:2]) == [BF16_SCALAR_TYPE]) / runs / 1e3
+
+
+def train_step_profile(state, batch, step_fn, runs: int = 10,
+                       weight_copies: bool = False) -> dict:
     """Where a train step's time goes, over `runs` steps after a warm-up:
     median wall time per step on the host clock (synchronised each step),
     then one profiled window of `runs` steps for the device busy time and
@@ -1058,7 +1135,10 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     device time where the card runs behind the host, as at DPOT-H, plus the
     host's gaps where it does not, as at Ti) and by a profiler range around
     it in the profiled window, whose device time the profiler attributed
-    wrongly at DPOT-H (more than the whole step)."""
+    wrongly at DPOT-H (more than the whole step). Peak memory is that of
+    the timed steps, and of the first one's forward and backward alone
+    (read as its update starts). With `weight_copies` the profile records
+    shapes, and the dense layers' f32->bf16 weight copies are counted too."""
     from torch.autograd import DeviceType
 
     def step():
@@ -1067,13 +1147,16 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     apply_gradients = state.apply_gradients
     updates = []
+    before_update = []
 
-    def timed_apply():
+    def timed_apply(*grads):
+        before_update.append(torch.cuda.max_memory_allocated())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        apply_gradients()
+        apply_gradients(*grads)
         end.record()
         updates.append((start, end))
 
@@ -1087,14 +1170,16 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
     wall = statistics.median(walls)
     opt = statistics.median(s.elapsed_time(e) for s, e in updates)
     row = dict(wall_ms=wall, wall_ms_each=walls,
-               samples_per_s=batch["x"].shape[0] / wall * 1e3)
+               samples_per_s=batch["x"].shape[0] / wall * 1e3,
+               peak_step_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_before_update_gb=before_update[0] / 1e9)
 
-    def traced_apply():
+    def traced_apply(*grads):
         with torch.profiler.record_function("optimizer_update"):
-            apply_gradients()
+            apply_gradients(*grads)
 
     state.apply_gradients = traced_apply
-    events = profile_events(step, runs)
+    events = profile_events(step, runs, record_shapes=weight_copies)
     del state.apply_gradients
     if not events:
         row.update(device_busy_ms="not measured")
@@ -1130,6 +1215,8 @@ def train_step_profile(state, batch, step_fn, runs: int = 10) -> dict:
                optimizer_share=opt / busy, optimizer_profiled_ms=opt_profiled,
                linear_forward_ms=linear,
                linear_forward_share=linear / busy, backward_nodes_ms=top)
+    if weight_copies:
+        row["dense_weight_copy_ms"] = weight_copy_ms(events, weight_shapes(state.model), runs)
     return row
 
 
@@ -1578,6 +1665,240 @@ def phase_convert_resume_serve() -> dict:
     return row
 
 
+def l_sweep_file(run_dir: Path) -> tuple[Path, list]:
+    """Write the copy of configs/pretrain_large.yaml with only its data cut
+    (TRAIN_L) into run_dir; returns its path and the synthetic sets' specs,
+    in the file's order of corpora."""
+    import yaml
+
+    from dpot_tpu_torch.data.registry import get_spec, make_synthetic_spec
+
+    doc = yaml.safe_load(L_CONFIG.read_text())
+    specs = []
+    for name in doc["train_paths"]:
+        real = get_spec(name)
+        specs.append(make_synthetic_spec(
+            f"synthetic_L_{name}", train_size=TRAIN_L["ntrain"], test_size=TRAIN_L["ntest"],
+            t_total=real.t_total, t_test=real.t_test, in_size=real.in_size,
+            n_channels=real.n_channels))
+    names = [spec.name for spec in specs]
+    doc.update(train_paths=names, test_paths=names,
+               ntrain_list=[TRAIN_L["ntrain"]] * len(names), log_path=str(run_dir / "train_l"))
+    doc["tasks"]["epochs"] = [TRAIN_L["epochs"]]
+    path = run_dir / "pretrain_large_data_cut.yaml"
+    path.write_text(yaml.safe_dump(doc, sort_keys=False))
+    return path, specs
+
+
+def l_applications(specs, weights, batch: int, epochs: int, t_in: int = 10) -> tuple[int, int]:
+    """The train steps and eval model applications of the cut L run: each
+    corpus gives ntrain x its weight train samples (one window each, T_ar
+    1, so one application a step), and per epoch ceil(ntest / batch) eval
+    batches of as many applications as its test rollout has frames
+    (t_test, or the frames after the first t_in where fewer)."""
+    samples = sum(s.train_size * w for s, w in zip(specs, weights))
+    steps = epochs * math.ceil(samples / batch)
+    evals = epochs * sum(math.ceil(s.test_size / batch) * min(s.t_test, s.t_total - t_in)
+                         for s in specs)
+    return steps, evals
+
+
+def phase_train_l() -> tuple[dict, torch.nn.Module]:
+    """Pretrain DPOT-L through the sweep CLI (`python -m
+    dpot_tpu_torch.cli.sweep --config_file <copy>`, in-process) from
+    configs/pretrain_large.yaml with only its data cut: bf16, lamb, batch
+    16, remat. The steps and the kernel's launches exact (remat runs each
+    block's forward again in the backward: depth x (2 x train + eval
+    applications), all on afno_hopper_l.cu), every loss finite, the
+    checkpoint the run wrote restoring through restore_params to the
+    state's weights; then where a step's time goes, as for Ti, with the
+    dense layers' weight copies. Returns the row and the trained model."""
+    import yaml
+
+    from dpot_tpu_torch.cli.sweep import main as sweep_main
+    from dpot_tpu_torch.train.checkpoint import restore_params
+    from dpot_tpu_torch.train.step import make_train_step
+
+    cfg_path, specs = l_sweep_file(RUN_DIR)
+    doc = yaml.safe_load(cfg_path.read_text())
+    batch = doc["tasks"]["batch_size"][0]
+    if (batch, doc["opt"], doc["dtype"], doc["remat"]) != (L_BATCH, "lamb", "bfloat16", True):
+        raise AssertionError(f"{L_CONFIG.name} no longer pretrains L as this phase expects")
+    steps, eval_apps = l_applications(specs, doc["data_weights"], batch, TRAIN_L["epochs"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (out,) = sweep_main(["--config_file", str(cfg_path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
+    bias_act_launches = bias_act.launches
+    run_peak = torch.cuda.max_memory_allocated() / 1e9
+    state, model = out["state"], out["model"]
+    if not model.remat or state.step != steps:
+        raise AssertionError(f"train_l: remat {model.remat}, {state.step} steps, expected "
+                             f"remat and {steps}")
+    want = DPOT_L["depth"] * (2 * steps + eval_apps)
+    if launches != want:
+        raise AssertionError(f"train_l: fused_gn_afno launched {launches} times, expected "
+                             f"depth x (2 x train + eval applications) = {want}")
+    by_path = check_paths("bfloat16", launches, "hopper_l")
+    metrics = read_metrics(out["log_dir"])
+    losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
+    losses += [out["train_l2_step"], out["train_l2_full"], *out["test_l2_steps"],
+               *out["test_l2_fulls"]]
+    if len(metrics.get("train_loss_step", [])) != steps or not finite(losses):
+        raise AssertionError(f"train_l losses missing or not finite: {metrics}")
+    saved = restore_params(str(Path(out["log_dir"]) / "model"))
+    mine = state.params_state_dict()
+    if saved.keys() != mine.keys() or not all(torch.equal(saved[k], mine[k].cpu())
+                                               for k in saved):
+        raise AssertionError("train_l: the checkpoint does not restore to the state's weights")
+    del saved, mine
+
+    (b,) = l_corpus_batches(1, seed=1)
+    del b["noise"]  # the step draws its noise from the state's generator, as in the run
+    step_fn = make_train_step(noise_scale=doc["tasks"]["noise_scale"][0], ones_mask=True)
+    prof = train_step_profile(state, b, step_fn, weight_copies=True)
+    row = dict(dtype="bfloat16", batch=batch, steps=steps, train_applications=steps,
+               eval_applications=eval_apps, launches=launches, launches_by_path=by_path,
+               bias_act_launches=bias_act_launches, run_s=run_s, run_peak_memory_gb=run_peak,
+               loop_step_s=out["step_seconds"], train_l2_step=out["train_l2_step"],
+               test_l2_steps=out["test_l2_steps"],
+               params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+               corpora={s.name: dict(channels=s.n_channels, in_size=s.in_size,
+                                     t_total=s.t_total, t_test=s.t_test) for s in specs},
+               **prof)
+    log("train_l", **row)
+    del out, state
+    return row, model
+
+
+def l_corpus_batches(n: int, seed: int) -> list[dict]:
+    """n train batches of batch 16 of the cut L corpora that train_L
+    registered, as the loop ships them to the card (x in bf16, one target
+    frame, no mask), each with the noise draws of its step."""
+    import yaml
+
+    from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+
+    doc = yaml.safe_load(L_CONFIG.read_text())
+    names = [f"synthetic_L_{name}" for name in doc["train_paths"]]
+    ds = MixedTemporalDataset(names, [TRAIN_L["ntrain"]] * len(names),
+                              res=doc["tasks"]["res"][0], t_in=10, t_ar=1, train=True,
+                              data_weights=doc["data_weights"])
+    loader = iter(DataLoader(ds, L_BATCH, shuffle=True, num_workers=8, seed=seed,
+                             drop_last=True))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = []
+    for _ in range(n):
+        x, y, _, cls = next(loader)
+        batches.append({"x": torch.from_numpy(x).to("cuda", torch.bfloat16),
+                        "y": torch.from_numpy(y).cuda(), "cls": torch.from_numpy(cls).cuda(),
+                        "noise": torch.randn((1, *x.shape), generator=gen, device="cuda")})
+    return batches
+
+
+def phase_remat_l(model) -> dict:
+    """One bf16 step of the trained DPOT-L at batch 16 with remat and
+    without, from the same weights (lr 0 keeps them), batch (of the cut
+    corpora) and noise: the losses within REMAT_TOL["loss"] and every
+    gradient within REMAT_TOL["grad"] relative L2 (expected identical);
+    where each way's step time goes, as for Ti, with its peak memory, and
+    its launches: depth x (2 or 1) a step. The gradients are compared on
+    the host, so that no copy of them weighs on the card's peak."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    (batch,) = l_corpus_batches(1, seed=31)
+    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    runs, row = {}, {}
+    for remat in (False, True):
+        model.remat = remat
+        state = TrainState.create(model, build_optimizer("lamb", model.parameters(), 0.0), 0)
+        reset_launch_counts()
+        loss = step_fn(state, batch)[1]["loss_step"].item()
+        per_step = DPOT_L["depth"] * (2 if remat else 1)
+        check_paths("bfloat16", per_step, "hopper_l")
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+        prof = train_step_profile(state, batch, step_fn)
+        launches = fused_gn_afno.launches
+        if launches != per_step * 24:  # the step, then 3 + 10 + 10 in the profile
+            raise AssertionError(f"remat_l {remat}: {launches} launches, expected {per_step * 24}")
+        runs[remat] = (loss, grads)
+        row[f"remat_{str(remat).lower()}"] = dict(
+            loss=loss, launches=launches, launches_by_path=dict(fused_gn_afno.launches_by_path),
+            **prof)
+        del state, grads
+    (l0, g0), (l1, g1) = runs[False], runs[True]
+    loss_rel = abs(l1 - l0) / abs(l0)
+    rels = {n: rel_l2(g1[n], g0[n]) for n in g0}
+    worst = max(rels, key=rels.get)
+    identical = [n for n in g0 if torch.equal(g1[n], g0[n])]
+    if g0.keys() != g1.keys() or not (loss_rel <= REMAT_TOL["loss"]
+                                      and rels[worst] <= REMAT_TOL["grad"]):
+        raise AssertionError(f"remat_l: loss rel {loss_rel}, {worst} gradient rel_l2 "
+                             f"{rels[worst]} (limits {REMAT_TOL})")
+    row.update(batch=L_BATCH, loss_rel=loss_rel, worst_grad=worst,
+               worst_grad_rel_l2=rels[worst], grads=len(rels),
+               grads_bitwise_equal=len(identical), limits=REMAT_TOL,
+               launches_by_path={p: sum(row[k]["launches_by_path"][p]
+                                        for k in ("remat_false", "remat_true"))
+                                 for p in afno_fused.PATHS})
+    log("remat_l", **row)
+    model.remat = True
+    return row
+
+
+def phase_params_lp_l(model) -> dict:
+    """Five bf16 lamb steps of DPOT-L at batch 16 (remat on, as the file
+    says) from the same weights, batches (of the cut corpora) and noise
+    with the bf16 working copy of the parameters and without: each loss
+    within PARAMS_LP's 5 %, after every step the copy exactly the master
+    cast to bf16, every launch on afno_hopper_l.cu; then where a step's
+    time goes each way, with the dense layers' f32->bf16 weight copies.
+    The model's weights are left as the working copy's bf16."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    batches = l_corpus_batches(PARAMS_LP["steps"], seed=40)
+    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    row: dict = dict(batch=L_BATCH, steps=PARAMS_LP["steps"], limit=PARAMS_LP["loss_rel"])
+    losses = {}
+    for lp in (False, True):
+        model.load_state_dict(start, strict=True)
+        opt = build_optimizer("lamb", model.parameters(), PARAMS_LP["lr"])
+        state = TrainState.create(model, opt, 0,
+                                  param_working_dtype=torch.bfloat16 if lp else None)
+        reset_launch_counts()
+        losses[lp] = []
+        for b in batches:
+            losses[lp].append(step_fn(state, b)[1]["loss_step"].item())
+            if lp and not all(torch.equal(p, m.to(torch.bfloat16))
+                              for p, m in zip(state.params_lp, state.optimizer.params)):
+                raise AssertionError("params_lp_l: the working copy is not the master's cast")
+        launches = fused_gn_afno.launches
+        by_path = check_paths("bfloat16", launches, "hopper_l")
+        if launches != 2 * DPOT_L["depth"] * PARAMS_LP["steps"]:
+            raise AssertionError(f"params_lp_l {lp}: {launches} launches")
+        prof = train_step_profile(state, batches[0], step_fn, weight_copies=True)
+        row["working_copy" if lp else "f32_master"] = dict(
+            losses=losses[lp], launches=launches, launches_by_path=by_path, **prof)
+        del state, opt
+    rels = [abs(b - a) / abs(a) for a, b in zip(losses[False], losses[True])]
+    if not finite(losses[False] + losses[True]) or not max(rels) <= PARAMS_LP["loss_rel"]:
+        raise AssertionError(f"params_lp_l losses {losses} differ by {rels}")
+    row.update(loss_rel=rels, launches_by_path={
+        p: row["f32_master"]["launches_by_path"][p] + row["working_copy"]["launches_by_path"][p]
+        for p in afno_fused.PATHS})
+    log("params_lp_l", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1613,16 +1934,24 @@ def main() -> int:
     del model_h
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     eval_l = {dtype: phase_eval_l(dtype) for dtype in ("bfloat16", "float32")}
+    train_l, model_l = phase_train_l()
+    remat_l = phase_remat_l(model_l)
+    params_lp_l = phase_params_lp_l(model_l)
+    del model_l
+    torch.cuda.empty_cache()
     finetune_s = phase_finetune_s()
     varyres = phase_varyres_ti()
     convert = phase_convert_resume_serve()
     shutil.rmtree(RUN_DIR)
 
+    def batches(prefix, dtype):
+        return CASE_BATCHES.get((prefix, getattr(torch, dtype)), KERNEL_BATCHES)
+
     def by_batch(prefix, dtype, path):
         return {f"B{B}": {key: x[key] for key in ("ms", "device_ms_each", "host_us", "plain_ms",
                                                   "bound_ms", "bound_fma_ms", "max_abs_err")
                           if key in x}
-                for B in (1, 8, TRAIN["batch"]) for x in [k[f"{prefix}{dtype}/{path}/B{B}"]]}
+                for B in batches(prefix, dtype) for x in [k[f"{prefix}{dtype}/{path}/B{B}"]]}
 
     kernels = []
     # the runs of the main path in each compute type, whose launches count
@@ -1630,6 +1959,8 @@ def main() -> int:
                  "finetune_s": finetune_s, "varyres_ti": varyres,
                  "convert_resume_serve": convert}
     f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"]}
+    l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "train_l": train_l,
+              "remat_l": remat_l, "params_lp_l": params_lp_l}
     # (name, kernel-phase key prefixes of the shapes its main path gives it,
     # the first the one whose times the row carries, dtype, path, source,
     # the runs whose launches count)
@@ -1638,9 +1969,9 @@ def main() -> int:
             ("fused_gn_afno[bf16,hopper_wide]", ("H/",), "bfloat16", "hopper_wide",
              "afno_hopper_wide.cu", {"serve_h": serve_h, "train_h": train_h}),
             ("fused_gn_afno[bf16,hopper_l]", ("L/",), "bfloat16", "hopper_l",
-             "afno_hopper_l.cu", {"eval_l[bfloat16]": eval_l["bfloat16"]}),
+             "afno_hopper_l.cu", l_runs),
             ("fused_gn_afno[bf16,general]", ("L/",), "bfloat16", "general", "afno_fused.cu",
-             {"eval_l[bfloat16]": eval_l["bfloat16"], **bf16_runs}),
+             {**l_runs, **bf16_runs}),
             ("fused_gn_afno[f32,hopper]", ("",), "float32", "hopper_f32", "afno_hopper_f32.cu",
              f32_runs),
             ("fused_gn_afno[f32,hopper_l]", ("L/",), "float32", "hopper_f32_l",
@@ -1649,20 +1980,23 @@ def main() -> int:
              {"eval_l[float32]": eval_l["float32"], **f32_runs}))
     for name, prefixes, dtype, path, src, runs in rows:
         prefix = prefixes[0]
-        r = k[f"{prefix}{dtype}/{path}/B8"]
+        # the row's times at the batch of the shapes' main path: L's
+        # pretraining in bf16, else 8
+        B_row = L_BATCH if L_BATCH in batches(prefix, dtype) else 8
+        r = k[f"{prefix}{dtype}/{path}/B{B_row}"]
         by_phase = {phase: run["launches_by_path"][path] for phase, run in runs.items()}
         kernels.append(dict(
             name=name, route="cuda", source=f"dpot_tpu_torch/csrc/{src}",
             replaces="dpot_tpu/ops/pallas/afno_fused.py:114",
             launches=sum(by_phase.values()),
             max_abs_err=max(k[f"{p}{dtype}/{path}/B{B}"]["max_abs_err"]
-                            for p in prefixes for B in (1, 8, TRAIN["batch"])),
+                            for p in prefixes for B in batches(p, dtype)),
             max_abs_err_over=[p or "Ti/" for p in prefixes],
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             phase=" + ".join(p for p, n in by_phase.items() if n)
             or "none: no main path takes it (forced on in the kernel phase)",
-            shapes=f"{prefix or 'Ti/'}{dtype}/B8", launches_by_phase=by_phase,
+            shapes=f"{prefix or 'Ti/'}{dtype}/B{B_row}", launches_by_phase=by_phase,
             check="pass", max_abs_limit=r["max_abs_limit"], rel_l2=r["rel_l2"],
             device_ms=r["device_ms"] and r["device_ms"]["total"],
             launches_per_call=r["device_ms"] and r["device_ms"]["launches_per_call"],
@@ -1680,7 +2014,7 @@ def main() -> int:
     # bias_act lies on no main path: its count over the serve and train runs
     bias_act_launches = sum(r["bias_act_launches"] for r in (
         serve_bf16, serve_f32, *train.values(), serve_h, train_h, *eval_l.values(),
-        finetune_s))
+        train_l, finetune_s))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

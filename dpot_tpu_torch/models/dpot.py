@@ -8,7 +8,12 @@ state dict (the layout dpot_tpu/train/interop.py reads), so a reference
 .pth loads with `load_state_dict(strict=True)`. Convolutions are computed as
 matrix products. Parameters are float32; `dtype` is the compute dtype
 (float32 or bfloat16). The norm1 GroupNorm and the AFNO mixer of every
-trunk block run as one fused kernel (ops/cuda/afno_fused.py).
+trunk block run as one fused kernel (ops/cuda/afno_fused.py). `remat`
+recomputes each trunk block's activations in the backward instead of
+keeping them (torch.utils.checkpoint, the counterpart of JAX's
+`nn.remat(Block)`). The parameters may also be a bfloat16 working copy
+(train/state.py): every op then takes them as they are, or upcasts them
+where it computes in float32.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from functools import lru_cache
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dpot_tpu_torch.ops.activations import get_activation
 from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno
@@ -253,14 +259,16 @@ class TimeAggregator(nn.Module):
         x = x.to(self.dtype)
         if self.time_agg == "exp_mlp":
             t = torch.linspace(0.0, 1.0, x.shape[-2], device=x.device)[:, None]
-            x = x * torch.cos(t @ self.gamma).to(self.dtype)
+            x = x * torch.cos(t @ self.gamma.float()).to(self.dtype)
         return x.reshape(*x.shape[:-2], T * C) @ self.w.reshape(T * C, C).to(self.dtype)
 
 
 class DPOTNet(nn.Module):
     """Full 2D DPOT model. Parameters are drawn on the CPU from a
     torch.Generator seeded with `seed` (the same weights on every device),
-    then moved to `device`."""
+    then moved to `device`. With `remat`, a forward under grad mode keeps
+    only each trunk block's input and runs the block again in the backward;
+    the blocks stay where they are, so the state dict's keys do not change."""
 
     def __init__(
         self,
@@ -283,6 +291,7 @@ class DPOTNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cpu",
         seed: int = 0,
+        remat: bool = False,
     ):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
@@ -297,6 +306,7 @@ class DPOTNet(nn.Module):
         self.out_timesteps = out_timesteps
         self.normalize = normalize
         self.dtype = dtype
+        self.remat = remat
         h = img_size // p
 
         if normalize:
@@ -344,8 +354,12 @@ class DPOTNet(nn.Module):
         if self.normalize:
             x = scale_sigma.to(dt) * x + scale_mu.to(dt)         # AdaIN
 
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            # a block draws no random numbers, so its recomputation needs no
+            # saved RNG state
+            x = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=False)
+                 if remat else blk(x))
 
         ct = x.mean(dim=(1, 2)).float()                          # classifier head
         for layer in self.cls_head:

@@ -35,6 +35,7 @@ def build_model(
     normalize: bool = False,
     act: str = "gelu",
     use_ln: int = 0,
+    remat: bool = False,
     preset: str | None = None,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device | None = "cuda",
@@ -42,14 +43,15 @@ def build_model(
     **overrides,
 ):
     """Build a model by family name on `device` (CUDA unless the caller
-    asks for the CPU), its weights drawn from `seed`. use_ln belongs to the
-    FNO family and is ignored here, as in the JAX package."""
+    asks for the CPU), its weights drawn from `seed`. remat recomputes each
+    trunk block in the backward. use_ln belongs to the FNO family and is
+    ignored here, as in the JAX package."""
     del use_ln
     kwargs: dict[str, Any] = dict(
         img_size=img_size, patch_size=patch_size, in_channels=in_channels,
         out_channels=out_channels if out_channels is not None else in_channels,
         in_timesteps=in_timesteps, out_timesteps=out_timesteps, modes=modes,
-        n_cls=n_cls, normalize=normalize, act=act,
+        n_cls=n_cls, normalize=normalize, act=act, remat=remat,
     )
     if preset is not None:
         kwargs.update(MODEL_PRESETS[preset])

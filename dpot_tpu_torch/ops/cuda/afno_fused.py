@@ -174,21 +174,23 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, act):
             "branch is not ported yet (ROADMAP, 'Modules to port')"
         )
     act_id(act, True)
+    f32 = (torch.float32,)
+    weight = (torch.float32, torch.bfloat16)
     shapes = {
-        "gscale": (gscale, (C,), torch.float32),
-        "gbias": (gbias, (C,), torch.float32),
-        "A": (A, (2 * K, HW), x.dtype),
-        "Ainv": (Ainv, (HW, 2 * K), x.dtype),
-        "w1": (w1, (2, nb, bs, bs), torch.float32),
-        "b1": (b1, (2, nb, bs), torch.float32),
-        "w2": (w2, (2, nb, bs, bs), torch.float32),
-        "b2": (b2, (2, nb, bs), torch.float32),
+        "gscale": (gscale, (C,), f32),
+        "gbias": (gbias, (C,), f32),
+        "A": (A, (2 * K, HW), (x.dtype,)),
+        "Ainv": (Ainv, (HW, 2 * K), (x.dtype,)),
+        "w1": (w1, (2, nb, bs, bs), weight),
+        "b1": (b1, (2, nb, bs), f32),
+        "w2": (w2, (2, nb, bs, bs), weight),
+        "b2": (b2, (2, nb, bs), f32),
     }
-    for name, (t, shape, dtype) in shapes.items():
+    for name, (t, shape, dtypes) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -346,10 +348,10 @@ BF16_BLOCKS_RANGE = "fused_gn_afno.bf16_blocks"
 
 
 def _bf16_blocks(w: torch.Tensor) -> torch.Tensor:
-    """w (2, nb, bs, bs) f32 as bf16 with each block transposed to (out, in),
-    the layout the bf16 Hopper kernels load with TMA. Cached on w until w changes
-    (its version counter or storage), so serving converts once and training
-    once per optimizer step."""
+    """w (2, nb, bs, bs), f32 or a bf16 working copy, as bf16 with each block
+    transposed to (out, in), the layout the bf16 Hopper kernels load with
+    TMA. Cached on w until w changes (its version counter or storage), so
+    serving converts once and training once per optimizer step."""
     if w.is_inference():  # no version counter to watch: convert every call
         return _convert_blocks(w)
     key = (w.data_ptr(), w._version)
@@ -401,14 +403,17 @@ def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, 
         ptrs = (x, gscale, gbias, A, Ainv, _bf16_blocks(w1), b1, _bf16_blocks(w2), b2,
                 stats, o, out)
         flags = (aid,)
-    elif path in ("hopper_f32", "hopper_f32_l"):
-        ptrs = (*args, stats, o, out)
-        flags = (aid,)
     else:
-        z = torch.empty_like(o)
-        h = torch.empty((B * K, nb, 2 * (C // nb)), device=dev, dtype=x.dtype)
-        ptrs = (*args, stats, z, h, o, out)
-        flags = (int(x.dtype == torch.bfloat16), aid)
+        # these kernels read f32 weights: a bf16 working copy is upcast (exact)
+        args = (*args[:5], w1.float(), b1, w2.float(), b2)
+        if path in ("hopper_f32", "hopper_f32_l"):
+            ptrs = (*args, stats, o, out)
+            flags = (aid,)
+        else:
+            z = torch.empty_like(o)
+            h = torch.empty((B * K, nb, 2 * (C // nb)), device=dev, dtype=x.dtype)
+            ptrs = (*args, stats, z, h, o, out)
+            flags = (int(x.dtype == torch.bfloat16), aid)
     with torch.cuda.device(dev):
         err = _kernel_fn(path)(
             *flags, *[t.data_ptr() for t in ptrs], B, HW, C, K, nb, groups,
@@ -539,12 +544,17 @@ def fused_gn_afno(
     """GroupNorm(groups) + AFNO mixer with its internal residual.
 
     x: (B, HW, C) bf16 or f32, the operand type; A (2K, HW) and Ainv
-    (HW, 2K) of that type; gscale/gbias (C,) f32; w1/w2 (2, nb, bs, bs) and
-    b1/b2 (2, nb, bs) f32 in the reference layout. act is the mode MLP's
+    (HW, 2K) of that type; gscale/gbias (C,), w1/w2 (2, nb, bs, bs) and
+    b1/b2 (2, nb, bs) in the reference layout, f32 or a bf16 working copy
+    (train/state.py). The kernels read the vectors as f32, so bf16 ones are
+    upcast here, which is exact; bf16 weights go to the bf16 kernels as
+    they are and are upcast for the others. act is the mode MLP's
     activation (a name of the registry); for "gelu", approximate selects
     the tanh form (the TPU kernel, bf16) or the erf form (the JAX f32
     path). Returns (B, HW, C) of x's dtype, with a `FusedGnAfno` grad_fn
-    when grad mode is on and an input requires grad."""
+    when grad mode is on and an input requires grad; the cotangents of bf16
+    arguments reach them rounded to bf16 (autograd casts them)."""
+    gscale, gbias, b1, b2 = (t.float() for t in (gscale, gbias, b1, b2))
     args = (x, gscale, gbias, A, Ainv, w1, b1, w2, b2)
     _check(*args, K, groups, act)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

@@ -3,7 +3,9 @@ save/restore half of dpot_tpu/train/checkpoint.py; orbax checkpoints of the
 JAX package are not read).
 
 A checkpoint is a directory holding
-- `model.pth`: a reference-layout file {'args', 'model', 'optimizer'}, so
+- `model.pth`: a reference-layout file {'args', 'model', 'optimizer'}
+  ('model' the f32 weights: the master, never a bf16 working copy, which
+  a restore casts again from it), so
   that `restore_params` (and with it the serve, evaluate and finetune
   CLIs) reads it as it reads a released reference checkpoint, plus the
   keys an exact resume needs:
@@ -44,7 +46,7 @@ def save_checkpoint(path: str, state: TrainState, config: Optional[dict] = None)
     opt = state.optimizer.state_dict()
     payload = {
         "args": argparse.Namespace(**(config or {})),
-        "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
+        "model": {k: _cpu(v) for k, v in state.params_state_dict().items()},
         "optimizer": {"count": opt["count"], "mu": [_cpu(m) for m in opt["mu"]],
                       "nu": [_cpu(v) for v in opt["nu"]],
                       "grad_norm": _cpu(opt["grad_norm"])},
@@ -75,7 +77,7 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
                 f"{target} holds no '{key}': it is a weights-only reference "
                 "checkpoint, which cannot resume a run"
             )
-    state.model.load_state_dict(strip_module_prefix(obj["model"]), strict=True)
+    state.load_params(strip_module_prefix(obj["model"]))
     state.optimizer.load_state_dict(obj["optimizer"])
     state.step = int(obj["step"])
     state.generator.set_state(obj["generator"])

@@ -48,7 +48,6 @@ def check_ported(cfg: TrainConfig) -> None:
          f"shard_params={cfg.shard_params!r} ({item} 12)"),
         (cfg.steps_per_dispatch > 1,
          f"steps_per_dispatch > 1: CUDA-graph capture ({item} 6)"),
-        (cfg.remat, f"remat (activation recomputation) ({item} 8)"),
         (bool(cfg.viz_dir), f"viz_dir (utils/viz.py) ({item} 13)"),
     ]
     for bad, what in missing:
@@ -57,7 +56,8 @@ def check_ported(cfg: TrainConfig) -> None:
 
 
 def _snapshot(state: TrainState) -> list[torch.Tensor]:
-    """Device copies of the parameters and moments (the rollback target)."""
+    """Device copies of the parameters (the f32 master where the model runs
+    a working copy) and moments: the rollback target."""
     opt = state.optimizer
     return [t.detach().clone() for t in (*opt.params, *opt.mu, *opt.nu)]
 
@@ -67,6 +67,7 @@ def _restore(state: TrainState, snap: list[torch.Tensor]) -> None:
     opt = state.optimizer
     for dst, src in zip((*opt.params, *opt.mu, *opt.nu), snap):
         dst.copy_(src)
+    state.refresh_working_copy()
 
 
 def _to_device(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
@@ -107,7 +108,7 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
         out_timesteps=cfg.T_bundle, embed_dim=cfg.width, modes=cfg.modes,
         depth=cfg.n_layers, n_blocks=cfg.n_blocks, mlp_ratio=cfg.mlp_ratio,
         out_layer_dim=cfg.out_layer_dim, act=cfg.act, n_cls=len(cfg.train_paths),
-        normalize=cfg.normalize, use_ln=cfg.use_ln,
+        normalize=cfg.normalize, use_ln=cfg.use_ln, remat=cfg.remat,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
         device=device, seed=cfg.seed,
     )
@@ -160,7 +161,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         writer.text(f"warm start: params from {cfg.init_from}")
     if init_state_dict is not None:
         # params only: the moments, step and schedule start afresh
-        model.load_state_dict(init_state_dict, strict=True)
+        state.load_params(init_state_dict)
     elif cfg.resume_path:
         # full resume: params, moments, step (schedule position), noise
         # stream, and the loader positioned on the checkpoint's epoch

@@ -29,7 +29,7 @@ dense gradient tree gives it.
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
 
@@ -76,13 +76,15 @@ class Optimizer:
         return _at(self.learning_rate, count)
 
     @torch.no_grad()
-    def step(self) -> None:
-        """One update from the parameters' .grad (None counts as zero)."""
+    def step(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
+        """One update from `grads`, one per parameter, by default the
+        parameters' .grad. None counts as zero; a bf16 gradient (from a
+        working copy, train/state.py) is upcast for all the arithmetic."""
         params = self.params
-        grads = [
-            (p.grad if p.grad is not None else torch.zeros_like(p)).float()
-            for p in params
-        ]
+        if grads is None:
+            grads = [p.grad for p in params]
+        grads = [(g if g is not None else torch.zeros_like(p)).float()
+                 for g, p in zip(grads, params, strict=True)]
         count = self.count + 1
         b1c = _at(self.b1, self.count)
         lr = self.lr_at(self.count)

@@ -16,7 +16,7 @@ the host; the metrics come back as device tensors.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -24,6 +24,14 @@ from dpot_tpu_torch.train.state import TrainState
 from dpot_tpu_torch.utils.criterion import cross_entropy_sum, rel_lp_loss
 
 Batch = dict[str, torch.Tensor]
+
+
+def _add_f32(acc: Optional[list], grads: list) -> list:
+    """acc + grads, elementwise in f32 (None counts as zero)."""
+    if acc is None:
+        return [None if g is None else g.float() for g in grads]
+    return [a if g is None else g.float() if a is None else a.add_(g)
+            for a, g in zip(acc, grads)]
 
 
 def make_train_step(
@@ -48,7 +56,8 @@ def make_train_step(
       loss runs unmasked (the same result);
     - grad_accum=N: N microbatches, their gradients summed before one
       update (the loss is a batch sum, so the update equals the full-batch
-      one; each microbatch draws its own noise).
+      one; each microbatch draws its own noise); with a bf16 working copy
+      of the parameters (train/state.py) the sum is taken in f32.
     aux: loss_step, loss_full, cls_loss, cls_correct, n_steps, grad_norm."""
     if scan_steps > 1:
         raise NotImplementedError(
@@ -109,12 +118,18 @@ def make_train_step(
                      for i in range(grad_accum)]
         else:
             micro = [batch]
-        aux = None
+        # the microbatch gradients of a bf16 working copy are summed in f32,
+        # not by backward() into its bf16 .grad, which would round each add
+        lp = state.params_lp if len(micro) > 1 else None
+        aux = gsum = None
         for b in micro:
             loss, a, n_steps = loss_fn(model, b, state.generator)
             loss.backward()
             aux = a if aux is None else {k: aux[k] + a[k] for k in aux}
-        state.apply_gradients()
+            if lp is not None:
+                gsum = _add_f32(gsum, [p.grad for p in lp])
+                model.zero_grad(set_to_none=True)
+        state.apply_gradients(gsum)
         aux["n_steps"] = torch.tensor(float(n_steps))
         aux["grad_norm"] = state.optimizer.grad_norm
         return state, aux

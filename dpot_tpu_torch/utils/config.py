@@ -1,12 +1,13 @@
-"""Config system of the port: one dataclass, optional YAML, CLI override
-(the port's copy of dpot_tpu/utils/config.py). Field names, and so the CLI
-flags, are those of the JAX package. PyYAML is imported only when a YAML
-file is given."""
+"""Config system of the port: one dataclass, optional YAML, CLI override,
+and the sweep's expansion of a YAML `tasks:` grid (the port's copy of
+dpot_tpu/utils/config.py). Field names, and so the CLI flags, are those of
+the JAX package. PyYAML is imported only when a YAML file is given."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 from typing import Any, List, Optional, Sequence
@@ -199,3 +200,20 @@ def load_config(argv: Optional[Sequence[str]] = None, cls=TrainConfig):
         if v is not None:
             base[name] = v
     return cls(**base)
+
+
+def expand_tasks(yaml_dict: dict) -> list[dict]:
+    """Expand a sweep config: any key under 'tasks' whose value is a list
+    becomes a grid axis (reference trainer.py:86-111 / README.md:76-88);
+    every other key of the file is common to all jobs."""
+    tasks = yaml_dict.get("tasks", {})
+    base = {k: v for k, v in yaml_dict.items() if k != "tasks"}
+    grid_keys = [k for k, v in tasks.items() if isinstance(v, list)]
+    fixed = {k: v for k, v in tasks.items() if not isinstance(v, list)}
+    out = []
+    for combo in itertools.product(*[tasks[k] for k in grid_keys]) or [()]:
+        job = dict(base)
+        job.update(fixed)
+        job.update(dict(zip(grid_keys, combo)))
+        out.append(job)
+    return out

@@ -317,12 +317,69 @@ def check_l(args, dtype, act="gelu"):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 8, 20])
+@pytest.mark.parametrize("B", [1, 8, 16, 20])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_l_kernels_at_the_dpot_l_block_shapes(cuda, dtype, B):
     """L in each compute type takes its kernel for 96-channel blocks, whose
-    CTAs compute the statistics of groups that span two blocks."""
+    CTAs compute the statistics of groups that span two blocks; B = 16 is
+    the batch of configs/pretrain_large.yaml."""
     check_l(ti_block_args(B, dtype, cuda, seed=110 + B, **L_BLOCK), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, L_BLOCK), (torch.bfloat16, {}),
+    (torch.float32, L_BLOCK), (torch.float32, {}),
+])
+def test_working_copy_vectors_and_weights_equal_the_f32_call(cuda, dtype, shape):
+    """gscale, gbias, w1, b1, w2 and b2 from a bf16 working copy give the
+    same output, bit for bit, as the f32 call on those values (hopper_l and
+    hopper in bf16, hopper_f32_l and hopper_f32 in f32): the wrapper upcasts
+    the vectors exactly, and the weights reach each kernel as the same
+    values."""
+    args = list(ti_block_args(4, dtype, cuda, seed=61, **shape))
+    idx = (1, 2, 5, 6, 7, 8)
+    lp = [a.to(torch.bfloat16) if i in idx else a for i, a in enumerate(args)]
+    ref = [a.to(torch.bfloat16).float() if i in idx else a for i, a in enumerate(args)]
+    x, *_, K, groups = args
+    path = afno_fused.kernel_path(*x.shape, K, (shape or {"nb": 4})["nb"], groups, dtype)
+    before = fused_gn_afno.launches_by_path[path]
+    approx = dtype == torch.bfloat16
+    got = fused_gn_afno(*lp, approximate=approx)
+    want = fused_gn_afno(*ref, approximate=approx)
+    torch.cuda.synchronize()
+    assert path in ("hopper_l", "hopper", "hopper_f32_l", "hopper_f32")
+    assert fused_gn_afno.launches_by_path[path] == before + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_dpot_l_block_under_checkpoint_gives_the_same_gradients(cuda):
+    """One bf16 trunk block at DPOT-L's width (1536, 16 AFNO blocks of 96,
+    mlp_ratio 4) run under torch.utils.checkpoint, as remat runs it: its
+    forward launches hopper_l twice (once more in the backward), and the
+    gradients of the input and of every parameter equal the block's without
+    checkpoint (the same kernels on the same inputs)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from dpot_tpu_torch.models.dpot import Block
+
+    blk = Block(1536, 16, 32, 4.0, "gelu", torch.bfloat16,
+                torch.Generator().manual_seed(0)).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn((4, 16, 16, 1536), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    leaves = [x.requires_grad_(), *blk.parameters()]
+    grads = {}
+    for remat in (False, True):
+        before = fused_gn_afno.launches_by_path["hopper_l"]
+        out = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=False)
+               if remat else blk(x))
+        grads[remat] = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        assert fused_gn_afno.launches_by_path["hopper_l"] == before + 1 + remat
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 BF16, F32 = torch.bfloat16, torch.float32

@@ -102,8 +102,7 @@ def test_nan_loss_rolls_back_to_the_last_good_state(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override", [
     dict(mesh_data=2), dict(mesh_spatial=2), dict(mesh_model=2), dict(mesh_pipe=2),
-    dict(shard_params="fsdp"), dict(steps_per_dispatch=2), dict(remat=True),
-    dict(viz_dir="viz"),
+    dict(shard_params="fsdp"), dict(steps_per_dispatch=2), dict(viz_dir="viz"),
 ])
 def test_options_not_ported_raise(override):
     cfg = TrainConfig(model="DPOT", train_paths=["synthetic_tloop"], res=16, patch_size=4,

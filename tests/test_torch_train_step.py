@@ -223,5 +223,3 @@ def test_generator_noise_is_reproducible_and_scan_steps_is_not_ported():
     assert ax["loss_step"].item() == bx["loss_step"].item()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(scan_steps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainState.create(a.model, a.optimizer, 0, param_working_dtype=torch.bfloat16)
