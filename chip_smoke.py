@@ -103,6 +103,33 @@ Phases, each printing its results as JSON lines:
      directory, cli.train --resume_path takes one epoch from it from step
      0, cli.serve --resume_path serves it over HTTP, the answer against a
      direct loop over model(x).
+One dispatch (CUDA graphs): on the card the eval rollouts (phases 5, 8, 9,
+12, 14) and the served rollouts (3, 7, 14) replay one graph per shape after
+an eager first call, whose launches count as the replays' do; the serve
+phases' counts take in start()'s capture of every bucket; the plain- and
+faulty-mixer rollouts of phase 8 each capture a graph of their own under
+the mixer they test. Four phases hold the graphs against eager runs
+(relative 1e-6 on losses, relative L2 1e-6 on weights, moments and
+predictions, or the eager path's own spread where larger):
+  15. dispatch_Ti (after phase 5): phase 5's bf16 run through the train CLI
+     at --steps_per_dispatch 4 on a synthetic set of 180 trajectories (two
+     4-step dispatches and one tail step an epoch, 2 epochs) against the
+     same run at 1, twice: every per-step loss, launches exact; then a
+     step's wall, device busy, idle share and samples/s at K = 1 and
+     replayed at K = 4, and the loader's time per batch;
+  16. rollouts (after eval_L in bf16): DPOT-Ti bf16 served in-process
+     (RolloutServer) eager and graphed in turns at B = 1 and 8, 4 steps:
+     request latency, application wall, every answer against a direct
+     loop; DPOT-L bf16 evaluated at B = 8 eager and graphed in turns:
+     avg_step_time, losses, one batch's predictions; launches exact;
+  17. stale_weights: a Ti bf16 train step captured and replayed 3 times,
+     with the eval rollout's graph replayed after each, against the same
+     run eagerly; and a control rollout captured with cached bf16 weight
+     copies, which must land above the limit;
+  18. dispatch_L (after remat_L): one 2-step dispatch of bf16 lamb L steps
+     at batch 16 with remat (train_L's model) against two eager steps from
+     the same state, batches and noise: both losses, every weight and
+     moment; each way's wall, device busy and peak memory.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -312,6 +339,29 @@ REMAT_TOL = dict(loss=1e-6, grad=1e-3)
 # (PERF.md, section 6)
 PARAMS_LP = dict(steps=5, loss_rel=0.05, lr=5e-5)
 L_BATCH = 16
+# one dispatch (CUDA graphs): graph against eager runs the same kernels on
+# the same inputs, so the two are expected to be bitwise equal. Losses are
+# held to relative GRAPH_TOL, weights, moments and predictions to relative
+# L2 GRAPH_TOL, unless the eager path's own run-to-run spread, measured in
+# the same phase and logged, is larger: that spread is then the limit
+GRAPH_TOL = 1e-6
+# dispatch_Ti: the train phase's bf16 run (configs/pretrain_tiny.yaml's
+# optimization, batch 20) at 4 steps a dispatch on a synthetic set of 180
+# trajectories (two full dispatches and one tail step an epoch), against
+# the same run at 1 step a dispatch, twice, from the same seed
+DISPATCH_K = 4
+DISPATCH_SPEC = dict(TRAIN_SPEC, name="synthetic_ti_dispatch", train_size=180)
+DISPATCH_EPOCHS = 2
+# dispatch_L: one dispatch of 2 bf16 lamb steps of train_L's model (remat,
+# batch 16, corpus batches, params_lp_L's lr) against two eager steps
+DISPATCH_L_K = 2
+# rollouts: the served Ti bf16 rollout at 4 steps, 20 requests of each
+# batch, and as many rollouts timed directly
+ROLLOUT_STEPS = 4
+ROLLOUT_REQUESTS = 20
+# stale weights: a Ti bf16 step at batch 4 captured, then replayed 3 times,
+# with the eval rollout's graph (t_test 2) replayed after each
+STALE = dict(batch=4, replays=3, t_test=2)
 
 
 def log(phase: str, **kv) -> None:
@@ -812,6 +862,13 @@ def card_vs_cpu_forward(model, x: np.ndarray) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
+def warmup_applications(rs) -> int:
+    """Model applications of a server's start() on the card: one batch of
+    every bucket at each warm-up step count, each captured as a graph after
+    its eager run (the capture itself launches nothing)."""
+    return len(rs.batch_buckets) * sum(rs._warmup_steps)
+
+
 def reset_launch_counts() -> None:
     fused_gn_afno.launches = bias_act.launches = 0
     fused_gn_afno.launches_by_path.update(dict.fromkeys(afno_fused.PATHS, 0))
@@ -862,8 +919,9 @@ def phase_serve(dtype: str, response_dtype: str) -> dict:
     try:
         port = httpd.server_address[1]
         sent = send_requests(port, (1, 2, 4), response_dtype)
-        # one max-bucket batch per warm-up step count, then the requests
-        applications = len(rs._warmup_steps) + sum(r["steps"] for r in sent)
+        # the warm-up batches, then the requests (the first of each new
+        # bucket and step count eager, the rest replays of its graph)
+        applications = warmup_applications(rs) + sum(r["steps"] for r in sent)
         lat = [r["ms"] for r in sent]
         kept = next((r["x"], r["pred"]) for r in sent
                     if r["x"].shape[0] == 1 and r["steps"] == 4)
@@ -937,8 +995,11 @@ def faulty_mixer(fault: str):
         elif fault == "conj_w2":
             w2 = torch.stack([w2[0], -w2[1]])
         elif fault == "drop_mode":
+            # two single-column fills: an index list would be a host-to-device
+            # copy, which a CUDA graph's capture refuses
             Ainv = Ainv.clone()
-            Ainv[:, [K - 1, 2 * K - 1]] = 0
+            Ainv[:, K - 1] = 0
+            Ainv[:, 2 * K - 1] = 0
         else:
             raise ValueError(fault)
         return fused_gn_afno_ref(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups,
@@ -1006,7 +1067,7 @@ def phase_serve_h() -> tuple[dict, torch.nn.Module]:
         sent = send_requests(httpd.server_address[1], (1, 2), "float32", seed=8)
         torch.cuda.synchronize()
         launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
-        applications = len(rs._warmup_steps) + sum(r["steps"] for r in sent)
+        applications = warmup_applications(rs) + sum(r["steps"] for r in sent)
         if launches != DPOT_H["depth"] * applications:
             raise AssertionError(
                 f"DPOT-H: fused_gn_afno launched {launches} times, expected depth x "
@@ -1413,7 +1474,7 @@ def check_no_launch(before: int, what: str) -> None:
                              f"{fused_gn_afno.launches - before} times")
 
 
-def phase_eval_l(dtype: str) -> dict:
+def phase_eval_l(dtype: str) -> tuple[dict, torch.nn.Module]:
     """DPOT-L through the evaluate CLI with --metrics: all launches on the
     kernel for 96-channel blocks of the compute type, finite numbers, one
     application's time, and peak memory. The smoke's own copy of the model
@@ -1458,10 +1519,17 @@ def phase_eval_l(dtype: str) -> dict:
     ds = MixedTemporalDataset([name], res=128, t_in=10, t_ar=-1, n_channels=4, train=False)
     x, y, msk, _ = next(iter(DataLoader(ds, EVAL_BATCH, shuffle=False, num_workers=0)))
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in (("x", x), ("y", y), ("msk", msk))}
-    roll = make_eval_rollout()
     draw_mixer_weights(model, seed=5)
-    rels = mixer_readings(lambda: roll(model, batch)["pred"], "L", dtype,
-                          f"DPOT-L eval {dtype}")
+
+    def graphed_preds() -> torch.Tensor:
+        # a fresh rollout each time: its first call runs eagerly and then
+        # captures the graph under the mixer in force; the second replays
+        # that graph, which must follow the mixer it was captured with
+        roll = make_eval_rollout()
+        roll(model, batch)
+        return roll(model, batch)["pred"]
+
+    rels = mixer_readings(graphed_preds, "L", dtype, f"DPOT-L eval {dtype}")
     row = dict(dtype=dtype, applications=apps, launches=launches, launches_by_path=by_path,
                bias_act_launches=bias_act_launches, results=vals,
                avg_step_time_s=got["avg_step_time"], plain_mixer_rel_l2=rels,
@@ -1470,7 +1538,7 @@ def phase_eval_l(dtype: str) -> dict:
                params_m=sum(q.numel() for q in model.parameters()) / 1e6,
                step_b8=steps[-1])
     log("eval_l", **row)
-    return row
+    return row, model
 
 
 def phase_finetune_s() -> dict:
@@ -1640,7 +1708,7 @@ def phase_convert_resume_serve() -> dict:
         pred, ms = post_rollout(httpd.server_address[1], npy(x), 3)
         torch.cuda.synchronize()
         serve_launches = fused_gn_afno.launches
-        applications = len(rs._warmup_steps) + 3
+        applications = warmup_applications(rs) + 3
         wire = torch.bfloat16 if rs.wire_dtype == "bfloat16" else torch.float32
     finally:
         rs.stop(drain=True)
@@ -1899,6 +1967,458 @@ def phase_params_lp_l(model) -> dict:
     return row
 
 
+def max_rel(a, b) -> float:
+    """The largest relative difference of two equal-length number lists."""
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b, strict=True))
+
+
+def state_tensors(state) -> list[torch.Tensor]:
+    """The tensors an optimizer step writes: weights (the f32 master where
+    there is a working copy) and both moments."""
+    opt = state.optimizer
+    return [*opt.params, *opt.mu, *opt.nu]
+
+
+def worst_rel_l2(xs, ys) -> float:
+    """The largest relative L2 distance over pairs of tensors (0 where a
+    pair is equal, so that all-zero moments count)."""
+    worst = 0.0
+    for x, y in zip(xs, ys, strict=True):
+        d = (x.float() - y.float()).norm().item()
+        if d:
+            worst = max(worst, d / y.float().norm().item())
+    return worst
+
+
+@contextlib.contextmanager
+def eager_eval():
+    """Every eval rollout runs eagerly, as without graphs: the comparison
+    of the rollouts phase."""
+    from dpot_tpu_torch.train.step import EvalRollout
+
+    real = EvalRollout.__call__
+    EvalRollout.__call__ = lambda self, model, batch: self.run(model, batch)
+    try:
+        yield
+    finally:
+        EvalRollout.__call__ = real
+
+
+def dispatch_profile(state, batches, fn, runs: int = 10) -> dict:
+    """Where a K-step dispatch's time goes, per optimizer step: the first
+    call runs the K steps eagerly and captures the graph; then the median
+    wall of `runs` replays (synchronised each) and one profiled window of
+    `runs` replays for the device busy time and the fused kernel's part."""
+    K, B = batches["x"].shape[:2]
+    t0 = time.perf_counter()
+    fn(state, batches)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    fn(state, batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn(state, batches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / K)
+    wall = statistics.median(walls)
+    row = dict(steps_per_dispatch=K, first_call_ms=first, wall_ms=wall, wall_ms_each=walls,
+               samples_per_s=B / wall * 1e3,
+               peak_step_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    events = [e for e in profile_events(lambda: fn(state, batches), runs) if is_kernel(e)]
+    if not events:
+        row.update(device_busy_ms="not measured")
+        return row
+    busy = union_us(events) / runs / 1e3 / K
+    fused = union_us([e for e in events if sub_kernel(e.name)]) / runs / 1e3 / K
+    row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
+               fused_gn_afno_kernels_ms=fused, fused_gn_afno_share=fused / busy)
+    return row
+
+
+def phase_dispatch_ti() -> dict:
+    """DPOT-Ti pretrained through the train CLI at 4 steps a dispatch (one
+    CUDA graph of 4 steps, tails as single eager steps) against the same
+    run at 1 step a dispatch, twice (the eager path's own spread), from the
+    same seed: every per-step loss, the optimizer steps and dispatch units
+    and the launches exact; then where a step's time goes at K = 1 and at
+    K = 4 on the run's state and one loader batch of 4 x 20 samples."""
+    from dpot_tpu_torch.cli.train import main as train_main
+    from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.train.step import make_train_step
+
+    name, K, B, epochs = DISPATCH_SPEC["name"], DISPATCH_K, TRAIN["batch"], DISPATCH_EPOCHS
+    make_synthetic_spec(**DISPATCH_SPEC)
+    flags = list(TRAIN_FLAGS)
+    flags[flags.index("--train_paths") + 1] = name
+    flags[flags.index("--epochs") + 1] = str(epochs)
+    noise = float(flags[flags.index("--noise_scale") + 1])
+    n = DISPATCH_SPEC["train_size"]
+    steps = epochs * math.ceil(n / B)
+    full, rest = divmod(n, K * B)
+    units = ([K] * full + [1] * math.ceil(rest / B)) * epochs
+    eval_apps = epochs * math.ceil(DISPATCH_SPEC["test_size"] / B) * DISPATCH_SPEC["t_test"]
+    want = TI["depth"] * (steps + eval_apps)
+    runs, outs = {}, {}
+    for run, k in (("k4", K), ("k1", 1), ("k1_again", 1)):
+        argv = flags + ["--dtype", "bfloat16", "--steps_per_dispatch", str(k), "--log_path",
+                        str(RUN_DIR / f"dispatch_{run}"), "--device", "cuda"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = train_main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = fused_gn_afno.launches
+        if out["state"].step != steps or out["dispatch_steps"] != (units if k > 1
+                                                                   else [1] * steps):
+            raise AssertionError(f"dispatch_ti {run}: step {out['state'].step}, dispatch "
+                                 f"units {out['dispatch_steps']} (expected {steps}, {units})")
+        if launches != want:
+            raise AssertionError(f"dispatch_ti {run}: {launches} launches, expected depth x "
+                                 f"(train + eval applications) = {want}")
+        by_path = check_paths("bfloat16", launches)
+        losses = read_metrics(out["log_dir"])["train_loss_step"]
+        if len(losses) != steps or not finite(losses + out["test_l2_fulls"]):
+            raise AssertionError(f"dispatch_ti {run}: losses {losses}")
+        logs = (Path(out["log_dir"]) / "logs.txt").read_text()
+        # the loop's host time per optimizer step over its full dispatches
+        # (K = 4: after the first, which runs eagerly and captures)
+        per_step = [t / u for t, u in zip(out["step_seconds"], out["dispatch_steps"])
+                    if u == k][1:]
+        runs[run] = dict(
+            steps_per_dispatch=k, run_s=run_s, launches=launches, launches_by_path=by_path,
+            bias_act_launches=bias_act.launches, losses=losses,
+            test_l2_fulls=out["test_l2_fulls"],
+            loop_ms_per_step=statistics.median(per_step) * 1e3,
+            load_avg_s=[float(v) for v in re.findall(r"load avg ([-0-9.e]+)", logs)],
+            train_avg_s=[float(v) for v in re.findall(r"time train avg ([-0-9.e]+)", logs)])
+        outs[run] = out
+    spread = max_rel(runs["k1_again"]["losses"], runs["k1"]["losses"])
+    limit = max(GRAPH_TOL, spread)
+    dev = max_rel(runs["k4"]["losses"], runs["k1"]["losses"])
+    test_dev = max_rel(runs["k4"]["test_l2_fulls"], runs["k1"]["test_l2_fulls"])
+    if not (dev <= limit and test_dev <= limit):
+        raise AssertionError(f"dispatch_ti: K = {K} losses differ from K = 1 by {dev} (test "
+                             f"{test_dev}); limit {limit} (eager spread {spread})")
+
+    ds = MixedTemporalDataset([name], res=128, t_in=10, t_ar=1, train=True)
+    x, y, _, cls = next(iter(DataLoader(ds, K * B, shuffle=True, num_workers=4, seed=1)))
+    stacked = {"x": torch.from_numpy(x).to("cuda", torch.bfloat16),
+               "y": torch.from_numpy(y).cuda(), "cls": torch.from_numpy(cls).cuda()}
+    stacked = {k: v.reshape(K, B, *v.shape[1:]) for k, v in stacked.items()}
+    kw = dict(noise_scale=noise, ones_mask=True, time_major=bool(ds.time_major_batches))
+    state = outs["k4"]["state"]
+    eager = train_step_profile(state, {k: v[0] for k, v in stacked.items()},
+                               make_train_step(**kw))
+    graphed = dispatch_profile(state, stacked, make_train_step(scan_steps=K, **kw))
+    row = dict(dtype="bfloat16", batch=B, steps=steps, dispatch_units=units,
+               launches=runs["k4"]["launches"], launches_by_path=runs["k4"]["launches_by_path"],
+               bias_act_launches=sum(r["bias_act_launches"] for r in runs.values()),
+               loss_rel_diff=dev, test_loss_rel_diff=test_dev, eager_spread=spread,
+               limit=limit, runs=runs, profile_k1=eager, profile_k4=graphed)
+    log("dispatch_ti", **row)
+    return row
+
+
+def phase_dispatch_l(model) -> dict:
+    """One dispatch of two bf16 lamb DPOT-L steps at batch 16 with remat
+    (train_L's model) replayed from the state its first call left, against
+    two eager steps from the same state, batches and noise, twice (the
+    eager path's own spread): both losses and every weight and moment;
+    each way's wall, device busy and peak memory. The model's weights are
+    put back as they came."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    K = DISPATCH_L_K
+    parts = l_corpus_batches(K, seed=50)
+    stacked = {k: torch.stack([b[k] for b in parts]) for k in parts[0]}
+    if not model.remat:
+        raise AssertionError("dispatch_l expects train_L's model, with remat")
+    # the phase trains the model; params_lp_L then starts from its weights
+    # as train_L left them
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = TrainState.create(model, build_optimizer("lamb", model.parameters(),
+                                                     PARAMS_LP["lr"]), 0)
+    fn = make_train_step(scan_steps=K, noise_scale=5e-4, ones_mask=True)
+    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+
+    def eager_steps():
+        return [step_fn(state, {k: v[i] for k, v in stacked.items()})[1]["loss_step"]
+                for i in range(K)]
+
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    fn(state, stacked)  # K eager steps on a side stream, then the capture
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    start = [t.clone() for t in state_tensors(state)]
+    host = (state.step, state.optimizer.count)
+
+    def rewind():
+        with torch.no_grad():
+            for dst, src in zip(state_tensors(state), start):
+                dst.copy_(src)
+        state.step, state.optimizer.count = host
+
+    ways = {}
+    for way in ("graphed", "eager", "eager_again"):
+        rewind()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        losses = fn(state, stacked)[1]["loss_step"] if way == "graphed" else eager_steps()
+        torch.cuda.synchronize()
+        # the phase holds copies of the state besides the live one: the peak
+        # is also read as what the run adds to what was allocated at its
+        # start. A replay allocates almost nothing: its activations live in
+        # the graph's private pool, which the reserved bytes count
+        ways[way] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         peak_over_start_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                         reserved_gb=torch.cuda.memory_reserved() / 1e9,
+                         losses=[float(v) for v in losses])
+        if way != "eager_again":
+            ways[way]["out"] = [t.clone() for t in state_tensors(state)]
+    torch.cuda.synchronize()
+    launches = fused_gn_afno.launches
+    by_path = check_paths("bfloat16", launches, "hopper_l")
+    # the first call's K steps, the replay's K and twice K eager, two
+    # applications a step under remat
+    if launches != 4 * K * 2 * DPOT_L["depth"]:
+        raise AssertionError(f"dispatch_l: {launches} launches, expected "
+                             f"{4 * K * 2 * DPOT_L['depth']}")
+    ref = ways["eager"].pop("out")
+    got = ways["graphed"].pop("out")
+    loss_spread = max_rel(ways["eager_again"]["losses"], ways["eager"]["losses"])
+    tensor_spread = worst_rel_l2(state_tensors(state), ref)
+    loss_dev = max_rel(ways["graphed"]["losses"], ways["eager"]["losses"])
+    tensor_dev = worst_rel_l2(got, ref)
+    del got, ref, start
+    limits = dict(loss=max(GRAPH_TOL, loss_spread), tensors=max(GRAPH_TOL, tensor_spread))
+    if not (loss_dev <= limits["loss"] and tensor_dev <= limits["tensors"]):
+        raise AssertionError(f"dispatch_l: graph against eager: losses {loss_dev}, weights "
+                             f"and moments {tensor_dev}; limits {limits}")
+    for way, run in (("graphed", lambda: fn(state, stacked)), ("eager", eager_steps)):
+        events = [e for e in profile_events(run, 3) if is_kernel(e)]
+        busy = union_us(events) / 3 / 1e3 if events else None
+        ways[way].update(device_busy_ms=busy if events else "not measured",
+                         device_idle_share=1 - busy / ways[way]["wall_ms"] if events
+                         else "not measured")
+    del fn, state
+    model.load_state_dict(weights)
+    del weights
+    torch.cuda.empty_cache()
+    row = dict(dtype="bfloat16", batch=L_BATCH, steps_per_dispatch=K, first_call_s=first_s,
+               launches=launches, launches_by_path=by_path, bias_act_launches=bias_act.launches,
+               loss_rel_diff=loss_dev, tensor_rel_l2=tensor_dev, loss_spread=loss_spread,
+               tensor_spread=tensor_spread, limits=limits, **ways)
+    log("dispatch_l", **row)
+    return row
+
+
+def phase_rollouts(model_l) -> dict:
+    """The one-dispatch rollouts against eager ones: DPOT-Ti bf16 served
+    in-process (RolloutServer, eager and graphed, each twice, in turns) at
+    B = 1 and 8 and 4 steps, request latency and model application wall,
+    every answer against a direct loop over model(x); DPOT-L bf16 (eval_L's
+    model) evaluated at B = 8 with graphed and eager rollouts, in turns:
+    avg_step_time, the losses, and one batch's predictions from a replay
+    against the eager rollout's. Launches exact over the served and the
+    evaluated runs."""
+    from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+    from dpot_tpu_torch.serve import RolloutServer
+    from dpot_tpu_torch.train.evaluator import evaluate
+    from dpot_tpu_torch.train.step import make_eval_rollout
+
+    model = preset_model("Ti", "bfloat16", seed=0)
+    rng = np.random.default_rng(21)
+    xs = {B: rng.standard_normal((B, 128, 128, 10, 4)).astype(np.float32) for B in (1, 8)}
+    reset_launch_counts()
+    ti_apps = 0
+    serve, answers = {}, {}
+    for way in ("eager", "graphed", "graphed_again", "eager_again"):
+        rs = RolloutServer(model, max_wait_ms=0.0, warmup_steps=(ROLLOUT_STEPS,),
+                           device="cuda")
+        rs._graphed = way.startswith("graphed")
+        rs.start()
+        ti_apps += (len(rs.batch_buckets) if rs._graphed else 1) * ROLLOUT_STEPS
+        row = {}
+        try:
+            for B, x in xs.items():
+                lat = []
+                for _ in range(ROLLOUT_REQUESTS):
+                    t0 = time.perf_counter()
+                    pred = rs.submit(x, ROLLOUT_STEPS)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                answers[(way, B)] = torch.from_numpy(pred)
+                xd = rs._upload(rs._to_wire(x))
+                app = []
+                for _ in range(ROLLOUT_REQUESTS):
+                    t0 = time.perf_counter()
+                    rs._rollout(xd, ROLLOUT_STEPS)
+                    app.append((time.perf_counter() - t0) * 1e3 / ROLLOUT_STEPS)
+                ti_apps += 2 * ROLLOUT_REQUESTS * ROLLOUT_STEPS
+                row[f"B{B}"] = dict(latency_ms_p50=statistics.median(lat), latency_ms=lat,
+                                    application_ms=statistics.median(app),
+                                    application_ms_each=app)
+            row["compiles"] = rs.metrics()["compiles"]
+        finally:
+            rs.stop(drain=True)
+        serve[way] = row
+    wire = torch.bfloat16
+    direct = {B: direct_rollout(model, x, ROLLOUT_STEPS, wire).cpu() for B, x in xs.items()}
+    ti_apps += len(xs) * ROLLOUT_STEPS
+    spread = max(rel_l2(answers[("eager_again", B)], answers[("eager", B)]) for B in xs)
+    limit = max(GRAPH_TOL, spread)
+    vs_direct = {f"{way}/B{B}": rel_l2(answers[(way, B)], direct[B]) for way, B in answers}
+    if not max(vs_direct.values()) <= limit:
+        raise AssertionError(f"rollouts: served answers against a direct loop {vs_direct}, "
+                             f"limit {limit}")
+
+    name = EVAL_L_SPEC["name"]
+    evals = {}
+    l_apps = 0
+    for way in ("graphed", "eager", "eager_again", "graphed_again"):
+        with contextlib.ExitStack() as stack:
+            if way.startswith("eager"):
+                stack.enter_context(eager_eval())
+            got = evaluate(model_l, [name], res=128, t_in=10, batch_size=EVAL_BATCH,
+                           num_workers=4)
+        l_apps += eval_applications(EVAL_L_SPEC)
+        evals[way] = dict(avg_step_time_s=got["avg_step_time"], **got[name])
+    ds = MixedTemporalDataset([name], res=128, t_in=10, t_ar=-1, n_channels=4, train=False)
+    x, y, msk, _ = next(iter(DataLoader(ds, EVAL_BATCH, shuffle=False, num_workers=0)))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in (("x", x), ("y", y), ("msk", msk))}
+    roll = make_eval_rollout()
+    roll(model_l, batch)
+    replayed = roll(model_l, batch)["pred"]
+    ref, again = (roll.run(model_l, batch)["pred"] for _ in range(2))
+    l_apps += 4 * EVAL_L_SPEC["t_test"]
+    torch.cuda.synchronize()
+    by_path = dict(fused_gn_afno.launches_by_path)
+    want = dict.fromkeys(afno_fused.PATHS, 0)
+    want.update(hopper=TI["depth"] * ti_apps, hopper_l=DPOT_L["depth"] * l_apps)
+    if by_path != want:
+        raise AssertionError(f"rollouts: launches by path {by_path}, expected {want}")
+    pred_spread = rel_l2(again, ref)
+    pred_limit = max(GRAPH_TOL, pred_spread)
+    pred_dev = rel_l2(replayed, ref)
+    loss_dev = max(abs(evals["graphed"][k] - evals["eager"][k]) / abs(evals["eager"][k])
+                   for k in ("loss_step", "loss_full"))
+    loss_spread = max(abs(evals["eager_again"][k] - evals["eager"][k]) / abs(evals["eager"][k])
+                      for k in ("loss_step", "loss_full"))
+    if not (pred_dev <= pred_limit and loss_dev <= max(GRAPH_TOL, loss_spread)):
+        raise AssertionError(f"rollouts: eval_L graph against eager: predictions {pred_dev} "
+                             f"(limit {pred_limit}), losses {loss_dev} (eager spread "
+                             f"{loss_spread})")
+    row = dict(dtype="bfloat16", steps=ROLLOUT_STEPS, requests=ROLLOUT_REQUESTS, serve=serve,
+               serve_vs_direct_rel_l2=vs_direct, serve_eager_spread=spread, serve_limit=limit,
+               eval_l=evals, eval_pred_rel_l2=pred_dev, eval_pred_spread=pred_spread,
+               eval_loss_rel_diff=loss_dev, eval_loss_spread=loss_spread,
+               ti_applications=ti_apps, l_applications=l_apps,
+               launches=sum(by_path.values()), launches_by_path=by_path,
+               bias_act_launches=bias_act.launches)
+    log("rollouts", **row)
+    return row
+
+
+def phase_stale_weights() -> dict:
+    """A DPOT-Ti bf16 train step (adam, batch 4) captured as a graph after
+    its eager first call and replayed 3 times, the eval rollout's graph
+    (captured at the first evaluation) replayed after each step, against
+    the same steps and rollouts run eagerly from the same weights, twice
+    (the eager path's own spread): every loss, prediction and final weight.
+    A graph that read a cached bf16 copy of the AFNO weights would replay
+    the weights of its capture. The control shows that this check sees
+    that: a rollout captured while the wrapper takes the cached copies
+    (as it did before the port's graphs), replayed after a train step,
+    must land above the limit."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import KStepDispatch, make_eval_rollout, make_train_step
+
+    B, n, t_test = STALE["batch"], STALE["replays"], STALE["t_test"]
+    gen = torch.Generator(device="cuda").manual_seed(60)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    train_batches = [{"x": rnd(1, B, 128, 128, 10, 4).to(torch.bfloat16),
+                      "y": rnd(1, B, 128, 128, 1, 4),
+                      "cls": torch.zeros((1, B), dtype=torch.long, device="cuda")}
+                     for _ in range(n + 1)]
+    eval_batch = {"x": rnd(B, 128, 128, 10, 4), "y": rnd(B, 128, 128, t_test, 4),
+                  "msk": torch.ones((B, 128, 128, 1, 4), device="cuda")}
+    step = make_train_step(noise_scale=5e-4, ones_mask=True)
+
+    def fresh():
+        model = preset_model("Ti", "bfloat16", seed=3)
+        return TrainState.create(model, build_optimizer("adam", model.parameters(), 1e-3), 4)
+
+    def eager_run():
+        state = fresh()
+        roll = make_eval_rollout()
+        losses, preds = [], []
+        for b in train_batches:
+            losses.append(step(state, {k: v[0] for k, v in b.items()})[1]["loss_step"].item())
+            preds.append(roll.run(state.model, eval_batch)["pred"])
+        return losses, preds, state
+
+    reset_launch_counts()
+    graphed = fresh()
+    dispatch = KStepDispatch(step, 1)
+    roll = make_eval_rollout()
+    g_losses, g_preds = [], []
+    for b in train_batches:
+        g_losses.append(dispatch(graphed, b)[1]["loss_step"][0].item())
+        g_preds.append(roll(graphed.model, eval_batch)["pred"])
+    e_losses, e_preds, eager = eager_run()
+    torch.cuda.synchronize()
+    launches = fused_gn_afno.launches
+    by_path = check_paths("bfloat16", launches)
+    # each way: n + 1 steps and as many rollouts of t_test applications
+    if launches != 2 * TI["depth"] * (n + 1) * (1 + t_test):
+        raise AssertionError(f"stale_weights: {launches} launches")
+    a_losses, a_preds, again = eager_run()
+    spread = max(max_rel(a_losses, e_losses), worst_rel_l2(a_preds, e_preds),
+                 worst_rel_l2(state_tensors(again), state_tensors(eager)))
+    limit = max(GRAPH_TOL, spread)
+    devs = dict(losses=max_rel(g_losses, e_losses), preds=worst_rel_l2(g_preds, e_preds),
+                tensors=worst_rel_l2(state_tensors(graphed), state_tensors(eager)))
+    if not max(devs.values()) <= limit:
+        raise AssertionError(f"stale_weights: graph against eager {devs}, limit {limit}")
+
+    control = fresh()
+    roll_c = make_eval_rollout()
+    real = afno_fused.capturing
+    afno_fused.capturing = lambda: False
+    try:
+        roll_c(control.model, eval_batch)  # eager, caches the copies; the capture takes them
+    finally:
+        afno_fused.capturing = real
+    step(control, {k: v[0] for k, v in train_batches[0].items()})
+    stale = rel_l2(roll_c(control.model, eval_batch)["pred"],
+                   roll_c.run(control.model, eval_batch)["pred"])
+    if not stale > limit:
+        raise AssertionError(f"stale_weights: a rollout captured with cached weight copies "
+                             f"replays within {stale} of the eager one (limit {limit})")
+    row = dict(dtype="bfloat16", batch=B, replays=n, launches=launches,
+               launches_by_path=by_path, bias_act_launches=bias_act.launches,
+               graphed_losses=g_losses, eager_losses=e_losses, rel_diff=devs,
+               eager_spread=spread, limit=limit, control_cached_copies_rel_l2=stale)
+    log("stale_weights", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1926,6 +2446,7 @@ def main() -> int:
         phase_step(dtype)
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     train = {dtype: phase_train(dtype) for dtype in ("float32", "bfloat16")}
+    dispatch_ti = phase_dispatch_ti()
     shutil.rmtree(RUN_DIR)
     phase_train_card_vs_cpu()
     serve_h, model_h = phase_serve_h()
@@ -1933,9 +2454,16 @@ def main() -> int:
     train_h = phase_train_h(model_h)
     del model_h
     RUN_DIR.mkdir(parents=True, exist_ok=True)
-    eval_l = {dtype: phase_eval_l(dtype) for dtype in ("bfloat16", "float32")}
+    eval_l = {}
+    for dtype in ("bfloat16", "float32"):
+        eval_l[dtype], model = phase_eval_l(dtype)
+        if dtype == "bfloat16":
+            rollouts = phase_rollouts(model)
+        del model
+    stale = phase_stale_weights()
     train_l, model_l = phase_train_l()
     remat_l = phase_remat_l(model_l)
+    dispatch_l = phase_dispatch_l(model_l)
     params_lp_l = phase_params_lp_l(model_l)
     del model_l
     torch.cuda.empty_cache()
@@ -1956,11 +2484,13 @@ def main() -> int:
     kernels = []
     # the runs of the main path in each compute type, whose launches count
     bf16_runs = {"serve[bfloat16]": serve_bf16, "train[bfloat16]": train["bfloat16"],
+                 "dispatch_ti": dispatch_ti, "rollouts": rollouts, "stale_weights": stale,
                  "finetune_s": finetune_s, "varyres_ti": varyres,
                  "convert_resume_serve": convert}
     f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"]}
-    l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "train_l": train_l,
-              "remat_l": remat_l, "params_lp_l": params_lp_l}
+    l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "rollouts": rollouts,
+              "train_l": train_l, "remat_l": remat_l, "dispatch_l": dispatch_l,
+              "params_lp_l": params_lp_l}
     # (name, kernel-phase key prefixes of the shapes its main path gives it,
     # the first the one whose times the row carries, dtype, path, source,
     # the runs whose launches count)
@@ -2013,8 +2543,8 @@ def main() -> int:
                 kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
     # bias_act lies on no main path: its count over the serve and train runs
     bias_act_launches = sum(r["bias_act_launches"] for r in (
-        serve_bf16, serve_f32, *train.values(), serve_h, train_h, *eval_l.values(),
-        train_l, finetune_s))
+        serve_bf16, serve_f32, *train.values(), dispatch_ti, serve_h, train_h,
+        *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dpot_tpu_torch.ops.activations import get_activation
 from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno
+from dpot_tpu_torch.ops.cuda.graphs import capturing
 from dpot_tpu_torch.ops.initializers import (
     gamma_geometric,
     scaled_normal,
@@ -36,6 +37,7 @@ from dpot_tpu_torch.ops.initializers import (
 )
 from dpot_tpu_torch.ops.norms import group_norm, instance_stats
 from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes
+from dpot_tpu_torch.utils.device import resolve_device
 
 
 class Activation(nn.Module):
@@ -144,13 +146,20 @@ class Block(nn.Module):
         return x + residual
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=None)
 def grid_patches(H: int, W: int, T: int, p: int, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
     """Patchified (x, y, t) coordinate channels at latent resolution:
     (h, w, T, p*p*3), flattened in the (a, b, c) order of PatchConv. Made
     outside inference mode, as the cached DFT operators are, so that a
-    training forward may use what an inference forward cached."""
+    training forward may use what an inference forward cached; never
+    evicted and never made during a CUDA graph's capture, as they are
+    (ops/spectral.py)."""
+    if torch.device(device).type == "cuda" and capturing():
+        raise RuntimeError(
+            f"the grid channels of a {H}x{W} input (T {T}, patch {p}, {dtype}) are not "
+            "cached on the card: a CUDA graph cannot upload them during its capture; "
+            "run the function once eagerly first")
     h, w = H // p, W // p
     with torch.inference_mode(False):
         gx = torch.linspace(0, 1, H).reshape(h, p)
@@ -266,7 +275,8 @@ class TimeAggregator(nn.Module):
 class DPOTNet(nn.Module):
     """Full 2D DPOT model. Parameters are drawn on the CPU from a
     torch.Generator seeded with `seed` (the same weights on every device),
-    then moved to `device`. With `remat`, a forward under grad mode keeps
+    then moved to `device`: the card unless the caller asks for the CPU
+    (utils/device.py `resolve_device`, which raises without CUDA). With `remat`, a forward under grad mode keeps
     only each trunk block's input and runs the block again in the backward;
     the blocks stay where they are, so the state dict's keys do not change."""
 
@@ -289,13 +299,14 @@ class DPOTNet(nn.Module):
         act: str = "gelu",
         time_agg: str = "exp_mlp",
         dtype: torch.dtype = torch.float32,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = "cuda",
         seed: int = 0,
         remat: bool = False,
     ):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+        device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         p = patch_size
         self.img_size = img_size

@@ -28,7 +28,8 @@ or raises:
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
 arithmetic with torch ops and rounds at the same points.
 `fused_gn_afno.launches` counts the wrapper calls that launched a kernel,
-`fused_gn_afno.launches_by_path` the same calls by path.
+`fused_gn_afno.launches_by_path` the same calls by path; a CUDA graph adds
+the launches it holds at every replay (ops/cuda/graphs.py).
 
 The mode MLP's activation is the model's `act`, one of the registry
 `dpot_tpu_torch/ops/activations.py`; `approximate` picks tanh-GELU over
@@ -54,6 +55,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from dpot_tpu_torch.ops.activations import get_activation
+from dpot_tpu_torch.ops.cuda.graphs import capturing
 from dpot_tpu_torch.ops.norms import group_norm
 from dpot_tpu_torch.ops.spectral import COMBINED_MAX_PIXELS, complex_as_real_weight
 
@@ -351,8 +353,11 @@ def _bf16_blocks(w: torch.Tensor) -> torch.Tensor:
     """w (2, nb, bs, bs), f32 or a bf16 working copy, as bf16 with each block
     transposed to (out, in), the layout the bf16 Hopper kernels load with
     TMA. Cached on w until w changes (its version counter or storage), so
-    serving converts once and training once per optimizer step."""
-    if w.is_inference():  # no version counter to watch: convert every call
+    serving converts once and training once per optimizer step. A CUDA
+    graph being captured always converts, and keeps nothing: a cached copy
+    would be frozen into the graph, which must read w as it is at each
+    replay (ops/cuda/graphs.py)."""
+    if w.is_inference() or capturing():  # convert every call
         return _convert_blocks(w)
     key = (w.data_ptr(), w._version)
     cached = getattr(w, "_dpot_bf16_blocks", None)

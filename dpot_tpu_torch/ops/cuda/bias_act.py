@@ -6,7 +6,8 @@ and its gradient.
 `dpot_bias_act` from `dpot_tpu_torch/csrc/bias_act.cu` on the current
 stream, or raises; for a CPU tensor it runs `bias_act_ref`
 (ops/bias_act.py). `bias_act.launches` counts the calls that launched the
-kernel. The result has dtype result_type(x, b), as the TPU kernel's, and an
+kernel, and a CUDA graph that holds launches adds them at every replay
+(ops/cuda/graphs.py). The result has dtype result_type(x, b), as the TPU kernel's, and an
 empty input returns without a launch.
 
 Gradient: a `torch.autograd.Function` whose backward differentiates

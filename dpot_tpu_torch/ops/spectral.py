@@ -20,6 +20,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from dpot_tpu_torch.ops.cuda.graphs import capturing
+
 # latent grids up to this many pixels use the combined-operator path
 COMBINED_MAX_PIXELS = 4096
 
@@ -56,13 +58,22 @@ def combined_spectral_ops_np(H: int, W: int, kh: int, kw: int):
     return A, Ainv
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=None)
 def combined_spectral_ops(
     H: int, W: int, kh: int, kw: int, dtype: torch.dtype, device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(A, Ainv) as tensors of `dtype` on `device`, uploaded once. They are
     made outside inference mode even when the first caller runs in it, so
-    that a later training forward may save them for its backward."""
+    that a later training forward may save them for its backward. The cache
+    never evicts: a CUDA graph reads them by address. A miss while a graph
+    is being captured raises (the upload is a host-to-device copy): the
+    capture's warm-up must have made them."""
+    device = torch.device(device)
+    if device.type == "cuda" and capturing():
+        raise RuntimeError(
+            f"the DFT operators of a {H}x{W} latent (modes {kh}x{kw}, {dtype}) are not "
+            "cached on the card: a CUDA graph cannot upload them during its capture; "
+            "run the function once eagerly first")
     if H * W > COMBINED_MAX_PIXELS:
         raise NotImplementedError(
             f"latent {H}x{W} exceeds {COMBINED_MAX_PIXELS} px: the separable "

@@ -1,9 +1,15 @@
 """Rollout server for DPOT-family models (port of dpot_tpu/serve/server.py).
 
-- One eager autoregressive rollout per batch under torch.inference_mode();
+- One autoregressive rollout per batch under torch.inference_mode();
   requests are padded up to the nearest batch bucket (powers of two) so the
-  device sees a few fixed shapes, and the first use of each step count is
-  counted as a "compile" for /metrics parity with the JAX server.
+  device sees a few fixed shapes. On the card each (bucket, steps) runs as
+  one CUDA graph, the counterpart of the JAX server's jitted scan: the
+  first batch of a shape runs eagerly and is answered, then the rollout is
+  captured; `start()` does so for every bucket at each warm-up step count.
+  Each capture counts under "compiles", as the JAX server counts its
+  compiles; on the CPU, which runs eagerly, the first use of each step
+  count does. The graphs share one memory pool (the worker replays them one
+  at a time) and each answer is copied to the host before the next replay.
 - Micro-batching: concurrent requests within `max_wait_ms` are concatenated
   into one device batch.
 - Transport: stdlib ThreadingHTTPServer; tensors travel as raw .npy bodies.
@@ -43,6 +49,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from dpot_tpu_torch.ops.cuda import graphs
 from dpot_tpu_torch.utils.device import resolve_device
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -110,6 +117,8 @@ class RolloutServer:
             raise ValueError(f"response_dtype {response_dtype!r} not in float32|float16")
         self.response_dtype = response_dtype
         self._seen_steps: set[int] = set()
+        self._graphed = self.device.type == "cuda"
+        self._graphs = graphs.GraphCache()
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._holdover: list[_Pending] = []  # worker-owned deferred items
         self._stop = threading.Event()
@@ -157,29 +166,40 @@ class RolloutServer:
 
     # ---- compute -----------------------------------------------------
 
-    def _rollout(self, x: torch.Tensor, n_steps: int) -> np.ndarray:
+    def _eager_rollout(self, x: torch.Tensor, n_steps: int) -> torch.Tensor:
         """n_steps-step autoregressive rollout of a device batch x in the
-        wire dtype; returns (B, H, W, n_steps*t_bundle, C) on the host in
-        the response dtype."""
+        wire dtype: (B, H, W, n_steps*t_bundle, C) on the device in the
+        response dtype."""
         tb = self.t_bundle
         ims = []
-        with torch.inference_mode():
-            carry = x
-            for _ in range(n_steps):
-                out = self.model(carry)
-                im = out[0] if isinstance(out, tuple) else out
-                ims.append(im)
-                # the carry stays in the wire dtype: under a bf16 wire the
-                # model would cast the fed-back frame to bf16 on its first
-                # op anyway
-                carry = torch.cat([carry[..., tb:, :], im.to(carry.dtype)], dim=-2)
-            pred = torch.cat(ims, dim=-2).to(_RESPONSE[self.response_dtype])
-            return pred.cpu().numpy()
+        carry = x
+        for _ in range(n_steps):
+            out = self.model(carry)
+            im = out[0] if isinstance(out, tuple) else out
+            ims.append(im)
+            # the carry stays in the wire dtype: under a bf16 wire the
+            # model would cast the fed-back frame to bf16 on its first op
+            # anyway
+            carry = torch.cat([carry[..., tb:, :], im.to(carry.dtype)], dim=-2)
+        return torch.cat(ims, dim=-2).to(_RESPONSE[self.response_dtype])
+
+    @torch.inference_mode()
+    def _rollout(self, x: torch.Tensor, n_steps: int) -> np.ndarray:
+        """The rollout of `_eager_rollout`, on the card as the graph of its
+        (bucket, n_steps), returned on the host."""
+        if not self._graphed:
+            return self._eager_rollout(x, n_steps).cpu().numpy()
+        captures = self._graphs.captures
+        pred = self._graphs(lambda b: self._eager_rollout(b["x"], n_steps), {"x": x},
+                            key=(n_steps,))
+        self._count(compiles=self._graphs.captures - captures)
+        return pred.cpu().numpy()
 
     def _note_steps(self, n_steps: int) -> None:
         if n_steps not in self._seen_steps:
             self._seen_steps.add(n_steps)
-            self._count(compiles=1)
+            if not self._graphed:
+                self._count(compiles=1)
 
     def _bucket(self, b: int) -> int:
         for cap in self.batch_buckets:
@@ -267,15 +287,17 @@ class RolloutServer:
     # ---- lifecycle ---------------------------------------------------
 
     def start(self) -> None:
+        # one batch per warm-up step count: of the largest bucket, and on
+        # the card of every bucket, so that each one's graph is captured
+        caps = self.batch_buckets if self._graphed else self.batch_buckets[-1:]
+        m = self.model
         for s in self._warmup_steps:
-            # one max-bucket batch per warmup step count
-            cap = self.batch_buckets[-1]
-            m = self.model
-            shape = (cap, m.img_size, m.img_size, m.in_timesteps, m.in_channels)
-            p = _Pending(self._to_wire(np.zeros(shape, np.float32)), s)
-            self._run_batch([p])
-            if p.error:
-                raise RuntimeError(f"warmup failed: {p.error}")
+            for cap in caps:
+                shape = (cap, m.img_size, m.img_size, m.in_timesteps, m.in_channels)
+                p = _Pending(self._to_wire(np.zeros(shape, np.float32)), s)
+                self._run_batch([p])
+                if p.error:
+                    raise RuntimeError(f"warmup failed: {p.error}")
         self._worker.start()
 
     def stop(self, drain: bool = False) -> None:

@@ -6,9 +6,13 @@ the reference's scalar names -> checkpoints -> loss-explosion rollback.
 
 The loss of step i is read back only after step i + 1 has been queued
 (one-step-lagged fetch), so the host never waits for the device inside a
-step. Batches cross to the device through pinned host memory. Options of
-the JAX loop that are not ported raise NotImplementedError naming their
-ROADMAP item; none is ignored.
+step. Batches cross to the device through pinned host memory. With
+`steps_per_dispatch=K` the loader hands out K * B samples at a time, which
+go to the device as (K, B, ...) and run as one K-step dispatch (a CUDA
+graph on the card, train/step.py); a tail that cannot fill a dispatch runs
+as B-sized single steps, so an epoch takes the samples and optimizer steps
+of K = 1. Options of the JAX loop that are not ported raise
+NotImplementedError naming their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -37,6 +41,21 @@ def _fetch(t) -> float:
     return float(t)
 
 
+def _fetch_rows(*ts: torch.Tensor) -> list[list[float]]:
+    """Equal-length device vectors read back to the host in one transfer."""
+    return torch.stack(ts).tolist()
+
+
+def _opt_steps_per_epoch(cfg: TrainConfig, train_dl, train_ds) -> int:
+    """Optimizer steps per epoch, the schedule's and the resume's unit:
+    len(train_dl) at steps_per_dispatch 1; with K-step dispatches the
+    loader's batches are K * B but tails split back into B-sized steps, so
+    the count stays ceil(n / B), as at K = 1."""
+    if cfg.steps_per_dispatch == 1:
+        return max(len(train_dl), 1)
+    return max(-(-len(train_ds) // cfg.batch_size), 1)
+
+
 def check_ported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for every option of the JAX loop that the
     port does not have yet."""
@@ -46,8 +65,6 @@ def check_ported(cfg: TrainConfig) -> None:
          or cfg.mesh_pipe > 1, f"device meshes (mesh_*) ({item} 12)"),
         (cfg.shard_params != "replicate",
          f"shard_params={cfg.shard_params!r} ({item} 12)"),
-        (cfg.steps_per_dispatch > 1,
-         f"steps_per_dispatch > 1: CUDA-graph capture ({item} 6)"),
         (bool(cfg.viz_dir), f"viz_dir (utils/viz.py) ({item} 13)"),
     ]
     for bad, what in missing:
@@ -97,7 +114,8 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
     prefetch = cfg.loader_prefetch
     if prefetch < 0:
         prefetch = 0 if cfg.num_workers <= 1 else 8
-    train_dl = DataLoader(train_ds, cfg.batch_size, shuffle=True,
+    # steps_per_dispatch=K: K optimizer steps' samples a loader batch
+    train_dl = DataLoader(train_ds, cfg.batch_size * cfg.steps_per_dispatch, shuffle=True,
                           num_workers=cfg.num_workers, seed=cfg.seed, prefetch=prefetch)
     test_dls = [DataLoader(ds, cfg.batch_size, shuffle=False,
                            num_workers=cfg.num_workers, prefetch=prefetch)
@@ -112,7 +130,7 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
         device=device, seed=cfg.seed,
     )
-    steps_per_epoch = max(len(train_dl), 1)
+    steps_per_epoch = _opt_steps_per_epoch(cfg, train_dl, train_ds)
     sched = build_schedule(
         cfg.lr_method, cfg.lr, steps_per_epoch, cfg.epochs,
         warmup_epochs=cfg.warmup_epochs, step_size=cfg.step_size,
@@ -143,7 +161,8 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     (the caller's weights, e.g. cli/finetune's merge), cfg.resume_path (a
     full resume: weights, moments, step, noise stream) or cfg.init_from (a
     checkpoint's weights only). A warm start from weights keeps fresh
-    moments, step 0 and the schedule from its start."""
+    moments, step 0 and the schedule from its start. `dispatch_steps`
+    holds the optimizer steps of each loop iteration (K or 1)."""
     model, state, sched, train_dl, test_dls, train_ds = build_everything(cfg, device)
     device = next(model.parameters()).device
     if log_dir is None and cfg.use_writer:
@@ -154,7 +173,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     if ckpt_dir and cfg.async_ckpt:
         writer.text("async_ckpt: checkpoints are saved synchronously in this port")
 
-    steps_per_epoch = max(len(train_dl), 1)
+    steps_per_epoch = _opt_steps_per_epoch(cfg, train_dl, train_ds)
     start_epoch = 0
     if init_state_dict is None and cfg.init_from and not cfg.resume_path:
         init_state_dict = restore_params(cfg.init_from)
@@ -182,9 +201,12 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     wire_y = torch.bfloat16 if wire == "bfloat16" else None
     step_kw = dict(t_bundle=cfg.T_bundle, noise_scale=cfg.noise_scale,
                    time_major=time_major, ones_mask=ones_mask)
-    step_fn = make_train_step(grad_accum=cfg.grad_accum, **step_kw)
+    K = cfg.steps_per_dispatch
+    step_fn = make_train_step(grad_accum=cfg.grad_accum, scan_steps=K, **step_kw)
+    # a tail that cannot fill a dispatch runs B-sized single steps
+    tail_step_fn = make_train_step(grad_accum=cfg.grad_accum, **step_kw) if K > 1 else step_fn
     # a tail batch that does not divide into grad_accum takes one full step
-    noaccum_step_fn = make_train_step(**step_kw) if cfg.grad_accum > 1 else step_fn
+    noaccum_step_fn = make_train_step(**step_kw) if cfg.grad_accum > 1 else tail_step_fn
     roll_fn = make_eval_rollout(t_bundle=cfg.T_bundle)
 
     n_params = sum(p.numel() for p in model.parameters())
@@ -196,6 +218,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     last_good = _snapshot(state) if rollback_on else None
     history: dict = {}
     step_seconds: list[float] = []
+    dispatch_steps: list[int] = []
 
     for ep in range(start_epoch, cfg.epochs):
         t1 = t_1 = time.perf_counter()
@@ -203,46 +226,78 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         train_l2_step = train_l2_full = 0.0
         train_seen = 0
         steps_per_sample = 1.0
-        pending = None  # (aux, batch size, steps per sample, global step)
+        pending = None  # (aux, per-step batch size, steps per sample, global step)
 
         def drain(pending):
             nonlocal train_l2_step, train_l2_full, train_seen, loss_ema
             if pending is None:
                 return
-            aux, bsz, sps, step_idx = pending
-            loss_v, full_v = _fetch(aux["loss_step"]), _fetch(aux["loss_full"])
-            train_l2_step += loss_v
-            train_l2_full += full_v
-            train_seen += bsz
-            if writer.log_dir:
-                writer.scalar("train_loss_step", loss_v / (bsz * sps), step_idx)
-                writer.scalar("train_loss_full", full_v / bsz, step_idx)
-            # failure detection against an EMA of the losses; a non-finite
-            # loss always triggers, even before the EMA has a value
-            exploded = rollback_on and (
-                not np.isfinite(loss_v)
-                or (loss_ema is not None and step_idx > cfg.rollback_warmup_steps
-                    and loss_v > cfg.rollback_factor * loss_ema)
-            )
-            if exploded:
-                ema_s = f"{loss_ema:.3g}" if loss_ema is not None else "unset"
-                writer.text(f"loss explodes ({loss_v:.3g} vs ema {ema_s}), "
-                            "restoring previous good state")
-                _restore(state, last_good)
-            elif np.isfinite(loss_v):
-                loss_ema = loss_v if loss_ema is None else 0.9 * loss_ema + 0.1 * loss_v
+            aux, bsz, sps, it_d = pending
+            if aux["loss_step"].dim():
+                # a K-step dispatch: its (K,) losses in one transfer
+                losses = list(zip(*_fetch_rows(aux["loss_step"], aux["loss_full"])))
+            else:
+                losses = [(_fetch(aux["loss_step"]), _fetch(aux["loss_full"]))]
+            for j, (loss_v, full_v) in enumerate(losses):
+                # the exploded sub-step counts, as at K = 1; the rest of its
+                # dispatch belongs to the trajectory rolled back, and does not
+                train_l2_step += loss_v
+                train_l2_full += full_v
+                train_seen += bsz
+                step_idx = it_d - len(losses) + 1 + j
+                if writer.log_dir:
+                    writer.scalar("train_loss_step", loss_v / (bsz * sps), step_idx)
+                    writer.scalar("train_loss_full", full_v / bsz, step_idx)
+                # failure detection against an EMA of the losses; a non-finite
+                # loss always triggers, even before the EMA has a value
+                exploded = rollback_on and (
+                    not np.isfinite(loss_v)
+                    or (loss_ema is not None and step_idx > cfg.rollback_warmup_steps
+                        and loss_v > cfg.rollback_factor * loss_ema)
+                )
+                if exploded:
+                    ema_s = f"{loss_ema:.3g}" if loss_ema is not None else "unset"
+                    writer.text(f"loss explodes ({loss_v:.3g} vs ema {ema_s}), "
+                                "restoring previous good state")
+                    _restore(state, last_good)
+                    break
+                if np.isfinite(loss_v):
+                    loss_ema = loss_v if loss_ema is None else 0.9 * loss_ema + 0.1 * loss_v
 
-        for x, y, msk, cls in train_dl:
+        def dispatch_units(dl):
+            """Loader batches as (x, y, msk, cls, k): a full K * B batch is one
+            K-step dispatch, anything else B-sized single steps."""
+            bs = cfg.batch_size
+            for x_, y_, msk_, cls_ in dl:
+                if K == 1 or x_.shape[0] == K * bs:
+                    yield x_, y_, msk_, cls_, K
+                else:
+                    for i in range(0, x_.shape[0], bs):
+                        yield x_[i:i + bs], y_[i:i + bs], msk_[i:i + bs], cls_[i:i + bs], 1
+
+        for x, y, msk, cls, k_unit in dispatch_units(train_dl):
             t_load += time.perf_counter() - t_1
             t_1 = time.perf_counter()
-            batch = {"x": _to_device(x, device, wire_x), "y": _to_device(y, device, wire_y),
-                     "cls": _to_device(cls, device)}
+            host = {"x": x, "y": y, "cls": cls}
             if not ones_mask:
-                batch["msk"] = _to_device(msk, device)
+                host["msk"] = msk
+            if k_unit > 1:
+                # (K * B, ...) -> (K, B, ...), a view
+                host = {k: v.reshape(k_unit, cfg.batch_size, *v.shape[1:])
+                        for k, v in host.items()}
+            batch = {"x": _to_device(host["x"], device, wire_x),
+                     "y": _to_device(host["y"], device, wire_y),
+                     "cls": _to_device(host["cls"], device)}
+            if not ones_mask:
+                batch["msk"] = _to_device(host["msk"], device)
             steps_per_sample = y.shape[1 if time_major else y.ndim - 2] / cfg.T_bundle
-            fn = noaccum_step_fn if x.shape[0] % cfg.grad_accum else step_fn
+            if k_unit > 1:
+                fn = step_fn
+            else:
+                fn = noaccum_step_fn if x.shape[0] % cfg.grad_accum else tail_step_fn
             state, aux = fn(state, batch)
-            prev_it, it = it, it + 1
+            prev_it = it
+            it += k_unit
             drain(pending)
             if (rollback_on and cfg.rollback_snapshot_steps > 0
                     and it // cfg.rollback_snapshot_steps
@@ -250,10 +305,11 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                 # mid-epoch snapshot, taken after the drain so that a
                 # just-detected explosion snapshots the restored state
                 last_good = _snapshot(state)
-            pending = (aux, x.shape[0], steps_per_sample, it)
+            pending = (aux, x.shape[0] // k_unit, steps_per_sample, it)
             dt = time.perf_counter() - t_1
             t_train += dt
             step_seconds.append(dt)
+            dispatch_steps.append(k_unit)
             t_1 = time.perf_counter()
         drain(pending)
 
@@ -313,4 +369,4 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
 
     writer.close()
     return {"state": state, "model": model, "log_dir": log_dir,
-            "step_seconds": step_seconds, **history}
+            "step_seconds": step_seconds, "dispatch_steps": dispatch_steps, **history}

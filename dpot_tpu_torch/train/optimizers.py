@@ -19,7 +19,17 @@ Common to all three:
   b2 = 0.999's decay is below bf16's resolution near 1.
 
 Parameters are updated in place under `torch.no_grad()`, one
-`torch._foreach_*` pass over the parameter list per quantity. The DPOT
+`torch._foreach_*` pass over the parameter list per quantity. What changes
+from step to step (b1 and its complement, the step size lr / bc1 or lr,
+1 / sqrt(bc2), adamw's decay lr * wd) is computed on the host from the
+schedules, in float64, and reaches the update as a row of `N_VALUES` f32
+device scalars (`values_at`, `step(values=...)`): a CUDA graph replays the
+same arithmetic with the rows of its dispatch (train/step.py), and the
+eager step takes the same route, so the two compute the same update. Each
+x + s * y with such a scalar is one fused multiply-add
+(`_foreach_addcmul_` over broadcast views of s), the rounding of
+`_foreach_add_(x, y, alpha=s)` with a host float: the update is the one a
+host-float optimizer computes, bit for bit on the H100. The DPOT
 parameters are real, so the JAX package's complex-safe second moment
 |g|^2 is g^2 here. A parameter without a gradient (the classifier head,
 whose loss is not trained) is updated with a zero gradient, as JAX's
@@ -35,9 +45,19 @@ import torch
 
 Schedule = Union[float, Callable[[int], float]]
 
+# the per-step scalars of one update (Optimizer.step_values)
+N_VALUES = 5
+
 
 def _at(v: Schedule, count: int) -> float:
     return float(v(count)) if callable(v) else float(v)
+
+
+def _broadcast(s: torch.Tensor, like: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """A 0-dim tensor as a view of each shape of `like`: x + s * y as
+    `_foreach_addcmul_(x, y, _broadcast(s, y))` rounds once, as
+    `_foreach_add_(x, y, alpha=s)` does with a host float."""
+    return [s.expand_as(t) for t in like]
 
 
 class Optimizer:
@@ -75,19 +95,47 @@ class Optimizer:
     def lr_at(self, count: int) -> float:
         return _at(self.learning_rate, count)
 
+    def step_values(self, count: int) -> list[float]:
+        """The update's per-step scalars at `count` (the count before the
+        update), in float64: b1, 1 - b1, the step size (-lr / bc1, or -lr
+        for lamb), 1 / sqrt(bc2) (1 for lamb) and adamw's decay -lr * wd.
+        The reciprocal is taken here because a division by a host float
+        multiplies by its reciprocal, so the update rounds as it would."""
+        b1c = _at(self.b1, count)
+        lr = self.lr_at(count)
+        if self.rule == "lamb":
+            return [b1c, 1.0 - b1c, -lr, 1.0, 0.0]
+        n = count + 1
+        bc1 = 1.0 - b1c ** n
+        return [b1c, 1.0 - b1c, -lr / bc1, 1.0 / math.sqrt(1.0 - self.b2 ** n),
+                -lr * self.weight_decay]
+
+    def values_at(self, counts: Sequence[int]) -> torch.Tensor:
+        """`step_values` of each count, as a (len(counts), N_VALUES) f32
+        tensor on the parameters' device (through pinned memory, without
+        waiting for the card)."""
+        t = torch.tensor([self.step_values(c) for c in counts], dtype=torch.float32)
+        device = self.grad_norm.device
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
+
     @torch.no_grad()
-    def step(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
+    def step(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None,
+             values: Optional[torch.Tensor] = None) -> None:
         """One update from `grads`, one per parameter, by default the
         parameters' .grad. None counts as zero; a bf16 gradient (from a
-        working copy, train/state.py) is upcast for all the arithmetic."""
+        working copy, train/state.py) is upcast for all the arithmetic.
+        values: this update's row of `values_at` (N_VALUES,) on the
+        parameters' device, by default made for the current count."""
         params = self.params
         if grads is None:
             grads = [p.grad for p in params]
         grads = [(g if g is not None else torch.zeros_like(p)).float()
                  for g, p in zip(grads, params, strict=True)]
-        count = self.count + 1
-        b1c = _at(self.b1, self.count)
-        lr = self.lr_at(self.count)
+        if values is None:
+            values = self.values_at([self.count])[0]
+        b1c, b1c_rest, step_size, inv_sqrt_bc2, decay = values.unbind()
         b2, eps, wd = self.b2, self.eps, self.weight_decay
 
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -101,7 +149,7 @@ class Optimizer:
         # moments: accumulate in f32, store in the moment's dtype
         mu32 = [m if m.dtype == torch.float32 else m.float() for m in self.mu]
         torch._foreach_mul_(mu32, b1c)
-        torch._foreach_add_(mu32, grads, alpha=1.0 - b1c)
+        torch._foreach_addcmul_(mu32, grads, _broadcast(b1c_rest, grads))
         for m, a in zip(self.mu, mu32):
             if m is not a:
                 m.copy_(a)
@@ -115,18 +163,16 @@ class Optimizer:
             upd = torch._foreach_div(mu_p, denom)
             if wd != 0.0:
                 torch._foreach_add_(upd, params, alpha=wd)
-            torch._foreach_add_(params, upd, alpha=-lr)
+            torch._foreach_addcmul_(params, upd, _broadcast(step_size, upd))
         else:
-            bc1 = 1.0 - b1c ** count
-            bc2 = 1.0 - b2 ** count
-            torch._foreach_div_(denom, math.sqrt(bc2))
+            torch._foreach_mul_(denom, inv_sqrt_bc2)
             torch._foreach_add_(denom, eps)
             upd = torch._foreach_div(mu_p, denom)
-            torch._foreach_mul_(upd, -lr / bc1)
+            torch._foreach_mul_(upd, step_size)
             if self.rule == "adamw":
-                torch._foreach_add_(upd, params, alpha=-lr * wd)
+                torch._foreach_addcmul_(upd, params, _broadcast(decay, params))
             torch._foreach_add_(params, upd)
-        self.count = count
+        self.count += 1
         self.grad_norm = gnorm
 
     def state_dict(self) -> dict:

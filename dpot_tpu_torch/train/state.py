@@ -8,6 +8,12 @@ object holds them together with the host-side step count and the
 `torch.Generator` of the noise stream, which is everything an exact resume
 needs (train/checkpoint.py).
 
+On the card a K-step dispatch (train/step.py, `scan_steps`) is a CUDA graph
+that reads and writes these tensors by address: they are only ever updated
+in place (the loop's rollback copies into them), the generator is
+registered with the graph, and `step` and the optimizer's count advance on
+the host by K per dispatch.
+
 The working copy (`param_working_dtype=torch.bfloat16`, JAX's `params_lp`)
 is a library option, as in the JAX package: no config flag reaches it. The
 model's parameters then become the bf16 copy, which the forward and
@@ -75,16 +81,23 @@ class TrainState:
         if self.params_lp is not None:
             torch._foreach_copy_(self.params_lp, self.optimizer.params)
 
-    def apply_gradients(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None
-                        ) -> None:
+    def apply_gradients(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                        values: Optional[torch.Tensor] = None) -> None:
         """One optimizer update from `grads` (one per parameter, None for
-        zero), by default the model parameters' .grad; then the working
-        copy, if any, follows the master."""
+        zero), by default the model parameters' .grad, with the update's
+        per-step scalars `values` (Optimizer.step); then the working copy,
+        if any, follows the master."""
         if grads is None and self.params_lp is not None:
             grads = [p.grad for p in self.params_lp]
-        self.optimizer.step(grads)
+        self.optimizer.step(grads, values)
         self.refresh_working_copy()
         self.step += 1
+
+    def mutated(self) -> list[torch.Tensor]:
+        """The tensors an update writes that the forward reads: the model's
+        parameters and, with a working copy, the f32 master."""
+        params = list(self.model.parameters())
+        return params + list(self.optimizer.params) if self.params_lp is not None else params
 
     def params_state_dict(self) -> dict[str, torch.Tensor]:
         """The model's state dict with the f32 master in place of the working

@@ -9,9 +9,17 @@ Semantics of the reference train loop, as the JAX package pins them:
 - global-norm clip, optimizer and per-iteration schedule (train/optimizers);
 - the classifier's cross-entropy computed for the metrics but not trained.
 
-The step runs eagerly: `loss.backward()` fills the parameters' .grad and
+A step runs eagerly: `loss.backward()` fills the parameters' .grad and
 the optimizer updates them in place. Nothing in it reads a value back to
 the host; the metrics come back as device tensors.
+
+One dispatch, the counterpart of JAX's jitted `lax.scan`: on the card,
+`make_train_step(scan_steps=K)` runs K steps as one CUDA graph and the
+eval rollout runs as one graph per batch shape (ops/cuda/graphs.py). The
+first call of a shape runs eagerly, as the warm-up that fills the caches
+a capture may not fill, and its results are the call's; the capture
+follows, and later calls copy their inputs into the graph's buffers and
+replay it. On the CPU both are the same eager code.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
+from dpot_tpu_torch.ops.cuda.graphs import Graph, GraphCache, copy_into, side_stream, signature
 from dpot_tpu_torch.train.state import TrainState
 from dpot_tpu_torch.utils.criterion import cross_entropy_sum, rel_lp_loss
 
@@ -57,13 +66,14 @@ def make_train_step(
     - grad_accum=N: N microbatches, their gradients summed before one
       update (the loss is a batch sum, so the update equals the full-batch
       one; each microbatch draws its own noise); with a bf16 working copy
-      of the parameters (train/state.py) the sum is taken in f32.
+      of the parameters (train/state.py) the sum is taken in f32;
+    - scan_steps=K: K optimizer steps in one call (`KStepDispatch`): every
+      batch leaf (external noise included) carries a leading (K,) axis,
+      every aux leaf comes back stacked (K,), and the trajectory is that
+      of K sequential calls.
     aux: loss_step, loss_full, cls_loss, cls_correct, n_steps, grad_norm."""
-    if scan_steps > 1:
-        raise NotImplementedError(
-            "scan_steps > 1 (several optimizer steps in one dispatch) is CUDA-graph "
-            "capture on the card, not ported yet (ROADMAP, 'Modules to port', item 6)"
-        )
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
 
     def loss_fn(model, batch: Batch, gen: torch.Generator):
         x, y, cls = batch["x"], batch["y"], batch["cls"]
@@ -102,7 +112,8 @@ def make_train_step(
                "cls_loss": cls_loss, "cls_correct": cls_correct}
         return loss, aux, n_steps
 
-    def train_step(state: TrainState, batch: Batch) -> tuple[TrainState, dict]:
+    def train_step(state: TrainState, batch: Batch,
+                   values: Optional[torch.Tensor] = None) -> tuple[TrainState, dict]:
         model = state.model
         model.train()
         model.zero_grad(set_to_none=True)
@@ -129,22 +140,102 @@ def make_train_step(
             if lp is not None:
                 gsum = _add_f32(gsum, [p.grad for p in lp])
                 model.zero_grad(set_to_none=True)
-        state.apply_gradients(gsum)
+        state.apply_gradients(gsum, values)
         aux["n_steps"] = torch.tensor(float(n_steps))
         aux["grad_norm"] = state.optimizer.grad_norm
         return state, aux
 
-    return train_step
+    return train_step if scan_steps == 1 else KStepDispatch(train_step, scan_steps)
 
 
-def make_eval_rollout(t_bundle: int = 1) -> Callable[[torch.nn.Module, Batch], dict]:
+class KStepDispatch:
+    """K train steps in one call `(state, batches) -> (state, aux)`.
+
+    On the CPU: K eager steps. On the card: one CUDA graph of all K steps
+    per (state, batch shapes), replayed once a call. The first call of a
+    shape runs the K steps eagerly on a side stream (the capture's warm-up;
+    they are the call's steps) and then captures; the capture's host-side
+    effects (the step count, the optimizer's count and grad_norm) are
+    undone, and each replay advances them by K. The graph reads the K rows
+    of the optimizer's per-step scalars from a device buffer, refilled from
+    the host schedules before every replay, and the state's generator is
+    registered with it, so that a replay computes and draws what K eager
+    steps would."""
+
+    def __init__(self, step: Callable, steps: int):
+        self.step = step
+        self.steps = steps
+        # (id(state), batch signature) -> (state, static batch, values, graph)
+        self._graphs: dict = {}
+
+    def _run(self, state: TrainState, batches: Batch, values: torch.Tensor) -> dict:
+        auxes = [self.step(state, {k: v[i] for k, v in batches.items()}, values[i])[1]
+                 for i in range(self.steps)]
+        return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+    def __call__(self, state: TrainState, batches: Batch) -> tuple[TrainState, dict]:
+        K = self.steps
+        for k, v in batches.items():
+            if v.shape[0] != K:
+                raise ValueError(f"batch leaf {k!r} has leading axis {v.shape[0]}, "
+                                 f"not scan_steps={K}")
+        opt = state.optimizer
+        values = opt.values_at(range(opt.count, opt.count + K))
+        if batches["x"].device.type != "cuda":
+            return state, self._run(state, batches, values)
+        key = (id(state), signature(batches))
+        entry = self._graphs.get(key)
+        if entry is None:
+            with side_stream():
+                aux = self._run(state, batches, values)
+            self._graphs[key] = self._capture(state, batches, values)
+            return state, aux
+        _, static, static_values, graph = entry
+        copy_into(static, batches)
+        static_values.copy_(values)
+        aux = {k: v.clone() for k, v in graph.replay().items()}
+        state.step += K
+        opt.count += K
+        opt.grad_norm = aux["grad_norm"][-1]
+        return state, aux
+
+    def _capture(self, state: TrainState, batches: Batch, values: torch.Tensor) -> tuple:
+        static = {k: v.clone() for k, v in batches.items()}
+        static_values = torch.empty_like(values)
+        opt = state.optimizer
+        host = (state.step, opt.count, opt.grad_norm)
+        try:
+            graph = Graph(lambda: self._run(state, static, static_values),
+                          generators=[state.generator], mutated=state.mutated())
+        finally:
+            state.step, opt.count, opt.grad_norm = host
+        return state, static, static_values, graph
+
+
+def make_eval_rollout(t_bundle: int = 1) -> "EvalRollout":
     """Build a full-trajectory rollout evaluator `(model, batch) -> dict` run
     under `torch.inference_mode()`: ceil(t_test / t_bundle) model
     applications, the prediction trimmed to t_test frames; returns the
     summed per-step loss, the full-trajectory loss and the prediction
     (B, H, W, t_test, C)."""
+    return EvalRollout(t_bundle)
 
-    def eval_rollout(model: torch.nn.Module, batch: Batch) -> dict:
+
+class EvalRollout:
+    """The eval rollout of `make_eval_rollout`. On the card, one CUDA graph
+    per (model, shapes and dtypes of x, y and msk), captured after the
+    eager first call of that shape, which is the call's answer
+    (ops/cuda/graphs.py `GraphCache`); the graphs read the model's weights
+    as they are at each replay, and a replay's outputs are copied out of
+    the graph before they are returned."""
+
+    def __init__(self, t_bundle: int = 1):
+        self.t_bundle = t_bundle
+        self.graphs = GraphCache()
+
+    def run(self, model: torch.nn.Module, batch: Batch) -> dict:
+        """The rollout, eagerly."""
+        t_bundle = self.t_bundle
         x, y, msk = batch["x"], batch["y"], batch["msk"]
         t_test = y.shape[-2]
         n_steps = (t_test + t_bundle - 1) // t_bundle
@@ -168,4 +259,9 @@ def make_eval_rollout(t_bundle: int = 1) -> Callable[[torch.nn.Module, Batch], d
             full_loss = rel_lp_loss(pred, y, msk)
         return {"loss_step": step_loss, "loss_full": full_loss, "pred": pred}
 
-    return eval_rollout
+    @torch.inference_mode()
+    def __call__(self, model: torch.nn.Module, batch: Batch) -> dict:
+        if batch["x"].device.type != "cuda":
+            return self.run(model, batch)
+        out = self.graphs(lambda b: self.run(model, b), batch, key=(model,))
+        return {k: v.clone() for k, v in out.items()}

@@ -560,3 +560,228 @@ def test_bias_act_gradients_on_the_card(cuda):
             res.append((*g1, *g2))
         for a, w in zip(*res):
             assert rel_l2(a, w) <= 1e-5, act
+
+
+# ------------------------------------------------ one dispatch: CUDA graphs
+# graph against eager runs the same kernels on the same inputs: held to 1e-6
+# relative (losses) and relative L2 (weights and predictions), as
+# chip_smoke.py's dispatch phases hold them
+
+GRAPH_TOL = 1e-6
+
+
+def ti_state(cuda, seed=3, working_copy=False):
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+
+    model = build_model("DPOT", preset="Ti", img_size=128, patch_size=8, in_channels=4,
+                        in_timesteps=10, n_cls=1, dtype=torch.bfloat16, device=cuda,
+                        seed=seed)
+    return TrainState.create(model, build_optimizer("adam", model.parameters(), 1e-3), 4,
+                             param_working_dtype=torch.bfloat16 if working_copy else None)
+
+
+def ti_batches(cuda, k, B=2, seed=7):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    return {"x": torch.randn((k, B, 128, 128, 10, 4), generator=gen, device=cuda),
+            "y": torch.randn((k, B, 128, 128, 1, 4), generator=gen, device=cuda),
+            "cls": torch.zeros((k, B), dtype=torch.long, device=cuda)}
+
+
+def weights_rel_l2(a, b):
+    return max(rel_l2(p, q) if not torch.equal(p, q) else 0.0
+               for p, q in zip(a.model.parameters(), b.model.parameters()))
+
+
+@pytest.mark.gpu
+def test_graphed_k_steps_equal_eager_steps(cuda):
+    """DPOT-Ti bf16: two 2-step dispatches (the first runs eagerly and
+    captures, the second replays the graph), noise from the state's
+    generator, against four eager steps: the losses, the final weights,
+    the step and the hopper launches (4 a step, replays counted)."""
+    from dpot_tpu_torch.train.step import make_train_step
+
+    a, b = ti_state(cuda), ti_state(cuda)
+    batches = [ti_batches(cuda, 2, seed=s) for s in (1, 2)]
+    fn = make_train_step(scan_steps=2, noise_scale=5e-4, ones_mask=True)
+    step = make_train_step(noise_scale=5e-4, ones_mask=True)
+    before = fused_gn_afno.launches_by_path["hopper"]
+    got = torch.cat([fn(a, bt)[1]["loss_step"] for bt in batches]).tolist()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper"] == before + 4 * 4
+    want = [step(b, {k: v[i] for k, v in bt.items()})[1]["loss_step"].item()
+            for bt in batches for i in range(2)]
+    assert a.step == b.step == 4 and a.optimizer.count == 4
+    assert max(abs(x - y) / abs(y) for x, y in zip(got, want)) <= GRAPH_TOL
+    assert weights_rel_l2(a, b) <= GRAPH_TOL
+
+
+@pytest.mark.gpu
+def test_graphed_dispatch_with_working_copy_and_grad_accum(cuda):
+    """The bf16 working copy and grad_accum=2 (f32 microbatch sums) inside
+    the graph: two 2-step dispatches against four eager steps, the f32
+    masters compared, and the copy still the masters' exact cast."""
+    from dpot_tpu_torch.train.step import make_train_step
+
+    a, b = ti_state(cuda, working_copy=True), ti_state(cuda, working_copy=True)
+    batches = [ti_batches(cuda, 2, B=4, seed=s) for s in (3, 4)]
+    kw = dict(noise_scale=5e-4, ones_mask=True, grad_accum=2)
+    fn, step = make_train_step(scan_steps=2, **kw), make_train_step(**kw)
+    got = torch.cat([fn(a, bt)[1]["loss_step"] for bt in batches]).tolist()
+    want = [step(b, {k: v[i] for k, v in bt.items()})[1]["loss_step"].item()
+            for bt in batches for i in range(2)]
+    assert max(abs(x - y) / abs(y) for x, y in zip(got, want)) <= GRAPH_TOL
+    for p, q in zip(a.optimizer.params, b.optimizer.params):
+        assert torch.equal(p, q) or rel_l2(p, q) <= GRAPH_TOL
+    assert all(torch.equal(p, m.to(torch.bfloat16))
+               for p, m in zip(a.params_lp, a.optimizer.params))
+
+
+@pytest.mark.gpu
+def test_graphed_eval_rollout_equals_eager_and_reads_live_weights(cuda):
+    """The eval rollout's graph (DPOT-Ti bf16, B 2, t_test 3), captured at
+    its first call and replayed after an eager train step has moved the
+    weights, against the eager rollout on those weights; the launches of
+    the replay counted."""
+    from dpot_tpu_torch.train.step import make_eval_rollout, make_train_step
+
+    state = ti_state(cuda)
+    gen = torch.Generator(cuda).manual_seed(9)
+    batch = {"x": torch.randn((2, 128, 128, 10, 4), generator=gen, device=cuda),
+             "y": torch.randn((2, 128, 128, 3, 4), generator=gen, device=cuda),
+             "msk": torch.ones((2, 128, 128, 1, 4), device=cuda)}
+    roll = make_eval_rollout()
+    first = roll(state.model, batch)
+    torch.testing.assert_close(first["pred"], roll.run(state.model, batch)["pred"],
+                               rtol=0, atol=0)
+    step = make_train_step(ones_mask=True)
+    step(state, {k: v[0] for k, v in ti_batches(cuda, 1).items()})
+    before = fused_gn_afno.launches_by_path["hopper"]
+    got = roll(state.model, batch)
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper"] == before + 4 * 3
+    want = roll.run(state.model, batch)
+    assert rel_l2(got["pred"], want["pred"]) <= GRAPH_TOL
+    assert rel_l2(got["pred"], first["pred"]) > GRAPH_TOL  # the weights moved
+    for k in ("loss_step", "loss_full"):
+        assert abs(got[k].item() - want[k].item()) <= GRAPH_TOL * abs(want[k].item())
+
+
+@pytest.mark.gpu
+def test_graphed_served_answer_equals_eager(cuda):
+    """RolloutServer on the card (DPOT-Ti bf16): start() captures every
+    bucket at the warm-up step count and counts each as a compile; a new
+    step count captures at first use; every answer (B 1 and 3, steps 1 and
+    2) equals the eager server's."""
+    from dpot_tpu_torch.serve import RolloutServer
+
+    state = ti_state(cuda, seed=5)
+    rng = np.random.default_rng(3)
+    xs = [rng.standard_normal((b, 128, 128, 10, 4)).astype(np.float32) for b in (1, 3)]
+    answers = {}
+    for graphed in (True, False):
+        rs = RolloutServer(state.model, batch_buckets=(1, 4), max_wait_ms=0.0,
+                           warmup_steps=(1,), device=cuda)
+        rs._graphed = graphed
+        rs.start()
+        try:
+            answers[graphed] = [rs.submit(x, s) for x in xs for s in (1, 2, 2)]
+            compiles = rs.metrics()["compiles"]
+        finally:
+            rs.stop(drain=True)
+        assert compiles == (4 if graphed else 2)
+    for got, want in zip(answers[True], answers[False]):
+        assert rel_l2(torch.from_numpy(got), torch.from_numpy(want)) <= GRAPH_TOL
+
+
+@pytest.mark.gpu
+def test_graphed_step_replays_read_live_weights_not_cached_copies(cuda):
+    """The stale-weight case: a 1-step dispatch captured, then replayed 3
+    times, against 4 eager steps: a graph that read the bf16 copy of the
+    AFNO weights cached before its capture would replay the old weights."""
+    from dpot_tpu_torch.train.step import KStepDispatch, make_train_step
+
+    a, b = ti_state(cuda), ti_state(cuda)
+    step = make_train_step(noise_scale=5e-4, ones_mask=True)
+    dispatch = KStepDispatch(step, 1)
+    batches = [ti_batches(cuda, 1, seed=20 + i) for i in range(4)]
+    got = [dispatch(a, bt)[1]["loss_step"][0].item() for bt in batches]
+    want = [step(b, {k: v[0] for k, v in bt.items()})[1]["loss_step"].item() for bt in batches]
+    assert max(abs(x - y) / abs(y) for x, y in zip(got, want)) <= GRAPH_TOL
+    assert weights_rel_l2(a, b) <= GRAPH_TOL
+
+
+@pytest.mark.gpu
+def test_device_constant_miss_under_a_real_capture_raises(cuda):
+    """A DFT operator shape never made before, asked for during a capture,
+    raises naming the shape; the capture ends with the error."""
+    from dpot_tpu_torch.ops.cuda.graphs import Graph
+
+    with pytest.raises(RuntimeError, match="12x12"):
+        Graph(lambda: combined_spectral_ops(12, 12, 3, 3, torch.float32, cuda))
+
+
+def host_float_update(rule, params, mu, nu, grads, b1, lr, b2, eps, wd, clip, count):
+    """One update of the three optimizers with the per-step scalars as host
+    floats (the fused alpha forms of `_foreach_add_`): the reference that
+    train/optimizers.py's device-scalar rows must match bit for bit."""
+    grads = [g.float() for g in grads]
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if clip is not None:
+        grads = torch._foreach_mul(grads, torch.clamp(clip / (gnorm + 1e-6), max=1.0))
+    if rule == "adam" and wd:
+        grads = torch._foreach_add(grads, params, alpha=wd)
+    mu32 = [m if m.dtype == torch.float32 else m.float() for m in mu]
+    torch._foreach_mul_(mu32, b1)
+    torch._foreach_add_(mu32, grads, alpha=1.0 - b1)
+    for m, a in zip(mu, mu32):
+        if m is not a:
+            m.copy_(a)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    mu_p = [m.to(p.dtype) for m, p in zip(mu, params)]
+    denom = torch._foreach_sqrt(nu)
+    if rule == "lamb":
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(mu_p, denom)
+        torch._foreach_add_(upd, params, alpha=wd)
+        torch._foreach_add_(params, upd, alpha=-lr)
+        return
+    torch._foreach_div_(denom, (1.0 - b2 ** count) ** 0.5)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(mu_p, denom)
+    torch._foreach_mul_(upd, -lr / (1.0 - b1 ** count))
+    if rule == "adamw":
+        torch._foreach_add_(upd, params, alpha=-lr * wd)
+    torch._foreach_add_(params, upd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["adam", "adamw", "lamb"])
+@pytest.mark.parametrize("moment", [torch.float32, torch.bfloat16])
+def test_device_scalar_optimizer_equals_host_float_update(cuda, rule, moment):
+    """Six scheduled updates (OneCycle lr, cycled b1, an active clip) with
+    the per-step scalars as device rows, as a captured step reads them,
+    against the same updates with host floats: weights and both moments
+    bit for bit, so that the eager step computes what it did before its
+    scalars moved to the device."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.schedules import onecycle, onecycle_momentum
+
+    gen = torch.Generator(cuda).manual_seed(1)
+    shapes = [(1536, 6144), (6144,), (2, 16, 96, 96), (7, 13, 5)]
+    p0 = [torch.randn(s, device=cuda, generator=gen) * 0.02 for s in shapes]
+    grads = [[torch.randn(s, device=cuda, generator=gen) for s in shapes] for _ in range(6)]
+    lr, b1 = onecycle(1e-3, 6, 1, 3), onecycle_momentum(6, 1, 3)
+    ps = [p.clone() for p in p0]
+    opt = build_optimizer(rule, ps, lr, b1, beta2=0.99, grad_clip=1.0, moment_dtype=moment)
+    ref = [p.clone() for p in p0]
+    mu = [torch.zeros_like(p, dtype=moment) for p in p0]
+    nu = [torch.zeros_like(p) for p in p0]
+    for i, g in enumerate(grads):
+        opt.step(g)
+        host_float_update(rule, ref, mu, nu, g, b1(i), lr(i), 0.99, opt.eps,
+                          opt.weight_decay, 1.0, i + 1)
+    for a, b in zip(ps + opt.mu + opt.nu, ref + mu + nu):
+        assert torch.equal(a, b)

@@ -116,7 +116,8 @@ def test_working_copy_grad_accum_matches_full_batch(monkeypatch):
     handed = []
     real = s2.apply_gradients
     monkeypatch.setattr(s2, "apply_gradients",
-                        lambda grads=None: handed.append(grads) or real(grads))
+                        lambda grads=None, values=None: handed.append(grads)
+                        or real(grads, values))
     step_full, step_acc = make_train_step(), make_train_step(grad_accum=2)
     batch = to_torch(tiny_batch())
     for _ in range(3):

@@ -213,7 +213,7 @@ def test_train_step_after_an_inference_rollout():
                if not n.startswith("cls_head"))
 
 
-def test_generator_noise_is_reproducible_and_scan_steps_is_not_ported():
+def test_generator_noise_is_reproducible():
     """Without external draws the noise comes from the state's generator: two
     states with the same seed take the same step."""
     batch = make_batch(32)
@@ -221,5 +221,3 @@ def test_generator_noise_is_reproducible_and_scan_steps_is_not_ported():
     a, ax = make_train_step(noise_scale=NOISE)(_fresh(), to_torch(batch))
     b, bx = make_train_step(noise_scale=NOISE)(_fresh(), to_torch(batch))
     assert ax["loss_step"].item() == bx["loss_step"].item()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(scan_steps=2)
