@@ -130,6 +130,32 @@ predictions, or the eager path's own spread where larger):
      at batch 16 with remat (train_L's model) against two eager steps from
      the same state, batches and noise: both losses, every weight and
      moment; each way's wall, device busy and peak memory.
+The 3D fine-tuning path and the separable route (torch.fft, cuFFT on the
+card, and einsums: no kernel, as in the JAX package, whose code there is
+XLA), after phase 14:
+  19. finetune3d_L: `python -m dpot_tpu_torch.cli.finetune3d` in-process,
+     DPOT3D at DPOT-L's widths (embed 1536, depth 24, 16 AFNO blocks of 96,
+     mlp_ratio 4, out_layer_dim 128; 598 M parameters) on a synthetic set
+     of ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5 channels, 21
+     frames, t_test 11; 8 train and 4 test trajectories), patch 8, modes 32
+     and temporal_modes 8, bf16, batch 4, 2 epochs, inflated from eval_L's
+     seeded L .pth (4 channels, 128^2): the inflated count, finite losses,
+     no fused_gn_afno launch, the checkpoint restoring; cli.evaluate
+     --metrics on its checkpoint (loss_full = the loop's last test metric);
+     where a train step's time goes (wall, busy, idle, samples/s; the
+     shares of the cuFFT kernels, the mode MLP, out_layer.0's product, the
+     other dense GEMMs and the optimizer), its peak memory, and the
+     loader's time per batch;
+  20. card_vs_cpu_3d: that model at depth 2 in f32, B = 1, its AFNO weights
+     redrawn: the card's forward against the CPU's (relative L2 1e-4), a
+     CPU mixer wrong on purpose (kw = Y//2+1, as 2D halves) above it; the
+     3D eval rollout replayed as a graph against the eager one (1e-6), the
+     cuFFT plan cache unchanged by the capture and the replay;
+  21. separable_Ti: DPOT-Ti at img_size 512, patch 4 (a 16384-px latent)
+     in f32 and bf16, B = 2: the card's forward against the CPU's (1e-4,
+     3e-2), one train step with a finite loss, the route's calls = depth x
+     applications and no fused_gn_afno launch; one application's wall,
+     busy and idle.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -345,6 +371,32 @@ L_BATCH = 16
 # L2 GRAPH_TOL, unless the eager path's own run-to-run spread, measured in
 # the same phase and logged, is larger: that spread is then the limit
 GRAPH_TOL = 1e-6
+# finetune3d_L: DPOT3D at DPOT-L's widths (embed 1536, depth 24, 16 AFNO
+# blocks of 96, groups of 192, mlp_ratio 4, out_layer_dim 128) on a
+# synthetic set of ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5
+# channels, 21 frames, t_test 11), 8 train and 4 test trajectories, patch 8
+# (an 8^3 latent), T_in 10, modes 32 and temporal_modes 8, bf16, batch 4,
+# 2 epochs, inflated from the L .pth that eval_L writes (4 channels, 128^2)
+FT3D_SPEC = dict(name="synthetic_ns3d_l", train_size=8, test_size=4, t_total=21, t_test=11,
+                 in_size=(64, 64, 64), n_channels=5)
+FT3D = dict(batch=4, epochs=2)
+L3D = dict(img_size=64, patch_size=8, in_channels=5, in_timesteps=10, embed_dim=1536,
+           n_blocks=16, mlp_ratio=4.0, out_layer_dim=128, modes=32, n_cls=1)
+L3D_ARCH = ["--res", "64", "--patch_size", "8", "--width", "1536", "--n_layers", "24",
+            "--n_blocks", "16", "--mlp_ratio", "4", "--out_layer_dim", "128", "--modes", "32",
+            "--T_in", "10"]
+# the entries the 2D->3D inflation copies from L: 12 a trunk block (both
+# norms, the four AFNO tensors, the MLP's two weights and biases) and the
+# time aggregator's w and gamma
+FT3D_INFLATED = 12 * DPOT_L["depth"] + 2
+# card_vs_cpu_3d: that model at depth 2, f32, B = 1, its AFNO weights
+# redrawn; the 3D eval rollout's steps for the graph against eager
+CPU3D_DEPTH = 2
+ROLL3D_STEPS = 3
+# separable_Ti: DPOT-Ti at img_size 512, patch 4 (a 128^2 = 16384 px latent)
+SEP_TI = dict(preset="Ti", img_size=512, patch_size=4, in_channels=4, in_timesteps=10,
+              n_cls=1)
+SEP_BATCH = 2
 # dispatch_Ti: the train phase's bf16 run (configs/pretrain_tiny.yaml's
 # optimization, batch 20) at 4 steps a dispatch on a synthetic set of 180
 # trajectories (two full dispatches and one tail step an epoch), against
@@ -870,7 +922,9 @@ def warmup_applications(rs) -> int:
 
 
 def reset_launch_counts() -> None:
-    fused_gn_afno.launches = bias_act.launches = 0
+    from dpot_tpu_torch.ops.spectral import separable_gn_afno
+
+    fused_gn_afno.launches = bias_act.launches = separable_gn_afno.calls = 0
     fused_gn_afno.launches_by_path.update(dict.fromkeys(afno_fused.PATHS, 0))
 
 
@@ -1094,11 +1148,13 @@ def phase_serve_h() -> tuple[dict, torch.nn.Module]:
     return out, rs.model
 
 
-def phase_step(dtype: str, runs: int = 10, model=None, preset: str = "Ti") -> list[dict]:
+def phase_step(dtype: str, runs: int = 10, model=None, preset: str = "Ti",
+               batches=(1, 8)) -> list[dict]:
     """Where one rollout step's time goes: one model application (Ti, or the
-    given model) at B = 1 and B = 8 on the card. Wall time on the host clock
-    (synchronised), device busy time and the fused kernel's part of it from
-    torch.profiler; the device is idle for the rest of the wall time."""
+    given 2D model) at each batch size on the card. Wall time on the host
+    clock (synchronised), device busy time and the fused kernel's part of
+    it from torch.profiler; the device is idle for the rest of the wall
+    time."""
     from dpot_tpu_torch.models import build_model
 
     if model is None:
@@ -1109,8 +1165,10 @@ def phase_step(dtype: str, runs: int = 10, model=None, preset: str = "Ti") -> li
     model.eval()
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for B in (1, 8):
-        x = torch.randn((B, 128, 128, 10, 4), generator=gen, device="cuda")
+    n = model.img_size
+    for B in batches:
+        x = torch.randn((B, n, n, model.in_timesteps, model.in_channels), generator=gen,
+                        device="cuda")
         with torch.inference_mode():
             def step():
                 return model(x)
@@ -1131,9 +1189,10 @@ def phase_step(dtype: str, runs: int = 10, model=None, preset: str = "Ti") -> li
                 times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
             busy = union_us(events) / runs / 1e3
             fused = union_us([e for e in events if sub_kernel(e.name)]) / runs / 1e3
+            fft = union_us([e for e in events if "fft" in e.name.lower()]) / runs / 1e3
             top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
             row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
-                       fused_gn_afno_ms=fused,
+                       fused_gn_afno_ms=fused, fft_ms=fft, fft_share=fft / busy,
                        top_kernels={k[:80]: v / runs / 1e3 for k, v in top})
         else:
             row.update(device_busy_ms="not measured")
@@ -1184,7 +1243,7 @@ def weight_copy_ms(events, shapes: set, runs: int) -> float | str:
 
 
 def train_step_profile(state, batch, step_fn, runs: int = 10,
-                       weight_copies: bool = False) -> dict:
+                       weight_copies: bool = False, extra=None) -> dict:
     """Where a train step's time goes, over `runs` steps after a warm-up:
     median wall time per step on the host clock (synchronised each step),
     then one profiled window of `runs` steps for the device busy time and
@@ -1199,7 +1258,8 @@ def train_step_profile(state, batch, step_fn, runs: int = 10,
     wrongly at DPOT-H (more than the whole step). Peak memory is that of
     the timed steps, and of the first one's forward and backward alone
     (read as its update starts). With `weight_copies` the profile records
-    shapes, and the dense layers' f32->bf16 weight copies are counted too."""
+    shapes, and the dense layers' f32->bf16 weight copies are counted too.
+    `extra(events, runs, busy)` adds the row's keys of a model's own parts."""
     from torch.autograd import DeviceType
 
     def step():
@@ -1278,6 +1338,8 @@ def train_step_profile(state, batch, step_fn, runs: int = 10,
                linear_forward_share=linear / busy, backward_nodes_ms=top)
     if weight_copies:
         row["dense_weight_copy_ms"] = weight_copy_ms(events, weight_shapes(state.model), runs)
+    if extra is not None:
+        row.update(extra(events, runs, busy))
     return row
 
 
@@ -2419,6 +2481,261 @@ def phase_stale_weights() -> dict:
     return row
 
 
+def ft3d_shares(events, runs: int, busy: float) -> dict:
+    """The parts of a DPOT3D train step's device time: the cuFFT kernels of
+    the 3D mixer, the mode MLP's products (aten::bmm, which only its einsums
+    call), the product of out_layer.0 (the aten::mm calls on its (D, p^3 O)
+    kernel, forward and backward) and the other dense GEMMs (aten::mm and
+    aten::addmm), from a profile that recorded shapes; ms per step."""
+    from torch.autograd import DeviceType
+
+    fft = union_us([e for e in events if is_kernel(e) and "fft" in e.name.lower()])
+    out0_cols = 8 ** 3 * L3D["out_layer_dim"]
+
+    def leaf_ms(names, pick=lambda e: True) -> float:
+        return sum(e.device_time_total for e in events if e.device_type == DeviceType.CPU
+                   and e.name in names and pick(e)) / runs / 1e3
+
+    out0 = leaf_ms(("aten::mm", "aten::addmm"),
+                   lambda e: any(out0_cols in tuple(s) for s in e.input_shapes if s))
+    parts = dict(fft=fft / runs / 1e3, mode_mlp=leaf_ms(("aten::bmm",)), out_layer0=out0,
+                 dense_gemm=leaf_ms(("aten::mm", "aten::addmm")) - out0)
+    return {**{f"{k}_ms": v for k, v in parts.items()},
+            **{f"{k}_share": v / busy for k, v in parts.items()}}
+
+
+def phase_finetune3d_l() -> dict:
+    """DPOT3D at DPOT-L's widths through the finetune3d CLI, inflated from
+    the seeded L 2D .pth, bf16: the inflated count, finite losses, no
+    fused_gn_afno launch, the checkpoint restoring; then cli.evaluate
+    --metrics on the checkpoint, whose loss_full equals the loop's last test
+    metric; then where a train step's time goes, its peak memory, and the
+    loader's time per batch."""
+    from dpot_tpu_torch.cli.evaluate import main as evaluate_main
+    from dpot_tpu_torch.cli.finetune3d import main as finetune3d_main
+    from dpot_tpu_torch.data import DataLoader, TemporalDataset3D
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.train.checkpoint import restore_params
+    from dpot_tpu_torch.train.step import make_train_step
+
+    name = FT3D_SPEC["name"]
+    make_synthetic_spec(**FT3D_SPEC)
+    pth = RUN_DIR / "L.pth"
+    if not pth.exists():
+        save_reference_pth(preset_model("L", "float32", seed=0, device="cpu"), pth)
+    log_path = RUN_DIR / "finetune3d"
+    argv = L3D_ARCH + ["--train_paths", name, "--batch_size", str(FT3D["batch"]),
+                       "--epochs", str(FT3D["epochs"]), "--warmup_epochs", "1",
+                       "--lr", "1e-4", "--dtype", "bfloat16", "--num_workers", "8",
+                       "--use_writer", "true", "--log_path", str(log_path),
+                       "--resume_path", str(pth), "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = finetune3d_main(argv)
+    torch.cuda.synchronize()
+    run_s, run_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    check_no_launch(0, "finetune3d_L")
+    if len(out["copied"]) != FT3D_INFLATED or \
+            f"inflated {FT3D_INFLATED} 2D entries" not in printed.getvalue():
+        raise AssertionError(f"finetune3d inflated {len(out['copied'])} entries, expected "
+                             f"{FT3D_INFLATED}")
+    losses = out["train_l2_step"] + out["test_l2_full"]
+    if len(losses) != 2 * FT3D["epochs"] or not finite(losses):
+        raise AssertionError(f"finetune3d losses: {losses}")
+    state = out["state"]
+    restored = restore_params(str(log_path))
+    for k, v in state.params_state_dict().items():
+        if not torch.equal(restored[k], v.cpu()):
+            raise AssertionError(f"finetune3d checkpoint: {k} does not restore")
+    del restored
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_main(["--config_from_ckpt", "true", "--resume_path", str(log_path),
+                             "--test_paths", name, "--batch_size", str(FT3D["batch"]),
+                             "--dtype", "bfloat16", "--num_workers", "8", "--metrics",
+                             "--device", "cuda"])
+    torch.cuda.synchronize()
+    check_no_launch(0, "finetune3d_L's evaluation")
+    vals = got[name]
+    rel = abs(vals["loss_full"] - out["test_l2_full"][-1]) / out["test_l2_full"][-1]
+    if not finite(vals.values()) or not rel <= FT_EVAL_TOL:
+        raise AssertionError(f"3D evaluate: {vals}, loss_full against the loop's "
+                             f"{out['test_l2_full'][-1]}: rel {rel} (limit {FT_EVAL_TOL})")
+    bias_act_launches = bias_act.launches
+    by_path = dict(fused_gn_afno.launches_by_path)
+    steps = state.step
+
+    ds = TemporalDataset3D(name, res=64, t_in=10, t_ar=1, train=True)
+    x, y, msk, _ = next(iter(DataLoader(ds, FT3D["batch"], shuffle=False, num_workers=8,
+                                        prefetch=0)))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in (("x", x), ("y", y), ("msk", msk))}
+    batch["cls"] = torch.zeros(FT3D["batch"], dtype=torch.int64, device="cuda")
+    prof = train_step_profile(state, batch, make_train_step(), runs=5, weight_copies=True,
+                              extra=ft3d_shares)
+    check_no_launch(0, "finetune3d_L's profiled steps")
+    # the device time of one trunk GroupNorm's forward and backward alone,
+    # at the step's shape (the step's profile cannot tell its composed
+    # elementwise ops from others; CUDA events around it would time the
+    # host, which issues its small kernels slower than the card runs them)
+    xg = torch.randn((FT3D["batch"], 8, 8, 8, L3D["embed_dim"]), device="cuda",
+                     dtype=torch.bfloat16, requires_grad=True)
+    g_out = torch.randn_like(xg)
+    norm = state.model.blocks[0].norm1
+    gn_events = [e for e in profile_events(lambda: norm(xg).backward(g_out), 20)
+                 if is_kernel(e)]
+    if gn_events and isinstance(prof.get("device_busy_ms"), float):
+        gn_ms = union_us(gn_events) / 20 / 1e3
+        per_step = 2 * DPOT_L["depth"]
+        prof.update(group_norm_call_ms=gn_ms, group_norms_per_step=per_step,
+                    group_norm_step_ms=gn_ms * per_step,
+                    group_norm_share=gn_ms * per_step / prof["device_busy_ms"])
+    loads = out["load_seconds"]
+    row = dict(dtype="bfloat16", inflated=len(out["copied"]), steps=steps,
+               params_m=sum(q.numel() for q in state.model.parameters()) / 1e6,
+               train_l2_step=out["train_l2_step"], test_l2_full=out["test_l2_full"],
+               evaluate=vals, evaluate_rel=rel, evaluate_limit=FT_EVAL_TOL,
+               launches=fused_gn_afno.launches, launches_by_path=by_path,
+               bias_act_launches=bias_act_launches, run_s=run_s, run_peak_memory_gb=run_peak,
+               cli_step_s=out["step_seconds"], loader_s_per_batch=statistics.median(loads),
+               loader_s_each=loads, step=prof)
+    log("finetune3d_l", **row)
+    return row
+
+
+@contextlib.contextmanager
+def halved_kw_mixer():
+    """The 3D mixer wrong on purpose: it keeps kw = min(modes, Y//2+1) of
+    the second axis, as the 2D mixer halves its last axis, where the 3D
+    reference keeps min(modes, Y)."""
+    from dpot_tpu_torch.models import dpot3d
+    from dpot_tpu_torch.ops import spectral
+
+    def wrong(x, w1, b1, w2, b2, modes, temporal_modes, act, compute_dtype=None):
+        H, W, L = x.shape[1:4]
+        x32 = x.float()
+        corner = (min(modes, H), min(modes, W // 2 + 1), min(temporal_modes, L // 2 + 1))
+        y = spectral._corner_mlp(x32, corner, w1, b1, w2, b2, act, compute_dtype)
+        return (y + x32).to(x.dtype)
+
+    real = dpot3d.afno_filter_3d
+    dpot3d.afno_filter_3d = wrong
+    try:
+        yield
+    finally:
+        dpot3d.afno_filter_3d = real
+
+
+def phase_card_vs_cpu_3d() -> dict:
+    """DPOT3D at L width and depth 2, f32, B = 1, 64^3, its AFNO weights
+    redrawn from N(0, MIXER_SCALE^2): the card's forward (cuFFT, cuBLAS)
+    against the CPU's within CPU_TOL, and a CPU mixer wrong on purpose
+    above it; then the 3D eval rollout replayed as a CUDA graph against
+    the eager one, and the cuFFT plan cache unchanged by the capture and
+    the replay."""
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.step import make_eval_rollout
+
+    reset_launch_counts()
+    model = build_model("DPOT3D", depth=CPU3D_DEPTH, dtype=torch.float32, device="cuda",
+                        seed=11, **L3D)
+    draw_mixer_weights(model, seed=12)
+    cpu = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((1, 64, 64, 64, 10, 5)).astype(np.float32)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x).to("cuda")).cpu()
+        want = cpu(torch.from_numpy(x))
+        with halved_kw_mixer():
+            wrong = cpu(torch.from_numpy(x))
+    rel, rel_wrong = rel_l2(got, want), rel_l2(wrong, want)
+    limit = CPU_TOL["float32"]
+    if not rel <= limit < rel_wrong:
+        raise AssertionError(f"3D forward card vs CPU: rel-L2 {rel}, the wrong mixer's "
+                             f"{rel_wrong}: the limit {limit} must lie between")
+    del cpu
+
+    y = rng.standard_normal((1, 64, 64, 64, ROLL3D_STEPS, 5)).astype(np.float32)
+    batch = {"x": torch.from_numpy(x).to("cuda"), "y": torch.from_numpy(y).to("cuda"),
+             "msk": torch.ones((1, 64, 64, 64, 1, 5), device="cuda")}
+    plans = torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()]
+    roll = make_eval_rollout()
+    eager = roll.run(model, batch)
+    sizes = [plans.size]
+    first = roll(model, batch)       # eager, then the capture
+    sizes.append(plans.size)
+    replay = roll(model, batch)
+    torch.cuda.synchronize()
+    sizes.append(plans.size)
+    graph = dict(pred=rel_l2(replay["pred"], eager["pred"]),
+                 first_pred=rel_l2(first["pred"], eager["pred"]),
+                 **{k: abs(replay[k].item() - eager[k].item()) / abs(eager[k].item())
+                    for k in ("loss_step", "loss_full")})
+    if roll.graphs.captures != 1 or max(graph.values()) > GRAPH_TOL or len(set(sizes)) != 1:
+        raise AssertionError(f"3D rollout graph against eager: {graph} (limit {GRAPH_TOL}), "
+                             f"captures {roll.graphs.captures}, plan cache sizes {sizes}")
+    check_no_launch(0, "card_vs_cpu_3d")
+    row = dict(dtype="float32", depth=CPU3D_DEPTH, rel_l2=rel, limit=limit,
+               halved_kw_rel_l2=rel_wrong, graph_rel=graph, graph_limit=GRAPH_TOL,
+               rollout_steps=ROLL3D_STEPS, cufft_plans=sizes,
+               launches=fused_gn_afno.launches,
+               launches_by_path=dict(fused_gn_afno.launches_by_path),
+               bias_act_launches=bias_act.launches)
+    log("card_vs_cpu_3d", **row)
+    return row
+
+
+def phase_separable_ti(dtype: str) -> dict:
+    """DPOT-Ti at a 128^2 latent, above the fused op's 4096 px, where every
+    block takes the separable route: one application on the card against
+    the CPU's (CPU_TOL), one train step with a finite loss, the route's
+    calls = depth x applications and no fused_gn_afno launch; then one
+    application's wall, busy and idle at B = SEP_BATCH."""
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.ops.spectral import separable_gn_afno
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    model = build_model("DPOT", dtype=getattr(torch, dtype), device="cuda", seed=13, **SEP_TI)
+    cpu = copy.deepcopy(model).to("cpu")  # before the train step moves the weights
+    rng = np.random.default_rng(41)
+    B, n = SEP_BATCH, SEP_TI["img_size"]
+    x = rng.standard_normal((B, n, n, 10, 4)).astype(np.float32)
+    batch = {"x": torch.from_numpy(x).to("cuda"),
+             "y": torch.from_numpy(rng.standard_normal((B, n, n, 1, 4)).astype(np.float32)
+                                   ).to("cuda"),
+             "msk": torch.ones((B, n, n, 1, 4), device="cuda"),
+             "cls": torch.zeros(B, dtype=torch.int64, device="cuda")}
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = model(batch["x"])[0].cpu()
+    state = TrainState.create(model, build_optimizer("adam", model.parameters(), 1e-4), seed=0)
+    _, aux = make_train_step()(state, batch)
+    loss = aux["loss_step"].item()
+    calls, depth = separable_gn_afno.calls, TI["depth"]
+    check_no_launch(0, f"separable_Ti {dtype}")
+    if calls != depth * 2 or not math.isfinite(loss):
+        raise AssertionError(f"separable_Ti {dtype}: the route called {calls} times, "
+                             f"expected depth x applications = {depth * 2}; loss {loss}")
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(x))[0]
+    del cpu
+    rel, limit = rel_l2(got, want), CPU_TOL[dtype]
+    if not rel <= limit:
+        raise AssertionError(f"separable_Ti {dtype} card vs CPU: rel-L2 {rel} (limit {limit})")
+    step = phase_step(dtype, model=model, preset=f"Ti@{n}/p4", batches=(B,))[0]
+    row = dict(dtype=dtype, latent_px=(n // SEP_TI["patch_size"]) ** 2, batch=B,
+               separable_calls=calls, applications=2, card_vs_cpu_rel_l2=rel, limit=limit,
+               train_loss_step=loss, launches=fused_gn_afno.launches,
+               launches_by_path=dict(fused_gn_afno.launches_by_path),
+               bias_act_launches=bias_act.launches, application=step)
+    log("separable_ti", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -2470,7 +2787,12 @@ def main() -> int:
     finetune_s = phase_finetune_s()
     varyres = phase_varyres_ti()
     convert = phase_convert_resume_serve()
+    torch.cuda.empty_cache()
+    finetune3d = phase_finetune3d_l()
+    torch.cuda.empty_cache()
     shutil.rmtree(RUN_DIR)
+    cpu_3d = phase_card_vs_cpu_3d()
+    separable = {dtype: phase_separable_ti(dtype) for dtype in ("float32", "bfloat16")}
 
     def batches(prefix, dtype):
         return CASE_BATCHES.get((prefix, getattr(torch, dtype)), KERNEL_BATCHES)
@@ -2486,8 +2808,10 @@ def main() -> int:
     bf16_runs = {"serve[bfloat16]": serve_bf16, "train[bfloat16]": train["bfloat16"],
                  "dispatch_ti": dispatch_ti, "rollouts": rollouts, "stale_weights": stale,
                  "finetune_s": finetune_s, "varyres_ti": varyres,
-                 "convert_resume_serve": convert}
-    f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"]}
+                 "convert_resume_serve": convert, "finetune3d_l": finetune3d,
+                 "separable_ti[bfloat16]": separable["bfloat16"]}
+    f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"],
+                "card_vs_cpu_3d": cpu_3d, "separable_ti[float32]": separable["float32"]}
     l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "rollouts": rollouts,
               "train_l": train_l, "remat_l": remat_l, "dispatch_l": dispatch_l,
               "params_lp_l": params_lp_l}
@@ -2544,7 +2868,8 @@ def main() -> int:
     # bias_act lies on no main path: its count over the serve and train runs
     bias_act_launches = sum(r["bias_act_launches"] for r in (
         serve_bf16, serve_f32, *train.values(), dispatch_ti, serve_h, train_h,
-        *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s))
+        *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
+        cpu_3d, *separable.values()))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

@@ -7,7 +7,8 @@ directory of the port.
 
 The directory holds model.pth (the weights, fresh optimizer state, step 0)
 and config.json, so that `cli.train --resume_path`, `cli.serve` and
-`cli.evaluate` (with --config_from_ckpt true) all take it. DPOT 2D only.
+`cli.evaluate` (with --config_from_ckpt true) all take it. DPOT 2D and
+DPOT3D (`--model DPOT3D`, whose directory cli.evaluate reads on 3D sets).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import sys
 import torch
 
 # the reference's other families: their converters wait for their models
-_NOT_PORTED = ("DPOT3D", "CDPOT", "FNO", "FNO3D", "UNET")
+_NOT_PORTED = ("CDPOT", "FNO", "FNO3D", "UNET")
 
 
 def main(argv=None) -> str:
@@ -37,7 +38,7 @@ def main(argv=None) -> str:
         raise NotImplementedError(
             f"converting a {cfg.model} checkpoint is not ported yet (ROADMAP, 'Modules "
             "to port', item 11: the other model families)")
-    if name not in ("DPOT", "AFNO"):
+    if name not in ("DPOT", "AFNO", "DPOT3D"):
         raise ValueError(f"no converter for model {cfg.model!r}")
     model = build_model(
         cfg.model, img_size=cfg.res, patch_size=cfg.patch_size, in_channels=cfg.n_channels,

@@ -6,8 +6,11 @@ reference's evaluate.py):
         [--metrics] [--varyres] [--config_from_ckpt true] [--device cpu]
 
 --resume_path takes a reference-layout .pth or a checkpoint directory that
-the port wrote (or its model.pth). --metrics adds the reference Evaluator's
-battery, --varyres runs the resolution-transfer sweep instead. --device:
+the port wrote (or its model.pth). 3D test sets take DPOT3D (a DPOT model
+named on them becomes one, as in the JAX CLI), which returns the
+prediction only; --varyres is 2D-only, and one run takes sets of one rank.
+--metrics adds the reference Evaluator's battery (the 3D one on 3D sets),
+--varyres runs the resolution-transfer sweep instead. --device:
 cuda by default, where the kernels run; cpu runs their plain versions.
 Prints a line per dataset, then the results as one JSON line.
 """
@@ -47,13 +50,14 @@ def main(argv=None) -> dict:
             "--varyres sweeps 2D resolutions only (spectral resize and the varyres "
             f"rollout are 2D); the test sets are {ndim}D: run the standard 3D "
             "evaluation instead")
-    if ndim == 3 or cfg.model in ("DPOT3D", "dpot3d", "FNO3D", "fno3d"):
-        raise NotImplementedError(
-            "3D test sets take the DPOT3D family, which is not ported yet (ROADMAP, "
-            "'Modules to port', item 11; its datasets, item 7)")
+    model_name = cfg.model
+    if ndim == 3 and model_name in ("DPOT", "dpot", "AFNO", "afno"):
+        model_name = "DPOT3D"  # 3D sets take the 3D family, as in the JAX CLI
+    if (ndim == 3) != (model_name in ("DPOT3D", "dpot3d", "FNO3D", "fno3d")):
+        raise SystemExit(f"model {model_name} cannot evaluate {ndim}D test sets")
 
     model = build_model(
-        cfg.model, img_size=cfg.res, patch_size=cfg.patch_size, in_channels=n_channels,
+        model_name, img_size=cfg.res, patch_size=cfg.patch_size, in_channels=n_channels,
         in_timesteps=cfg.T_in, out_timesteps=cfg.T_bundle, embed_dim=cfg.width,
         modes=cfg.modes, depth=cfg.n_layers, n_blocks=cfg.n_blocks,
         mlp_ratio=cfg.mlp_ratio, out_layer_dim=cfg.out_layer_dim, act=cfg.act,

@@ -23,10 +23,8 @@ import sys
 
 JAX_CLI = "dpot_tpu.cli."
 PORT_CLI = "dpot_tpu_torch.cli."
-# the JAX package's CLIs that the port has, and those it has not yet with
-# the ROADMAP item that brings them
-PORTED = ("train", "finetune", "evaluate", "convert", "serve")
-NOT_PORTED = {"finetune3d": "item 11: the other model families (DPOT3D)"}
+# the JAX package's CLIs that a sweep runs: all of them, in the port
+PORTED = ("train", "finetune", "finetune3d", "evaluate", "convert", "serve")
 
 
 def port_script(script: str) -> str:
@@ -36,9 +34,6 @@ def port_script(script: str) -> str:
     name = script[len(JAX_CLI):] if script.startswith(JAX_CLI) else None
     if name in PORTED:
         return PORT_CLI + name
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{script} is not ported yet (ROADMAP, 'Modules to "
-                                  f"port', {NOT_PORTED[name]})")
     raise ValueError(f"a sweep runs one of the CLIs {[JAX_CLI + n for n in PORTED]}, "
                      f"not {script!r}")
 

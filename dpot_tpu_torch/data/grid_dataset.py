@@ -1,5 +1,6 @@
 """Uniform-grid temporal datasets, host side in numpy (the port's copy of
-`MixedTemporalDataset` in dpot_tpu/data/grid_dataset.py).
+`MixedTemporalDataset` and `TemporalDataset3D` in
+dpot_tpu/data/grid_dataset.py).
 
 Per sample: HDF5 read (raw_hdf5's memmap fast path, h5py otherwise) ->
 bilinear resize to res^2 -> channels padded to Cmax with ONES -> train: a
@@ -10,7 +11,8 @@ deterministic smooth trajectories in memory.
 
 The port takes the numpy paths that the JAX package takes when its native
 host library is not built; the batches are the same bit for bit
-(tests/test_torch_data.py). The masked, steady and 3D datasets, the
+(tests/test_torch_data.py). `TemporalDataset3D` is the single-dataset 3D
+version (trilinear resize to res^3). The masked and steady datasets, the
 `normalize=True` option and the native library wait (ROADMAP, 'Modules to
 port', item 7).
 """
@@ -46,20 +48,26 @@ def _synthetic_sample(spec: DatasetSpec, train: bool, idx: int) -> np.ndarray:
     (name, split, index), so every process draws the same corpus."""
     seed = zlib.crc32(f"{spec.name}|{bool(train)}|{int(idx)}".encode()) % (2**31)
     rng = np.random.default_rng(seed)
-    if len(spec.in_size) != 2:
-        raise NotImplementedError(
-            "3D datasets are not ported yet (ROADMAP, 'Modules to port', item 7)"
-        )
-    H, W = spec.in_size
     T, C = spec.t_total, spec.n_channels
     k = 6  # low-frequency modes per axis
-    coef = rng.standard_normal((k, k, C)) + 1j * rng.standard_normal((k, k, C))
-    omega = 2 * np.pi * rng.random((k, k, C)) * 0.05
-    out = np.empty((H, W, T, C), dtype=np.float32)
+    if len(spec.in_size) == 2:
+        H, W = spec.in_size
+        coef = rng.standard_normal((k, k, C)) + 1j * rng.standard_normal((k, k, C))
+        omega = 2 * np.pi * rng.random((k, k, C)) * 0.05
+        out = np.empty((H, W, T, C), dtype=np.float32)
+        for t in range(T):
+            ft = np.zeros((H, W, C), dtype=complex)
+            ft[:k, :k] = coef * np.exp(1j * omega * t)
+            out[..., t, :] = np.real(np.fft.ifft2(ft, axes=(0, 1))) * H
+        return out
+    H, W, L = spec.in_size
+    coef = rng.standard_normal((k, k, k, C)) + 1j * rng.standard_normal((k, k, k, C))
+    omega = 2 * np.pi * rng.random((k, k, k, C)) * 0.05
+    out = np.empty((H, W, L, T, C), dtype=np.float32)
     for t in range(T):
-        ft = np.zeros((H, W, C), dtype=complex)
-        ft[:k, :k] = coef * np.exp(1j * omega * t)
-        out[..., t, :] = np.real(np.fft.ifft2(ft, axes=(0, 1))) * H
+        ft = np.zeros((H, W, L, C), dtype=complex)
+        ft[:k, :k, :k] = coef * np.exp(1j * omega * t)
+        out[..., t, :] = np.real(np.fft.ifftn(ft, axes=(0, 1, 2))) * H
     return out
 
 
@@ -267,3 +275,125 @@ class MixedTemporalDataset:
         if out_msk is not None:
             out_msk[...] = 1.0
         return np.int32(dataset_idx)
+
+
+def pad_data_3d(x: np.ndarray, res: int, c_max: int) -> np.ndarray:
+    """(X, Y, Z, T, C) -> (res, res, res, T, c_max): trilinear resize, ONES
+    channel padding (the numpy path of dpot_tpu/native/preprocess.py
+    resize_trilinear_3d, then TemporalDataset3D.pad_data's padding)."""
+    size = (res, res, res)
+    y = np.ascontiguousarray(x, np.float32) if tuple(x.shape[:3]) == size else \
+        resize_linear_nd(x, size)
+    *sp, T, C = y.shape
+    if C < c_max:
+        pad = np.ones((*sp, T, c_max - C), dtype=y.dtype)
+        y = np.concatenate([y, pad], axis=-1)
+    return y
+
+
+class TemporalDataset3D:
+    """Single-dataset 3D version (reference utils/griddataset.py:454-564):
+    per sample a trilinear resize to res^3 and ONES channel padding; train:
+    a random window and an all-ones mask, test: the full t_test trajectory
+    and a mask that subsamples back to the stored resolution and zeroes
+    padded channels."""
+
+    def __init__(
+        self,
+        data_name: str,
+        n_train: Optional[int] = None,
+        res: int = 128,
+        t_in: int = 10,
+        t_ar: int = 1,
+        n_channels: Optional[int] = None,
+        train: bool = True,
+    ):
+        self.spec = get_spec(data_name)
+        self.n_size = (n_train if n_train is not None
+                       else (self.spec.train_size if train else self.spec.test_size))
+        self.train = train
+        # every train-mode mask is all ones: the train loop may ship no mask
+        self.train_masks_are_ones = bool(train)
+        self.res = res
+        self.t_in = t_in
+        self.t_ar = t_ar
+        self.t_test = self.spec.t_test
+        self.n_channels = self.spec.n_channels if n_channels is None else n_channels
+        self.downsample = self.spec.downsample
+        self.reader = _open_sample_reader(self.spec, train)
+        self._tmaj = bool(getattr(getattr(self.reader, "__self__", None), "time_major", False))
+        # time-major corpora window as one contiguous copy (see
+        # MixedTemporalDataset)
+        self.time_major_batches = (
+            train
+            and self._tmaj
+            and tuple(self.spec.in_size) == (res, res, res)
+            and self.spec.n_channels == self.n_channels
+            and tuple(self.spec.downsample) == (1, 1, 1)
+            and self.spec.t_total >= t_in + t_ar
+        )
+
+    def _std_layout(self, sample: np.ndarray) -> np.ndarray:
+        return np.moveaxis(sample, 0, -2) if self._tmaj else sample
+
+    @property
+    def fast_item_shapes(self):
+        """Per-item (x, y, msk) shapes of time-major batches, else None."""
+        if not self.time_major_batches:
+            return None
+        c, r = self.n_channels, self.res
+        return (self.t_in, r, r, r, c), (self.t_ar, r, r, r, c), (r, r, r, 1, c)
+
+    def fetch_into(self, idx: int, out_x, out_y, out_msk, rng) -> np.int32:
+        """Item idx of a time-major batch, copied straight from the corpus
+        into the batch slots (x and y time-major); the same window draw as
+        __getitem__."""
+        hi = self.spec.t_total - (self.t_in + self.t_ar) + 1
+        start = _draw_start(rng, hi)
+        win = slice(start, start + self.t_in + self.t_ar)
+        sample = self.reader(idx, tsel=win, copy=False)
+        _copy_exact(out_x, sample[: self.t_in])
+        _copy_exact(out_y, sample[self.t_in:])
+        if out_msk is not None:
+            out_msk[...] = 1.0
+        return np.int32(0)
+
+    def __len__(self) -> int:
+        return int(self.n_size)
+
+    def pad_data(self, x: np.ndarray) -> np.ndarray:
+        return pad_data_3d(x, self.res, self.n_channels)
+
+    def get_target_mask(self, x: np.ndarray, size_orig: Sequence[int]) -> np.ndarray:
+        return _target_mask(x, size_orig, 3)
+
+    def __getitem__(self, idx: int, rng=None):
+        """(x, y, msk, cls) of item idx in the standard layout; rng draws the
+        train window (see _draw_start)."""
+        if self.train:
+            # read and resize only the window's t_in + t_ar frames
+            hi = max(self.spec.t_total - (self.t_in + self.t_ar) + 1, 1)
+            start = _draw_start(rng, hi)
+            win = slice(start, min(start + self.t_in + self.t_ar, self.spec.t_total))
+            sample = np.asarray(self._std_layout(self.reader(idx, tsel=win)), dtype=np.float32)
+            if sample.ndim == 4:
+                sample = sample[..., None]
+            sample = self.pad_data(sample)
+            x = sample[..., : self.t_in, :]
+            y = sample[..., self.t_in:, :]
+            msk = np.ones((*x.shape[:3], 1, x.shape[-1]), dtype=np.float32)
+        else:
+            sample = np.asarray(self._std_layout(self.reader(idx)), dtype=np.float32)
+            if sample.ndim == 4:
+                sample = sample[..., None]
+            orig_size = list(sample.shape)
+            if self.spec.pred_channels is not None:
+                orig_size[-1] = self.spec.pred_channels
+            sample = self.pad_data(sample)
+            x = sample[..., : self.t_in, :]
+            y = sample[..., self.t_in: self.t_in + self.t_test, :]
+            msk = self.get_target_mask(sample, orig_size)
+        ds = self.downsample
+        if tuple(ds) != (1, 1, 1):
+            x, y = x[:: ds[0], :: ds[1], :: ds[2]], y[:: ds[0], :: ds[1], :: ds[2]]
+        return x, y, msk, np.int32(0)

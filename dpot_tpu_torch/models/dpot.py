@@ -8,7 +8,8 @@ state dict (the layout dpot_tpu/train/interop.py reads), so a reference
 .pth loads with `load_state_dict(strict=True)`. Convolutions are computed as
 matrix products. Parameters are float32; `dtype` is the compute dtype
 (float32 or bfloat16). The norm1 GroupNorm and the AFNO mixer of every
-trunk block run as one fused kernel (ops/cuda/afno_fused.py). `remat`
+trunk block run as one fused kernel (ops/cuda/afno_fused.py), or for a
+latent above 4096 px as the separable route (ops/spectral.py). `remat`
 recomputes each trunk block's activations in the backward instead of
 keeping them (torch.utils.checkpoint, the counterpart of JAX's
 `nn.remat(Block)`). The parameters may also be a bfloat16 working copy
@@ -36,7 +37,12 @@ from dpot_tpu_torch.ops.initializers import (
     trunc_normal,
 )
 from dpot_tpu_torch.ops.norms import group_norm, instance_stats
-from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes
+from dpot_tpu_torch.ops.spectral import (
+    COMBINED_MAX_PIXELS,
+    combined_spectral_ops,
+    kept_modes,
+    separable_gn_afno,
+)
 from dpot_tpu_torch.utils.device import resolve_device
 
 
@@ -55,14 +61,15 @@ class Activation(nn.Module):
 
 class Dense(nn.Module):
     """Linear layer on the channel axis. conv=True keeps the weight in the
-    (O, I, 1, 1) shape of a reference 1x1 Conv2d; dtype is the compute dtype
+    (O, I, 1, ..., 1) shape of a reference 1x1 convolution over `spatial`
+    axes (Conv2d by default, Conv3d with 3); dtype is the compute dtype
     (None: float32, the promotion of a float32 weight)."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: torch.Generator, conv: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, spatial: int = 2):
         super().__init__()
-        shape = (out_features, in_features) + ((1, 1) if conv else ())
+        shape = (out_features, in_features) + ((1,) * spatial if conv else ())
         self.weight = nn.Parameter(torch_uniform(shape, in_features, generator))
         self.bias = nn.Parameter(torch_uniform((out_features,), in_features, generator))
         self.dtype = dtype or torch.float32
@@ -89,7 +96,9 @@ class GroupNorm(nn.Module):
 class AFNO2D(nn.Module):
     """Adaptive FNO spectral mixer; w1/b1/w2/b2 in the reference layout,
     `act` the mode MLP's activation. Applied together with the block's
-    norm1 through the fused kernel."""
+    norm1, routed by the latent's size as the JAX package routes it: the
+    fused kernel up to COMBINED_MAX_PIXELS, the separable route
+    (GroupNorm, then the FFT branch of afno_filter_2d) above."""
 
     def __init__(self, width: int, num_blocks: int, modes: int,
                  generator: torch.Generator, act: str = "gelu"):
@@ -111,6 +120,10 @@ class AFNO2D(nn.Module):
         type. The mode MLP applies `act` as ops/activations defines it for
         that dtype: gelu is the tanh form under bf16 and erf under f32."""
         B, H, W, C = x.shape
+        if H * W > COMBINED_MAX_PIXELS:
+            return separable_gn_afno(x, norm.weight, norm.bias, norm.num_groups, self.w1,
+                                     self.b1, self.w2, self.b2, self.modes,
+                                     get_activation(self.act))
         kh, kw = kept_modes(H, W, self.modes)
         A, Ainv = combined_spectral_ops(H, W, kh, kw, x.dtype, x.device)
         out = fused_gn_afno(

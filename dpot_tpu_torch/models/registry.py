@@ -1,5 +1,6 @@
 """Model registry and the reference's scale ladder presets (port of
-dpot_tpu/models/registry.py). Only the DPOT 2D family is ported so far."""
+dpot_tpu/models/registry.py). The DPOT 2D and 3D families are ported so
+far."""
 
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ MODEL_PRESETS: dict[str, dict[str, Any]] = {
     "H": dict(embed_dim=2048, mlp_ratio=3.951171875, depth=27, n_blocks=8, out_layer_dim=128),
 }
 
-_NOT_PORTED = ("DPOT3D", "dpot3d", "FNO", "fno", "FNO3D", "fno3d", "UNet", "unet",
-               "CDPOT", "cdpot")
+_NOT_PORTED = ("FNO", "fno", "FNO3D", "fno3d", "UNet", "unet", "CDPOT", "cdpot")
 
 
 def build_model(
@@ -45,7 +45,8 @@ def build_model(
     """Build a model by family name on `device` (CUDA unless the caller
     asks for the CPU), its weights drawn from `seed`. remat recomputes each
     trunk block in the backward. use_ln belongs to the FNO family and is
-    ignored here, as in the JAX package."""
+    ignored here, as in the JAX package. DPOT3D takes `temporal_modes`
+    (default 8) among the overrides, and returns the prediction only."""
     del use_ln
     kwargs: dict[str, Any] = dict(
         img_size=img_size, patch_size=patch_size, in_channels=in_channels,
@@ -61,6 +62,10 @@ def build_model(
         from dpot_tpu_torch.models.dpot import DPOTNet
 
         return DPOTNet(**kwargs, dtype=dtype, device=resolve_device(device), seed=seed)
+    if model in ("DPOT3D", "dpot3d"):
+        from dpot_tpu_torch.models.dpot3d import DPOTNet3D
+
+        return DPOTNet3D(**kwargs, dtype=dtype, device=resolve_device(device), seed=seed)
     if model in _NOT_PORTED:
         raise NotImplementedError(
             f"model family {model!r} is not ported yet (ROADMAP, 'Modules to "

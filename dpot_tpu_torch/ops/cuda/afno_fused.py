@@ -171,10 +171,9 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, act):
     if groups <= 0 or C % groups:
         raise ValueError(f"C={C} is not divisible by groups={groups}")
     if HW > COMBINED_MAX_PIXELS:
-        raise NotImplementedError(
-            f"latent of {HW} px exceeds {COMBINED_MAX_PIXELS}: the separable DFT "
-            "branch is not ported yet (ROADMAP, 'Modules to port')"
-        )
+        raise ValueError(
+            f"latent of {HW} px exceeds {COMBINED_MAX_PIXELS}: such latents take the "
+            "separable route (ops/spectral.py separable_gn_afno), not the fused op")
     act_id(act, True)
     f32 = (torch.float32,)
     weight = (torch.float32, torch.bfloat16)

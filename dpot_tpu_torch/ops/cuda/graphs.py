@@ -9,11 +9,15 @@ before the next replay.
 
 Capture records work and runs none, while the wrappers count launches in
 Python. So a capture takes back what its launches added to
-`fused_gn_afno.launches`, `fused_gn_afno.launches_by_path` and
-`bias_act.launches`, and every replay adds them again: the counts stay the
-number of kernels that ran.
+`fused_gn_afno.launches`, `fused_gn_afno.launches_by_path`,
+`bias_act.launches` and `separable_gn_afno.calls` (the separable route's
+calls), and every replay adds them again: the counts stay the number of
+kernels (and routes) that ran.
 
 The hazards of capture, and what the port does about each:
+- cuFFT plans (the 3D mixer, the separable 2D route) live in torch's plan
+  cache, keyed on the transform's shapes: the warm-up makes them, and the
+  capture finds them there;
 - a host-to-device copy during capture is illegal: the cached device
   constants (`ops/spectral.py` `combined_spectral_ops`, `models/dpot.py`
   `grid_patches`) raise on a miss under capture, so every capture site runs
@@ -47,17 +51,21 @@ def capturing() -> bool:
 def _counts() -> dict[str, int]:
     from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno
     from dpot_tpu_torch.ops.cuda.bias_act import bias_act
+    from dpot_tpu_torch.ops.spectral import separable_gn_afno
 
     return {"fused_gn_afno": fused_gn_afno.launches, "bias_act": bias_act.launches,
+            "separable": separable_gn_afno.calls,
             **{f"path/{p}": n for p, n in fused_gn_afno.launches_by_path.items()}}
 
 
 def _add(delta: dict[str, int]) -> None:
     from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno
     from dpot_tpu_torch.ops.cuda.bias_act import bias_act
+    from dpot_tpu_torch.ops.spectral import separable_gn_afno
 
     fused_gn_afno.launches += delta["fused_gn_afno"]
     bias_act.launches += delta["bias_act"]
+    separable_gn_afno.calls += delta["separable"]
     for p in fused_gn_afno.launches_by_path:
         fused_gn_afno.launches_by_path[p] += delta[f"path/{p}"]
 

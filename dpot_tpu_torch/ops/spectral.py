@@ -1,12 +1,16 @@
-"""AFNO spectral mixer in plain PyTorch (port of the combined-operator
-branch of dpot_tpu/ops/spectral.py).
+"""AFNO spectral mixers in plain PyTorch (port of dpot_tpu/ops/spectral.py
+and the `xla` branches of dpot_tpu/ops/fourier.py).
 
 For a latent grid of at most 4096 pixels the whole rfft2 -> kept corner ->
 irfft2 pipeline is two matrix products with fixed real operators A (2K, HW)
 and Ainv (HW, 2K). They are built once with numpy's FFT and cached as device
 tensors per (H, W, kh, kw, dtype, device), so an eager forward never copies
-them from the host again. The separable per-axis DFT for larger latents is
-not ported yet (ROADMAP, "Modules to port", separable-DFT item).
+them from the host again. Larger 2D latents take the separable branch, and
+the 3D mixer always does: a real FFT over the spatial axes (`torch.fft`,
+cuFFT on the card, in float32 whatever the compute type, as JAX's XLA FFT),
+the mode MLP on the kept corner, and the inverse FFT of the zero-padded
+spectrum. `separable_gn_afno` is the 2D block's route for those latents,
+GroupNorm and then that branch; `separable_gn_afno.calls` counts its calls.
 
 `spectral_resize` and `resize_temporal` resample a field in Fourier space,
 for the evaluator's resolution sweep.
@@ -14,13 +18,16 @@ for the evaluator's resolution sweep.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dpot_tpu_torch.ops.cuda.graphs import capturing
+from dpot_tpu_torch.ops.norms import group_norm
 
 # latent grids up to this many pixels use the combined-operator path
 COMBINED_MAX_PIXELS = 4096
@@ -75,11 +82,10 @@ def combined_spectral_ops(
             "cached on the card: a CUDA graph cannot upload them during its capture; "
             "run the function once eagerly first")
     if H * W > COMBINED_MAX_PIXELS:
-        raise NotImplementedError(
-            f"latent {H}x{W} exceeds {COMBINED_MAX_PIXELS} px: the separable "
-            "DFT branch is not ported yet (ROADMAP, 'Modules to port', "
-            "separable-DFT item)"
-        )
+        raise ValueError(
+            f"latent {H}x{W} exceeds {COMBINED_MAX_PIXELS} px, the combined operators' "
+            "limit: such latents take the separable route (afno_filter_2d's separable "
+            "branch, ROADMAP item 3)")
     A, Ainv = combined_spectral_ops_np(H, W, kh, kw)
     with torch.inference_mode(False):
         return tuple(
@@ -119,6 +125,43 @@ def afno_mode_mlp(
     return o[..., :bs], o[..., bs:]
 
 
+def rfftn_pair(x: torch.Tensor, dims: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real FFT of x over `dims` (the last one halved to n//2+1), ortho
+    norm: (re, im), as JAX's rfft2_pair / rfft3_pair return them."""
+    f = torch.fft.rfftn(x, dim=dims, norm="ortho")
+    return f.real, f.imag
+
+
+def irfftn_pair(re: torch.Tensor, im: torch.Tensor, s: tuple[int, ...],
+                dims: tuple[int, ...]) -> torch.Tensor:
+    """Inverse of rfftn_pair to the real sizes `s` over `dims`, ortho norm
+    (JAX's irfft2_pair / irfft3_pair)."""
+    return torch.fft.irfftn(torch.complex(re, im), s=s, dim=dims, norm="ortho")
+
+
+def _corner_mlp(x32: torch.Tensor, corner: tuple[int, ...], w1, b1, w2, b2, act,
+                compute_dtype) -> torch.Tensor:
+    """The mode MLP on the kept corner of x32's spectrum over its spatial
+    axes (1 .. n), the rest of the spectrum zero, transformed back to x32's
+    grid: the filter output before the residual, float32."""
+    B, *grid, C = x32.shape
+    nb = w1.shape[1]
+    dims = tuple(range(1, len(grid) + 1))
+    fr, fi = rfftn_pair(x32, dims)
+    idx = (slice(None),) + tuple(slice(0, k) for k in corner)
+    N = B * math.prod(corner)
+    o_re, o_im = afno_mode_mlp(fr[idx].reshape(N, nb, C // nb), fi[idx].reshape(N, nb, C // nb),
+                               w1, b1, w2, b2, act, compute_dtype)
+    # the corner back into an otherwise zero spectrum (F.pad lists the
+    # last axis first)
+    pad = [0, 0]
+    for k, n in reversed(list(zip(corner, fr.shape[1:-1]))):
+        pad += [0, n - k]
+    o_re = F.pad(o_re.float().reshape(B, *corner, C), pad)
+    o_im = F.pad(o_im.float().reshape(B, *corner, C), pad)
+    return irfftn_pair(o_re, o_im, tuple(grid), dims)
+
+
 def afno_filter_2d(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -131,12 +174,18 @@ def afno_filter_2d(
 ) -> torch.Tensor:
     """AFNO 2D spectral mixer with its internal residual, channels-last.
     x: (B, H, W, C). Modes outside the kept corner are zeroed in the filter
-    output (they survive only through the residual). Under bf16 compute the
-    DFT products take bf16 operands and accumulate in f32."""
+    output (they survive only through the residual). Latents of at most
+    COMBINED_MAX_PIXELS take the combined operators, whose products under
+    bf16 compute take bf16 operands and accumulate in f32; larger ones the
+    separable branch (float32 FFTs, the mode MLP in the compute type)."""
     B, H, W, C = x.shape
     nb = w1.shape[1]
     bs = C // nb
     kh, kw = kept_modes(H, W, modes)
+    if H * W > COMBINED_MAX_PIXELS:
+        x32 = x.float()
+        y = _corner_mlp(x32, (kh, kw), w1, b1, w2, b2, act, compute_dtype)
+        return (y + x32).to(x.dtype)
     K = kh * kw
     mm = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
     A, Ainv = combined_spectral_ops(H, W, kh, kw, mm, x.device)
@@ -148,6 +197,51 @@ def afno_filter_2d(
     )
     o = torch.cat([o_re.reshape(B, K, C), o_im.reshape(B, K, C)], dim=1)
     y = torch.matmul(Ainv.float(), o.to(mm).float()).reshape(B, H, W, C)
+    return (y + x32).to(x.dtype)
+
+
+def separable_gn_afno(
+    x: torch.Tensor, gscale: torch.Tensor, gbias: torch.Tensor, groups: int,
+    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    modes: int, act: Callable[[torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """The 2D block's norm1 and mixer for latents above COMBINED_MAX_PIXELS,
+    the JAX package's own route for them (no kernel exists for it on either
+    side): GroupNorm, then afno_filter_2d's separable branch on the normed
+    x, whose residual is that x in its own dtype. x: (B, H, W, C) of the
+    compute dtype. Counts its calls in `separable_gn_afno.calls`."""
+    H, W = x.shape[1:3]
+    if H * W <= COMBINED_MAX_PIXELS:
+        raise ValueError(f"a {H}x{W} latent takes the fused route, not the separable one")
+    separable_gn_afno.calls += 1
+    xn = group_norm(x, gscale, gbias, groups)
+    return afno_filter_2d(xn, w1, b1, w2, b2, modes, act, x.dtype)
+
+
+separable_gn_afno.calls = 0
+
+
+def afno_filter_3d(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    modes: int,
+    temporal_modes: int,
+    act: Callable[[torch.Tensor], torch.Tensor],
+    compute_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """AFNO 3D spectral mixer with its internal residual, channels-last
+    (dpot_tpu/ops/spectral.py afno_filter_3d). x: (B, X, Y, Z, C), taken to
+    float32 for the FFT; the kept corner of the rfftn half-spectrum is
+    [:min(modes, X), :min(modes, Y), :min(temporal_modes, Z//2+1)] (the
+    second axis is not halved, as in the reference); the residual y + x32
+    is cast to x's dtype."""
+    H, W, L = x.shape[1:4]
+    x32 = x.float()
+    corner = (min(modes, H), min(modes, W), min(temporal_modes, L // 2 + 1))
+    y = _corner_mlp(x32, corner, w1, b1, w2, b2, act, compute_dtype)
     return (y + x32).to(x.dtype)
 
 

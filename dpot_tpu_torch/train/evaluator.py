@@ -4,7 +4,8 @@ form of the reference's evaluate.py and evaluate_varyingres.py).
 - evaluate(): a full-trajectory rollout of each test dataset without
   gradients, reporting per-dataset step and full relative L2, the average
   time of one rollout step per sample and, on request, the reference's
-  metric battery.
+  metric battery. 3D sets load through TemporalDataset3D and take a 3D
+  model, which returns the prediction only (train/step.py pred_and_cls).
 - evaluate_varying_resolution(): the resolution-transfer sweep: inputs and
   predictions are resized in Fourier space between the test resolution and
   the model's at every rollout step, and the mask is refilled at the test
@@ -23,7 +24,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset, TemporalDataset3D
 from dpot_tpu_torch.data.registry import get_spec
 from dpot_tpu_torch.ops.spectral import resize_temporal
 from dpot_tpu_torch.train.step import make_eval_rollout
@@ -38,11 +39,12 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _check_2d(path: str) -> None:
-    if get_spec(path).ndim != 2:
-        raise NotImplementedError(
-            f"{path} is a {get_spec(path).ndim}D dataset: 3D datasets are not ported "
-            "yet (ROADMAP, 'Modules to port', item 7)")
+def _test_dataset(path: str, **kw):
+    """The test-mode dataset of `path`: TemporalDataset3D for a 3D set (as
+    the JAX evaluator picks it), else a one-set MixedTemporalDataset."""
+    if get_spec(path).ndim == 3:
+        return TemporalDataset3D(path, t_ar=-1, train=False, **kw)
+    return MixedTemporalDataset([path], t_ar=-1, train=False, **kw)
 
 
 def _battery(pred: torch.Tensor, tgt: torch.Tensor, msk: torch.Tensor) -> dict:
@@ -98,16 +100,13 @@ def evaluate(
         raise NotImplementedError(
             "viz_dir (utils/viz.py) is not ported yet (ROADMAP, 'Modules to port', "
             "item 13)")
-    for path in test_paths:
-        _check_2d(path)
     device = _device_of(model)
     roll = make_eval_rollout(t_bundle=t_bundle)
     results: dict = {}
     total_time, total_steps = 0.0, 0
     seen_shapes: set = set()
     for path in test_paths:
-        ds = MixedTemporalDataset([path], res=res, t_in=t_in, t_ar=-1,
-                                  n_channels=n_channels, train=False)
+        ds = _test_dataset(path, res=res, t_in=t_in, n_channels=n_channels)
         dl = DataLoader(ds, batch_size, shuffle=False, num_workers=num_workers)
         s_sum = f_sum = 0.0
         n_steps_per_traj = 1.0
@@ -182,9 +181,11 @@ def evaluate_varying_resolution(
     """Resolution-transfer sweep: {res: {path: {"loss_full", "loss_step"}}}.
     Each test set is loaded at the model's resolution, resized to `res` in
     Fourier space, and rolled out with make_varyres_rollout, the mask
-    refilled at `res` (evaluate_varyingres.py:213-256)."""
+    refilled at `res` (evaluate_varyingres.py:213-256). 2D sets only."""
     for path in test_paths:
-        _check_2d(path)
+        if get_spec(path).ndim != 2:
+            raise ValueError(f"{path} is a {get_spec(path).ndim}D dataset: the "
+                             "resolution sweep resizes 2D fields only")
     res_list = [int(r) for r in (res_list if res_list is not None else VARYRES_LIST)]
     device = _device_of(model)
     model.eval()

@@ -43,6 +43,16 @@ def _add_f32(acc: Optional[list], grads: list) -> list:
             for a, g in zip(acc, grads)]
 
 
+def pred_and_cls(model: torch.nn.Module, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """model(x) as the steps' (prediction, class logits) pair. A pred-only
+    model (DPOTNet3D) returns the prediction alone; it gets zero logits of
+    one class, as JAX's wrap_pred_only(n_cls=1) gives them."""
+    out = model(x)
+    if isinstance(out, torch.Tensor):
+        return out, out.new_zeros((x.shape[0], 1), dtype=torch.float32)
+    return out
+
+
 def make_train_step(
     t_bundle: int = 1,
     noise_scale: float = 0.0,
@@ -54,8 +64,10 @@ def make_train_step(
     """Build a train step `(state, batch) -> (state, aux)`; the state is
     updated in place and returned.
 
-    batch: x (B, H, W, T_in, C), y (B, H, W, T_ar, C), msk (B, H, W, 1, C)
-    and cls (B,), on the model's device. Options, as in the JAX package:
+    batch: x (B, spatial..., T_in, C), y (B, spatial..., T_ar, C), msk
+    (B, spatial..., 1, C) and cls (B,), on the model's device; a 2D model
+    returns (prediction, class logits), a pred-only 3D one the prediction
+    (`pred_and_cls`). Options, as in the JAX package:
     - batch["noise"], optional: the standard-normal draws (n_steps, *x.shape)
       to use instead of the state's generator, so that a test can share the
       noise with the JAX step;
@@ -98,7 +110,7 @@ def make_train_step(
                     eps = torch.randn(x.shape, generator=gen, device=x.device,
                                       dtype=x.dtype)
                 x = x + noise_scale * xnorm * eps
-            im, cls_pred = model(x)
+            im, cls_pred = pred_and_cls(model, x)
             loss = loss + rel_lp_loss(im, y_s, msk)
             with torch.no_grad():
                 cls_loss += cross_entropy_sum(cls_pred, cls)
@@ -243,7 +255,7 @@ class EvalRollout:
         ims = []
         with torch.inference_mode():
             for _ in range(n_steps):
-                im, _ = model(x)
+                im, _ = pred_and_cls(model, x)
                 if im.shape[-2] != t_bundle:
                     raise ValueError(
                         f"eval rollout t_bundle={t_bundle} but the model emits "

@@ -179,5 +179,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, error):
 
 
 def test_latent_above_combined_limit_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The combined operators stop at 4096 px; larger latents take the
+    separable route (ROADMAP item 3), which builds no operators."""
+    with pytest.raises(ValueError, match="separable route.*item 3"):
         combined_spectral_ops(128, 64, 32, 32, torch.float32, torch.device("cpu"))

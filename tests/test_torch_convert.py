@@ -137,7 +137,7 @@ def test_evaluate_reads_the_converted_directory(reference, converted):
     assert got["synthetic_tconv"] == want["synthetic_tconv"]
 
 
-@pytest.mark.parametrize("family", ["DPOT3D", "CDPOT", "FNO", "FNO3D", "UNet"])
+@pytest.mark.parametrize("family", ["CDPOT", "FNO", "FNO3D", "UNet"])
 def test_other_families_raise_naming_their_item(reference, family, tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         main(["--model", family, "--resume_path", reference[1], "--out_path",

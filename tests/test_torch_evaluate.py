@@ -244,17 +244,11 @@ def test_cli_rejects_what_is_not_ported(pth, tmp_path):
     base = CLI + ["--resume_path", path, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="item 13"):
         main(base + ["--viz_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main([a if a != "DPOT" else "DPOT3D" for a in base])
     registry.make_synthetic_spec("synthetic_torch_eval3d", in_size=(8, 8, 8), n_channels=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(base + ["--test_paths", "synthetic_torch_eval3d"])
     with pytest.raises(SystemExit):
         main(base + ["--test_paths", "synthetic_torch_eval3d", "--varyres"])
     with pytest.raises(SystemExit):
         main(base + ["--test_paths", EVAL_SET, "synthetic_torch_eval3d"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        evaluator.evaluate(pth[0], ["synthetic_torch_eval3d"], res=32, t_in=6)
     with pytest.raises(SystemExit, match="resume_path"):
         main(CLI + ["--device", "cpu"])
 

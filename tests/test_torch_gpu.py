@@ -722,6 +722,94 @@ def test_device_constant_miss_under_a_real_capture_raises(cuda):
         Graph(lambda: combined_spectral_ops(12, 12, 3, 3, torch.float32, cuda))
 
 
+# the torch.fft routes (PR 10): DPOT3D's mixer and the 2D separable route
+# inside graphs; small widths, the shapes' kinds of the card's main paths
+SMALL_3D = dict(img_size=32, patch_size=8, in_channels=5, out_channels=5, in_timesteps=4,
+                embed_dim=192, depth=2, n_blocks=2, modes=32, n_cls=1)
+SMALL_SEP = dict(img_size=136, patch_size=2, in_channels=4, out_channels=4, in_timesteps=4,
+                 embed_dim=64, depth=2, n_blocks=2, modes=16, n_cls=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_3d_eval_rollout_equals_eager_and_makes_no_fft_plan(cuda, dtype):
+    """DPOT3D's eval rollout graph against the eager rollout; the eager run
+    makes the cuFFT plans, and neither the capture nor a replay adds one."""
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.step import make_eval_rollout
+
+    model = build_model("DPOT3D", dtype=dtype, device=cuda, seed=1, **SMALL_3D)
+    gen = torch.Generator(cuda).manual_seed(2)
+    batch = {"x": torch.randn((2, 32, 32, 32, 4, 5), generator=gen, device=cuda),
+             "y": torch.randn((2, 32, 32, 32, 3, 5), generator=gen, device=cuda),
+             "msk": torch.ones((2, 32, 32, 32, 1, 5), device=cuda)}
+    roll = make_eval_rollout()
+    want = roll.run(model, batch)
+    plans = torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()]
+    n = plans.size
+    roll(model, batch)
+    got = roll(model, batch)
+    torch.cuda.synchronize()
+    assert plans.size == n and roll.graphs.captures == 1
+    assert rel_l2(got["pred"], want["pred"]) <= GRAPH_TOL
+    for k in ("loss_step", "loss_full"):
+        assert abs(got[k].item() - want[k].item()) <= GRAPH_TOL * abs(want[k].item())
+
+
+@pytest.mark.gpu
+def test_graphed_3d_train_dispatch_equals_eager_steps(cuda):
+    """A 2-step dispatch of a pred-only DPOT3D (the FFTs' backward inside the
+    capture) against two eager steps: losses and weights."""
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    states = []
+    for _ in range(2):
+        m = build_model("DPOT3D", dtype=torch.bfloat16, device=cuda, seed=3, **SMALL_3D)
+        states.append(TrainState.create(m, build_optimizer("adam", m.parameters(), 1e-4), 5))
+    gen = torch.Generator(cuda).manual_seed(4)
+    bt = {"x": torch.randn((2, 2, 32, 32, 32, 4, 5), generator=gen, device=cuda),
+          "y": torch.randn((2, 2, 32, 32, 32, 1, 5), generator=gen, device=cuda),
+          "cls": torch.zeros((2, 2), dtype=torch.long, device=cuda)}
+    kw = dict(noise_scale=5e-4, ones_mask=True)
+    dispatch, step = make_train_step(scan_steps=2, **kw), make_train_step(**kw)
+    dispatch(states[0], bt)                     # eager, then the capture
+    got = dispatch(states[0], bt)[1]["loss_step"].tolist()
+    want = [step(states[1], {k: v[i] for k, v in bt.items()})[1]["loss_step"].item()
+            for _ in range(2) for i in range(2)][2:]
+    assert max(abs(x - y) / abs(y) for x, y in zip(got, want)) <= GRAPH_TOL
+    assert weights_rel_l2(*states) <= GRAPH_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_separable_route_graphed_rollout_counts_its_calls(cuda, dtype):
+    """A 2D model at a 4624-px latent: the eval rollout's graph against the
+    eager rollout, the separable route counted depth x steps at every
+    replay, fused_gn_afno never launched."""
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.ops.spectral import separable_gn_afno
+    from dpot_tpu_torch.train.step import make_eval_rollout
+
+    model = build_model("DPOT", dtype=dtype, device=cuda, seed=6, **SMALL_SEP)
+    gen = torch.Generator(cuda).manual_seed(7)
+    batch = {"x": torch.randn((2, 136, 136, 4, 4), generator=gen, device=cuda),
+             "y": torch.randn((2, 136, 136, 3, 4), generator=gen, device=cuda),
+             "msk": torch.ones((2, 136, 136, 1, 4), device=cuda)}
+    roll = make_eval_rollout()
+    want = roll.run(model, batch)
+    launches, calls = fused_gn_afno.launches, separable_gn_afno.calls
+    roll(model, batch)
+    assert separable_gn_afno.calls == calls + 2 * 3  # the eager first call only
+    got = roll(model, batch)
+    torch.cuda.synchronize()
+    assert separable_gn_afno.calls == calls + 2 * 2 * 3
+    assert fused_gn_afno.launches == launches
+    assert rel_l2(got["pred"], want["pred"]) <= GRAPH_TOL
+
+
 def host_float_update(rule, params, mu, nu, grads, b1, lr, b2, eps, wd, clip, count):
     """One update of the three optimizers with the per-step scalars as host
     floats (the fused alpha forms of `_foreach_add_`): the reference that

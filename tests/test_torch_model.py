@@ -241,19 +241,9 @@ def test_cpu_forward_never_launches_the_kernel():
     assert fused_gn_afno.launches == before
 
 
-@pytest.mark.parametrize("family", ["DPOT3D", "FNO", "FNO3D", "UNet", "CDPOT"])
+@pytest.mark.parametrize("family", ["FNO", "FNO3D", "UNet", "CDPOT"])
 def test_unported_families_raise(family):
     with pytest.raises(NotImplementedError, match="item 11"):
         build_model(family, device="cpu")
     with pytest.raises(ValueError):
         build_model("nope", device="cpu")
-
-
-def test_separable_latent_is_not_ported_yet():
-    """Latents above 4096 px need the separable DFT branch."""
-    m = build_model("DPOT", img_size=128, patch_size=1, in_channels=1,
-                    in_timesteps=1, embed_dim=8, depth=1, n_blocks=1, modes=4,
-                    n_cls=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        with torch.no_grad():
-            m(torch.zeros(1, 128, 128, 1, 1))

@@ -186,10 +186,3 @@ def test_afno_filter_2d_matches_jax(compute):
     else:
         assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-2
 
-
-def test_afno_filter_2d_separable_branch_is_not_ported_yet():
-    x = torch.zeros(1, 128, 64, 4)
-    w = torch.zeros(2, 1, 4, 4)
-    b = torch.zeros(2, 1, 4)
-    with pytest.raises(NotImplementedError, match="separable"):
-        spectral.afno_filter_2d(x, w, b, w, b, 8, torch.tanh)

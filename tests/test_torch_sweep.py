@@ -125,7 +125,6 @@ def test_a_failed_subprocess_job_fails_the_sweep(tmp_path):
 
 
 @pytest.mark.parametrize("script,error,match", [
-    ("dpot_tpu.cli.finetune3d", NotImplementedError, "item 11"),
     ("dpot_tpu.cli.sweep", ValueError, "a sweep runs one of"),
     ("dpot_tpu_torch.cli.train", ValueError, "a sweep runs one of"),
 ])
@@ -137,8 +136,8 @@ def test_scripts_the_port_does_not_have_raise(tmp_path, script, error, match):
 
 
 @pytest.mark.parametrize("script", ["dpot_tpu.cli.train", "dpot_tpu.cli.evaluate",
-                                    "dpot_tpu.cli.finetune", "dpot_tpu.cli.convert",
-                                    "dpot_tpu.cli.serve"])
+                                    "dpot_tpu.cli.finetune", "dpot_tpu.cli.finetune3d",
+                                    "dpot_tpu.cli.convert", "dpot_tpu.cli.serve"])
 def test_scripts_map_to_the_ports_clis(script):
     mod = sweep.port_script(script)
     assert mod == "dpot_tpu_torch.cli." + script.rsplit(".", 1)[1]
