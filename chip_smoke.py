@@ -156,6 +156,29 @@ XLA), after phase 14:
      3e-2), one train step with a finite loss, the route's calls = depth x
      applications and no fused_gn_afno launch; one application's wall,
      busy and idle.
+The other model families (PR 11), after phase 21:
+  22. train_cdpot: `python -m dpot_tpu_torch.cli.sweep --config_file <copy
+     of configs/cdpot_parallel.yaml>` in-process, the copy's data cut as
+     train_L's (twelve synthetic sets, 2 + 2 trajectories, 2 epochs) and
+     every other key the file's: CDPOT at Ti widths (embed 512, depth 4,
+     4 blocks of 128), f32, adam, batch 20. The steps exact, launches =
+     depth x (train + eval applications), all on afno_hopper_f32.cu, every
+     loss finite, the checkpoint restoring; where a step's time goes (the
+     fused kernel, its VJP, the antialiased resampling, peak memory); then
+     cli.evaluate --config_from_ckpt --metrics on the checkpoint (launches
+     exact, loss_full against the loop's last test metric) and cli.serve of
+     it in bf16 over HTTP (launches all on afno_hopper.cu, the answers
+     against the same rollouts with the mixer's plain version);
+  23. card_vs_cpu_families: a forward of CDPOT (the config's widths, AFNO
+     weights redrawn), FNO2d (128^2, patch 1, width 64, 4 layers, modes
+     16), UNet (128^2, width 32, eval mode) and FNO3d (32^3, width 32, 4
+     layers, modes 8; the FNOs' spectral weights redrawn) on the card
+     against the CPU, f32, FNO2d with torch.fft.irfftn's reading of a
+     non-Hermitian spectrum on the card as a control above the limit; CDPOT's and UNet's
+     eval rollouts replayed as graphs against eager; UNet's running
+     statistics after two graphed 2-step dispatches against four eager
+     steps; cli.convert of a seeded FNO3d reference .pth with torch.cfloat
+     spectral weights, then cli.evaluate --metrics on a synthetic 32^3 set.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -414,6 +437,47 @@ ROLLOUT_REQUESTS = 20
 # stale weights: a Ti bf16 step at batch 4 captured, then replayed 3 times,
 # with the eval rollout's graph (t_test 2) replayed after each
 STALE = dict(batch=4, replays=3, t_test=2)
+# train_cdpot: CDPOT pretrained through the sweep CLI from a copy of
+# configs/cdpot_parallel.yaml with only its data cut, as train_L's: the
+# twelve corpora as synthetic sets of their namesakes' grids, channels and
+# lengths, 2 train and 2 test trajectories each, 2 epochs; every other key
+# the file's (Ti widths: embed 512, depth 4, 4 blocks of 128; patch 8, res
+# 128, modes 32, adam, batch 20, cycle, f32). Its checkpoint is then
+# evaluated (cli.evaluate --metrics, loss_full against the loop's within
+# FT_EVAL_TOL) and served in bf16 (every answer within CDPOT_SERVE_TOL of
+# the same rollout with the mixer's plain version)
+CDPOT_CONFIG = ROOT / "configs" / "cdpot_parallel.yaml"
+TRAIN_CDPOT = dict(epochs=2, ntrain=2, ntest=2)
+CDPOT_SERVE_TOL = 3e-2
+# card_vs_cpu_families: a forward of each family on the card against the
+# CPU, f32 (CPU_TOL), at CDPOT's config widths (its AFNO weights redrawn from
+# N(0, MIXER_SCALE^2)) and at sizes chosen to keep the phase short (the
+# repository has no config of FNO or UNet): FNO2d at 128^2, patch 1, width
+# 64, 4 layers, modes 16; UNet at 128^2, width 32 (out_layer_dim's
+# default); FNO3d at 32^3, width 32, 4 layers, modes 8. Then the eval
+# rollout (FAMILY_ROLL_STEPS frames) of CDPOT and UNet replayed as a graph
+# against the eager one, UNet's running statistics after UNET_DISPATCH's
+# graphed K-step dispatches against as many eager steps (GRAPH_TOL), and
+# cli.convert of a seeded FNO3d reference .pth with torch.cfloat weights,
+# then cli.evaluate --metrics on FNO3D_SPEC
+FAMILY_SIZES = {
+    "FNO": dict(img_size=128, patch_size=1, embed_dim=64, depth=4, modes=16),
+    "UNet": dict(img_size=128, out_layer_dim=32),
+    "FNO3D": dict(img_size=32, embed_dim=32, depth=4, modes=8),
+}
+FAMILY_BATCH = 2
+# the FNOs' spectral weights are redrawn from N(0, FNO_SPECTRAL_SCALE^2), at
+# which the spectral convolutions carry about half of the output (at their
+# init scale, under 1 %); a forward with torch's own irfftn on the card,
+# whose reading of a non-Hermitian spectrum is cuFFT's, must exceed the
+# limit in 2D (the port drops the parts cuFFT reads otherwise,
+# ops/spectral.py irfftn_pair)
+FNO_SPECTRAL_SCALE = 0.25
+FAMILY_ROLL_STEPS = 3
+UNET_DISPATCH = dict(K=2, dispatches=2, batch=4, lr=1e-4)
+FNO3D_SPEC = dict(name="synthetic_fno3d", train_size=2, test_size=4, t_total=14, t_test=4,
+                  in_size=(32, 32, 32), n_channels=4)
+FNO3D_ARCH = ["--res", "32", "--width", "32", "--n_layers", "4", "--modes", "8", "--T_in", "10"]
 
 
 def log(phase: str, **kv) -> None:
@@ -1795,33 +1859,37 @@ def phase_convert_resume_serve() -> dict:
     return row
 
 
-def l_sweep_file(run_dir: Path) -> tuple[Path, list]:
-    """Write the copy of configs/pretrain_large.yaml with only its data cut
-    (TRAIN_L) into run_dir; returns its path and the synthetic sets' specs,
-    in the file's order of corpora."""
+def sweep_file(config: Path, tag: str, cut: dict, run_dir: Path) -> tuple[Path, list]:
+    """Write the copy of the sweep file `config` with only its data cut
+    (`cut`: ntrain and ntest trajectories of each corpus, epochs) into
+    run_dir, its corpora the synthetic sets synthetic_{tag}_{corpus} of
+    their namesakes' grids, channels and lengths, its logs under
+    run_dir/train_{tag}; returns its path and the sets' specs, in the
+    file's order of corpora."""
     import yaml
 
     from dpot_tpu_torch.data.registry import get_spec, make_synthetic_spec
 
-    doc = yaml.safe_load(L_CONFIG.read_text())
+    doc = yaml.safe_load(config.read_text())
     specs = []
     for name in doc["train_paths"]:
         real = get_spec(name)
         specs.append(make_synthetic_spec(
-            f"synthetic_L_{name}", train_size=TRAIN_L["ntrain"], test_size=TRAIN_L["ntest"],
+            f"synthetic_{tag}_{name}", train_size=cut["ntrain"], test_size=cut["ntest"],
             t_total=real.t_total, t_test=real.t_test, in_size=real.in_size,
             n_channels=real.n_channels))
     names = [spec.name for spec in specs]
-    doc.update(train_paths=names, test_paths=names,
-               ntrain_list=[TRAIN_L["ntrain"]] * len(names), log_path=str(run_dir / "train_l"))
-    doc["tasks"]["epochs"] = [TRAIN_L["epochs"]]
-    path = run_dir / "pretrain_large_data_cut.yaml"
+    doc.update(train_paths=names, test_paths=names, ntrain_list=[cut["ntrain"]] * len(names),
+               log_path=str(run_dir / f"train_{tag.lower()}"))
+    doc["tasks"]["epochs"] = [cut["epochs"]]
+    path = run_dir / f"{config.stem}_data_cut.yaml"
     path.write_text(yaml.safe_dump(doc, sort_keys=False))
     return path, specs
 
 
-def l_applications(specs, weights, batch: int, epochs: int, t_in: int = 10) -> tuple[int, int]:
-    """The train steps and eval model applications of the cut L run: each
+def sweep_applications(specs, weights, batch: int, epochs: int,
+                       t_in: int = 10) -> tuple[int, int]:
+    """The train steps and eval model applications of a cut sweep run: each
     corpus gives ntrain x its weight train samples (one window each, T_ar
     1, so one application a step), and per epoch ceil(ntest / batch) eval
     batches of as many applications as its test rollout has frames
@@ -1849,12 +1917,13 @@ def phase_train_l() -> tuple[dict, torch.nn.Module]:
     from dpot_tpu_torch.train.checkpoint import restore_params
     from dpot_tpu_torch.train.step import make_train_step
 
-    cfg_path, specs = l_sweep_file(RUN_DIR)
+    cfg_path, specs = sweep_file(L_CONFIG, "L", TRAIN_L, RUN_DIR)
     doc = yaml.safe_load(cfg_path.read_text())
     batch = doc["tasks"]["batch_size"][0]
     if (batch, doc["opt"], doc["dtype"], doc["remat"]) != (L_BATCH, "lamb", "bfloat16", True):
         raise AssertionError(f"{L_CONFIG.name} no longer pretrains L as this phase expects")
-    steps, eval_apps = l_applications(specs, doc["data_weights"], batch, TRAIN_L["epochs"])
+    steps, eval_apps = sweep_applications(specs, doc["data_weights"], batch,
+                                          TRAIN_L["epochs"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1905,29 +1974,36 @@ def phase_train_l() -> tuple[dict, torch.nn.Module]:
     return row, model
 
 
-def l_corpus_batches(n: int, seed: int) -> list[dict]:
-    """n train batches of batch 16 of the cut L corpora that train_L
-    registered, as the loop ships them to the card (x in bf16, one target
+def corpus_batches(config: Path, tag: str, cut: dict, batch: int, x_dtype: torch.dtype,
+                   n: int, seed: int) -> list[dict]:
+    """n train batches of the cut corpora that sweep_file registered for
+    `config`, as the loop ships them to the card (x in x_dtype, one target
     frame, no mask), each with the noise draws of its step."""
     import yaml
 
     from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 
-    doc = yaml.safe_load(L_CONFIG.read_text())
-    names = [f"synthetic_L_{name}" for name in doc["train_paths"]]
-    ds = MixedTemporalDataset(names, [TRAIN_L["ntrain"]] * len(names),
+    doc = yaml.safe_load(config.read_text())
+    names = [f"synthetic_{tag}_{name}" for name in doc["train_paths"]]
+    ds = MixedTemporalDataset(names, [cut["ntrain"]] * len(names),
                               res=doc["tasks"]["res"][0], t_in=10, t_ar=1, train=True,
                               data_weights=doc["data_weights"])
-    loader = iter(DataLoader(ds, L_BATCH, shuffle=True, num_workers=8, seed=seed,
+    loader = iter(DataLoader(ds, batch, shuffle=True, num_workers=8, seed=seed,
                              drop_last=True))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     batches = []
     for _ in range(n):
         x, y, _, cls = next(loader)
-        batches.append({"x": torch.from_numpy(x).to("cuda", torch.bfloat16),
+        batches.append({"x": torch.from_numpy(x).to("cuda", x_dtype),
                         "y": torch.from_numpy(y).cuda(), "cls": torch.from_numpy(cls).cuda(),
                         "noise": torch.randn((1, *x.shape), generator=gen, device="cuda")})
     return batches
+
+
+def l_corpus_batches(n: int, seed: int) -> list[dict]:
+    """n train batches of batch 16 of the cut L corpora that train_L
+    registered, x in bf16."""
+    return corpus_batches(L_CONFIG, "L", TRAIN_L, L_BATCH, torch.bfloat16, n, seed)
 
 
 def phase_remat_l(model) -> dict:
@@ -2736,6 +2812,358 @@ def phase_separable_ti(dtype: str) -> dict:
     return row
 
 
+def cdpot_sweep_model_kw() -> dict:
+    """build_model's arguments for CDPOT at configs/cdpot_parallel.yaml's
+    widths on the 128^2 grid (4 channels, T_in 10, its 12 classes)."""
+    import yaml
+
+    doc = yaml.safe_load(CDPOT_CONFIG.read_text())
+    t = {k: v[0] for k, v in doc["tasks"].items()}
+    return dict(img_size=t["res"], patch_size=t["patch_size"], embed_dim=t["width"],
+                depth=t["n_layers"], n_blocks=t["n_blocks"], modes=t["modes"],
+                mlp_ratio=t["mlp_ratio"], in_channels=4, in_timesteps=10,
+                n_cls=len(doc["train_paths"]))
+
+
+RESAMPLE_OPS = ("aten::_upsample_bilinear2d_aa", "aten::_upsample_bilinear2d_aa_backward")
+
+
+def resample_share(events, runs: int, busy: float) -> dict:
+    """The device time a step of the antialiased bilinear resampling
+    (F.interpolate's aten::_upsample_bilinear2d_aa and its backward op)."""
+    from torch.autograd import DeviceType
+
+    ms = sum(e.device_time_total for e in events
+             if e.device_type == DeviceType.CPU and e.name in RESAMPLE_OPS) / runs / 1e3
+    return dict(resample_ms=ms, resample_share=ms / busy)
+
+
+def phase_train_cdpot() -> tuple[dict, dict]:
+    """Pretrain CDPOT through the sweep CLI (in-process) from
+    configs/cdpot_parallel.yaml with only its data cut: f32, adam, batch
+    20, Ti widths. The steps and launches exact (depth x (train + eval
+    applications), all on afno_hopper_f32.cu), every loss finite, the
+    checkpoint restoring to the state's weights; where a step's time goes
+    (the fused kernel, its VJP, the resampling, peak memory); then
+    cli.evaluate --config_from_ckpt --metrics on the checkpoint (launches
+    exact, loss_full against the loop's last test metric), and cli.serve of
+    it in bf16 (launches all on afno_hopper.cu, an answer against the same
+    rollout with the mixer's plain version). Returns the train row (its
+    launches the run's and the evaluation's) and the serve row."""
+    import yaml
+
+    from dpot_tpu_torch.cli.evaluate import main as evaluate_main
+    from dpot_tpu_torch.cli.serve import main as serve_main
+    from dpot_tpu_torch.cli.sweep import main as sweep_main
+    from dpot_tpu_torch.train.checkpoint import restore_params
+    from dpot_tpu_torch.train.step import make_train_step
+
+    cfg_path, specs = sweep_file(CDPOT_CONFIG, "CDPOT", TRAIN_CDPOT, RUN_DIR)
+    doc = yaml.safe_load(cfg_path.read_text())
+    tasks = {k: v[0] for k, v in doc["tasks"].items()}
+    batch, depth = tasks["batch_size"], tasks["n_layers"]
+    if (doc["model"], doc["opt"], doc.get("dtype", "float32"), batch, tasks["width"],
+            depth, tasks["n_blocks"]) != ("CDPOT", "adam", "float32", 20, 512, 4, 4):
+        raise AssertionError(f"{CDPOT_CONFIG.name} no longer pretrains CDPOT as this phase "
+                             "expects")
+    names = [sp.name for sp in specs]
+    steps, eval_apps = sweep_applications(specs, doc["data_weights"], batch,
+                                          TRAIN_CDPOT["epochs"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (out,) = sweep_main(["--config_file", str(cfg_path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() / 1e9
+    state, model = out["state"], out["model"]
+    if type(model).__name__ != "CDPOTNet" or state.step != steps:
+        raise AssertionError(f"train_cdpot: {type(model).__name__}, {state.step} steps, "
+                             f"expected CDPOTNet and {steps}")
+    if launches != depth * (steps + eval_apps):
+        raise AssertionError(f"train_cdpot: fused_gn_afno launched {launches} times, "
+                             f"expected depth x (train + eval applications) = "
+                             f"{depth * (steps + eval_apps)}")
+    by_path = check_paths("float32", launches, "hopper_f32")
+    bias_act_launches = bias_act.launches
+    metrics = read_metrics(out["log_dir"])
+    losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
+    losses += [out["train_l2_step"], out["train_l2_full"], *out["test_l2_steps"],
+               *out["test_l2_fulls"]]
+    if len(metrics.get("train_loss_step", [])) != steps or not finite(losses):
+        raise AssertionError(f"train_cdpot losses missing or not finite: {metrics}")
+    ckpt = str(Path(out["log_dir"]) / "model")
+    saved, mine = restore_params(ckpt), state.params_state_dict()
+    if saved.keys() != mine.keys() or not all(torch.equal(saved[k], mine[k].cpu())
+                                               for k in saved):
+        raise AssertionError("train_cdpot: the checkpoint does not restore to the state's "
+                             "weights")
+
+    (b,) = corpus_batches(CDPOT_CONFIG, "CDPOT", TRAIN_CDPOT, batch, torch.float32, 1, seed=1)
+    del b["noise"]  # the step draws its noise from the state's generator, as in the run
+    step_fn = make_train_step(noise_scale=tasks["noise_scale"], ones_mask=True)
+    prof = train_step_profile(state, b, step_fn, extra=resample_share)
+    loop = dict(loop_step_s=out["step_seconds"], train_l2_step=out["train_l2_step"],
+                test_l2_fulls=out["test_l2_fulls"])
+    del out, state, model, b
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_main(["--config_from_ckpt", "true", "--resume_path", ckpt,
+                             "--train_paths", *names, "--test_paths", *names, "--metrics",
+                             "--batch_size", str(batch), "--num_workers", "4",
+                             "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_launches = fused_gn_afno.launches
+    if eval_launches != depth * eval_apps // TRAIN_CDPOT["epochs"]:
+        raise AssertionError(f"train_cdpot evaluate: {eval_launches} launches, expected "
+                             f"{depth * eval_apps // TRAIN_CDPOT['epochs']}")
+    eval_by_path = check_paths("float32", eval_launches, "hopper_f32")
+    bias_act_launches += bias_act.launches
+    eval_rel = max(abs(got[n]["loss_full"] - last) / last
+                   for n, last in zip(names, loop["test_l2_fulls"]))
+    if not eval_rel <= FT_EVAL_TOL or not finite(v for n in names for v in got[n].values()):
+        raise AssertionError(f"train_cdpot evaluate against the loop: rel {eval_rel} (limit "
+                             f"{FT_EVAL_TOL}): {got}")
+
+    reset_launch_counts()
+    httpd, rs = serve_main(["--config_from_ckpt", "true", "--resume_path", ckpt,
+                            "--train_paths", *names, "--n_channels", "4", "--dtype", "bfloat16",
+                            "--port", "0", "--device", "cuda"], wait=False)
+    try:
+        sent = send_requests(httpd.server_address[1], (1, 2), "float32", seed=9)
+        applications = warmup_applications(rs) + sum(r["steps"] for r in sent)
+        torch.cuda.synchronize()
+        serve_launches = fused_gn_afno.launches
+        if serve_launches != depth * applications:
+            raise AssertionError(f"serve_cdpot: {serve_launches} launches, expected depth x "
+                                 f"applications = {depth * applications}")
+        serve_by_path = check_paths("bfloat16", serve_launches, "hopper")
+        serve_bias_act = bias_act.launches
+        rels = []
+        for r in sent[::2]:  # the f32 bodies
+            with plain_mixer():
+                ref = direct_rollout(rs.model, r["x"], r["steps"], torch.bfloat16).cpu()
+            rels.append(rel_l2(torch.from_numpy(r["pred"]), ref))
+        check_no_launch(serve_launches, "serve_cdpot's plain-mixer rollouts")
+        if max(rels) > CDPOT_SERVE_TOL:
+            raise AssertionError(f"serve_cdpot against the plain mixer: rel-L2 {rels} (limit "
+                                 f"{CDPOT_SERVE_TOL})")
+    finally:
+        rs.stop(drain=True)
+        httpd.shutdown()
+        httpd.server_close()
+    row = dict(dtype="float32", batch=batch, steps=steps, train_applications=steps,
+               eval_applications=eval_apps, run_launches=launches,
+               run_launches_by_path=by_path, evaluate_launches=eval_launches,
+               launches=launches + eval_launches,
+               launches_by_path={k: v + eval_by_path[k] for k, v in by_path.items()},
+               bias_act_launches=bias_act_launches, run_s=run_s, run_peak_memory_gb=run_peak,
+               **loop, evaluate_rel=eval_rel, evaluate_limit=FT_EVAL_TOL,
+               evaluate_metrics={n: got[n] for n in names[:2]},
+               corpora={sp.name: dict(channels=sp.n_channels, in_size=sp.in_size,
+                                      t_total=sp.t_total, t_test=sp.t_test) for sp in specs},
+               **prof)
+    serve_row = dict(dtype="bfloat16", requests=len(sent), applications=applications,
+                     launches=serve_launches, launches_by_path=serve_by_path,
+                     bias_act_launches=serve_bias_act, plain_mixer_rel_l2=rels,
+                     limit=CDPOT_SERVE_TOL, client_p50_ms=statistics.median(r["ms"] for r in sent))
+    log("train_cdpot", **row)
+    log("serve_cdpot", **serve_row)
+    return row, serve_row
+
+
+@contextlib.contextmanager
+def raw_irfftn():
+    """The FNOs' real inverse FFT as torch.fft.irfftn alone, whose result
+    for a non-Hermitian spectrum is the library's (cuFFT's on the card): the
+    card-vs-CPU control of card_vs_cpu_families."""
+    from dpot_tpu_torch.models import fno
+
+    real = fno.irfftn_pair
+    fno.irfftn_pair = lambda re, im, s, dims, norm="ortho": torch.fft.irfftn(
+        torch.complex(re, im), s=s, dim=dims, norm=norm)
+    try:
+        yield
+    finally:
+        fno.irfftn_pair = real
+
+
+def unet_dispatch_check(kw: dict) -> dict:
+    """UNet's BatchNorm statistics under CUDA graphs: UNET_DISPATCH's K-step
+    dispatches (the first run eagerly as the capture's warm-up, then
+    replays) against as many eager steps from the same weights, batches and
+    noise stream: every loss, weight, moment and running statistic within
+    GRAPH_TOL, the batch counts equal. cuDNN's default convolution
+    backward is not deterministic (two eager runs differ), so both run
+    with its deterministic algorithms."""
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    K, n, B = UNET_DISPATCH["K"], UNET_DISPATCH["dispatches"], UNET_DISPATCH["batch"]
+    states = []
+    for _ in range(2):
+        model = build_model("UNet", dtype=torch.float32, device="cuda", seed=21, **kw)
+        states.append(TrainState.create(
+            model, build_optimizer("adam", model.parameters(), UNET_DISPATCH["lr"]), seed=5))
+    graphed, eager = states
+    rng = np.random.default_rng(61)
+    size = kw["img_size"]
+    batches = [{"x": torch.from_numpy(rng.standard_normal((K, B, size, size, 10, 4)
+                                                          ).astype(np.float32)).cuda(),
+                "y": torch.from_numpy(rng.standard_normal((K, B, size, size, 1, 4)
+                                                          ).astype(np.float32)).cuda(),
+                "cls": torch.zeros((K, B), dtype=torch.int64, device="cuda")}
+               for _ in range(n)]
+    step_kw = dict(noise_scale=5e-4, ones_mask=True)
+    dispatch = make_train_step(scan_steps=K, **step_kw)
+    step = make_train_step(**step_kw)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = [v for bt in batches for v in dispatch(graphed, bt)[1]["loss_step"].tolist()]
+        want = [step(eager, {k: v[i] for k, v in bt.items()})[1]["loss_step"].item()
+                for bt in batches for i in range(K)]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    stats = [dict(graphed.model.named_buffers()), dict(eager.model.named_buffers())]
+    running = [k for k in stats[0] if "running" in k]
+    counts = {k for k in stats[0] if k.endswith("num_batches_tracked")}
+    out = dict(losses=max_rel(got, want),
+               weights_moments=worst_rel_l2(state_tensors(graphed), state_tensors(eager)),
+               running_stats=worst_rel_l2([stats[0][k] for k in running],
+                                          [stats[1][k] for k in running]))
+    tracked = {stats[0][k].item() for k in counts} | {stats[1][k].item() for k in counts}
+    if max(out.values()) > GRAPH_TOL or tracked != {n * K}:
+        raise AssertionError(f"UNet dispatches against eager steps: {out} (limit {GRAPH_TOL}), "
+                             f"batches tracked {tracked}, expected {n * K}")
+    return dict(rel=out, batches_tracked=n * K, k=K, dispatches=n, batch=B)
+
+
+def phase_card_vs_cpu_families() -> dict:
+    """Each model family's forward on the card against the CPU in f32
+    (CPU_TOL; UNet in eval mode), CDPOT at configs/cdpot_parallel.yaml's
+    widths with its AFNO weights redrawn, the FNOs with their spectral
+    weights redrawn (FNO_SPECTRAL_SCALE) and FNO2d's forward with
+    torch.fft.irfftn (raw_irfftn) above the limit; CDPOT's and UNet's eval rollouts
+    replayed as graphs against the eager ones (GRAPH_TOL), CDPOT's launches
+    = depth x applications, all on afno_hopper_f32.cu, the others none;
+    UNet's statistics under graphed dispatches (unet_dispatch_check); and
+    cli.convert of a seeded FNO3d reference .pth with torch.cfloat spectral
+    weights, then cli.evaluate --metrics of the directory on a synthetic
+    32^3 set."""
+    from dpot_tpu_torch.cli.convert import main as convert_main
+    from dpot_tpu_torch.cli.evaluate import main as evaluate_main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.step import make_eval_rollout
+
+    reset_launch_counts()
+    cdpot_kw = cdpot_sweep_model_kw()
+    common = dict(in_channels=4, in_timesteps=10, n_cls=cdpot_kw["n_cls"])
+    cases = {"CDPOT": cdpot_kw, **{f: {**common, **kw} for f, kw in FAMILY_SIZES.items()}}
+    rng = np.random.default_rng(71)
+    row: dict = {"card_vs_cpu": {}, "graph_rel": {}, "limit": CPU_TOL["float32"]}
+    cdpot_apps = 0
+    for family, kw in cases.items():
+        model = build_model(family, dtype=torch.float32, device="cuda", seed=17, **kw).eval()
+        if family == "CDPOT":
+            draw_mixer_weights(model, seed=18)
+        elif family.startswith("FNO"):
+            g = torch.Generator().manual_seed(18)
+            with torch.no_grad():
+                for p in model.spectral_convs.parameters():
+                    p.copy_(torch.randn(p.shape, generator=g) * FNO_SPECTRAL_SCALE)
+        grid = (kw["img_size"],) * (3 if family == "FNO3D" else 2)
+        B = 1 if family == "FNO3D" else FAMILY_BATCH
+        x = rng.standard_normal((B, *grid, 10, 4)).astype(np.float32)
+        cpu = copy.deepcopy(model).to("cpu")
+
+        def pred(m, xs):
+            out = m(torch.from_numpy(xs).to(next(m.parameters()).device))
+            return (out[0] if isinstance(out, tuple) else out).cpu()
+
+        with torch.inference_mode():
+            got, want = pred(model, x), pred(cpu, x)
+            if family.startswith("FNO"):
+                with raw_irfftn():
+                    row.setdefault("raw_irfftn_rel_l2", {})[family] = rel_l2(pred(model, x),
+                                                                             want)
+        del cpu
+        row["card_vs_cpu"][family] = rel = rel_l2(got, want)
+        if not rel <= CPU_TOL["float32"]:
+            raise AssertionError(f"{family} forward card vs CPU: rel-L2 {rel} (limit "
+                                 f"{CPU_TOL['float32']})")
+        if family == "FNO" and not row["raw_irfftn_rel_l2"][family] > CPU_TOL["float32"]:
+            raise AssertionError(f"FNO2d with torch's irfftn on the card: rel-L2 "
+                                 f"{row['raw_irfftn_rel_l2'][family]}, expected above the "
+                                 f"limit {CPU_TOL['float32']}")
+        cdpot_apps += family == "CDPOT"
+        if family in ("CDPOT", "UNet"):
+            y = rng.standard_normal((B, *grid, FAMILY_ROLL_STEPS, 4)).astype(np.float32)
+            batch = {"x": torch.from_numpy(x).cuda(), "y": torch.from_numpy(y).cuda(),
+                     "msk": torch.ones((B, *grid, 1, 4), device="cuda")}
+            roll = make_eval_rollout()
+            eager = roll.run(model, batch)
+            first = roll(model, batch)        # eager, then the capture
+            replay = roll(model, batch)
+            torch.cuda.synchronize()
+            graph = dict(pred=rel_l2(replay["pred"], eager["pred"]),
+                         first_pred=rel_l2(first["pred"], eager["pred"]),
+                         **{k: abs(replay[k].item() - eager[k].item()) / abs(eager[k].item())
+                            for k in ("loss_step", "loss_full")})
+            row["graph_rel"][family] = graph
+            if roll.graphs.captures != 1 or max(graph.values()) > GRAPH_TOL:
+                raise AssertionError(f"{family} rollout graph against eager: {graph} (limit "
+                                     f"{GRAPH_TOL}), captures {roll.graphs.captures}")
+            cdpot_apps += 3 * FAMILY_ROLL_STEPS * (family == "CDPOT")
+        del model
+    depth = cdpot_kw["depth"]
+    launches = fused_gn_afno.launches
+    if launches != depth * cdpot_apps:
+        raise AssertionError(f"card_vs_cpu_families: {launches} launches, expected CDPOT's "
+                             f"depth x applications = {depth * cdpot_apps}")
+    row.update(launches=launches, launches_by_path=check_paths("float32", launches,
+                                                               "hopper_f32"),
+               cdpot_applications=cdpot_apps)
+    row["unet_dispatch"] = unet_dispatch_check(cases["UNet"])
+
+    # FNO3d: a reference-layout .pth (torch.cfloat spectral weights, DDP
+    # prefixes) converted and evaluated
+    before = fused_gn_afno.launches
+    spec = make_synthetic_spec(**FNO3D_SPEC)
+    ref = build_model("FNO3D", device="cpu", seed=19, **cases["FNO3D"]).state_dict()
+    cfloat = {k: torch.complex(v[0], v[1]) if ".weights" in k else v for k, v in ref.items()}
+    pth = RUN_DIR / "fno3d_ref.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in cfloat.items()}}, pth)
+    ckpt = RUN_DIR / "fno3d_ckpt"
+    flags = ["--train_paths", spec.name, "--num_workers", "4", "--device", "cuda"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_main(["--model", "FNO3D", *FNO3D_ARCH, "--n_channels", "4", "--resume_path",
+                      str(pth), "--out_path", str(ckpt), *flags])
+        got = evaluate_main(["--config_from_ckpt", "true", "--resume_path", str(ckpt),
+                             "--test_paths", spec.name, "--metrics", "--batch_size", "2",
+                             *flags])
+    converted = torch.load(ckpt / "model.pth", map_location="cpu", weights_only=False)["model"]
+    if converted.keys() != ref.keys() or not all(torch.equal(converted[k], v)
+                                                 for k, v in ref.items()):
+        raise AssertionError("FNO3d: the converted weights are not the reference's, split")
+    metrics = got[spec.name]
+    if not finite(metrics.values()):
+        raise AssertionError(f"FNO3d evaluate: {metrics}")
+    check_no_launch(before, "the FNO3d conversion and evaluation")
+    row.update(fno3d_evaluate=metrics, bias_act_launches=bias_act.launches,
+               sizes={f: kw for f, kw in cases.items()})
+    log("card_vs_cpu_families", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -2793,6 +3221,10 @@ def main() -> int:
     shutil.rmtree(RUN_DIR)
     cpu_3d = phase_card_vs_cpu_3d()
     separable = {dtype: phase_separable_ti(dtype) for dtype in ("float32", "bfloat16")}
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    train_cdpot, serve_cdpot = phase_train_cdpot()
+    families = phase_card_vs_cpu_families()
+    shutil.rmtree(RUN_DIR)
 
     def batches(prefix, dtype):
         return CASE_BATCHES.get((prefix, getattr(torch, dtype)), KERNEL_BATCHES)
@@ -2809,9 +3241,10 @@ def main() -> int:
                  "dispatch_ti": dispatch_ti, "rollouts": rollouts, "stale_weights": stale,
                  "finetune_s": finetune_s, "varyres_ti": varyres,
                  "convert_resume_serve": convert, "finetune3d_l": finetune3d,
-                 "separable_ti[bfloat16]": separable["bfloat16"]}
+                 "separable_ti[bfloat16]": separable["bfloat16"], "serve_cdpot": serve_cdpot}
     f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"],
-                "card_vs_cpu_3d": cpu_3d, "separable_ti[float32]": separable["float32"]}
+                "card_vs_cpu_3d": cpu_3d, "separable_ti[float32]": separable["float32"],
+                "train_cdpot": train_cdpot, "card_vs_cpu_families": families}
     l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "rollouts": rollouts,
               "train_l": train_l, "remat_l": remat_l, "dispatch_l": dispatch_l,
               "params_lp_l": params_lp_l}
@@ -2869,7 +3302,7 @@ def main() -> int:
     bias_act_launches = sum(r["bias_act_launches"] for r in (
         serve_bf16, serve_f32, *train.values(), dispatch_ti, serve_h, train_h,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
-        cpu_3d, *separable.values()))
+        cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

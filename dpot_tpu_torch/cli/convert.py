@@ -7,8 +7,14 @@ directory of the port.
 
 The directory holds model.pth (the weights, fresh optimizer state, step 0)
 and config.json, so that `cli.train --resume_path`, `cli.serve` and
-`cli.evaluate` (with --config_from_ckpt true) all take it. DPOT 2D and
-DPOT3D (`--model DPOT3D`, whose directory cli.evaluate reads on 3D sets).
+`cli.evaluate` (with --config_from_ckpt true) all take it. Every family of
+the registry: DPOT 2D, DPOT3D and FNO3D (whose directories cli.evaluate
+reads on 3D sets), CDPOT (the reference's duplicate `act_patching` /
+`proj.1` keys load as the one parameter they are), FNO (with --use_ln) and
+UNet (its BatchNorm statistics with it). FNO3D's torch.cfloat spectral
+weights are split into the real-stacked layout (train/interop.py
+`params_from_any`), the counterpart of the JAX package's per-family
+converters (dpot_tpu/cli/convert.py).
 """
 
 from __future__ import annotations
@@ -17,8 +23,7 @@ import sys
 
 import torch
 
-# the reference's other families: their converters wait for their models
-_NOT_PORTED = ("CDPOT", "FNO", "FNO3D", "UNET")
+FAMILIES = ("DPOT", "AFNO", "DPOT3D", "CDPOT", "FNO", "FNO3D", "UNET")
 
 
 def main(argv=None) -> str:
@@ -33,19 +38,14 @@ def main(argv=None) -> str:
     out_path = pop_flag(argv, "--out_path", "./converted_ckpt")
     device = pop_flag(argv, "--device", "cuda")
     cfg = load_config(argv)
-    name = cfg.model.upper()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"converting a {cfg.model} checkpoint is not ported yet (ROADMAP, 'Modules "
-            "to port', item 11: the other model families)")
-    if name not in ("DPOT", "AFNO", "DPOT3D"):
+    if cfg.model.upper() not in FAMILIES:
         raise ValueError(f"no converter for model {cfg.model!r}")
     model = build_model(
         cfg.model, img_size=cfg.res, patch_size=cfg.patch_size, in_channels=cfg.n_channels,
         in_timesteps=cfg.T_in, out_timesteps=cfg.T_bundle, embed_dim=cfg.width,
         modes=cfg.modes, depth=cfg.n_layers, n_blocks=cfg.n_blocks,
         mlp_ratio=cfg.mlp_ratio, out_layer_dim=cfg.out_layer_dim, act=cfg.act,
-        n_cls=len(cfg.train_paths), normalize=cfg.normalize,
+        n_cls=len(cfg.train_paths), normalize=cfg.normalize, use_ln=cfg.use_ln,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
         device=device, seed=cfg.seed,
     )

@@ -190,26 +190,35 @@ def grid_patches(H: int, W: int, T: int, p: int, dtype: torch.dtype,
 class PatchConv(nn.Module):
     """Conv2d(k=p, s=p) over C data + 3 grid channels, as space-to-depth and
     a matmul on (B, H, W, T, C). The grid channels are batch-independent, so
-    their contribution is one matmul at latent resolution."""
+    their contribution is one matmul at latent resolution. grid=False is
+    the plain form on (B, H, W, C), whose C channels are all the input's
+    (FNO2d passes its two grid channels among them)."""
 
     def __init__(self, in_channels: int, features: int, p: int,
-                 dtype: torch.dtype, generator: torch.Generator):
+                 dtype: torch.dtype, generator: torch.Generator, grid: bool = True):
         super().__init__()
-        fan_in = (in_channels + 3) * p * p
+        fan_in = (in_channels + 3 * grid) * p * p
         self.p = p
         self.dtype = dtype
+        self.grid = grid
         self.weight = nn.Parameter(
-            torch_uniform((features, in_channels + 3, p, p), fan_in, generator)
+            torch_uniform((features, in_channels + 3 * grid, p, p), fan_in, generator)
         )
         self.bias = nn.Parameter(torch_uniform((features,), fan_in, generator))
 
     def forward(self, x):
         p, dt = self.p, self.dtype
+        E = self.weight.shape[0]
+        # (E, C(+3), a, b) -> rows in (a, b, c) order
+        k = self.weight.permute(2, 3, 1, 0)
+        if not self.grid:
+            B, H, W, C = x.shape
+            h, w = H // p, W // p
+            x = x.to(dt).reshape(B, h, p, w, p, C).permute(0, 1, 3, 2, 4, 5)
+            y = x.reshape(B, h, w, p * p * C) @ k.reshape(p * p * C, E).to(dt)
+            return y + self.bias.to(dt)
         B, H, W, T, C = x.shape
         h, w = H // p, W // p
-        E = self.weight.shape[0]
-        # (E, C+3, a, b) -> rows in (a, b, c) order
-        k = self.weight.permute(2, 3, 1, 0)
         kx = k[:, :, :C].reshape(p * p * C, E).to(dt)
         kg = k[:, :, C:].reshape(p * p * 3, E).to(dt)
         x = x.to(dt).reshape(B, h, p, w, p, T, C).permute(0, 1, 3, 5, 2, 4, 6)
@@ -244,13 +253,15 @@ class UnpatchConv(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """proj.0 patch conv (grid folded in) -> act -> proj.2 1x1 conv."""
+    """proj.0 patch conv (grid folded in unless grid=False) -> act -> proj.2
+    1x1 conv."""
 
     def __init__(self, in_channels: int, p: int, embed_dim: int, out_dim: int,
-                 act: str, dtype: torch.dtype, generator: torch.Generator):
+                 act: str, dtype: torch.dtype, generator: torch.Generator,
+                 grid: bool = True):
         super().__init__()
         self.proj = nn.ModuleList([
-            PatchConv(in_channels, embed_dim, p, dtype, generator),
+            PatchConv(in_channels, embed_dim, p, dtype, generator, grid),
             Activation(act),
             Dense(embed_dim, out_dim, generator, conv=True, dtype=dtype),
         ])

@@ -125,18 +125,50 @@ def afno_mode_mlp(
     return o[..., :bs], o[..., bs:]
 
 
-def rfftn_pair(x: torch.Tensor, dims: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
-    """Real FFT of x over `dims` (the last one halved to n//2+1), ortho
-    norm: (re, im), as JAX's rfft2_pair / rfft3_pair return them."""
-    f = torch.fft.rfftn(x, dim=dims, norm="ortho")
+def rfftn_pair(x: torch.Tensor, dims: tuple[int, ...],
+               norm: str = "ortho") -> tuple[torch.Tensor, torch.Tensor]:
+    """Real FFT of x over `dims` (the last one halved to n//2+1): (re, im),
+    as JAX's rfft2_pair / rfft3_pair return them. norm "ortho" (AFNO's) or
+    "backward" (FNO's, torch's default)."""
+    f = torch.fft.rfftn(x, dim=dims, norm=norm)
     return f.real, f.imag
 
 
 def irfftn_pair(re: torch.Tensor, im: torch.Tensor, s: tuple[int, ...],
-                dims: tuple[int, ...]) -> torch.Tensor:
-    """Inverse of rfftn_pair to the real sizes `s` over `dims`, ortho norm
-    (JAX's irfft2_pair / irfft3_pair)."""
-    return torch.fft.irfftn(torch.complex(re, im), s=s, dim=dims, norm="ortho")
+                dims: tuple[int, ...], norm: str = "ortho") -> torch.Tensor:
+    """Inverse of rfftn_pair to the real sizes `s` over `dims` (JAX's
+    irfft2_pair / irfft3_pair), with the same `norm`: the complex inverse
+    over the leading dims, then the real inverse over the last one, whose
+    DC bin (and Nyquist bin, for an even size) lose their imaginary parts
+    first. A spectrum that a mode MLP or a spectral convolution has
+    changed is not Hermitian there, and the real inverse of such an input
+    is the library's choice: the CPU's (and JAX's DFT) drops those
+    imaginary parts, cuFFT's does not (an FNO2d spectral convolution at
+    128^2 came out 12 % off on the H100), so they are dropped here."""
+    z = torch.complex(re, im)
+    if len(dims) > 1:
+        z = torch.fft.ifftn(z, s=s[:-1], dim=dims[:-1], norm=norm)
+    last, n = dims[-1], s[-1]
+    zi = z.imag.clone()
+    for b in (0, n // 2) if n % 2 == 0 else (0,):
+        if b < zi.shape[last]:
+            zi.select(last, b).zero_()
+    return torch.fft.irfft(torch.complex(z.real, zi), n=n, dim=last, norm=norm)
+
+
+def fft2_pair(x: torch.Tensor, dims: tuple[int, int] = (-2, -1)
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full complex 2D FFT of a real x over `dims`, unscaled: (re, im), as
+    JAX's fft2_pair of a real input."""
+    f = torch.fft.fft2(x, dim=dims)
+    return f.real, f.imag
+
+
+def ifft2_pair(re: torch.Tensor, im: torch.Tensor, dims: tuple[int, int] = (-2, -1)
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full inverse 2D FFT (scaled by 1/(H*W)) of a (re, im) pair."""
+    f = torch.fft.ifft2(torch.complex(re, im), dim=dims)
+    return f.real, f.imag
 
 
 def _corner_mlp(x32: torch.Tensor, corner: tuple[int, ...], w1, b1, w2, b2, act,

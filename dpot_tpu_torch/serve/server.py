@@ -186,7 +186,12 @@ class RolloutServer:
     @torch.inference_mode()
     def _rollout(self, x: torch.Tensor, n_steps: int) -> np.ndarray:
         """The rollout of `_eager_rollout`, on the card as the graph of its
-        (bucket, n_steps), returned on the host."""
+        (bucket, n_steps), returned on the host. The model serves in eval
+        mode, in which its graphs were captured: one put back in train mode
+        (whose BatchNorm would normalise with the batch's statistics and
+        update its buffers) raises."""
+        if self.model.training:
+            raise RuntimeError("the served model is in train mode; serve it in eval mode")
         if not self._graphed:
             return self._eager_rollout(x, n_steps).cpu().numpy()
         captures = self._graphs.captures

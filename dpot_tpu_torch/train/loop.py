@@ -72,17 +72,22 @@ def check_ported(cfg: TrainConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def _snapshot(state: TrainState) -> list[torch.Tensor]:
-    """Device copies of the parameters (the f32 master where the model runs
-    a working copy) and moments: the rollback target."""
+def _rollback_tensors(state: TrainState) -> tuple[torch.Tensor, ...]:
+    """What a rollback restores: the parameters (the f32 master where the
+    model runs a working copy), the moments and the model's buffers (UNet's
+    BatchNorm statistics, which JAX keeps among its params)."""
     opt = state.optimizer
-    return [t.detach().clone() for t in (*opt.params, *opt.mu, *opt.nu)]
+    return (*opt.params, *opt.mu, *opt.nu, *state.model.buffers())
+
+
+def _snapshot(state: TrainState) -> list[torch.Tensor]:
+    """Device copies of the rollback's tensors."""
+    return [t.detach().clone() for t in _rollback_tensors(state)]
 
 
 @torch.no_grad()
 def _restore(state: TrainState, snap: list[torch.Tensor]) -> None:
-    opt = state.optimizer
-    for dst, src in zip((*opt.params, *opt.mu, *opt.nu), snap):
+    for dst, src in zip(_rollback_tensors(state), snap):
         dst.copy_(src)
     state.refresh_working_copy()
 

@@ -69,6 +69,10 @@ class TrainState:
             raise ValueError("the optimizer must update the model's parameters, in order")
         if any(p.dtype != torch.float32 for p in params):
             raise ValueError("the working copy is made of float32 parameters")
+        if any(True for _ in self.model.buffers()):
+            # as in JAX, which refuses it for a tree with batch_stats
+            raise ValueError("the working copy does not take a model with buffers "
+                             "(UNet's BatchNorm statistics)")
         self.optimizer.params = [p.detach().clone() for p in params]
         for p in params:
             p.data = p.data.to(dtype)
@@ -94,18 +98,22 @@ class TrainState:
         self.step += 1
 
     def mutated(self) -> list[torch.Tensor]:
-        """The tensors an update writes that the forward reads: the model's
-        parameters and, with a working copy, the f32 master."""
-        params = list(self.model.parameters())
+        """The tensors a train step writes that the forward reads: the
+        model's parameters, its buffers (UNet's running statistics, which a
+        train-mode forward updates) and, with a working copy, the f32
+        master."""
+        params = list(self.model.parameters()) + list(self.model.buffers())
         return params + list(self.optimizer.params) if self.params_lp is not None else params
 
     def params_state_dict(self) -> dict[str, torch.Tensor]:
         """The model's state dict with the f32 master in place of the working
-        copy: the weights that checkpoints save."""
+        copy (under every name a parameter has): the weights that
+        checkpoints save."""
         sd = self.model.state_dict()
         if self.params_lp is not None:
-            for (name, _), master in zip(self.model.named_parameters(), self.optimizer.params):
-                sd[name] = master.detach()
+            master = {id(p): m for p, m in zip(self.params_lp, self.optimizer.params)}
+            for name, p in self.model.named_parameters(remove_duplicate=False):
+                sd[name] = master[id(p)].detach()
         return sd
 
     @torch.no_grad()

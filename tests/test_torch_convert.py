@@ -137,10 +137,9 @@ def test_evaluate_reads_the_converted_directory(reference, converted):
     assert got["synthetic_tconv"] == want["synthetic_tconv"]
 
 
-@pytest.mark.parametrize("family", ["CDPOT", "FNO", "FNO3D", "UNet"])
-def test_other_families_raise_naming_their_item(reference, family, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--model", family, "--resume_path", reference[1], "--out_path",
+def test_an_unknown_family_has_no_converter(reference, tmp_path):
+    with pytest.raises(ValueError, match="no converter"):
+        main(["--model", "MLP", "--resume_path", reference[1], "--out_path",
               str(tmp_path), "--device", "cpu"])
 
 

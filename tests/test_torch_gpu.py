@@ -873,3 +873,155 @@ def test_device_scalar_optimizer_equals_host_float_update(cuda, rule, moment):
                           opt.weight_decay, 1.0, i + 1)
     for a, b in zip(ps + opt.mu + opt.nu, ref + mu + nu):
         assert torch.equal(a, b)
+
+
+CDPOT_TI = dict(img_size=128, patch_size=8, in_channels=4, in_timesteps=10, embed_dim=512,
+                depth=4, n_blocks=4, modes=32, n_cls=12)
+
+
+def cdpot_ti(cuda, dtype, seed=12):
+    """CDPOT at configs/cdpot_parallel.yaml's widths, its AFNO weights drawn
+    from N(0, 0.05^2) so that the mixer matters."""
+    from dpot_tpu_torch.models import build_model
+
+    model = build_model("CDPOT", dtype=dtype, device=cuda, seed=seed, **CDPOT_TI)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for blk in model.blocks:
+            for w in (blk.filter.w1, blk.filter.b1, blk.filter.w2, blk.filter.b2):
+                w.copy_(0.05 * torch.randn(w.shape, generator=gen))
+    return model
+
+
+@pytest.mark.gpu
+def test_cdpot_served_in_bf16_on_hopper_matches_the_plain_mixer(cuda, monkeypatch):
+    """CDPOT served in bf16 (graphed): every launch on the Hopper kernel,
+    depth x applications; the answer within 3e-2 relative L2 of the same
+    rollout with fused_gn_afno's plain version."""
+    from dpot_tpu_torch.models import dpot
+    from dpot_tpu_torch.serve import RolloutServer
+
+    model = cdpot_ti(cuda, torch.bfloat16)
+    x = np.random.default_rng(4).standard_normal((2, 128, 128, 10, 4)).astype(np.float32)
+    before = dict(fused_gn_afno.launches_by_path)
+    rs = RolloutServer(model, batch_buckets=(1, 2), max_wait_ms=0.0, warmup_steps=(1,),
+                       device=cuda)
+    rs.start()
+    try:
+        got = torch.from_numpy(rs.submit(x, 2))
+    finally:
+        rs.stop(drain=True)
+    torch.cuda.synchronize()
+    added = {p: n - before[p] for p, n in fused_gn_afno.launches_by_path.items()}
+    assert added["hopper"] == sum(added.values()) == 4 * (2 + 2)
+    monkeypatch.setattr(dpot, "fused_gn_afno", fused_gn_afno_ref)
+    carry, want = torch.from_numpy(x).to(cuda, torch.bfloat16), []
+    with torch.inference_mode():
+        for _ in range(2):
+            im = model(carry)[0]
+            want.append(im)
+            carry = torch.cat([carry[..., 1:, :], im.to(carry.dtype)], dim=-2)
+    assert rel_l2(got, torch.cat(want, dim=-2).cpu()) <= 3e-2
+
+
+@pytest.mark.gpu
+def test_cdpot_graphed_f32_rollout_counts_hopper_f32_launches(cuda):
+    """CDPOT in f32: the eval rollout's graph against the eager rollout,
+    depth x steps launches on afno_hopper_f32.cu at the replay."""
+    from dpot_tpu_torch.train.step import make_eval_rollout
+
+    model = cdpot_ti(cuda, torch.float32)
+    gen = torch.Generator(cuda).manual_seed(5)
+    batch = {"x": torch.randn((2, 128, 128, 10, 4), generator=gen, device=cuda),
+             "y": torch.randn((2, 128, 128, 3, 4), generator=gen, device=cuda),
+             "msk": torch.ones((2, 128, 128, 1, 4), device=cuda)}
+    roll = make_eval_rollout()
+    want = roll.run(model, batch)
+    roll(model, batch)
+    before = dict(fused_gn_afno.launches_by_path)
+    got = roll(model, batch)
+    torch.cuda.synchronize()
+    added = {p: n - before[p] for p, n in fused_gn_afno.launches_by_path.items()}
+    assert added["hopper_f32"] == sum(added.values()) == 4 * 3
+    assert rel_l2(got["pred"], want["pred"]) <= GRAPH_TOL
+
+
+def unet_state(cuda, seed=8):
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+
+    m = build_model("UNet", img_size=64, in_channels=4, in_timesteps=10, out_layer_dim=8,
+                    device=cuda, seed=seed)
+    return TrainState.create(m, build_optimizer("adam", m.parameters(), 1e-4), 5)
+
+
+@pytest.mark.gpu
+def test_unet_graphed_dispatch_tracks_the_statistics_of_eager_steps(cuda, monkeypatch):
+    """Two 2-step dispatches of UNet (train mode, its BatchNorm buffers
+    updated in place at every replay) against four eager steps: losses,
+    weights and running statistics; then its eval rollout's graph (eval
+    mode, the running statistics) against the eager one. cuDNN's default
+    convolution backward is not deterministic, so both use its
+    deterministic algorithms."""
+    from dpot_tpu_torch.train.step import make_eval_rollout, make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    a, b = unet_state(cuda), unet_state(cuda)
+    gen = torch.Generator(cuda).manual_seed(6)
+    bts = [{"x": torch.randn((2, 2, 64, 64, 10, 4), generator=gen, device=cuda),
+            "y": torch.randn((2, 2, 64, 64, 1, 4), generator=gen, device=cuda),
+            "cls": torch.zeros((2, 2), dtype=torch.long, device=cuda)} for _ in range(2)]
+    kw = dict(noise_scale=5e-4, ones_mask=True)
+    dispatch, step = make_train_step(scan_steps=2, **kw), make_train_step(**kw)
+    got = [v for bt in bts for v in dispatch(a, bt)[1]["loss_step"].tolist()]
+    want = [step(b, {k: v[i] for k, v in bt.items()})[1]["loss_step"].item()
+            for bt in bts for i in range(2)]
+    assert max(abs(x - y) / abs(y) for x, y in zip(got, want)) <= GRAPH_TOL
+    assert weights_rel_l2(a, b) <= GRAPH_TOL
+    for (name, p), q in zip(a.model.named_buffers(), b.model.buffers()):
+        assert (torch.equal(p, q) if "num_batches" in name else rel_l2(p, q) <= GRAPH_TOL), name
+    batch = {"x": bts[0]["x"][0], "y": bts[0]["y"][0].expand(-1, -1, -1, 3, -1).contiguous(),
+             "msk": torch.ones((2, 64, 64, 1, 4), device=cuda)}
+    roll = make_eval_rollout()
+    eager = roll.run(a.model, batch)
+    roll(a.model, batch)
+    replay = roll(a.model, batch)
+    torch.cuda.synchronize()
+    assert rel_l2(replay["pred"], eager["pred"]) <= GRAPH_TOL
+    assert all(torch.equal(p, q) for p, q in zip(a.model.buffers(), b.model.buffers())
+               if p.dtype == torch.long)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [(128, 128), (32, 32, 32), (64, 64)])
+def test_irfftn_pair_of_a_non_hermitian_spectrum_matches_the_cpu(cuda, s):
+    """cuFFT's real inverse of a spectrum that is not Hermitian differs
+    from the CPU's (an FNO2d spectral convolution came out 12 % off);
+    irfftn_pair drops the imaginary parts that make it so, on either
+    device, so the two agree to f32 rounding."""
+    from dpot_tpu_torch.ops.spectral import irfftn_pair
+
+    g = torch.Generator().manual_seed(len(s))
+    shape = (2, *s[:-1], s[-1] // 2 + 1, 8)
+    re, im = torch.randn(shape, generator=g), torch.randn(shape, generator=g)
+    dims = tuple(range(1, len(s) + 1))
+    want = irfftn_pair(re, im, s, dims, norm="backward")
+    got = irfftn_pair(re.to(cuda), im.to(cuda), s, dims, norm="backward")
+    assert rel_l2(got.cpu(), want) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,modes", [((128, 128), (16, 16)), ((32, 32, 32), (8, 8, 8))])
+def test_fno_spectral_conv_on_the_card_matches_the_cpu(cuda, grid, modes):
+    """One spectral convolution on its own (in a model its init-scale
+    weights hide it): the card against the CPU, f32, 1e-5."""
+    from dpot_tpu_torch.models.fno import SpectralConv
+
+    spec = SpectralConv(32, modes, torch.Generator().manual_seed(1))
+    x = torch.randn(2, *grid, 32, generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        want = spec(x)
+        got = spec.to(cuda)(x.to(cuda)).cpu()
+    assert rel_l2(got, want) <= 1e-5

@@ -177,3 +177,33 @@ def test_the_fused_op_refuses_latents_above_4096_px_naming_the_separable_route()
                       16, 2)
     with pytest.raises(ValueError, match="fused route"):
         separable_gn_afno(torch.zeros(1, 64, 64, 8), g, g, 2, w, b, w, b, 4, torch.tanh)
+
+
+def test_server_answers_a_model_above_4096_px():
+    """RolloutServer serving a 2D DPOT on the separable route (a 68 x 68
+    latent): every answer (batch 1 and a padded 3 of bucket 4, 1 and 2
+    steps) equals a direct loop over model(x); the route's calls are depth
+    x the applications run, warm-up included."""
+    from dpot_tpu_torch.serve import RolloutServer
+
+    model = build_model("DPOT", device="cpu", seed=3, **CFG)
+    before = separable_gn_afno.calls
+    rs = RolloutServer(model, batch_buckets=(1, 4), max_wait_ms=0.0, device="cpu")
+    rs.start()
+    apps = 1  # start() warms the largest bucket up with one step
+    try:
+        for b, steps in ((1, 1), (3, 2)):
+            x = rand((b, 68, 68, 2, 2), seed=10 + b)
+            got = rs.submit(x, steps)
+            apps += steps
+            carry, want = torch.from_numpy(x), []
+            with torch.inference_mode():
+                for _ in range(steps):
+                    im = model(carry)[0]
+                    want.append(im)
+                    carry = torch.cat([carry[..., 1:, :], im], dim=-2)
+            np.testing.assert_array_equal(got, torch.cat(want, dim=-2).numpy())
+    finally:
+        rs.stop(drain=True)
+    direct = 1 + 2
+    assert separable_gn_afno.calls - before == CFG["depth"] * (apps + direct)
