@@ -179,6 +179,27 @@ The other model families (PR 11), after phase 21:
      statistics after two graphed 2-step dispatches against four eager
      steps; cli.convert of a seeded FNO3d reference .pth with torch.cfloat
      spectral weights, then cli.evaluate --metrics on a synthetic 32^3 set.
+The rest of the data layer, after phase 4:
+  24. loader_ti: the host preprocessing library (dpot_tpu_torch/native,
+     g++ on the card's host; its version, the host CPU and the build
+     seconds logged) against its plain numpy versions there: pad_data_2d
+     64^2 x 1 -> 128^2 x 4 and 96^2 x 3 -> 128^2 x 4 (and 128^2 x 3 ->
+     128^2 x 4, numpy on both paths) and resize_trilinear_3d 48^3 -> 64^3
+     within 1e-5, the batch assembly into
+     f32 and bf16 slots bit for bit over fields with specials in them, and a
+     bf16 plain version by truncation, wrong on purpose, caught; a corpus on
+     disk of ns2d_fno_1e-5's shape (64^2, 20 frames, 1 channel) and of
+     ns2d_pdb_M1_eta1e-1_zeta1e-1's (128^2, 21 frames, 4 channels,
+     time-major), 64 train and 4 test trajectories each, in HDF5 where h5py
+     imports, else raw f32 files; the loader's samples/s at B = 20 (a) on
+     the plain path with fresh buffers and a pin a batch, (b) native item by
+     item on the mixture, into a pinned ring with bf16 x, (c) the
+     time-major set in one native call a batch into the same ring; (a)
+     against (b) within 1e-5 and (c) against the per-item route bit for bit
+     over an epoch; then the train CLI at DPOT-Ti in bf16, 2 epochs, on the
+     mixture (profiled: the device's idle share) and on the time-major set
+     eagerly and at 2 steps a dispatch (CUDA graphs): steps and launches
+     exact, all hopper, and the graphed losses the eager ones bit for bit.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -194,6 +215,7 @@ import functools
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -478,10 +500,36 @@ UNET_DISPATCH = dict(K=2, dispatches=2, batch=4, lr=1e-4)
 FNO3D_SPEC = dict(name="synthetic_fno3d", train_size=2, test_size=4, t_total=14, t_test=4,
                   in_size=(32, 32, 32), n_channels=4)
 FNO3D_ARCH = ["--res", "32", "--width", "32", "--n_layers", "4", "--modes", "8", "--T_in", "10"]
+# loader_ti: DPOT-Ti pretraining from an on-disk corpus through the native
+# host library (dpot_tpu_torch/native, g++ -O3 -march=native, built on the
+# card's host). Two sets in the registry's real shapes: ns2d_fno_1e-5's
+# (64^2, 20 frames, 1 channel, standard layout; resized to 128^2 and padded
+# to 4 channels per item) and ns2d_pdb_M1_eta1e-1_zeta1e-1's (128^2, 21
+# frames, 4 channels, time-major: a window is one contiguous copy), "train"
+# trajectories each to train and "test" to test, written with the port's
+# generation module where h5py imports and as raw f32 files that
+# RawF32Reader maps where it does not. Loader rates at configs/
+# pretrain_tiny.yaml's batch over "batches" batches after "warmup" ones,
+# inline with "workers" threads, each batch copied to the card as the loop
+# copies it; then the train CLI (TRAIN_FLAGS, bf16) for "epochs" epochs on
+# the mixture and on the time-major set, eagerly and at K steps a dispatch
+LOADER_SETS = {
+    "loader_fno": dict(in_size=(64, 64), t_total=20, n_channels=1, time_major=False),
+    "loader_pdb": dict(in_size=(128, 128), t_total=21, n_channels=4, time_major=True),
+}
+LOADER = dict(train=64, test=4, batch=TRAIN["batch"], warmup=2, batches=20, epochs=2, K=2,
+              workers=4)
+# the native resizes against numpy's (tests/test_torch_native.py's limit)
+RESIZE_TOL = 1e-5
+
+
+_START = time.perf_counter()
 
 
 def log(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line; t_s: seconds since the script started, so that the
+    lines show where the script's time goes."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - _START, **kv}), flush=True)
 
 
 def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -3164,6 +3212,403 @@ def phase_card_vs_cpu_families() -> dict:
     return row
 
 
+@contextlib.contextmanager
+def plain_host():
+    """The host library's plain numpy versions (DPOT_DISABLE_NATIVE=1)."""
+    old = os.environ.get("DPOT_DISABLE_NATIVE")
+    os.environ["DPOT_DISABLE_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DPOT_DISABLE_NATIVE"]
+        else:
+            os.environ["DPOT_DISABLE_NATIVE"] = old
+
+
+def special_field(n: int, seed: int) -> np.ndarray:
+    """Random f32 over a wide range of exponents, with +-0, +-inf, NaNs
+    (quiet, signalling, with payloads), subnormals and rounding ties."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * np.exp(rng.uniform(-30, 30, n))).astype(np.float32)
+    u = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00001,
+                  0x7F800001, 0x7FA00000, 0x00000001, 0x807FFFFF, 0x00400000, 0x7F7FFFFF,
+                  0x3F808000, 0x3F818000, 0x3F807FFF], np.uint32)
+    x.view(np.uint32)[rng.choice(n, size=len(u), replace=False)] = u
+    return x
+
+
+def host_ms(fn, runs: int = 5) -> float:
+    """Median host ms of fn() after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def native_build_info(seconds: float) -> dict:
+    """The host library's build: g++'s version, the host CPU and the key."""
+    from dpot_tpu_torch.native import build as native_build
+
+    gxx = subprocess.run([native_build.CXX, "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()[0]
+    return dict(seconds=seconds, gxx=gxx, digest=native_build.digest(),
+                library=native_build.library_path().name,
+                cpu=native_build.cpu_identity().split("|")[0], cpu_count=os.cpu_count(),
+                threads_per_call=torch.get_num_threads(),
+                flags=" ".join(native_build.GXX_FLAGS))
+
+
+def check_native_host() -> dict:
+    """Each function of the host library against its plain version on this
+    host, at the shapes of the Ti mixture: the resizes within RESIZE_TOL,
+    the batch assembly (f32 and bf16 slots) bit for bit over fields with
+    specials in them, and a bf16 plain version that truncates (wrong on
+    purpose) disagreeing with the library."""
+    from dpot_tpu_torch.native import preprocess as pre
+
+    rng = np.random.default_rng(17)
+    out: dict = {}
+    # (call, input shape, whether the call reaches the library): at 128^2 in
+    # and out pad_data_2d pads in numpy on both paths, so that case times
+    # nothing
+    cases = {
+        "pad_data_2d[64^2x1->128^2x4]": (
+            lambda x: pre.pad_data_2d(x, 128, 4), (64, 64, 11, 1), True),
+        "pad_data_2d[96^2x3->128^2x4]": (
+            lambda x: pre.pad_data_2d(x, 128, 4), (96, 96, 11, 3), True),
+        "pad_data_2d[128^2x3->128^2x4]": (
+            lambda x: pre.pad_data_2d(x, 128, 4), (128, 128, 11, 3), False),
+        "resize_trilinear_3d[48^3->64^3]": (
+            lambda x: pre.resize_trilinear_3d(x, (64, 64, 64)), (48, 48, 48, 2, 5), True),
+    }
+    for name, (fn, shape, library) in cases.items():
+        x = rng.standard_normal(shape).astype(np.float32)
+        got = fn(x)
+        with plain_host():
+            want = fn(x)
+            plain = host_ms(lambda: fn(x)) if library else None
+        err = float(np.abs(got - want).max())
+        out[name] = dict(max_abs_err=err, limit=RESIZE_TOL, library=library,
+                         native_ms=host_ms(lambda: fn(x)) if library else None,
+                         plain_ms=plain)
+        if got.shape != want.shape or not err <= RESIZE_TOL:
+            raise AssertionError(f"native {name}: {got.shape} vs {want.shape}, max abs "
+                                 f"error {err} (limit {RESIZE_TOL})")
+    B, T, r, c = LOADER["batch"], 11, 128, 4
+    srcs = [special_field(T * r * r * c, 100 + j) for j in range(B)]
+    x_shape, y_shape = (B, T - 1, r, r, c), (B, 1, r, r, c)
+
+    def assemble(dtype):
+        if dtype == "float32":
+            xs, ys = np.empty(x_shape, np.float32), np.empty(y_shape, np.float32)
+            pre.assemble_windows(srcs, xs, ys)
+            return xs.view(np.uint32), ys.view(np.uint32)
+        xt, yt = torch.empty(x_shape, dtype=torch.bfloat16), torch.empty(y_shape,
+                                                                          dtype=torch.bfloat16)
+        xs, ys = pre.bf16_words(xt), pre.bf16_words(yt)
+        pre.assemble_windows(srcs, xs, ys)
+        return xs, ys
+
+    for dtype in ("float32", "bfloat16"):
+        got = assemble(dtype)
+        with plain_host():
+            want = assemble(dtype)
+            plain = host_ms(lambda: assemble(dtype), runs=3)
+        bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+        out[f"assemble_windows_{dtype}"] = dict(
+            mismatched=bad, elements=int(sum(g.size for g in got)),
+            native_ms=host_ms(lambda: assemble(dtype), runs=3), plain_ms=plain)
+        if bad:
+            raise AssertionError(f"native assemble_windows ({dtype}): {bad} elements differ "
+                                 "from the plain version")
+    flat = np.stack(srcs)[:, : int(np.prod(x_shape[1:]))]
+    truncated = (flat.view(np.uint32) >> 16).astype(np.uint16)
+    caught = int((got[0].reshape(B, -1) != truncated).sum())
+    out["bf16_truncation_control"] = dict(mismatched=caught)
+    if not caught:
+        raise AssertionError("a bf16 conversion by truncation agrees with the library: the "
+                             "bit-for-bit check cannot see a rounding fault")
+    return out
+
+
+class RawF32Reader:
+    """Windows of time-major float32 trajectories stored raw, one
+    (T, H, W, C) file a trajectory (<root>/data_{i}.f32), memory-mapped: the
+    smoke's stand-in for the HDF5 reader on a host where h5py does not
+    import. Returns memmap views with copy=False, as raw_hdf5's readers do."""
+
+    time_major = True
+
+    def __init__(self, root: Path, shape: tuple):
+        self.root, self.shape = Path(root), tuple(shape)
+        self._maps: dict = {}
+
+    def read(self, idx: int, tsel=None, copy: bool = True) -> np.ndarray:
+        m = self._maps.get(idx)
+        if m is None:
+            m = self._maps[idx] = np.memmap(self.root / f"data_{idx}.f32", np.float32, "r",
+                                            shape=self.shape)
+        w = m if tsel is None else m[tsel]
+        return np.array(w) if copy else w
+
+
+@contextlib.contextmanager
+def loader_corpus(root: Path):
+    """The two sets of LOADER_SETS on disk under root, registered in the
+    port's registry (DPOT_DATA_ROOT = root while the context is open);
+    yields the storage used, "hdf5" or "raw_f32"."""
+    from dpot_tpu_torch.data import generation, grid_dataset
+    from dpot_tpu_torch.data.registry import DatasetSpec, register_dataset
+
+    has_h5py = subprocess.run([sys.executable, "-c", "import h5py"], capture_output=True,
+                              timeout=120).returncode == 0
+    old_root = os.environ.get("DPOT_DATA_ROOT")
+    os.environ["DPOT_DATA_ROOT"] = str(root)
+    opener = grid_dataset._open_sample_reader
+    try:
+        if has_h5py:
+            for name, kw in LOADER_SETS.items():
+                generation.generate_synthetic_corpus(str(root), name=name,
+                                                     n_train=LOADER["train"],
+                                                     n_test=LOADER["test"], **kw)
+        else:
+            shapes = {}
+            for name, kw in LOADER_SETS.items():
+                kw = {k: v for k, v in kw.items() if k != "time_major"}
+                spec = dict(name=name, train_path=f"{name}/train", test_path=f"{name}/test",
+                            train_size=LOADER["train"], test_size=LOADER["test"],
+                            scatter_storage=True, t_test=max(kw["t_total"] - 11, 1), t_in=10,
+                            downsample=(1, 1), **kw)
+                synth = DatasetSpec(**spec, synthetic=True)
+                for split, n in (("train", LOADER["train"]), ("test", LOADER["test"])):
+                    (root / name / split).mkdir(parents=True)
+                    for i in range(n):
+                        traj = grid_dataset._synthetic_sample(synth, split == "train", i)
+                        np.ascontiguousarray(np.moveaxis(traj, -2, 0)).tofile(
+                            root / name / split / f"data_{i}.f32")
+                register_dataset(DatasetSpec(**spec))
+                shapes[name] = (kw["t_total"], *kw["in_size"], kw["n_channels"])
+
+            def open_reader(spec, train):
+                if spec.name in shapes:
+                    return RawF32Reader(Path(spec.resolve(train)), shapes[spec.name]).read
+                return opener(spec, train)
+
+            grid_dataset._open_sample_reader = open_reader
+        yield "hdf5" if has_h5py else "raw_f32"
+    finally:
+        grid_dataset._open_sample_reader = opener
+        if old_root is None:
+            os.environ.pop("DPOT_DATA_ROOT", None)
+        else:
+            os.environ["DPOT_DATA_ROOT"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def epochs_of(loader):
+    """The loader's batches, epoch after epoch."""
+    ep = 0
+    while True:
+        loader.set_epoch(ep)
+        yield from loader
+        ep += 1
+
+
+def loader_rate(ds, **kw) -> float:
+    """samples/s of the train loader on ds: LOADER["batches"] batches of
+    LOADER["batch"] after LOADER["warmup"], each copied to the card as the
+    train loop copies it (x in bf16) and synchronised, inline with
+    LOADER["workers"] threads."""
+    from dpot_tpu_torch.data import DataLoader
+    from dpot_tpu_torch.train.loop import _to_device
+
+    dl = DataLoader(ds, LOADER["batch"], num_workers=LOADER["workers"], seed=1, prefetch=0,
+                    **kw)
+    it = epochs_of(dl)
+    for i in range(LOADER["warmup"] + LOADER["batches"]):
+        if i == LOADER["warmup"]:
+            t0 = time.perf_counter()
+        x, y, _, _ = next(it)
+        _to_device(x, torch.device("cuda"), torch.bfloat16)
+        _to_device(y, torch.device("cuda"))
+        torch.cuda.synchronize()
+    return LOADER["batch"] * LOADER["batches"] / (time.perf_counter() - t0)
+
+
+def compare_loaders(a, b, exact: bool) -> float:
+    """One epoch of two loaders in lockstep: the worst difference of x and y
+    (bf16 columns as their rounded values), masks and classes equal."""
+    from dpot_tpu_torch.native.preprocess import bf16_words
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return bf16_words(v)
+        return v
+
+    worst, n = 0.0, 0
+    for ba, bb in zip(a, b, strict=True):
+        for k, (u, v) in enumerate(zip(ba, bb)):
+            u, v = host(u), host(v)
+            if u.shape != v.shape or u.dtype != v.dtype:
+                raise AssertionError(f"loader batches differ in column {k}: {u.dtype}{u.shape} "
+                                     f"vs {v.dtype}{v.shape}")
+            if exact or k >= 2:
+                if not np.array_equal(u.view(np.uint8), v.view(np.uint8)):
+                    raise AssertionError(f"loader batches differ in column {k} (bit for bit)")
+            else:
+                worst = max(worst, float(np.abs(u - v).max()))
+        n += 1
+    if not n:
+        raise AssertionError("compare_loaders: no batch")
+    return worst
+
+
+def loader_train_run(tag: str, paths: list, k: int, profile: bool = False) -> dict:
+    """The train CLI in bf16 on `paths` at k steps a dispatch: steps,
+    launches (all hopper, exact), per-step losses, the loop's time per
+    optimizer step (train and loader wait, from its log, per epoch) and,
+    under `profile`, the device's busy time and idle share over the last
+    epoch (its train steps, evaluation and checkpoint; torch.profiler,
+    started when the loop logs the first epoch's line)."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from dpot_tpu_torch.cli.train import main as train_main
+    from dpot_tpu_torch.data.registry import get_spec
+    from dpot_tpu_torch.utils.metrics_logging import MetricWriter
+
+    flags = list(TRAIN_FLAGS)
+    i = flags.index("--train_paths")
+    flags[i + 1: i + 2] = paths
+    flags[flags.index("--epochs") + 1] = str(LOADER["epochs"])
+    flags[flags.index("--batch_size") + 1] = str(LOADER["batch"])
+    argv = flags + ["--dtype", "bfloat16", "--steps_per_dispatch", str(k), "--log_path",
+                    str(RUN_DIR / f"loader_{tag}"), "--device", "cuda"]
+    B, epochs = LOADER["batch"], LOADER["epochs"]
+    n = LOADER["train"] * len(paths)
+    steps = epochs * math.ceil(n / B)
+    eval_apps = epochs * sum(math.ceil(LOADER["test"] / B) * get_spec(p).t_test
+                             for p in paths)
+    want = TI["depth"] * (steps + eval_apps)
+    prof = torch_profile(activities=[ProfilerActivity.CUDA])
+    window = []  # host clock at the profiler's start and stop
+    text = MetricWriter.text
+
+    def epoch_text(writer, msg):
+        text(writer, msg)
+        if profile and msg.startswith(f"epoch {epochs - 2},"):
+            torch.cuda.synchronize()
+            prof.start()
+            window.append(time.perf_counter())
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(MetricWriter, "text", epoch_text), \
+            contextlib.redirect_stdout(io.StringIO()):
+        out = train_main(argv)
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if window:
+        prof.stop()
+        window.append(time.perf_counter())
+    launches, ba = fused_gn_afno.launches, bias_act.launches
+    if out["state"].step != steps or launches != want:
+        raise AssertionError(f"loader_ti {tag}: {out['state'].step} steps (expected {steps}), "
+                             f"{launches} launches (expected depth x (train + eval "
+                             f"applications) = {want})")
+    by_path = check_paths("bfloat16", launches)
+    losses = read_metrics(out["log_dir"])["train_loss_step"]
+    if len(losses) != steps or not finite(losses + out["test_l2_fulls"]):
+        raise AssertionError(f"loader_ti {tag}: losses {losses}")
+    logs = (Path(out["log_dir"]) / "logs.txt").read_text()
+    # the log's averages are per loader batch, of k steps but for the tail
+    per_step = math.ceil(n / (B * k)) / math.ceil(n / B)
+    train_ms = [float(v) * 1e3 * per_step
+                for v in re.findall(r"time train avg ([-0-9.e]+)", logs)]
+    wait_ms = [float(v) * 1e3 * per_step for v in re.findall(r"load avg ([-0-9.e]+)", logs)]
+    row = dict(paths=paths, steps_per_dispatch=k, steps=steps, run_s=run_s, launches=launches,
+               launches_by_path=by_path, bias_act_launches=ba, losses=losses,
+               test_l2_fulls=out["test_l2_fulls"], dispatch_units=out["dispatch_steps"],
+               train_ms_per_step=train_ms, loader_wait_ms_per_step=wait_ms,
+               wall_ms_per_step=[a + b for a, b in zip(train_ms, wait_ms)])
+    if profile:
+        kernels = [e for e in prof.events() if is_kernel(e)] if window else []
+        wall = (window[1] - window[0]) * 1e3 if window else None
+        busy = union_us(kernels) / 1e3 if kernels else None
+        row.update(last_epoch_wall_ms=wall, last_epoch_busy_ms=busy,
+                   last_epoch_idle_share=None if busy is None else 1 - busy / wall)
+    return row
+
+
+def phase_loader_ti() -> dict:
+    """The native host library built and held against its plain versions on
+    the card's host; a corpus on disk in the registry's shapes; the
+    loader's rates (a) plain, (b) native per item on the mixture, (c) the
+    whole-batch native assembly of the time-major set with a pinned ring and
+    bf16 x; then DPOT-Ti pretrained through the train CLI on the mixture
+    and on the time-major set, eager and at K steps a dispatch (bitwise the
+    eager losses: the ring's slots are fenced)."""
+    from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+    from dpot_tpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    native_build.build_library()
+    build_info = native_build_info(time.perf_counter() - t0)
+    log("native_build", **build_info)
+    checks = check_native_host()
+    mix, tm = list(LOADER_SETS), ["loader_pdb"]
+    kw = dict(res=128, t_in=10, t_ar=1, train=True)
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with loader_corpus(RUN_DIR / "loader_corpus") as storage:
+        corpus_s = time.perf_counter() - t0
+        ds_mix, ds_tm = MixedTemporalDataset(mix, **kw), MixedTemporalDataset(tm, **kw)
+        per_item = MixedTemporalDataset(tm, **kw)
+        per_item.fetch_many_into = None  # the loader then fills item by item
+        if ds_mix.time_major_batches or not ds_tm.time_major_batches:
+            raise AssertionError("loader_ti: the mixture must ship standard-layout batches "
+                                 "and the 128^2 set time-major ones")
+        ring = dict(slot_ring=2)
+        with plain_host():
+            rate_a = loader_rate(ds_mix)
+        rate_b = loader_rate(ds_mix, x_dtype=torch.bfloat16, **ring)
+        rate_c = loader_rate(ds_tm, x_dtype=torch.bfloat16, **ring)
+        lkw = dict(batch_size=LOADER["batch"], num_workers=LOADER["workers"], seed=3, prefetch=0)
+        with plain_host():
+            plain_batches = list(DataLoader(ds_mix, **lkw))
+        ab_err = compare_loaders(plain_batches, DataLoader(ds_mix, **lkw, **ring), exact=False)
+        del plain_batches
+        if not ab_err <= RESIZE_TOL:
+            raise AssertionError(f"loader_ti: native batches {ab_err} from the plain path's")
+        compare_loaders(DataLoader(ds_tm, x_dtype=torch.bfloat16, **lkw, **ring),
+                        DataLoader(per_item, x_dtype=torch.bfloat16, **lkw, **ring), exact=True)
+        runs = {"mixture": loader_train_run("mixture", mix, 1, profile=True),
+                "time_major": loader_train_run("time_major", tm, 1),
+                f"time_major_k{LOADER['K']}": loader_train_run("time_major_k", tm, LOADER["K"])}
+    eager, graphed = runs["time_major"], runs[f"time_major_k{LOADER['K']}"]
+    if graphed["losses"] != eager["losses"] or graphed["test_l2_fulls"] != eager["test_l2_fulls"]:
+        raise AssertionError(f"loader_ti: K = {LOADER['K']} losses {graphed['losses']} differ "
+                             f"from the eager run's {eager['losses']}")
+    by_path = {p: sum(r["launches_by_path"][p] for r in runs.values())
+               for p in afno_fused.PATHS}
+    row = dict(storage=storage, corpus_s=corpus_s, native_build=build_info, native=checks,
+               rates_samples_per_s={"a_plain": rate_a, "b_native_per_item": rate_b,
+                                    "c_native_batch_ring_bf16": rate_c},
+               ab_max_abs_err=ab_err, ab_limit=RESIZE_TOL, c_equals_per_item=True,
+               graphed_equals_eager=True, launches=sum(by_path.values()),
+               launches_by_path=by_path,
+               bias_act_launches=sum(r["bias_act_launches"] for r in runs.values()),
+               runs=runs)
+    log("loader_ti", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -3189,6 +3634,7 @@ def main() -> int:
     serve_f32 = phase_serve("float32", "float16")
     for dtype in ("bfloat16", "float32"):
         phase_step(dtype)
+    loader = phase_loader_ti()
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     train = {dtype: phase_train(dtype) for dtype in ("float32", "bfloat16")}
     dispatch_ti = phase_dispatch_ti()
@@ -3237,7 +3683,8 @@ def main() -> int:
 
     kernels = []
     # the runs of the main path in each compute type, whose launches count
-    bf16_runs = {"serve[bfloat16]": serve_bf16, "train[bfloat16]": train["bfloat16"],
+    bf16_runs = {"serve[bfloat16]": serve_bf16, "loader_ti": loader,
+                 "train[bfloat16]": train["bfloat16"],
                  "dispatch_ti": dispatch_ti, "rollouts": rollouts, "stale_weights": stale,
                  "finetune_s": finetune_s, "varyres_ti": varyres,
                  "convert_resume_serve": convert, "finetune3d_l": finetune3d,
@@ -3300,7 +3747,7 @@ def main() -> int:
                 kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
     # bias_act lies on no main path: its count over the serve and train runs
     bias_act_launches = sum(r["bias_act_launches"] for r in (
-        serve_bf16, serve_f32, *train.values(), dispatch_ti, serve_h, train_h,
+        serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, serve_h, train_h,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
         cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):

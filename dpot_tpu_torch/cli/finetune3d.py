@@ -28,7 +28,7 @@ def main(argv=None) -> dict:
     from dpot_tpu_torch.models import build_model
     from dpot_tpu_torch.train.checkpoint import restore_params, save_checkpoint
     from dpot_tpu_torch.train.interop import inflate_2d_to_3d
-    from dpot_tpu_torch.train.loop import _to_device
+    from dpot_tpu_torch.train.loop import _to_device, loader_arch
     from dpot_tpu_torch.train.optimizers import build_optimizer
     from dpot_tpu_torch.train.schedules import build_schedule, onecycle_momentum
     from dpot_tpu_torch.train.state import TrainState
@@ -43,11 +43,9 @@ def main(argv=None) -> dict:
 
     train_ds = TemporalDataset3D(name, res=cfg.res, t_in=cfg.T_in, t_ar=cfg.T_ar, train=True)
     test_ds = TemporalDataset3D(name, res=cfg.res, t_in=cfg.T_in, t_ar=-1, train=False)
-    prefetch = cfg.loader_prefetch
-    if prefetch < 0:
-        prefetch = 0 if cfg.num_workers <= 1 else 8
+    prefetch, ring = loader_arch(cfg)
     train_dl = DataLoader(train_ds, cfg.batch_size, shuffle=True, num_workers=cfg.num_workers,
-                          seed=cfg.seed, prefetch=prefetch)
+                          seed=cfg.seed, prefetch=prefetch, slot_ring=ring)
     test_dl = DataLoader(test_ds, cfg.batch_size, shuffle=False, num_workers=cfg.num_workers,
                          prefetch=prefetch)
 

@@ -6,7 +6,10 @@ the reference's scalar names -> checkpoints -> loss-explosion rollback.
 
 The loss of step i is read back only after step i + 1 has been queued
 (one-step-lagged fetch), so the host never waits for the device inside a
-step. Batches cross to the device through pinned host memory. With
+step. Train batches are assembled in the loader's ring of pinned slots
+(`loader_slot_ring`, 2 by default), already in the wire dtype, and cross
+to the device asynchronously; the loader refills a slot only after a CUDA
+event recorded behind its copy (data/loader.py). With
 `steps_per_dispatch=K` the loader hands out K * B samples at a time, which
 go to the device as (K, B, ...) and run as one K-step dispatch (a CUDA
 graph on the card, train/step.py); a tail that cannot fill a dispatch runs
@@ -92,13 +95,28 @@ def _restore(state: TrainState, snap: list[torch.Tensor]) -> None:
     state.refresh_working_copy()
 
 
-def _to_device(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(a)
-    if dtype is not None:
+def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host batch column (numpy, or a loader's torch.bfloat16 tensor) on
+    `device`, converted to `dtype` where it is not in it yet. On the card it
+    crosses asynchronously from pinned memory: a pinned ring slot as it is,
+    anything else through a pinned copy."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+    if dtype is not None and t.dtype != dtype:
         t = t.to(dtype)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def loader_arch(cfg: TrainConfig) -> tuple[int, int]:
+    """(prefetch, slot_ring) of the train loader, the config's -1 resolved
+    as in the JAX loop: inline on a one-worker host, 8 batches ahead
+    otherwise; a ring of 2 slot sets beyond those in flight."""
+    prefetch = cfg.loader_prefetch
+    if prefetch < 0:
+        prefetch = 0 if cfg.num_workers <= 1 else 8
+    ring = cfg.loader_slot_ring
+    return prefetch, 2 if ring < 0 else ring
 
 
 def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
@@ -116,12 +134,11 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
         )
         for i, p in enumerate(cfg.test_paths)
     ]
-    prefetch = cfg.loader_prefetch
-    if prefetch < 0:
-        prefetch = 0 if cfg.num_workers <= 1 else 8
+    prefetch, ring = loader_arch(cfg)
     # steps_per_dispatch=K: K optimizer steps' samples a loader batch
     train_dl = DataLoader(train_ds, cfg.batch_size * cfg.steps_per_dispatch, shuffle=True,
-                          num_workers=cfg.num_workers, seed=cfg.seed, prefetch=prefetch)
+                          num_workers=cfg.num_workers, seed=cfg.seed, prefetch=prefetch,
+                          slot_ring=ring)
     test_dls = [DataLoader(ds, cfg.batch_size, shuffle=False,
                            num_workers=cfg.num_workers, prefetch=prefetch)
                 for ds in test_dss]
@@ -204,6 +221,9 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         wire = "bfloat16_x" if cfg.dtype == "bfloat16" else "float32"
     wire_x = torch.bfloat16 if wire.startswith("bfloat16") else None
     wire_y = torch.bfloat16 if wire == "bfloat16" else None
+    # the loader converts in its assembly pass; _to_device then converts
+    # only the batches that did not go through its slots
+    train_dl.x_dtype, train_dl.y_dtype = wire_x, wire_y
     step_kw = dict(t_bundle=cfg.T_bundle, noise_scale=cfg.noise_scale,
                    time_major=time_major, ones_mask=ones_mask)
     K = cfg.steps_per_dispatch

@@ -2,10 +2,10 @@
 the same specs, seed and epoch, `MixedTemporalDataset` + `DataLoader` give
 the same batches bit for bit.
 
-The JAX package resizes with its native host library when that is built;
-the port has only the numpy path, which the JAX package takes without the
-library. The library is switched off for the JAX side here (its own
-tests/test_native_preprocess.py holds it to the numpy path).
+Both packages resize with their native host library unless it is switched
+off; it is switched off for both here (the native resize rounds otherwise
+than numpy's; tests/test_torch_native.py and test_torch_loader_native.py
+hold the port's library against the JAX package's).
 """
 
 import dataclasses
@@ -23,8 +23,10 @@ from dpot_tpu_torch.data import registry
 @pytest.fixture(autouse=True)
 def numpy_paths(monkeypatch):
     import dpot_tpu.native.preprocess as pre
+    import dpot_tpu_torch.native.preprocess as port_pre
 
     monkeypatch.setattr(pre, "get_library", lambda: None)
+    monkeypatch.setattr(port_pre, "get_library", lambda: None)
 
 
 def register_both(**kw):
@@ -104,8 +106,3 @@ def test_hdf5_corpus_batches_are_bit_identical(tmp_path, monkeypatch, time_major
         lkw = dict(batch_size=4, shuffle=train, num_workers=2, seed=3)
         assert_same(batches(DataLoader(port, **lkw), 2), batches(JaxLoader(jax, **lkw), 2))
 
-
-def test_not_ported_options_raise():
-    synth("tdata_c", 2, 1, 14, 3, (16, 16), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MixedTemporalDataset(["tdata_c"], res=16, t_in=4, normalize=True)

@@ -3,9 +3,9 @@
 at spatial rank 3) against the JAX package's: for the same specs, seed and
 epoch the batches are the same bit for bit, through both loaders.
 
-The JAX package resizes with its native host library when that is built;
-the port has only the numpy path, which the JAX package takes without the
-library, so the library is switched off for the JAX side here.
+Both packages resize with their native host library unless it is switched
+off; it is switched off for both here (tests/test_torch_native.py holds
+the two libraries against each other).
 """
 
 import dataclasses
@@ -25,8 +25,10 @@ from dpot_tpu_torch.data.grid_dataset import _synthetic_sample
 @pytest.fixture(autouse=True)
 def numpy_paths(monkeypatch):
     import dpot_tpu.native.preprocess as pre
+    import dpot_tpu_torch.native.preprocess as port_pre
 
     monkeypatch.setattr(pre, "get_library", lambda: None)
+    monkeypatch.setattr(port_pre, "get_library", lambda: None)
 
 
 def register_both(**kw):

@@ -67,11 +67,14 @@ def _two_torch_threads():
 
 @pytest.fixture(autouse=True)
 def _numpy_host_paths(monkeypatch):
-    """The JAX loader's numpy paths, which the port's batches equal bit for
-    bit (its native host library would round differently)."""
+    """Both packages' numpy host paths, which give the same batches bit for
+    bit (the native resize rounds differently from numpy; native against
+    native is tests/test_torch_native.py and test_torch_loader_native.py)."""
     import dpot_tpu.native.preprocess as pre
+    import dpot_tpu_torch.native.preprocess as port_pre
 
     monkeypatch.setattr(pre, "get_library", lambda: None)
+    monkeypatch.setattr(port_pre, "get_library", lambda: None)
 
 
 def rel_l2(a, b):

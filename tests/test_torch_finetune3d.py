@@ -68,8 +68,10 @@ def _setup():
 @pytest.fixture(autouse=True)
 def _numpy_host_paths(monkeypatch):
     import dpot_tpu.native.preprocess as pre
+    import dpot_tpu_torch.native.preprocess as port_pre
 
     monkeypatch.setattr(pre, "get_library", lambda: None)
+    monkeypatch.setattr(port_pre, "get_library", lambda: None)
 
 
 def rel_l2(a, b):

@@ -1025,3 +1025,97 @@ def test_fno_spectral_conv_on_the_card_matches_the_cpu(cuda, grid, modes):
         want = spec(x)
         got = spec.to(cuda)(x.to(cuda)).cpu()
     assert rel_l2(got, want) <= 1e-5
+
+
+# ------------------------------------------------ the loader's pinned ring
+# the ring's slot sets are pinned host memory allocated once and refilled
+# once the consumer has pulled slot_ring more batches and the CUDA event
+# recorded behind its copies has completed
+
+
+def ring_spec(monkeypatch, name="synthetic_gpu_ring", n=24):
+    """A 32^2 set whose reader returns time-major windows, as a time-major
+    corpus on disk does: its train batches are declared time-major, so every
+    batch, the first of an epoch included, is assembled in a ring slot."""
+    from dpot_tpu_torch.data import grid_dataset
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+
+    spec = make_synthetic_spec(name, train_size=n, test_size=4, t_total=12, t_test=3,
+                               in_size=(32, 32), n_channels=2)
+    opener = grid_dataset._open_sample_reader
+
+    class TimeMajor:
+        time_major = True
+
+        def __init__(self, train):
+            self.train, self.trajs = train, {}
+
+        def read(self, idx, tsel=None, copy=True):
+            if idx not in self.trajs:
+                traj = grid_dataset._synthetic_sample(spec, self.train, idx)
+                self.trajs[idx] = np.ascontiguousarray(np.moveaxis(traj, -2, 0))
+            w = self.trajs[idx] if tsel is None else self.trajs[idx][tsel]
+            return np.array(w) if copy else w
+
+    def open_reader(s, train):
+        return TimeMajor(train).read if s.name == name else opener(s, train)
+
+    monkeypatch.setattr(grid_dataset, "_open_sample_reader", open_reader)
+    return name
+
+
+@pytest.mark.gpu
+def test_pinned_ring_slot_copies_to_the_card(cuda, monkeypatch):
+    """Every batch comes from a pinned ring slot (bf16 x in the slot itself,
+    f32 y through its numpy view) and reaches the card unchanged, through
+    _to_device's asynchronous copy."""
+    from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+    from dpot_tpu_torch.native.preprocess import bf16_words
+    from dpot_tpu_torch.train.loop import _to_device
+
+    ds = MixedTemporalDataset([ring_spec(monkeypatch)], res=32, t_in=6, t_ar=2, train=True)
+    assert ds.time_major_batches
+    dl = DataLoader(ds, 4, num_workers=2, seed=1, slot_ring=1, prefetch=2,
+                    x_dtype=torch.bfloat16)
+    assert dl.pin_memory
+    n = 0
+    for x, y, _, _ in dl:
+        assert x.dtype == torch.bfloat16 and x.is_pinned()
+        assert torch.from_numpy(y).is_pinned()
+        want_x, want_y = bf16_words(x).copy(), y.copy()
+        dx, dy = _to_device(x, cuda, torch.bfloat16), _to_device(y, cuda)
+        torch.cuda.synchronize()
+        assert np.array_equal(bf16_words(dx.cpu()), want_x)
+        assert np.array_equal(dy.cpu().numpy(), want_y)
+        n += 1
+    assert n == len(dl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_ring_fence_holds_under_graph_replay(cuda, k, monkeypatch):
+    """The train loop at slot_ring 1 (the tightest ring) on a time-major set
+    (the first batch of each epoch in a ring slot too) against fresh
+    buffers, eager (k 1) and as 2-step CUDA graphs (k 2): the same losses
+    and weights bit for bit, so no copy or replay read a refilled slot
+    (cuDNN's deterministic algorithms, so that two runs can be equal)."""
+    from dpot_tpu_torch.train import loop
+    from dpot_tpu_torch.utils.config import TrainConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    name = ring_spec(monkeypatch)
+
+    def run(ring):
+        cfg = TrainConfig(model="DPOT", train_paths=[name], res=32, patch_size=8,
+                          width=64, n_layers=2, n_blocks=4, modes=4, T_in=6, T_ar=2,
+                          batch_size=4, epochs=2, num_workers=2, lr=1e-3, warmup_epochs=1,
+                          noise_scale=1e-3, dtype="bfloat16", loader_slot_ring=ring,
+                          loader_prefetch=2, steps_per_dispatch=k, seed=2)
+        return loop.train(cfg, device="cuda")
+
+    a, b = run(0), run(1)
+    assert a["dispatch_steps"] == b["dispatch_steps"]
+    assert a["train_l2_step"] == b["train_l2_step"] and a["test_l2_fulls"] == b["test_l2_fulls"]
+    for p, q in zip(a["model"].parameters(), b["model"].parameters()):
+        assert torch.equal(p, q)

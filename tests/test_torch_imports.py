@@ -1,6 +1,8 @@
 """The port stands alone: nothing in dpot_tpu_torch/ or chip_smoke.py imports
-JAX, its libraries or the JAX package, and the port imports with jax
-blocked."""
+JAX, its libraries (ml_dtypes among them) or the JAX package, even the
+JAX package's numpy-only modules and its native library (the port keeps
+its own copies); the port imports with jax blocked; and h5py is imported
+only inside the functions that read or write HDF5."""
 
 import ast
 import os
@@ -34,6 +36,44 @@ def imported_roots(path: Path) -> set[str]:
 def test_no_jax_import(path):
     bad = imported_roots(path) & FORBIDDEN
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+# the port's own copies of the JAX package's modules that import no JAX
+OWN_COPIES = ["native/build.py", "native/preprocess.py", "native/preprocess.cc",
+              "utils/normalizer.py", "data/generation.py", "data/converters.py",
+              "data/raw_hdf5.py", "data/resize.py", "data/registry.py"]
+
+
+@pytest.mark.parametrize("rel", OWN_COPIES)
+def test_own_copies_exist_and_are_checked(rel):
+    path = ROOT / "dpot_tpu_torch" / rel
+    assert path.is_file()
+    if path.suffix == ".py":
+        assert path in SOURCES
+    else:  # the C++ source is the port's, never the JAX package's native/
+        assert "dpot_tpu/" not in path.read_text().replace("dpot_tpu_torch/", "")
+
+
+def module_level_imports(path: Path) -> set[str]:
+    """Roots imported by statements that run at import time (outside any
+    function or class body)."""
+    roots, todo = set(), list(ast.parse(path.read_text(), str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            todo.extend(ast.iter_child_nodes(node))
+        elif isinstance(node, ast.ExceptHandler):
+            todo.extend(node.body)
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_h5py_is_imported_only_inside_functions(path):
+    assert "h5py" not in module_level_imports(path)
 
 
 def test_guard_sees_every_form_of_import(tmp_path):
