@@ -83,12 +83,15 @@ Phases, each printing its results as JSON lines:
      through restore_params; where a step's time goes as in phase 5, with
      the dense layers' f32->bf16 weight copies, and peak memory;
   10. remat_L: one bf16 L step at batch 16 with remat and without, from the
-     same weights, batch and noise: the losses and every gradient compared
-     (expected identical), each way's step time and peak memory;
+     same weights, batch and noise, train_L's model cut to its first 6
+     blocks (a comparison of two runs of one model holds at any depth):
+     the losses and every gradient compared (expected identical), each
+     way's step time and peak memory;
   11. params_lp_L: five bf16 lamb L steps at batch 16 with the bf16 working
-     copy of the parameters and without: each loss within 5 %, the copy the
-     master's exact cast after every step, all launches on afno_hopper_l.cu,
-     each way's step profile and weight-copy time;
+     copy of the parameters and without, at the same cut depth: each loss
+     within 5 %, the copy the master's exact cast after every step, all
+     launches on afno_hopper_l.cu, each way's step profile and weight-copy
+     time;
   12. finetune_S: `python -m dpot_tpu_torch.cli.finetune` from a seeded
      4-channel DPOT-S .pth onto a synthetic 3-channel 128^2 set (40 train,
      8 test) with configs/dpot_finetune.yaml's optimization (load_components
@@ -200,6 +203,32 @@ The rest of the data layer, after phase 4:
      mixture (profiled: the device's idle share) and on the time-major set
      eagerly and at 2 steps a dispatch (CUDA graphs): steps and launches
      exact, all hopper, and the graphed losses the eager ones bit for bit.
+The parallel layer, after phase 23; its ranks are this script
+under torchrun (`python3 chip_smoke.py rank <job> <args.json>`). Two
+launches: the nccl rank of phase 25, and one of 2 ranks sharing the card
+(gloo with CUDA tensors) that runs phase 25's job and then phase 26's.
+Both start together; the one-process runs of both phases run while they
+start up, the 2-rank jobs once the nccl rank is done (phase_parallel):
+  25. ddp_cdpot: configs/cdpot_parallel.yaml's job (full widths, f32, adam,
+     global B = 20; data cut as train_cdpot's, one epoch) in one process,
+     and through torchrun on the 2 ranks (`--dist_backend gloo --device
+     cuda:0`), each in cli.train's main under DDP: per-step losses, test
+     metrics and final weights against one process's within 1e-5, each
+     rank's launches depth x applications all on afno_hopper_f32.cu, rank
+     0 alone writing the checkpoint, in the reference layout, which
+     cli.serve then serves; each rank's step wall, global samples/s, busy,
+     idle and the collectives' share (torch.profiler) beside one
+     process's; and the job on 1 rank on torchrun's default nccl, its
+     evaluation cut to the first corpus, against one process within 1e-5;
+  26. fsdp_l: seeded DPOT-L at full width and depth with
+     configs/pretrain_large.yaml's optimization (bf16, lamb, its clip,
+     remat, global B = 16) and shard_params fsdp on the 2 ranks, 3 steps,
+     against one process's eager steps (losses within 2e-2); at every call
+     the bf16 blocks that afno_hopper_l.cu read equal a fresh conversion of
+     the weights FSDP2 gathered, bit for bit, each of those weights marked
+     uncached, and a control forward through a cache keyed on the weight
+     tensor alone (filled in the last step) fails that check; each rank's
+     peak memory against one process's, the collectives' time.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -410,6 +439,9 @@ REMAT_TOL = dict(loss=1e-6, grad=1e-3)
 # (PERF.md, section 6)
 PARAMS_LP = dict(steps=5, loss_rel=0.05, lr=5e-5)
 L_BATCH = 16
+# remat_L and params_lp_L compare two runs of one model, so they run train_L's
+# model cut to its first CUT_L_DEPTH blocks (cut_depth), at L's widths
+CUT_L_DEPTH = 6
 # one dispatch (CUDA graphs): graph against eager runs the same kernels on
 # the same inputs, so the two are expected to be bitwise equal. Losses are
 # held to relative GRAPH_TOL, weights, moments and predictions to relative
@@ -521,6 +553,33 @@ LOADER = dict(train=64, test=4, batch=TRAIN["batch"], warmup=2, batches=20, epoc
               workers=4)
 # the native resizes against numpy's (tests/test_torch_native.py's limit)
 RESIZE_TOL = 1e-5
+# ddp_cdpot: configs/cdpot_parallel.yaml (the job the reference ran through
+# accelerate on 6 GPUs) at its full widths, its data cut as train_cdpot's,
+# for one epoch, through torchrun on 2 ranks that share the one card (gloo
+# with CUDA tensors: nccl refuses two ranks on one device), each rank in
+# cli.train's main; against the same job in one process: every per-step
+# loss and test metric within DDP_TOL relative, the final weights within
+# DDP_TOL relative L2 per tensor (cuDNN's deterministic algorithms on every
+# side); and the job on one rank through torchrun's default launch (nccl),
+# its epoch metrics within DDP_TOL. A rank's profile: PROFILE_STEPS steps
+DDP_CDPOT = dict(epochs=1, ntrain=2, ntest=2)
+DDP_TOL = 1e-5
+PROFILE_STEPS = 5
+# fsdp_l: DPOT-L at full width (seeded) with configs/pretrain_large.yaml's
+# optimization (bf16, lamb and its clip, remat, noise 5e-4, global batch 16;
+# lr a point of the warm-up, as in params_lp_L) and shard_params: fsdp on 2
+# ranks for "steps" steps on seeded global batches, against one process's
+# eager steps: each loss within "tol" (the bf16 model bar). At every call
+# the bf16 blocks that afno_hopper_l.cu read against a fresh conversion of
+# the weights FSDP2 gathered, bit for bit, each of them marked uncached;
+# then "control" forwards through a cache keyed on the weight tensor alone
+# (filled in the last step), stale on purpose, each of which must fail that
+# check
+FSDP_L = dict(steps=3, control=1, tol=2e-2, seed=61, lr=PARAMS_LP["lr"])
+# a torchrun launch's time limit, and the profiler names of collectives
+RANK_TIMEOUT = 600
+COLLECTIVE = re.compile(r"gloo|nccl|c10d|all_reduce|allreduce|all_gather|allgather|"
+                        r"reduce_scatter|reducescatter|broadcast", re.I)
 
 
 _START = time.perf_counter()
@@ -2054,27 +2113,49 @@ def l_corpus_batches(n: int, seed: int) -> list[dict]:
     return corpus_batches(L_CONFIG, "L", TRAIN_L, L_BATCH, torch.bfloat16, n, seed)
 
 
+@contextlib.contextmanager
+def cut_depth(model, depth: int):
+    """The model with only its first `depth` trunk blocks, put back after."""
+    full = model.blocks
+    model.blocks = full[:depth]
+    try:
+        yield model
+    finally:
+        model.blocks = full
+
+
 def phase_remat_l(model) -> dict:
-    """One bf16 step of the trained DPOT-L at batch 16 with remat and
-    without, from the same weights (lr 0 keeps them), batch (of the cut
-    corpora) and noise: the losses within REMAT_TOL["loss"] and every
-    gradient within REMAT_TOL["grad"] relative L2 (expected identical);
-    where each way's step time goes, as for Ti, with its peak memory, and
-    its launches: depth x (2 or 1) a step. The gradients are compared on
-    the host, so that no copy of them weighs on the card's peak."""
-    from dpot_tpu_torch.train.optimizers import build_optimizer
-    from dpot_tpu_torch.train.state import TrainState
+    """One bf16 step of the trained DPOT-L, cut to CUT_L_DEPTH blocks, at
+    batch 16 with remat and without, from the same weights (lr 0 keeps
+    them), batch (of the cut corpora) and noise: the losses within
+    REMAT_TOL["loss"] and every gradient within REMAT_TOL["grad"] relative
+    L2 (expected identical); where each way's step time goes, as for Ti,
+    with its peak memory, and its launches: depth x (2 or 1) a step. The
+    gradients are compared on the host, so that no copy of them weighs on
+    the card's peak."""
     from dpot_tpu_torch.train.step import make_train_step
 
     (batch,) = l_corpus_batches(1, seed=31)
     step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    with cut_depth(model, CUT_L_DEPTH):
+        row = remat_runs(model, batch, step_fn)
+    log("remat_l", **row)
+    model.remat = True
+    return row
+
+
+def remat_runs(model, batch, step_fn) -> dict:
+    """phase_remat_l's two runs and their comparison."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+
     runs, row = {}, {}
     for remat in (False, True):
         model.remat = remat
         state = TrainState.create(model, build_optimizer("lamb", model.parameters(), 0.0), 0)
         reset_launch_counts()
         loss = step_fn(state, batch)[1]["loss_step"].item()
-        per_step = DPOT_L["depth"] * (2 if remat else 1)
+        per_step = CUT_L_DEPTH * (2 if remat else 1)
         check_paths("bfloat16", per_step, "hopper_l")
         grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
         prof = train_step_profile(state, batch, step_fn)
@@ -2095,33 +2176,40 @@ def phase_remat_l(model) -> dict:
                                       and rels[worst] <= REMAT_TOL["grad"]):
         raise AssertionError(f"remat_l: loss rel {loss_rel}, {worst} gradient rel_l2 "
                              f"{rels[worst]} (limits {REMAT_TOL})")
-    row.update(batch=L_BATCH, loss_rel=loss_rel, worst_grad=worst,
+    row.update(batch=L_BATCH, depth=CUT_L_DEPTH, loss_rel=loss_rel, worst_grad=worst,
                worst_grad_rel_l2=rels[worst], grads=len(rels),
                grads_bitwise_equal=len(identical), limits=REMAT_TOL,
                launches_by_path={p: sum(row[k]["launches_by_path"][p]
                                         for k in ("remat_false", "remat_true"))
                                  for p in afno_fused.PATHS})
-    log("remat_l", **row)
-    model.remat = True
     return row
 
 
 def phase_params_lp_l(model) -> dict:
-    """Five bf16 lamb steps of DPOT-L at batch 16 (remat on, as the file
-    says) from the same weights, batches (of the cut corpora) and noise
+    """Five bf16 lamb steps of DPOT-L, cut to CUT_L_DEPTH blocks, at batch
+    16 (remat on, as the file says) from the same weights, batches (of the cut corpora) and noise
     with the bf16 working copy of the parameters and without: each loss
     within PARAMS_LP's 5 %, after every step the copy exactly the master
     cast to bf16, every launch on afno_hopper_l.cu; then where a step's
     time goes each way, with the dense layers' f32->bf16 weight copies.
     The model's weights are left as the working copy's bf16."""
+    batches = l_corpus_batches(PARAMS_LP["steps"], seed=40)
+    with cut_depth(model, CUT_L_DEPTH):
+        row = params_lp_runs(model, batches)
+    log("params_lp_l", **row)
+    return row
+
+
+def params_lp_runs(model, batches) -> dict:
+    """phase_params_lp_l's two runs and their comparison."""
     from dpot_tpu_torch.train.optimizers import build_optimizer
     from dpot_tpu_torch.train.state import TrainState
     from dpot_tpu_torch.train.step import make_train_step
 
     start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    batches = l_corpus_batches(PARAMS_LP["steps"], seed=40)
     step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
-    row: dict = dict(batch=L_BATCH, steps=PARAMS_LP["steps"], limit=PARAMS_LP["loss_rel"])
+    row: dict = dict(batch=L_BATCH, depth=CUT_L_DEPTH, steps=PARAMS_LP["steps"],
+                     limit=PARAMS_LP["loss_rel"])
     losses = {}
     for lp in (False, True):
         model.load_state_dict(start, strict=True)
@@ -2137,7 +2225,7 @@ def phase_params_lp_l(model) -> dict:
                 raise AssertionError("params_lp_l: the working copy is not the master's cast")
         launches = fused_gn_afno.launches
         by_path = check_paths("bfloat16", launches, "hopper_l")
-        if launches != 2 * DPOT_L["depth"] * PARAMS_LP["steps"]:
+        if launches != 2 * CUT_L_DEPTH * PARAMS_LP["steps"]:
             raise AssertionError(f"params_lp_l {lp}: {launches} launches")
         prof = train_step_profile(state, batches[0], step_fn, weight_copies=True)
         row["working_copy" if lp else "f32_master"] = dict(
@@ -2149,7 +2237,6 @@ def phase_params_lp_l(model) -> dict:
     row.update(loss_rel=rels, launches_by_path={
         p: row["f32_master"]["launches_by_path"][p] + row["working_copy"]["launches_by_path"][p]
         for p in afno_fused.PATHS})
-    log("params_lp_l", **row)
     return row
 
 
@@ -3609,11 +3696,673 @@ def phase_loader_ti() -> dict:
     return row
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class Launch:
+    """RANK_JOBS[job] on `nproc` ranks through torchrun (`python -m
+    torch.distributed.run`, this script as the rank program), started in
+    the background. With `hold`, each rank waits after its start-up until
+    `go()`, so that the start-up overlaps the caller's work and the job
+    runs on a card the caller has left. `finish()` waits for the launch
+    within RANK_TIMEOUT of its start, killing its whole process group if it
+    runs over, and returns the ranks' results in rank order; `kill()` ends
+    it whatever its state. The ranks' output goes to a log file under
+    RUN_DIR, whose end a failure shows."""
+
+    def __init__(self, nproc: int, job: str, args: dict, tag: str, hold: bool = False):
+        self.nproc, self.tag = nproc, tag
+        self.work = RUN_DIR / tag
+        self.work.mkdir(parents=True, exist_ok=True)
+        self.go_path = self.work / "go" if hold else None
+        (self.work / "args.json").write_text(json.dumps(
+            {**args, "out": str(self.work), "go": self.go_path and str(self.go_path)}))
+        self.log_path = self.work / "torchrun.log"
+        self.t_launch = time.time()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+               "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+               str(Path(__file__).resolve()), "rank", job, str(self.work / "args.json")]
+        self.out = open(self.log_path, "wb")
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=self.out, stderr=subprocess.STDOUT,
+                                     start_new_session=True,
+                                     env={**os.environ, "OMP_NUM_THREADS": "4"})
+
+    def go(self) -> None:
+        self.go_path.touch()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            # torchrun ends its ranks, which run in sessions of their own,
+            # on SIGTERM; then its own group, and any rank still alive
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+            for pid_file in self.work.glob("pid*"):
+                with contextlib.suppress(ProcessLookupError, ValueError):
+                    os.kill(int(pid_file.read_text()), 9)
+        self.out.close()
+
+    def finish(self) -> list[dict]:
+        try:
+            self.proc.wait(timeout=max(RANK_TIMEOUT - (time.time() - self.t_launch), 1.0))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"{self.tag}: torchrun ran over {RANK_TIMEOUT} s:\n"
+                                 f"{self.log_path.read_text(errors='replace')[-4000:]}")
+        self.out.close()
+        t_end = time.time()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.tag}: torchrun exited {self.proc.returncode}:\n"
+                                 f"{self.log_path.read_text(errors='replace')[-6000:]}")
+        rows = [torch.load(self.work / f"rank{r}.pt", weights_only=False)
+                for r in range(self.nproc)]
+        for row in rows:
+            # where a launch's seconds go: start-up (torchrun, the
+            # interpreter, imports), the hold, the job (the card included),
+            # and the teardown
+            entered, started, done = row.pop("clock")
+            row["launch_s"] = dict(start=entered - self.t_launch, held=started - entered,
+                                   job=done - started, teardown=t_end - done)
+        self.seconds = t_end - self.t_launch
+        return rows
+
+
+def collective_ms(events, runs: int) -> dict:
+    """Per step: the host time in collectives (the union of the CPU events
+    that name one, on any thread) and the device time of collective kernels
+    (nccl's; gloo's run on the host), in ms."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type == DeviceType.CPU and COLLECTIVE.search(e.name)]
+    dev = [e for e in events if is_kernel(e) and COLLECTIVE.search(e.name)]
+    names: dict[str, float] = {}
+    for e in host + dev:
+        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() / runs / 1e3
+    return dict(collective_host_ms=union_us(host) / runs / 1e3,
+                collective_device_ms=union_us(dev) / runs / 1e3,
+                collective_events_ms=dict(sorted(names.items(), key=lambda kv: -kv[1])[:8]))
+
+
+def rank_profile(step, runs: int, global_rows: int) -> dict:
+    """A rank's step over `runs` steps after a warm-up (every rank runs the
+    same steps, whose collectives pair up): median wall on the host clock,
+    global samples/s, then one profiled window of `runs` steps (the
+    profiler asked once: every rank must step alike) for this rank's device
+    busy time and idle share and the collectives' time and share of the
+    wall, and the peak memory of the timed steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    row = dict(wall_ms=wall, wall_ms_each=walls, global_samples_per_s=global_rows / wall * 1e3,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if is_kernel(e)]
+    if not kernels:
+        row.update(device_busy_ms="not measured")
+        return row
+    busy = union_us(kernels) / runs / 1e3
+    coll = collective_ms(events, runs)
+    row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
+               collective_share=coll["collective_host_ms"] / wall, **coll)
+    return row
+
+
+def rank_rows(batch: dict, rank: int, world: int) -> dict:
+    """This rank's contiguous rows of a global batch."""
+    n = batch["x"].shape[0] // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+def rank_train(args: dict) -> dict:
+    """A ddp_cdpot rank: the cut corpora registered, cli.train's main on
+    args["argv"], then what the parent checks (step, launches, epoch
+    metrics, the final weights) and, with args["profile"], the rank's step
+    profile on a batch of the cut corpora; cuDNN's deterministic algorithms
+    as args["cudnn_deterministic"] says."""
+    import torch.distributed as dist
+
+    from dpot_tpu_torch.cli.train import main as train_main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.parallel import rank_world
+    from dpot_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.deterministic = bool(args.get("cudnn_deterministic"))
+    for kw in args["specs"]:
+        make_synthetic_spec(**kw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train_main(args["argv"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rank, world = rank_world()
+    state = out["state"]
+    row = dict(rank=rank, world=world, backend=dist.get_backend(),
+               device=str(next(state.model.parameters()).device),
+               wrapper=type(state.forward_module).__name__, step=state.step,
+               launches=fused_gn_afno.launches,
+               launches_by_path=dict(fused_gn_afno.launches_by_path),
+               bias_act_launches=bias_act.launches, run_s=time.perf_counter() - t0,
+               loop_step_s=out["step_seconds"], log_dir=out["log_dir"],
+               history={k: out[k] for k in ("train_l2_step", "train_l2_full", "test_l2_steps",
+                                            "test_l2_fulls")},
+               params={k: v.detach().cpu() for k, v in state.params_state_dict().items()})
+    if args.get("profile"):
+        (b,) = corpus_batches(CDPOT_CONFIG, args["tag"], DDP_CDPOT, args["batch"],
+                              torch.float32, 1, seed=1)
+        del b["noise"]  # drawn from the state's generator, for the global batch
+        b = rank_rows(b, rank, world)
+        step_fn = make_train_step(noise_scale=args["noise_scale"], ones_mask=True)
+        row["profile"] = rank_profile(lambda: step_fn(state, b), PROFILE_STEPS, args["batch"])
+    row["job_s"] = dict(train=train_s, after=time.perf_counter() - t0 - train_s)
+    return row
+
+
+def fsdp_l_batch(i: int) -> dict:
+    """fsdp_l's i-th global batch of 16, drawn on the host from a seed (the
+    same in every process): x (bf16, the L wire) and one target frame."""
+    g = torch.Generator().manual_seed(FSDP_L["seed"] + i)
+    x = torch.randn((L_BATCH, 128, 128, 10, 4), generator=g)
+    y = torch.randn((L_BATCH, 128, 128, 1, 4), generator=g)
+    return {"x": x.to("cuda", torch.bfloat16), "y": y.cuda(),
+            "cls": torch.zeros(L_BATCH, dtype=torch.long, device="cuda")}
+
+
+def fsdp_l_state(model):
+    """fsdp_l's train state: lamb with configs/pretrain_large.yaml's clip."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.utils.config import TrainConfig
+
+    clip = TrainConfig(train_paths=["synthetic"]).grad_clip  # the file sets none
+    return TrainState.create(model, build_optimizer("lamb", model.parameters(), FSDP_L["lr"],
+                                                    grad_clip=clip), 0)
+
+
+def rank_fsdp(args: dict) -> dict:
+    """An fsdp_l rank: seeded DPOT-L under FSDP2, FSDP_L's steps on this
+    rank's rows, in each every bf16 block that the kernel read against a
+    fresh conversion of the weight FSDP2 gathered for that call (the
+    weight the kernel was handed), and whether that weight was marked
+    uncached, the last main step profiled; then the control, forwards
+    through a cache keyed on the weight tensor alone."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch.distributed as dist
+
+    from dpot_tpu_torch.models.dpot import AFNO2D
+    from dpot_tpu_torch.parallel import rank_world
+    from dpot_tpu_torch.parallel.fsdp import check_fsdp_shardings, shard_state_fsdp
+    from dpot_tpu_torch.parallel.mesh import make_mesh
+    from dpot_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.deterministic = False  # as in the one-process run
+    gc.collect()
+    torch.cuda.empty_cache()
+    carried_gb = torch.cuda.memory_allocated() / 1e9  # left by an earlier job
+    rank, world = rank_world()
+    device = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    model = preset_model("L", "bfloat16", FSDP_L["seed"], device=str(device))
+    model.remat = True
+    state = fsdp_l_state(model)
+    torch.cuda.reset_peak_memory_stats()
+    build_s = time.perf_counter() - t0
+    shard_state_fsdp(state, make_mesh(None, device))
+    shard_s = time.perf_counter() - t0 - build_s
+    step_s = []
+    unsharded = check_fsdp_shardings(state)
+    afnos = [m for m in model.modules() if isinstance(m, AFNO2D)]
+    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    real = afno_fused._bf16_blocks
+    # per call: (blocks read == a fresh conversion, the cache key, the
+    # weight left to the cache)
+    calls: list = []
+    stale: dict = {}
+
+    def check(w, out):
+        fresh = afno_fused._convert_blocks(w.detach())
+        calls.append((torch.equal(out, fresh), (w.data_ptr(), w._version),
+                      getattr(w, "_dpot_block_cache", True)))
+        return out
+
+    def spy(w):
+        out = check(w, real(w))
+        stale[id(w)] = out  # what the control serves in the next step
+        return out
+
+    def stale_spy(w):
+        # the control: a cache keyed on the tensor alone
+        return check(w, stale[id(w)] if id(w) in stale else real(w))
+
+    reset_launch_counts()
+    steps = []
+    prof_row: dict = {}
+    prev_keys: list = []
+    n_weights = 2 * len(afnos)
+    for i in range(FSDP_L["steps"] + FSDP_L["control"]):
+        control = i >= FSDP_L["steps"]
+        calls.clear()
+        b = rank_rows(fsdp_l_batch(i), rank, world)
+        afno_fused._bf16_blocks = stale_spy if control else spy
+        try:
+            if control:
+                # a forward reads every weight once; the stale cache is
+                # then caught, or not, as in a whole step
+                with torch.no_grad():
+                    state.forward_module(b["x"])
+                torch.cuda.synchronize()
+                aux = dict(loss_step=float("nan"), grad_norm=float("nan"))
+            elif i == FSDP_L["steps"] - 1:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    aux = step_fn(state, b)[1]
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                coll = collective_ms(prof.events(), 1)
+                kernels = [e for e in prof.events() if is_kernel(e)]
+                busy = union_us(kernels) / 1e3 if kernels else "not measured"
+                prof_row = dict(wall_ms=wall, device_busy_ms=busy, **coll)
+            else:
+                t1 = time.perf_counter()
+                aux = step_fn(state, b)[1]
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+        finally:
+            afno_fused._bf16_blocks = real
+        # the forward's calls (remat's recomputations follow them); how many
+        # weights the real cache's key (address, version) would have found
+        # unchanged since the last step: served stale, had the cache been on
+        keys = [k for _, k, _ in calls[:n_weights]]
+        repeats = sum(k == p for k, p in zip(keys, prev_keys))
+        prev_keys = keys
+        steps.append(dict(control=control, loss=float(aux["loss_step"]),
+                          grad_norm=float(aux["grad_norm"]), calls=len(calls),
+                          checked=len(keys), mismatched=sum(not ok for ok, _, _ in calls),
+                          left_to_cache=sum(c for _, _, c in calls),
+                          cache_key_repeats=repeats))
+    torch.cuda.synchronize()
+    return dict(rank=rank, world=world, backend=dist.get_backend(), device=str(device),
+                unsharded=unsharded, afno_modules=len(afnos), carried_gb=carried_gb,
+                steps=steps, launches=fused_gn_afno.launches,
+                launches_by_path=dict(fused_gn_afno.launches_by_path),
+                bias_act_launches=bias_act.launches,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, profile=prof_row,
+                job_s=dict(build=build_s, shard=shard_s, steps=step_s))
+
+
+def rank_pair(args: dict) -> dict:
+    """A rank of the parallel phases' 2-rank launch: ddp_cdpot's job
+    (args["train"]), then fsdp_l's (args["fsdp"]) in the process group
+    that cli.train started, one launch's start-up for both."""
+    ddp = rank_train(args["train"])
+    return dict(rank=ddp["rank"], train=ddp, fsdp=rank_fsdp(args["fsdp"]))
+
+
+RANK_JOBS = {"train": rank_train, "pair": rank_pair}
+
+
+def rank_main(job: str, args_path: str) -> int:
+    """The rank program of a multi-process phase, started by torchrun: the
+    hold until the parent's go (a held launch), the default process group
+    where args["init"] asks for it (the launch's backend, a time limit),
+    the job, its result saved for the parent."""
+    import torch.distributed as dist
+
+    from dpot_tpu_torch.parallel import maybe_initialize
+    from dpot_tpu_torch.utils.device import resolve_device
+
+    entered = time.time()
+    args = json.loads(Path(args_path).read_text())
+    (Path(args["out"]) / f"pid{os.environ['RANK']}").write_text(str(os.getpid()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    while args.get("go") and not Path(args["go"]).exists():
+        if time.time() - entered > RANK_TIMEOUT:
+            raise TimeoutError(f"rank: no go within {RANK_TIMEOUT} s")
+        time.sleep(0.05)
+    started = time.time()
+    device = resolve_device(args.get("device", "cuda"))
+    if args.get("init"):
+        maybe_initialize(args.get("backend"), device, timeout=RANK_TIMEOUT)
+    row = RANK_JOBS[job](args)
+    row["clock"] = (entered, started, time.time())
+    torch.save(row, Path(args["out"]) / f"rank{row['rank']}.pt")
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def cut_specs(specs) -> list[dict]:
+    """make_synthetic_spec's arguments of sweep_file's corpora, for the ranks."""
+    return [dict(name=s.name, train_size=s.train_size, test_size=s.test_size,
+                 t_total=s.t_total, t_test=s.t_test, in_size=list(s.in_size),
+                 n_channels=s.n_channels) for s in specs]
+
+
+def phase_parallel() -> tuple[dict, dict]:
+    """ddp_cdpot and fsdp_l, their runs arranged for time: one process's
+    CDPOT run and step profile alone on the card; then the nccl launch and
+    the 2-rank launch (held) start, and while they start up, one process's
+    L steps (fsdp_l_single); the nccl launch finishes; then the 2-rank
+    launch's jobs, alone on the card; last, the checks and cli.serve of
+    rank 0's checkpoint. Each launch is ended on the way out, whatever
+    happened."""
+    import yaml
+
+    from dpot_tpu_torch.cli.sweep import job_to_argv
+    from dpot_tpu_torch.train.step import make_train_step
+    from dpot_tpu_torch.utils.config import expand_tasks
+
+    cfg_path, specs = sweep_file(CDPOT_CONFIG, "DDP", DDP_CDPOT, RUN_DIR)
+    doc = yaml.safe_load(cfg_path.read_text())
+    (job,) = expand_tasks(doc)
+    argv = job_to_argv(job)
+    names = [sp.name for sp in specs]
+    common = dict(specs=cut_specs(specs), batch=job["batch_size"], tag="DDP",
+                  noise_scale=job["noise_scale"], cudnn_deterministic=True)
+    # CDPOT's convolutions: cuDNN's default backward is not deterministic,
+    # and 8 adam steps (b2 0.9) carry its run-to-run differences past
+    # DDP_TOL (one smoke run: 2.1e-4), so every CDPOT run takes its
+    # deterministic algorithms
+    deterministic = torch.backends.cudnn.deterministic
+    launches: list[Launch] = []
+    clock: dict = {}
+    t0 = time.perf_counter()
+    try:
+        # one process's CDPOT run and its step profile first, alone on the
+        # card (the run it is held to, and the profile, want it to itself)
+        torch.backends.cudnn.deterministic = True
+        single, one = ddp_cdpot_single(argv)
+        (b,) = corpus_batches(CDPOT_CONFIG, "DDP", DDP_CDPOT, job["batch_size"],
+                              torch.float32, 1, seed=1)
+        del b["noise"]  # drawn from the state's generator
+        step_fn = make_train_step(noise_scale=job["noise_scale"], ones_mask=True)
+        one["profile"] = rank_profile(lambda: step_fn(single["state"], b), PROFILE_STEPS,
+                                      job["batch_size"])
+        torch.backends.cudnn.deterministic = deterministic
+        clock["one_process_cdpot"] = time.perf_counter() - t0
+        # the default launch line (nccl), its evaluation cut to the first corpus
+        launches.append(Launch(1, "train", dict(
+            common, argv=argv + ["--log_path", str(RUN_DIR / "ddp_nccl"), "--device", "cuda",
+                                 "--test_paths", names[0]]), "ddp_nccl"))
+        # two ranks sharing the card (gloo with CUDA tensors), held until
+        # the nccl rank is done
+        launches.append(Launch(2, "pair", dict(
+            device="cuda:0", fsdp={},
+            train=dict(common, profile=True, argv=argv + [
+                "--log_path", str(RUN_DIR / "ddp_2"), "--dist_backend", "gloo",
+                "--device", "cuda:0"])), "pair_2", hold=True))
+        nccl_launch, pair_launch = launches
+        t1 = time.perf_counter()
+        fsdp_one = fsdp_l_single()  # while the launches start up
+        clock["one_process_l"] = time.perf_counter() - t1
+        (nccl,) = nccl_launch.finish()
+        clock["nccl_launch"] = nccl_launch.seconds
+        pair_launch.go()
+        t1 = time.perf_counter()
+        pair = pair_launch.finish()
+        clock["pair_launch_after_go"] = time.perf_counter() - t1
+        clock["pair_launch"] = pair_launch.seconds
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for launch in launches:
+            launch.kill()
+    ddp = ddp_cdpot_checks(job, specs, doc, single, one,
+                           [{**r["train"], "launch_s": r["launch_s"]} for r in pair], nccl)
+    del single
+    torch.cuda.empty_cache()
+    fsdp = fsdp_l_checks(fsdp_one, [r["fsdp"] for r in pair])
+    clock["total"] = time.perf_counter() - t0
+    log("ddp_cdpot", **ddp, parallel_s=clock)
+    log("fsdp_l", **fsdp, parallel_s=clock)
+    return ddp, fsdp
+
+
+def ddp_cdpot_single(argv: list) -> tuple[dict, dict]:
+    """configs/cdpot_parallel.yaml's job in one process, through cli.train's
+    main: its result and its row (steps, launches, seconds)."""
+    from dpot_tpu_torch.cli.train import main as train_main
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train_main(argv + ["--log_path", str(RUN_DIR / "ddp_single"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    return out, dict(step=out["state"].step, launches=fused_gn_afno.launches,
+                     launches_by_path=dict(fused_gn_afno.launches_by_path),
+                     bias_act_launches=bias_act.launches, run_s=time.perf_counter() - t0)
+
+
+def ddp_cdpot_checks(job: dict, specs, doc: dict, single: dict, one: dict, ranks: list,
+                     nccl: dict) -> dict:
+    """ddp_cdpot: steps exact, each run's launches depth x (train + eval
+    applications) all on afno_hopper_f32.cu; the 2 ranks' per-step losses
+    (rank 0's log), test metrics and final weights within DDP_TOL of one
+    process's, rank 0's alone the checkpoint, in the reference layout,
+    which cli.serve serves; the nccl rank's epoch metrics within DDP_TOL;
+    each rank's step profile (wall, global samples/s, busy and idle, the
+    collectives' share) beside one process's. Returns the row."""
+    from dpot_tpu_torch.cli.serve import main as serve_main
+
+    batch, depth = job["batch_size"], job["n_layers"]
+    steps, eval_apps = sweep_applications(specs, doc["data_weights"], batch,
+                                          DDP_CDPOT["epochs"])
+    want = depth * (steps + eval_apps)
+    names = [sp.name for sp in specs]
+
+    def check_run(what, r, want=want):
+        if r["step"] != steps or r["launches"] != want:
+            raise AssertionError(f"ddp_cdpot {what}: {r['step']} steps, {r['launches']} "
+                                 f"launches; expected {steps} and depth x (train + eval "
+                                 f"applications) = {want}")
+        if r["launches_by_path"]["hopper_f32"] != want:
+            raise AssertionError(f"ddp_cdpot {what}: launches {r['launches_by_path']}, "
+                                 "expected all on hopper_f32")
+
+    check_run("one process", one)
+    s_params = {k: v.detach().cpu() for k, v in single["state"].params_state_dict().items()}
+    s_losses = read_metrics(single["log_dir"])["train_loss_step"]
+    s_hist = {k: single[k] for k in ("train_l2_step", "train_l2_full", "test_l2_steps",
+                                     "test_l2_fulls")}
+    s_keys = list(torch.load(Path(single["log_dir"]) / "model" / "model.pth",
+                             weights_only=False)["model"])
+    worst: dict = {}
+    for r in ranks:
+        if (r["world"], r["backend"], r["wrapper"]) != (2, "gloo", "DistributedDataParallel"):
+            raise AssertionError(f"ddp_cdpot rank {r['rank']}: {r['world']} ranks, "
+                                 f"{r['backend']}, {r['wrapper']}")
+        check_run(f"rank {r['rank']}", r)
+        # every rank's own metrics and weights; rank 0's log for the per-step losses
+        rels = [abs(r["history"][k] - s_hist[k]) / abs(s_hist[k])
+                for k in ("train_l2_step", "train_l2_full")]
+        rels += [abs(a - c) / abs(c) for k in ("test_l2_steps", "test_l2_fulls")
+                 for a, c in zip(r["history"][k], s_hist[k], strict=True)]
+        w = {k: rel_l2(r["params"][k].cpu(), v) for k, v in s_params.items()}
+        d = dict(metric_rel=max(rels),
+                 step_loss_rel=max_rel(read_metrics(ranks[0]["log_dir"])["train_loss_step"],
+                                       s_losses),
+                 weight=max(w, key=w.get), weight_rel_l2=max(w.values()))
+        worst[r["rank"]] = d
+    nccl_rel = max(abs(nccl["history"][k] - s_hist[k]) / abs(s_hist[k])
+                   for k in ("train_l2_step", "train_l2_full"))
+    log("ddp_cdpot_against_one_process", ranks=worst, nccl_rel=nccl_rel, limit=DDP_TOL)
+    for r in ranks:
+        d = worst[r["rank"]]
+        if list(r["params"]) != list(s_params) or not all(
+                d[k] <= DDP_TOL for k in ("metric_rel", "step_loss_rel", "weight_rel_l2")):
+            raise AssertionError(f"ddp_cdpot rank {r['rank']} against one process: {d} "
+                                 f"(limit {DDP_TOL})")
+    runs_written = sorted(p.name for p in (RUN_DIR / "ddp_2").iterdir() if p.is_dir())
+    ckpt = Path(ranks[0]["log_dir"]) / "model"
+    keys = list(torch.load(ckpt / "model.pth", weights_only=False)["model"])
+    if ranks[1]["log_dir"] is not None or len(runs_written) != 1 or keys != s_keys:
+        raise AssertionError(f"ddp_cdpot checkpoint: rank 1 log {ranks[1]['log_dir']}, runs "
+                             f"{runs_written}, keys like one process's: {keys == s_keys}")
+
+    first_evals = sweep_applications(specs[:1], doc["data_weights"][:1], batch,
+                                     DDP_CDPOT["epochs"])[1]
+    check_run("nccl rank", nccl, depth * (steps + first_evals))
+    if nccl["backend"] != "nccl" or not nccl_rel <= DDP_TOL:
+        raise AssertionError(f"ddp_cdpot nccl rank: backend {nccl['backend']}, rel "
+                             f"{nccl_rel} against one process")
+
+    reset_launch_counts()
+    httpd, rs = serve_main(["--config_from_ckpt", "true", "--resume_path", str(ckpt),
+                            "--train_paths", *names, "--n_channels", "4", "--dtype", "float32",
+                            "--port", "0", "--device", "cuda"], wait=False)
+    try:
+        sent = send_requests(httpd.server_address[1], (1,), "float32", seed=11)
+        applications = warmup_applications(rs) + sum(r["steps"] for r in sent)
+        torch.cuda.synchronize()
+        serve = dict(launches=fused_gn_afno.launches,
+                     launches_by_path=dict(fused_gn_afno.launches_by_path),
+                     bias_act_launches=bias_act.launches, applications=applications)
+        if serve["launches"] != depth * applications:
+            raise AssertionError(f"ddp_cdpot serve: {serve['launches']} launches, expected "
+                                 f"depth x applications = {depth * applications}")
+        check_paths("float32", serve["launches"], "hopper_f32")
+        if not all(np.isfinite(r["pred"]).all() for r in sent):
+            raise AssertionError("ddp_cdpot serve: answers not finite")
+    finally:
+        rs.stop(drain=True)
+        httpd.shutdown()
+        httpd.server_close()
+
+    runs = [one, *ranks, nccl, serve]
+    return dict(dtype="float32", global_batch=batch, steps=steps, train_applications=steps,
+                eval_applications=eval_apps, launches_per_rank=[r["launches"] for r in ranks],
+                launches=sum(r["launches"] for r in runs),
+                launches_by_path={p: sum(r["launches_by_path"][p] for r in runs)
+                                  for p in afno_fused.PATHS},
+                bias_act_launches=sum(r["bias_act_launches"] for r in runs),
+                limit=DDP_TOL, against_one_process=worst, nccl_rel=nccl_rel,
+                one_process_run_s=one["run_s"], rank_run_s=[r["run_s"] for r in ranks],
+                rank_loop_step_s=[statistics.median(r["loop_step_s"]) for r in ranks],
+                one_process_profile=one["profile"],
+                rank_profiles={r["rank"]: r["profile"] for r in ranks},
+                launch_s={"2 ranks": [r["launch_s"] for r in ranks], "nccl": nccl["launch_s"]},
+                job_s={"2 ranks": [r["job_s"] for r in ranks], "nccl": nccl["job_s"]},
+                checkpoint_keys=len(keys), runs_written=runs_written,
+                served_requests=len(sent))
+
+
+def fsdp_l_single() -> dict:
+    """FSDP_L's steps of seeded DPOT-L in one process, eagerly: the losses,
+    walls, launches and peak memory."""
+    from dpot_tpu_torch.train.step import make_train_step
+
+    model = preset_model("L", "bfloat16", FSDP_L["seed"])
+    model.remat = True
+    state = fsdp_l_state(model)
+    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, walls = [], []
+    for i in range(FSDP_L["steps"]):
+        b = fsdp_l_batch(i)
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(state, b)[1]["loss_step"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    one = dict(losses=losses, wall_ms_each=walls, launches=fused_gn_afno.launches,
+               launches_by_path=dict(fused_gn_afno.launches_by_path),
+               bias_act_launches=bias_act.launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, state, b
+    torch.cuda.empty_cache()
+    return one
+
+
+def fsdp_l_checks(one: dict, ranks: list) -> dict:
+    """fsdp_l on 2 ranks under FSDP2 (gloo with CUDA tensors, the one card)
+    against one process: every parameter and moment sharded, each loss
+    within FSDP_L["tol"] of one process's, the blocks that the kernel read
+    equal to a fresh conversion of the gathered weights bit for bit, each
+    of those weights marked uncached, at every call of every step, and not
+    equal in the control's forwards; each rank's launches 2 x depth a step
+    (remat) and depth a control forward, all on afno_hopper_l.cu; each
+    rank's peak memory against one process's, and the collectives' time.
+    Two ranks share the one card only through gloo, whose CUDA collectives
+    carry FSDP2's all-gathers and reduce-scatters (not DTensor's
+    full_tensor: tools/gloo_cuda_collectives.py), so the check reads the
+    weights FSDP2 gathered inside the call. Returns the row."""
+    depth = DPOT_L["depth"]
+    want = 2 * depth * FSDP_L["steps"] + depth * FSDP_L["control"]
+    for r in ranks:
+        main_steps = r["steps"][:FSDP_L["steps"]]
+        control = r["steps"][FSDP_L["steps"]:]
+        rels = [abs(s["loss"] - c) / abs(c) for s, c in zip(main_steps, one["losses"])]
+        bad = [s for s in main_steps
+               if s["mismatched"] or s["left_to_cache"] or s["checked"] != 2 * depth]
+        if r["unsharded"] or r["afno_modules"] != depth or bad:
+            raise AssertionError(f"fsdp_l rank {r['rank']}: unsharded {r['unsharded'][:4]}, "
+                                 f"{r['afno_modules']} AFNO modules, steps whose blocks differ "
+                                 f"from the gathered weights or were left to the cache {bad}")
+        if not max(rels) <= FSDP_L["tol"]:
+            raise AssertionError(f"fsdp_l rank {r['rank']} losses {main_steps} against one "
+                                 f"process's {one['losses']}: rel {rels}")
+        if not all(s["mismatched"] for s in control):
+            raise AssertionError(f"fsdp_l rank {r['rank']}: the stale control was not "
+                                 f"caught: {control}")
+        if r["launches"] != want or r["launches_by_path"]["hopper_l"] != r["launches"]:
+            raise AssertionError(f"fsdp_l rank {r['rank']}: launches {r['launches_by_path']},"
+                                 f" expected {want} on hopper_l")
+    return dict(dtype="bfloat16", world=2, backend="gloo", global_batch=L_BATCH,
+                steps=FSDP_L["steps"], control_forwards=FSDP_L["control"],
+                limit=FSDP_L["tol"], one_process=one,
+                loss_rel=[abs(s["loss"] - c) / abs(c)
+                          for s, c in zip(ranks[0]["steps"], one["losses"])],
+                rank_steps={r["rank"]: r["steps"] for r in ranks},
+                rank_peak_memory_gb=[r["peak_memory_gb"] for r in ranks],
+                rank_carried_gb=[r["carried_gb"] for r in ranks],
+                one_process_peak_memory_gb=one["peak_memory_gb"],
+                rank_profiles={r["rank"]: r["profile"] for r in ranks},
+                job_s=[r["job_s"] for r in ranks],
+                launches_per_rank=[r["launches"] for r in ranks],
+                launches=one["launches"] + sum(r["launches"] for r in ranks),
+                launches_by_path={p: one["launches_by_path"][p]
+                                  + sum(r["launches_by_path"][p] for r in ranks)
+                                  for p in afno_fused.PATHS},
+                bias_act_launches=one["bias_act_launches"]
+                + sum(r["bias_act_launches"] for r in ranks))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["rank"]:  # a rank of ddp_cdpot or fsdp_l, under torchrun
+        return rank_main(*sys.argv[2:4])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3670,6 +4419,8 @@ def main() -> int:
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     train_cdpot, serve_cdpot = phase_train_cdpot()
     families = phase_card_vs_cpu_families()
+    torch.cuda.empty_cache()
+    ddp, fsdp = phase_parallel()
     shutil.rmtree(RUN_DIR)
 
     def batches(prefix, dtype):
@@ -3691,10 +4442,11 @@ def main() -> int:
                  "separable_ti[bfloat16]": separable["bfloat16"], "serve_cdpot": serve_cdpot}
     f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"],
                 "card_vs_cpu_3d": cpu_3d, "separable_ti[float32]": separable["float32"],
-                "train_cdpot": train_cdpot, "card_vs_cpu_families": families}
+                "train_cdpot": train_cdpot, "card_vs_cpu_families": families,
+                "ddp_cdpot": ddp}
     l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "rollouts": rollouts,
               "train_l": train_l, "remat_l": remat_l, "dispatch_l": dispatch_l,
-              "params_lp_l": params_lp_l}
+              "params_lp_l": params_lp_l, "fsdp_l": fsdp}
     # (name, kernel-phase key prefixes of the shapes its main path gives it,
     # the first the one whose times the row carries, dtype, path, source,
     # the runs whose launches count)
@@ -3749,7 +4501,7 @@ def main() -> int:
     bias_act_launches = sum(r["bias_act_launches"] for r in (
         serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, serve_h, train_h,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
-        cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families))
+        cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families, ddp, fsdp))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

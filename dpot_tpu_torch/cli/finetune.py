@@ -10,6 +10,7 @@ time_agg; 'all' for every one) from the pretrained checkpoint at
 port wrote) into a model built for the target datasets, a unit at a time
 where the shapes match, prints the units copied and trains from the merge
 with fresh optimizer state. Without --resume_path it trains from scratch.
+Under torchrun it runs on every rank, with --dist_backend, as cli/train.
 """
 
 from __future__ import annotations
@@ -18,17 +19,22 @@ import sys
 
 
 def main(argv=None) -> dict:
+    from dpot_tpu_torch.parallel import maybe_initialize
     from dpot_tpu_torch.train.checkpoint import load_components
     from dpot_tpu_torch.train.interop import params_from_any
     from dpot_tpu_torch.train.loop import build_everything, train
     from dpot_tpu_torch.utils.config import load_config, pop_flag
+    from dpot_tpu_torch.utils.device import resolve_device
 
     argv = list(argv if argv is not None else sys.argv[1:])
     device = pop_flag(argv, "--device", "cuda")
+    dist_backend = pop_flag(argv, "--dist_backend")
+    # under torchrun, the process group first (a no-op otherwise)
+    maybe_initialize(dist_backend, resolve_device(device))
     cfg = load_config(argv)
     print("config", vars(cfg), "device", device, flush=True)
     if not cfg.resume_path:
-        return train(cfg, device=device)
+        return train(cfg, device=device, dist_backend=dist_backend)
 
     # a throwaway model for the target's parameter names and shapes
     model = build_everything(cfg, device)[0]
@@ -40,7 +46,7 @@ def main(argv=None) -> dict:
     del model, target
     # the merge is the run's start; clearing resume_path stops a full resume
     cfg.resume_path = ""
-    out = train(cfg, device=device, init_state_dict=merged)
+    out = train(cfg, device=device, init_state_dict=merged, dist_backend=dist_backend)
     out["copied"] = copied
     return out
 

@@ -19,9 +19,11 @@ pass. With `slot_ring` the slots are allocated once, as pinned host memory
 where CUDA is available, and recycled (the lag-K contract in __init__).
 
 With num_shards > 1 every shard walks the same global batch order and
-loads its contiguous slice of each batch; batches that do not split evenly
-are skipped. The processes that would each own a shard wait for the
-parallel layouts (ROADMAP, 'Modules to port', item 12).
+loads its contiguous slice of each batch. A batch that does not split
+evenly (an epoch's tail) goes whole to every shard, which computes it
+whole, so that the ranks of a multi-process run (parallel/) take the
+samples of one process; the JAX loader skips such a batch, and the JAX
+loop's multi-host fallback gathers the host slices of one.
 """
 
 from __future__ import annotations
@@ -173,9 +175,6 @@ class DataLoader:
         full, rem = divmod(len(self.dataset), self.batch_size)
         if self.drop_last:
             return full
-        if self.num_shards > 1:
-            # the shards skip a tail they cannot split evenly
-            return full + (1 if rem and rem % self.num_shards == 0 else 0)
         return full + (1 if rem else 0)
 
     def _batches(self) -> list[np.ndarray]:
@@ -207,7 +206,8 @@ class DataLoader:
             sharded = []
             for gbase, b in pairs:
                 per, rem = divmod(len(b), self.num_shards)
-                if per == 0 or rem:
+                if rem:  # every shard takes the whole batch
+                    sharded.append((gbase, b))
                     continue
                 lo = self.shard_index * per
                 sharded.append((gbase + lo, b[lo: lo + per]))

@@ -355,8 +355,12 @@ def _bf16_blocks(w: torch.Tensor) -> torch.Tensor:
     serving converts once and training once per optimizer step. A CUDA
     graph being captured always converts, and keeps nothing: a cached copy
     would be frozen into the graph, which must read w as it is at each
-    replay (ops/cuda/graphs.py)."""
-    if w.is_inference() or capturing():  # convert every call
+    replay (ops/cuda/graphs.py). Nor does a weight marked
+    `_dpot_block_cache = False`: a parameter of a model sharded by FSDP2,
+    which gathers new values into the same tensor, at the same address and
+    under the same version, at every step (parallel/fsdp.py `no_block_cache`)."""
+    if (w.is_inference() or capturing()
+            or not getattr(w, "_dpot_block_cache", True)):  # convert every call
         return _convert_blocks(w)
     key = (w.data_ptr(), w._version)
     cached = getattr(w, "_dpot_bf16_blocks", None)

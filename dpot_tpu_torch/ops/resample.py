@@ -12,7 +12,11 @@ centres, the triangle filter widened on downsampling), which equals
 jax.image.resize(method="linear", antialias=True) at every ratio from 1..39
 to 1..69 pixels (f32, 1e-5; tests/test_torch_resample.py holds the ratios
 CDPOT reaches). It computes in float32 whatever x's dtype, since the CPU
-kernel takes no bfloat16, and rounds the result to x's dtype once.
+kernel takes no bfloat16, and rounds the result to x's dtype once. Its
+gradient is the adjoint of the separable map, two matrix products with the
+per-axis weights F.interpolate uses: torch's own CUDA backward accumulates
+with atomics, so that two runs of a CDPOT step on the card differ in the
+last bits, and Adam's steps carry that far (the smoke's ddp_cdpot).
 """
 
 from __future__ import annotations
@@ -23,12 +27,51 @@ import torch.nn.functional as F
 from dpot_tpu_torch.ops.spectral import fft2_pair, ifft2_pair
 
 
+_AXIS_WEIGHTS: dict = {}
+
+
+def axis_weights(n_in: int, n_out: int, antialias: bool, device) -> torch.Tensor:
+    """(n_out, n_in): F.interpolate's bilinear weights along one axis, read
+    off by resizing the identity; kept per device, except while a CUDA
+    graph is being captured, when they are computed inside the graph."""
+    key = (n_in, n_out, antialias, str(device))
+    w = _AXIS_WEIGHTS.get(key)
+    if w is None:
+        # the identity as one image, resized along its rows only
+        eye = torch.eye(n_in, device=device).reshape(1, 1, n_in, n_in)
+        w = F.interpolate(eye, size=(n_out, n_in), mode="bilinear", antialias=antialias,
+                          align_corners=False)[0, 0]
+        capturing = w.is_cuda and torch.cuda.is_current_stream_capturing()
+        if not capturing:
+            _AXIS_WEIGHTS[key] = w
+    return w
+
+
+class _Resize(torch.autograd.Function):
+    """F.interpolate's bilinear resize of (N, C, H, W) in float32; the
+    gradient the adjoint of the separable map, deterministic everywhere."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw, antialias):
+        ctx.sizes = (x.shape[2], x.shape[3], *out_hw)
+        ctx.antialias = antialias
+        return F.interpolate(x, size=out_hw, mode="bilinear", antialias=antialias,
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        H, W, Ho, Wo = ctx.sizes
+        ah = axis_weights(H, Ho, ctx.antialias, g.device)
+        aw = axis_weights(W, Wo, ctx.antialias, g.device)
+        return torch.matmul(torch.matmul(ah.t(), g), aw), None, None
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
                     antialias: bool = True) -> torch.Tensor:
     """Bilinear resize of (..., H, W, C) over (H, W) to out_hw."""
     *lead, H, W, C = x.shape
-    y = F.interpolate(x.float().reshape(-1, H, W, C).permute(0, 3, 1, 2), size=tuple(out_hw),
-                      mode="bilinear", antialias=antialias, align_corners=False)
+    y = _Resize.apply(x.float().reshape(-1, H, W, C).permute(0, 3, 1, 2), tuple(out_hw),
+                      antialias)
     return y.permute(0, 2, 3, 1).reshape(*lead, *out_hw, C).to(x.dtype)
 
 

@@ -16,6 +16,13 @@ A checkpoint is a directory holding
 Writes are synchronous: the file is written beside its target and renamed
 into place, so a crash mid-write leaves the previous checkpoint whole.
 
+In a multi-process run the checkpoint is the single-process one: the
+module's own state dict (no DDP 'module.' prefix) and the full moments.
+Rank 0 alone writes it; under FSDP2 every rank calls `save_checkpoint`,
+since gathering the shards is a collective. A restore happens on every rank
+before the state is placed over the ranks (train/loop.py), so a checkpoint
+written by N ranks resumes on any number of them.
+
 `restore_params` reads only the weights (evaluation, serving, warm starts);
 `load_components` copies whole units of a source state dict into a target
 one, for fine-tuning (reference utils/utilities.py:112-166).
@@ -30,6 +37,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
+from dpot_tpu_torch.parallel.fsdp import gathered
 from dpot_tpu_torch.train.interop import load_reference_state_dict, strip_module_prefix
 from dpot_tpu_torch.train.state import TrainState
 
@@ -37,12 +45,13 @@ MODEL_FILE = "model.pth"
 
 
 def _cpu(t):
-    return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+    return gathered(t).detach().cpu() if isinstance(t, torch.Tensor) else t
 
 
-def save_checkpoint(path: str, state: TrainState, config: Optional[dict] = None) -> str:
-    """Write the checkpoint directory `path`; returns the model file's path."""
-    os.makedirs(path, exist_ok=True)
+def save_checkpoint(path: Optional[str], state: TrainState,
+                    config: Optional[dict] = None) -> Optional[str]:
+    """Write the checkpoint directory `path`; returns the model file's path.
+    Only rank 0 writes (the others return None, and may pass path None)."""
     opt = state.optimizer.state_dict()
     payload = {
         "args": argparse.Namespace(**(config or {})),
@@ -53,6 +62,9 @@ def save_checkpoint(path: str, state: TrainState, config: Optional[dict] = None)
         "step": int(state.step),
         "generator": state.generator.get_state(),
     }
+    if state.rank != 0:
+        return None
+    os.makedirs(path, exist_ok=True)
     target = os.path.join(path, MODEL_FILE)
     tmp = f"{target}.{os.getpid()}.tmp"
     torch.save(payload, tmp)

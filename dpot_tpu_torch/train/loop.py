@@ -16,6 +16,16 @@ graph on the card, train/step.py); a tail that cannot fill a dispatch runs
 as B-sized single steps, so an epoch takes the samples and optimizer steps
 of K = 1. Options of the JAX loop that are not ported raise
 NotImplementedError naming their ROADMAP item; none is ignored.
+
+Under torchrun (parallel/multihost.py) the loop runs on every rank: each
+loads its contiguous slice of every global batch (an uneven tail whole),
+and the parameters are placed after init or restore, as in the JAX loop:
+replicated under DDP (`shard_params: replicate`) or sharded by FSDP2
+(`fsdp`). Every rank computes, and logs, what one process computes on the
+same global batches: the train and eval sums are all-reduced, so the
+rollback decides on the same loss everywhere. Rank 0 alone writes logs
+and checkpoints; under FSDP every rank takes part in gathering the state
+that it writes.
 """
 
 from __future__ import annotations
@@ -26,14 +36,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 from dpot_tpu_torch.models import build_model
+from dpot_tpu_torch.parallel import make_mesh, maybe_initialize, rank_world, replicate, shard_rows
+from dpot_tpu_torch.parallel.mesh import check_mesh_data
 from dpot_tpu_torch.train.checkpoint import restore_checkpoint, restore_params, save_checkpoint
 from dpot_tpu_torch.train.optimizers import build_optimizer
 from dpot_tpu_torch.train.schedules import build_schedule, onecycle_momentum
 from dpot_tpu_torch.train.state import TrainState
-from dpot_tpu_torch.train.step import make_eval_rollout, make_train_step
+from dpot_tpu_torch.train.step import UNTRAINED, make_eval_rollout, make_train_step
 from dpot_tpu_torch.utils.config import TrainConfig
 from dpot_tpu_torch.utils.device import resolve_device
 from dpot_tpu_torch.utils.metrics_logging import MetricWriter
@@ -59,14 +72,27 @@ def _opt_steps_per_epoch(cfg: TrainConfig, train_dl, train_ds) -> int:
     return max(-(-len(train_ds) // cfg.batch_size), 1)
 
 
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for every option of the JAX loop that the
-    port does not have yet."""
+def check_ported(cfg: TrainConfig, world: int = 1) -> None:
+    """Raise for the combinations the JAX loop refuses and a mesh_data that
+    is not the world size (ValueError), for FSDP without a process group
+    (RuntimeError), and NotImplementedError for every option of the JAX
+    loop that the port does not have yet, over `world` ranks."""
+    if cfg.steps_per_dispatch > 1 and world > 1:
+        raise ValueError("steps_per_dispatch > 1 is single-process only (the batches of "
+                         "a multi-process run are assembled a step at a time)")
+    if cfg.steps_per_dispatch > 1 and cfg.mesh_spatial > 1:
+        raise ValueError("steps_per_dispatch does not compose with spatial sharding "
+                         "(mesh_spatial)")
+    check_mesh_data(cfg.mesh_data, world)
+    if cfg.shard_params == "fsdp" and not dist.is_initialized():
+        raise RuntimeError("shard_params=fsdp needs the default process group: launch "
+                           "under torchrun (one rank per card, --nproc_per_node 1 for one)")
     item = "ROADMAP, 'Modules to port', item"
     missing = [
-        (cfg.mesh_data not in (None, 1) or cfg.mesh_spatial > 1 or cfg.mesh_model > 1
-         or cfg.mesh_pipe > 1, f"device meshes (mesh_*) ({item} 12)"),
-        (cfg.shard_params != "replicate",
+        (cfg.mesh_spatial > 1 or cfg.mesh_model > 1 or cfg.mesh_pipe > 1,
+         f"the spatial, model and pipe mesh axes (mesh_spatial, mesh_model, mesh_pipe) "
+         f"({item} 12)"),
+        (cfg.shard_params in ("tp", "tp_fsdp"),
          f"shard_params={cfg.shard_params!r} ({item} 12)"),
         (bool(cfg.viz_dir), f"viz_dir (utils/viz.py) ({item} 13)"),
     ]
@@ -120,9 +146,12 @@ def loader_arch(cfg: TrainConfig) -> tuple[int, int]:
 
 
 def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
-    """Datasets, loaders, model, schedule and the train state at step 0."""
-    check_ported(cfg)
+    """Datasets, loaders (this rank's shards of them), model, schedule and
+    the train state at step 0."""
+    rank, world = rank_world()
+    check_ported(cfg, world)
     device = resolve_device(device)
+    shard_kw = dict(num_shards=world, shard_index=rank)
     train_ds = MixedTemporalDataset(
         cfg.train_paths, cfg.ntrain_list, res=cfg.res, t_in=cfg.T_in,
         t_ar=cfg.T_ar, train=True, data_weights=cfg.data_weights,
@@ -138,9 +167,9 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
     # steps_per_dispatch=K: K optimizer steps' samples a loader batch
     train_dl = DataLoader(train_ds, cfg.batch_size * cfg.steps_per_dispatch, shuffle=True,
                           num_workers=cfg.num_workers, seed=cfg.seed, prefetch=prefetch,
-                          slot_ring=ring)
+                          slot_ring=ring, **shard_kw)
     test_dls = [DataLoader(ds, cfg.batch_size, shuffle=False,
-                           num_workers=cfg.num_workers, prefetch=prefetch)
+                           num_workers=cfg.num_workers, prefetch=prefetch, **shard_kw)
                 for ds in test_dss]
     model = build_model(
         cfg.model, img_size=cfg.res, patch_size=cfg.patch_size,
@@ -172,9 +201,39 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
     return model, state, sched, train_dl, test_dls, train_ds
 
 
+def global_sizes(dl) -> list[int]:
+    """The global rows of each batch of `dl` in an epoch (a shard's batches
+    are slices of these)."""
+    n, bs = len(dl.dataset), dl.batch_size
+    return [min(bs, n - i) for i in range(0, n, bs)]
+
+
+def place_state(state: TrainState, cfg: TrainConfig, device: torch.device) -> None:
+    """Place the state over the ranks, as the JAX loop does after init or
+    restore: DDP over replicas (`shard_params: replicate`) or FSDP2 shards
+    (`fsdp`, also on one rank)."""
+    rank, world = rank_world()
+    if any(True for _ in state.model.buffers()):
+        raise NotImplementedError(
+            "a model with buffers over several ranks (UNet's BatchNorm, whose batch "
+            "statistics would be per rank) is not ported yet (ROADMAP, 'Modules to "
+            "port', item 12)")
+    if cfg.shard_params == "fsdp":
+        from dpot_tpu_torch.parallel.fsdp import check_fsdp_shardings, shard_state_fsdp
+
+        shard_state_fsdp(state, make_mesh(cfg.mesh_data, device))
+        bad = check_fsdp_shardings(state)
+        if bad:
+            raise RuntimeError(f"FSDP left {len(bad)} tensors unsharded: {bad[:4]}")
+    else:
+        state.train_module = replicate(state.model, UNTRAINED)
+        state.rank, state.world = rank, world
+
+
 def train(cfg: TrainConfig, log_dir: Optional[str] = None,
           device: str | torch.device = "cuda",
-          init_state_dict: Optional[dict[str, torch.Tensor]] = None) -> dict:
+          init_state_dict: Optional[dict[str, torch.Tensor]] = None,
+          dist_backend: Optional[str] = None) -> dict:
     """Train on `device` (CUDA unless the caller asks for the CPU). Returns
     the state, the model, the last epoch's metrics, the log directory and
     the host time of every loop iteration (`step_seconds`).
@@ -184,15 +243,26 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     full resume: weights, moments, step, noise stream) or cfg.init_from (a
     checkpoint's weights only). A warm start from weights keeps fresh
     moments, step 0 and the schedule from its start. `dispatch_steps`
-    holds the optimizer steps of each loop iteration (K or 1)."""
+    holds the optimizer steps of each loop iteration (K or 1).
+
+    Under torchrun the default process group starts here (`dist_backend`,
+    by default nccl on CUDA and gloo on the CPU), unless the caller started
+    it; each rank's default device is cuda:LOCAL_RANK."""
+    maybe_initialize(dist_backend, resolve_device(device))
+    rank, world = rank_world()
     model, state, sched, train_dl, test_dls, train_ds = build_everything(cfg, device)
     device = next(model.parameters()).device
     if log_dir is None and cfg.use_writer:
         log_dir = os.path.join(cfg.log_path or "./logs",
                                time.strftime("%m%d_%H_%M_%S") + cfg.comment)
-    writer = MetricWriter(log_dir)
+    saves = bool(log_dir)  # the same on every rank
+    if rank:
+        # rank 0 writes; the others only take part in gathering a sharded
+        # checkpoint
+        log_dir = None
+    writer = MetricWriter(log_dir, echo=rank == 0)
     ckpt_dir = os.path.join(log_dir, "model") if log_dir else None
-    if ckpt_dir and cfg.async_ckpt:
+    if saves and cfg.async_ckpt:
         writer.text("async_ckpt: checkpoints are saved synchronously in this port")
 
     steps_per_epoch = _opt_steps_per_epoch(cfg, train_dl, train_ds)
@@ -211,6 +281,8 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         train_dl.set_epoch(start_epoch)
         writer.text(f"resumed full train state from {cfg.resume_path}: step "
                     f"{state.step}, continuing at epoch {start_epoch}")
+    if world > 1 or cfg.shard_params == "fsdp":
+        place_state(state, cfg, device)
 
     time_major = bool(train_ds.time_major_batches)
     ones_mask = bool(train_ds.train_masks_are_ones)
@@ -233,9 +305,19 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     # a tail batch that does not divide into grad_accum takes one full step
     noaccum_step_fn = make_train_step(**step_kw) if cfg.grad_accum > 1 else tail_step_fn
     roll_fn = make_eval_rollout(t_bundle=cfg.T_bundle)
+    if state.sharded:
+        # FSDP2 gathers the weights with collectives, which a CUDA graph
+        # cannot hold: the rollout runs eagerly
+        roll_fn = roll_fn.run
+
+    def sharded(n: int) -> bool:
+        """Whether a global batch of n rows is split over the ranks (else
+        every rank holds it whole)."""
+        return world > 1 and shard_rows(n, rank, world) is not None
 
     n_params = sum(p.numel() for p in model.parameters())
-    writer.text(f"model {cfg.model} params {n_params / 1e6:.2f}M device {device}")
+    writer.text(f"model {cfg.model} params {n_params / 1e6:.2f}M device {device}"
+                + (f" ranks {world} ({cfg.shard_params})" if world > 1 else ""))
 
     it = start_epoch * steps_per_epoch
     loss_ema = None
@@ -290,17 +372,19 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                     loss_ema = loss_v if loss_ema is None else 0.9 * loss_ema + 0.1 * loss_v
 
         def dispatch_units(dl):
-            """Loader batches as (x, y, msk, cls, k): a full K * B batch is one
-            K-step dispatch, anything else B-sized single steps."""
+            """Loader batches as (x, y, msk, cls, k, n): a full K * B batch is
+            one K-step dispatch, anything else B-sized single steps; n is the
+            unit's global rows (K = 1 over several ranks)."""
             bs = cfg.batch_size
-            for x_, y_, msk_, cls_ in dl:
+            for (x_, y_, msk_, cls_), n_ in zip(dl, global_sizes(dl)):
                 if K == 1 or x_.shape[0] == K * bs:
-                    yield x_, y_, msk_, cls_, K
+                    yield x_, y_, msk_, cls_, K, n_
                 else:
                     for i in range(0, x_.shape[0], bs):
-                        yield x_[i:i + bs], y_[i:i + bs], msk_[i:i + bs], cls_[i:i + bs], 1
+                        yield (x_[i:i + bs], y_[i:i + bs], msk_[i:i + bs], cls_[i:i + bs], 1,
+                               x_[i:i + bs].shape[0])
 
-        for x, y, msk, cls, k_unit in dispatch_units(train_dl):
+        for x, y, msk, cls, k_unit, n in dispatch_units(train_dl):
             t_load += time.perf_counter() - t_1
             t_1 = time.perf_counter()
             host = {"x": x, "y": y, "cls": cls}
@@ -319,8 +403,11 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
             if k_unit > 1:
                 fn = step_fn
             else:
-                fn = noaccum_step_fn if x.shape[0] % cfg.grad_accum else tail_step_fn
-            state, aux = fn(state, batch)
+                fn = noaccum_step_fn if n % cfg.grad_accum else tail_step_fn
+            if world > 1 and not sharded(n):
+                state, aux = fn(state, batch, replicated=True)
+            else:
+                state, aux = fn(state, batch)
             prev_it = it
             it += k_unit
             drain(pending)
@@ -330,7 +417,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                 # mid-epoch snapshot, taken after the drain so that a
                 # just-detected explosion snapshots the restored state
                 last_good = _snapshot(state)
-            pending = (aux, x.shape[0] // k_unit, steps_per_sample, it)
+            pending = (aux, n // k_unit, steps_per_sample, it)
             dt = time.perf_counter() - t_1
             t_train += dt
             step_seconds.append(dt)
@@ -343,7 +430,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
             s_sum = f_sum = 0.0
             n_seen = 0
             t_y = None
-            for x, y, msk, _ in dl:
+            for (x, y, msk, _), n in zip(dl, global_sizes(dl)):
                 if t_y not in (None, y.shape[-2]):
                     raise ValueError(
                         f"eval batches of {cfg.test_paths[di]} mix rollout lengths "
@@ -352,9 +439,13 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                 t_y = y.shape[-2]
                 out = roll_fn(model, {"x": _to_device(x, device), "y": _to_device(y, device),
                                       "msk": _to_device(msk, device)})
-                s_sum += _fetch(out["loss_step"])
-                f_sum += _fetch(out["loss_full"])
-                n_seen += x.shape[0]
+                sums = torch.stack([out["loss_step"], out["loss_full"]])
+                if sharded(n):
+                    dist.all_reduce(sums)
+                s_b, f_b = sums.tolist()
+                s_sum += s_b
+                f_sum += f_b
+                n_seen += n
             if n_seen == 0:
                 writer.text(f"eval dataset {cfg.test_paths[di]} produced no batches; "
                             "metrics omitted")
@@ -366,10 +457,16 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
             if writer.log_dir:
                 writer.scalar(f"test_loss_step_{cfg.test_paths[di]}", test_l2_steps[-1], ep)
                 writer.scalar(f"test_loss_full_{cfg.test_paths[di]}", test_l2_fulls[-1], ep)
+        if state.sharded:
+            # FSDP2 keeps the root's weights gathered after a forward with no
+            # backward, gathered under inference mode: shard them again, so
+            # that the next train step gathers weights autograd can track
+            model.reshard()
 
-        if ckpt_dir and (ep % cfg.save_every == 0 or ep == cfg.epochs - 1):
+        if (saves and (rank == 0 or state.sharded)
+                and (ep % cfg.save_every == 0 or ep == cfg.epochs - 1)):
             target = ckpt_dir
-            if cfg.ckpt_bucket_epochs > 0:
+            if ckpt_dir and cfg.ckpt_bucket_epochs > 0:
                 target = f"{ckpt_dir}_{ep // cfg.ckpt_bucket_epochs}"
             save_checkpoint(target, state, config=vars(cfg))
         if rollback_on and cfg.rollback_snapshot_steps == 0:

@@ -34,6 +34,12 @@ parameters are real, so the JAX package's complex-safe second moment
 |g|^2 is g^2 here. A parameter without a gradient (the classifier head,
 whose loss is not trained) is updated with a zero gradient, as JAX's
 dense gradient tree gives it.
+
+Under FSDP2 (parallel/fsdp.py) the parameters, their gradients and the
+moments are DTensor shards: the same arithmetic runs on each rank's local
+shards, and the global norm is the square root of the shards' squared
+norms summed over the ranks by one all-reduce. One process takes the
+unsharded route, bit for bit as before.
 """
 
 from __future__ import annotations
@@ -42,6 +48,10 @@ import math
 from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from dpot_tpu_torch.parallel.fsdp import shard_like
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -51,6 +61,12 @@ N_VALUES = 5
 
 def _at(v: Schedule, count: int) -> float:
     return float(v(count)) if callable(v) else float(v)
+
+
+def _local(ts: Sequence[Optional[torch.Tensor]]) -> list[Optional[torch.Tensor]]:
+    """This rank's shards of DTensors (views: an in-place update of one
+    updates the DTensor); other entries as they are."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in ts]
 
 
 def _broadcast(s: torch.Tensor, like: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -131,6 +147,12 @@ class Optimizer:
         params = self.params
         if grads is None:
             grads = [p.grad for p in params]
+        sharded = any(isinstance(p, DTensor) for p in params)
+        if sharded:  # FSDP2: the update runs on this rank's shards
+            params, grads = _local(params), _local(grads)
+            mus, nus = _local(self.mu), _local(self.nu)
+        else:
+            mus, nus = self.mu, self.nu
         grads = [(g if g is not None else torch.zeros_like(p)).float()
                  for g, p in zip(grads, params, strict=True)]
         if values is None:
@@ -138,7 +160,13 @@ class Optimizer:
         b1c, b1c_rest, step_size, inv_sqrt_bc2, decay = values.unbind()
         b2, eps, wd = self.b2, self.eps, self.weight_decay
 
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if sharded:
+            # the global norm from the shards' squared norms, summed over ranks
+            sq = torch.stack(torch._foreach_norm(grads)).square().sum()
+            dist.all_reduce(sq)
+            gnorm = sq.sqrt()
+        else:
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # out of place: the parameters' .grad stay as the backward left them
         if self.clip_norm is not None:
             cs = torch.clamp(self.clip_norm / (gnorm + 1e-6), max=1.0)
@@ -147,17 +175,17 @@ class Optimizer:
             grads = torch._foreach_add(grads, params, alpha=wd)  # coupled decay
 
         # moments: accumulate in f32, store in the moment's dtype
-        mu32 = [m if m.dtype == torch.float32 else m.float() for m in self.mu]
+        mu32 = [m if m.dtype == torch.float32 else m.float() for m in mus]
         torch._foreach_mul_(mu32, b1c)
         torch._foreach_addcmul_(mu32, grads, _broadcast(b1c_rest, grads))
-        for m, a in zip(self.mu, mu32):
+        for m, a in zip(mus, mu32):
             if m is not a:
                 m.copy_(a)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        mu_p = [m.to(p.dtype) for m, p in zip(self.mu, params)]
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+        mu_p = [m.to(p.dtype) for m, p in zip(mus, params)]
 
-        denom = torch._foreach_sqrt(self.nu)
+        denom = torch._foreach_sqrt(nus)
         if self.rule == "lamb":
             torch._foreach_add_(denom, eps)
             upd = torch._foreach_div(mu_p, denom)
@@ -189,7 +217,7 @@ class Optimizer:
                     f"moment {tuple(src.shape)} {src.dtype} does not match "
                     f"{tuple(dst.shape)} {dst.dtype}"
                 )
-            dst.copy_(src)
+            dst.copy_(shard_like(src, dst) if isinstance(dst, DTensor) else src)
         self.count = int(sd["count"])
         self.grad_norm = sd["grad_norm"].to(self.grad_norm.device)
 

@@ -22,6 +22,13 @@ own; after every update the copy is cast again from the master (round to
 nearest even). The gradients arrive in bf16 and the optimizer upcasts them
 for all of its arithmetic. Checkpoints and the loop's rollback read and
 write the master (`params_state_dict`, `load_params`), never the copy.
+
+In a multi-process run (parallel/) `model` stays the module itself, whose
+state dict keeps the reference layout, and `train_module` is what the train
+step calls: its DistributedDataParallel wrapper, or the model itself once
+FSDP2 has sharded it in place (`sharded`: the parameters and moments are
+DTensor shards, which `params_state_dict` gathers, a collective that every
+rank calls).
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ import dataclasses
 from typing import Mapping, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from dpot_tpu_torch.parallel.fsdp import gathered, shard_like
 from dpot_tpu_torch.train.optimizers import Optimizer
 
 
@@ -43,6 +52,12 @@ class TrainState:
     # the model's parameters when they are a low-precision working copy of
     # the optimizer's f32 master (in the same order), else None
     params_lp: Optional[list[torch.Tensor]] = None
+    # the module the train step calls (DDP's wrapper of `model`, or `model`
+    # under FSDP2); None: `model` itself, in one process
+    train_module: Optional[torch.nn.Module] = None
+    rank: int = 0
+    world: int = 1
+    sharded: bool = False
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: Optimizer, seed: int,
@@ -57,6 +72,11 @@ class TrainState:
         if param_working_dtype is not None:
             state._make_working_copy(param_working_dtype)
         return state
+
+    @property
+    def forward_module(self) -> torch.nn.Module:
+        """The module a train step's forward and backward go through."""
+        return self.model if self.train_module is None else self.train_module
 
     @torch.no_grad()
     def _make_working_copy(self, dtype: torch.dtype) -> None:
@@ -108,8 +128,8 @@ class TrainState:
     def params_state_dict(self) -> dict[str, torch.Tensor]:
         """The model's state dict with the f32 master in place of the working
         copy (under every name a parameter has): the weights that
-        checkpoints save."""
-        sd = self.model.state_dict()
+        checkpoints save. Sharded tensors come back whole."""
+        sd = {k: gathered(v) for k, v in self.model.state_dict().items()}
         if self.params_lp is not None:
             master = {id(p): m for p, m in zip(self.params_lp, self.optimizer.params)}
             for name, p in self.model.named_parameters(remove_duplicate=False):

@@ -13,6 +13,17 @@ A step runs eagerly: `loss.backward()` fills the parameters' .grad and
 the optimizer updates them in place. Nothing in it reads a value back to
 the host; the metrics come back as device tensors.
 
+Over several ranks (parallel/: DDP, or FSDP2) each rank holds its
+contiguous rows of the global batch and the step computes what one
+process computes on the whole of it: the noise is drawn for the global
+batch from the state's generator (the same stream on every rank) and each
+rank adds its rows; the loss, a sum over the samples, is scaled by the
+world size for the backward, so that DDP's and FSDP2's averaging of the
+gradients over the ranks gives the global sum; the metric sums are
+all-reduced. A batch that every rank holds whole (`replicated`, an epoch's
+tail that does not divide over the ranks) runs as in one process, its
+gradients averaged over identical copies.
+
 One dispatch, the counterpart of JAX's jitted `lax.scan`: on the card,
 `make_train_step(scan_steps=K)` runs K steps as one CUDA graph and the
 eval rollout runs as one graph per batch shape (ops/cuda/graphs.py). The
@@ -27,12 +38,23 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from dpot_tpu_torch.ops.cuda.graphs import Graph, GraphCache, copy_into, side_stream, signature
+from dpot_tpu_torch.parallel.mesh import grad_sync
 from dpot_tpu_torch.train.state import TrainState
 from dpot_tpu_torch.utils.criterion import cross_entropy_sum, rel_lp_loss
 
 Batch = dict[str, torch.Tensor]
+
+# the parameters that the loss does not reach: the class head, whose
+# cross-entropy is computed for the metrics but not trained. They get no
+# gradient (the optimizer counts it as zero), and DDP leaves them out of
+# its reducer (parallel/mesh.py replicate)
+UNTRAINED = ("cls_head.",)
+
+# the aux entries that are sums over the batch's samples
+SUMS = ("loss_step", "loss_full", "cls_loss", "cls_correct")
 
 
 def _add_f32(acc: Optional[list], grads: list) -> list:
@@ -41,6 +63,15 @@ def _add_f32(acc: Optional[list], grads: list) -> list:
         return [None if g is None else g.float() for g in grads]
     return [a if g is None else g.float() if a is None else a.add_(g)
             for a, g in zip(acc, grads)]
+
+
+def _all_reduce_mean(ts: list[torch.Tensor], world: int) -> None:
+    """ts averaged over the ranks in place, in one all-reduce."""
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    dist.all_reduce(flat)
+    flat /= world
+    for t, f in zip(ts, flat.split([t.numel() for t in ts])):
+        t.copy_(f.view_as(t))
 
 
 def pred_and_cls(model: torch.nn.Module, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -124,34 +155,77 @@ def make_train_step(
                "cls_loss": cls_loss, "cls_correct": cls_correct}
         return loss, aux, n_steps
 
-    def train_step(state: TrainState, batch: Batch,
-                   values: Optional[torch.Tensor] = None) -> tuple[TrainState, dict]:
+    def split(batch: Batch, n: int) -> list[Batch]:
+        """n microbatches of equal rows; external noise (steps, B, ...) is
+        split along its batch axis."""
+        mb = batch["x"].shape[0] // n
+        return [{k: v[:, i * mb:(i + 1) * mb] if k == "noise" else v[i * mb:(i + 1) * mb]
+                 for k, v in batch.items()} for i in range(n)]
+
+    def global_noise(state: TrainState, batch: Batch) -> torch.Tensor:
+        """This rank's rows of the noise that one process draws for the
+        global batch: per microbatch of the global batch, per rollout step,
+        one draw from the state's generator, in the single process's order
+        and in the dtype x has at that step in loss_fn: x's own at the
+        first, and from the second on x's promoted with the prediction's,
+        which is float32 for every model family (models/). The steps are
+        stacked in the widest of these, which holds each draw exactly."""
+        x = batch["x"]
+        if time_major:
+            x = x.movedim(1, -2)
+        y_t = batch["y"].shape[1 if time_major else -2]
+        n_steps = max(y_t // t_bundle, 1)
+        dtypes = [x.dtype] + [torch.promote_types(x.dtype, torch.float32)] * (n_steps - 1)
+        B, world = x.shape[0], state.world
+        n_micro = grad_accum if B * world % grad_accum == 0 else 1
+        mb = B * world // n_micro
+        draws = [[torch.randn((mb, *x.shape[1:]), generator=state.generator,
+                              device=x.device, dtype=dt) for dt in dtypes]
+                 for _ in range(n_micro)]
+        full = torch.stack([torch.cat([d[s] for d in draws]).to(dtypes[-1])
+                            for s in range(n_steps)])
+        return full[:, state.rank * B:(state.rank + 1) * B]
+
+    def train_step(state: TrainState, batch: Batch, values: Optional[torch.Tensor] = None,
+                   replicated: bool = False) -> tuple[TrainState, dict]:
         model = state.model
         model.train()
         model.zero_grad(set_to_none=True)
+        fwd = state.forward_module
         B = batch["x"].shape[0]
-        if grad_accum > 1:
-            if B % grad_accum:
-                raise ValueError(f"batch {B} must divide into grad_accum={grad_accum} "
-                                 "microbatches")
-            if "noise" in batch:
-                raise ValueError("external noise draws do not split into microbatches")
-            mb = B // grad_accum
-            micro = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                     for i in range(grad_accum)]
+        # this rank holds its rows of a global batch
+        sharded = state.world > 1 and not replicated
+        if grad_accum > 1 and "noise" in batch:
+            raise ValueError("external noise draws do not split into microbatches")
+        if sharded and noise_scale > 0.0 and "noise" not in batch:
+            batch = {**batch, "noise": global_noise(state, batch)}
+        if grad_accum > 1 and B % grad_accum == 0:
+            micro = split(batch, grad_accum)
+        elif grad_accum > 1 and not sharded:
+            raise ValueError(f"batch {B} must divide into grad_accum={grad_accum} "
+                             "microbatches")
         else:
             micro = [batch]
         # the microbatch gradients of a bf16 working copy are summed in f32,
-        # not by backward() into its bf16 .grad, which would round each add
+        # not by backward() into its bf16 .grad, which would round each add;
+        # over several ranks the sum is then averaged over them here
         lp = state.params_lp if len(micro) > 1 else None
+        scale = state.world if sharded else 1
         aux = gsum = None
-        for b in micro:
-            loss, a, n_steps = loss_fn(model, b, state.generator)
-            loss.backward()
+        for i, b in enumerate(micro):
+            with grad_sync(fwd, lp is None and i == len(micro) - 1):
+                loss, a, n_steps = loss_fn(fwd, b, state.generator)
+                (loss * scale if scale > 1 else loss).backward()
             aux = a if aux is None else {k: aux[k] + a[k] for k in aux}
             if lp is not None:
                 gsum = _add_f32(gsum, [p.grad for p in lp])
                 model.zero_grad(set_to_none=True)
+        if gsum is not None and state.world > 1:
+            _all_reduce_mean([g for g in gsum if g is not None], state.world)
+        if sharded:
+            sums = torch.stack([aux[k].float() for k in SUMS])
+            dist.all_reduce(sums)
+            aux.update(zip(SUMS, sums.unbind()))
         state.apply_gradients(gsum, values)
         aux["n_steps"] = torch.tensor(float(n_steps))
         aux["grad_norm"] = state.optimizer.grad_norm

@@ -114,6 +114,11 @@ class TrainConfig:
                 f"batch_size {self.batch_size} must divide into "
                 f"grad_accum={self.grad_accum} microbatches"
             )
+        if self.shard_params not in ("replicate", "fsdp", "tp", "tp_fsdp"):
+            raise ValueError(f"unknown shard_params {self.shard_params!r} "
+                             "(replicate | fsdp | tp | tp_fsdp)")
+        if min(self.mesh_spatial, self.mesh_model, self.mesh_pipe, self.mesh_data or 1) < 1:
+            raise ValueError("mesh_* axis sizes must be >= 1")
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}")
 

@@ -16,8 +16,12 @@ from typing import Optional
 
 
 class MetricWriter:
-    def __init__(self, log_dir: Optional[str]):
+    def __init__(self, log_dir: Optional[str], echo: bool = True):
+        """Scalars to log_dir/metrics.jsonl and text to log_dir/logs.txt
+        (nothing without a log_dir); text is also printed when `echo` (off
+        on the ranks other than 0 of a multi-process run)."""
         self.log_dir = log_dir
+        self.echo = echo
         self._jsonl = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
@@ -35,7 +39,8 @@ class MetricWriter:
         self._jsonl.write(json.dumps(rec) + "\n")
 
     def text(self, msg: str):
-        print(msg, flush=True)
+        if self.echo:
+            print(msg, flush=True)
         if self.log_dir:
             with open(os.path.join(self.log_dir, "logs.txt"), "a") as f:
                 f.write(msg + "\n")

@@ -1119,3 +1119,100 @@ def test_ring_fence_holds_under_graph_replay(cuda, k, monkeypatch):
     assert a["train_l2_step"] == b["train_l2_step"] and a["test_l2_fulls"] == b["test_l2_fulls"]
     for p, q in zip(a["model"].parameters(), b["model"].parameters()):
         assert torch.equal(p, q)
+
+
+GPU_SPEC = dict(train_size=13, test_size=11, t_total=10, t_test=3, in_size=(128, 128),
+                n_channels=4)
+GPU_ARGV = ["--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "256",
+            "--n_layers", "1", "--n_blocks", "2", "--modes", "8", "--T_in", "6",
+            "--batch_size", "8", "--num_workers", "1", "--lr", "1e-3", "--warmup_epochs", "1",
+            "--noise_scale", "0.01", "--epochs", "1", "--use_writer", "true"]
+
+
+@pytest.mark.gpu
+def test_ddp_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path, monkeypatch):
+    """DDP on two ranks sharing the card (gloo with CUDA tensors; 13 samples
+    in batches of 8, so a 5-sample tail every rank computes whole) against
+    one process: epoch metrics and final weights within 1e-5, each rank's
+    launches those of one process, all on the f32 Hopper kernel (cuDNN's
+    deterministic algorithms on every side)."""
+    from torch_dist_cases import launch
+
+    from dpot_tpu_torch.cli.train import main
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    name = "synthetic_gpu_ddp"
+    make_synthetic_spec(name, **GPU_SPEC)
+    argv = GPU_ARGV + ["--train_paths", name]
+    fused_gn_afno.launches_by_path.update(dict.fromkeys(afno_fused.PATHS, 0))
+    one = main(argv + ["--log_path", str(tmp_path / "one"), "--device", "cuda"])
+    launches = dict(fused_gn_afno.launches_by_path)
+    assert launches["hopper_f32"] > 0 and sum(launches.values()) == launches["hopper_f32"]
+    ranks = launch("train", tmp_path, {
+        "runs": [argv + ["--log_path", str(tmp_path / "two"), "--device", "cuda:0",
+                         "--dist_backend", "gloo"]],
+        "specs": {name: GPU_SPEC}, "cudnn_deterministic": True})
+    for r in ranks:
+        got = r["runs"][0]
+        assert got["ddp"] == "DistributedDataParallel" and got["launches"] == launches
+        for k in ("train_l2_step", "train_l2_full"):
+            assert abs(got["history"][k] - one[k]) <= 1e-5 * abs(one[k])
+        np.testing.assert_allclose(got["history"]["test_l2_fulls"], one["test_l2_fulls"],
+                                   rtol=1e-5)
+        for k, v in one["state"].params_state_dict().items():
+            w = got["params"][k].cpu().double()
+            assert float((w - v.cpu().double()).norm() / v.cpu().double().norm()) <= 1e-5, k
+
+
+@pytest.mark.gpu
+def test_fsdp_weight_cache_reads_the_gathered_weights(cuda, tmp_path):
+    """Under FSDP2 (one rank on nccl: it reshards after every forward, as over
+    several) the bf16 blocks that the Hopper kernel reads equal a fresh
+    conversion of the weights FSDP2 gathered, bit for bit, at every call; a cache
+    keyed on the weight tensor alone, stale on purpose, fails that check at
+    its second step."""
+    from torch_dist_cases import launch
+
+    (r,) = launch("cache_check", tmp_path, {"backend": "nccl", "device": "cuda", "steps": 3,
+                                            "control": 2}, world=1)
+    assert r["cache_blocks"] == [False, False]
+    assert r["launches"]["hopper"] == 2 * 2 * 5  # depth x (forward + remat) x steps
+    main_steps, control = r["steps"][:3], r["steps"][3:]
+    # 2 weights x 2 blocks, read in the forward and again in remat's recomputation
+    assert all(s["calls"] == 8 and s["mismatched"] == 0 for s in main_steps)
+    assert control[0]["mismatched"] == 0 and control[1]["mismatched"] > 0
+
+
+@pytest.mark.gpu
+def test_resize_bilinear_gradient_is_deterministic_on_the_card(cuda):
+    """CDPOT's resampling at 128^2 (x2 and back): the gradient, two matrix
+    products, is the same bit for bit in every run (torch's CUDA backward of
+    F.interpolate accumulates with atomics), and within 1e-6 of that
+    backward and of the CPU's."""
+    import torch.nn.functional as F
+
+    from dpot_tpu_torch.ops.resample import lrelu_filtered
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 128, 128, 32), generator=g)
+    bias = torch.randn(32, generator=g)
+    w = torch.randn((4, 128, 128, 32), generator=g)
+
+    def grad(dev):
+        a = x.to(dev).requires_grad_()
+        (lrelu_filtered(a, bias.to(dev), 128) * w.to(dev)).sum().backward()
+        return a.grad
+
+    runs = [grad("cuda") for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    b = x.cuda().requires_grad_()
+    up = F.interpolate(b.permute(0, 3, 1, 2), size=(256, 256), mode="bilinear",
+                       antialias=True, align_corners=False)
+    down = F.interpolate(F.leaky_relu(up, 0.01), size=(128, 128), mode="bilinear",
+                         antialias=True, align_corners=False)
+    (down.permute(0, 2, 3, 1).mul(w.cuda())).sum().backward()
+    for want in (b.grad, grad("cpu")):
+        want = want.cpu().double()
+        assert float((runs[0].cpu().double() - want).norm() / want.norm()) <= 1e-6
+

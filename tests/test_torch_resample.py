@@ -47,6 +47,34 @@ def test_resize_bilinear_matches_jax_image_resize(size_in, size_out):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
+# the same ratios, and CDPOT's at 128^2 (x2 and back, to its 16^2 latent)
+@pytest.mark.parametrize("size_in,size_out", [(16, 32), (32, 16), (8, 16), (16, 128),
+                                              (7, 12), (12, 5), (128, 256), (256, 128),
+                                              (128, 16)])
+def test_resize_bilinear_gradient_is_the_adjoint_of_interpolate(size_in, size_out):
+    """The gradient (two matrix products with F.interpolate's own per-axis
+    weights) against torch's backward of F.interpolate, within 1e-6
+    relative; the forward is F.interpolate's, bit for bit; bf16 inputs get
+    it cast back."""
+    import torch.nn.functional as F
+
+    x = torch.from_numpy(rand((2, size_in, size_in, 3), seed=size_in + size_out))
+    g = torch.from_numpy(rand((2, size_out, size_out, 3), seed=7))
+    a = x.clone().requires_grad_()
+    y = tr.resize_bilinear(a, (size_out, size_out))
+    (y * g).sum().backward()
+    b = x.clone().requires_grad_()
+    want = F.interpolate(b.permute(0, 3, 1, 2), size=(size_out, size_out), mode="bilinear",
+                         antialias=True, align_corners=False).permute(0, 2, 3, 1)
+    (want * g).sum().backward()
+    assert torch.equal(y, want)
+    assert rel_l2(a.grad.numpy(), b.grad.numpy()) <= 1e-6
+    c = x.to(torch.bfloat16).requires_grad_()
+    tr.resize_bilinear(c, (size_out, size_out)).float().mul(g).sum().backward()
+    assert c.grad.dtype == torch.bfloat16
+    assert rel_l2(c.grad.float().numpy(), b.grad.numpy()) <= 1e-2
+
+
 @pytest.mark.parametrize("out_size", [None, 32])
 def test_lrelu_filtered_matches_jax(out_size):
     x, b = rand((2, 8, 8, 5), seed=1), rand((5,), seed=2)

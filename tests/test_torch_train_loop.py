@@ -105,9 +105,16 @@ def test_nan_loss_rolls_back_to_the_last_good_state(tmp_path, monkeypatch):
     dict(shard_params="fsdp"), dict(viz_dir="viz"),
 ])
 def test_options_not_ported_raise(override):
+    """The options still to port raise naming their ROADMAP item; mesh_data
+    and shard_params=fsdp, ported since, raise in one process without a
+    process group: a mesh_data that is not the world size, and FSDP without
+    torchrun's group."""
     cfg = TrainConfig(model="DPOT", train_paths=["synthetic_tloop"], res=16, patch_size=4,
                       width=32, n_layers=1, n_blocks=4, modes=4, T_in=6, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = {"mesh_data": (ValueError, "mesh_data=2 does not match the 1 ranks"),
+                  "shard_params": (RuntimeError, "process group")}.get(
+        next(iter(override)), (NotImplementedError, "ROADMAP"))
+    with pytest.raises(exc, match=match):
         loop.build_everything(cfg, device="cpu")
 
 

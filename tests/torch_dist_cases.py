@@ -1,0 +1,260 @@
+"""Rank programs of the port's multi-process CPU tests (test_torch_ddp.py,
+test_torch_fsdp.py), and `launch`, which runs one of them on N gloo ranks.
+
+A rank runs as `python tests/torch_dist_cases.py CASE OUT_DIR ARGS_JSON`
+with torchrun's variables set (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT), starts the process group (gloo, or args['backend']) with a
+timeout, runs CASE and saves
+what it returns to OUT_DIR/rank{r}.pt (its output to OUT_DIR/rank{r}.log).
+`launch` gives the ranks a free port and kills them all when they outlast
+their time limit, so that a hung collective fails one test.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the CPU tests' tiny DPOT, on a synthetic set whose 13 train samples make an
+# 8-sample batch and a 5-sample tail that does not divide over 2 ranks
+SPEC = dict(train_size=13, test_size=11, t_total=10, t_test=3, in_size=(16, 16),
+            n_channels=2)
+TINY = ["--model", "DPOT", "--res", "16", "--patch_size", "4", "--width", "32",
+        "--n_layers", "1", "--n_blocks", "4", "--modes", "4", "--T_in", "6",
+        "--batch_size", "8", "--num_workers", "1", "--lr", "1e-3", "--warmup_epochs", "1",
+        "--device", "cpu"]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(case: str, out_dir, args: dict, world: int = 2, timeout: float = 120.0) -> list:
+    """Run `case` on `world` gloo ranks; the ranks' results, in rank order."""
+    import torch
+
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(world), "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "wb"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), case, str(out_dir), json.dumps(args)],
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=ROOT,
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        raise AssertionError(f"{case}: the ranks did not finish within {timeout} s")
+    finally:
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, f"rank{r}.log"), errors="replace") as f:
+                tail = f.read()[-6000:]
+            raise AssertionError(f"rank {r} of {case} exited {p.returncode}:\n{tail}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+@contextlib.contextmanager
+def block_cache_marks(model):
+    """Records, at each forward of an AFNO module of `model`, whether the
+    w1 and w2 it read kept the bf16 kernels' weight cache on (under FSDP2
+    they are the gathered parameters, marked off by parallel/fsdp.py)."""
+    from dpot_tpu_torch.models.dpot import AFNO2D
+
+    marks = []
+
+    def hook(m, args, out):
+        marks.append(getattr(m.w1, "_dpot_block_cache", True)
+                     or getattr(m.w2, "_dpot_block_cache", True))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, AFNO2D)]
+    try:
+        yield marks
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def case_train(args: dict) -> dict:
+    """cli.train on this rank, once per argv of args['runs']: for each, its
+    history, its final weights (gathered), its log directory, FSDP's
+    unsharded tensors and, from one more forward, whether each AFNO module
+    read its weights with the bf16 cache on, and the count of replicated
+    batches."""
+    import torch
+
+    from dpot_tpu_torch.cli.train import main
+    from dpot_tpu_torch.ops.cuda.afno_fused import PATHS, fused_gn_afno
+    from dpot_tpu_torch.parallel import shard_rows
+    from dpot_tpu_torch.parallel.fsdp import check_fsdp_shardings
+
+    runs = []
+    for argv in args["runs"]:
+        shard_rows.fallbacks = 0
+        fused_gn_afno.launches_by_path.update(dict.fromkeys(PATHS, 0))
+        out = main(argv)
+        state = out["state"]
+        marks = None
+        if state.sharded:
+            with block_cache_marks(state.model) as marks, torch.no_grad():
+                state.forward_module(torch.zeros(1, 16, 16, 6, 2))
+        runs.append({
+            "history": {k: out[k] for k in ("train_l2_step", "train_l2_full",
+                                            "test_l2_steps", "test_l2_fulls")},
+            "params": {k: v.detach().clone() for k, v in state.params_state_dict().items()},
+            "step": state.step,
+            "log_dir": out["log_dir"],
+            "cache_blocks": marks,
+            "unsharded": check_fsdp_shardings(state) if state.sharded else None,
+            "fallbacks": shard_rows.fallbacks,
+            "ddp": type(state.train_module).__name__,
+            "launches": dict(fused_gn_afno.launches_by_path),
+        })
+    return {"runs": runs}
+
+
+def case_step(args: dict) -> dict:
+    """One train step of the tiny DPOT from the weights in args['sd'] on this
+    rank's rows of the global batch in args['batch'] (external noise), in
+    each layout of args['layouts']: the aux and the weights after it."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.parallel import rank_world, replicate, shard_rows
+    from dpot_tpu_torch.parallel.fsdp import shard_state_fsdp
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import UNTRAINED, make_train_step
+
+    rank, world = rank_world()
+    sd = torch.load(args["sd"])
+    batch = torch.load(args["batch"])
+    rows = shard_rows(batch["x"].shape[0], rank, world)
+    local = {k: v[:, rows] if k == "noise" else v[rows] for k, v in batch.items()}
+    out = {}
+    for layout in args["layouts"]:
+        model = build_model("DPOT", device="cpu", **args["cfg"])
+        model.load_state_dict(sd)
+        opt = build_optimizer("adam", model.parameters(), args["lr"], grad_clip=args["clip"])
+        state = TrainState.create(model, opt, seed=0)
+        if layout == "ddp":
+            state.train_module = replicate(model, UNTRAINED)
+            state.rank, state.world = rank, world
+        else:
+            shard_state_fsdp(state, init_device_mesh("cpu", (world,)))
+        state, aux = make_train_step(noise_scale=args["noise"])(state, local)
+        out[layout] = {"aux": {k: float(v) for k, v in aux.items()},
+                       "params": {k: v.detach().clone()
+                                  for k, v in state.params_state_dict().items()}}
+    return out
+
+
+def case_cache_check(args: dict) -> dict:
+    """A small bf16 DPOT whose mixer takes the bf16 Hopper kernel (two AFNO
+    blocks of 128 channels at a 16x16 latent), under FSDP2 on args['device'],
+    args['steps'] lamb steps and then args['control'] steps through a cache
+    keyed on the weight tensor alone (stale on purpose). Per step: how many
+    of the forward's weights the kernel read as bf16 blocks that differ
+    from a fresh conversion of the weight FSDP2 gathered for the call; and
+    whether each AFNO module's first forward read its weights with the
+    cache on."""
+    import torch
+
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.ops.cuda import afno_fused
+    from dpot_tpu_torch.parallel import rank_world
+    from dpot_tpu_torch.parallel.fsdp import shard_state_fsdp
+    from dpot_tpu_torch.parallel.mesh import make_mesh
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+    from dpot_tpu_torch.utils.device import resolve_device
+
+    rank, world = rank_world()
+    device = resolve_device(args["device"])
+    model = build_model("DPOT", img_size=128, patch_size=8, in_channels=4, in_timesteps=6,
+                        embed_dim=256, depth=2, n_blocks=2, modes=8, n_cls=1,
+                        dtype=torch.bfloat16, remat=True, device=device, seed=0)
+    state = TrainState.create(model, build_optimizer("lamb", model.parameters(), 1e-3), 0)
+    shard_state_fsdp(state, make_mesh(None, device))
+    step_fn = make_train_step(noise_scale=1e-3, ones_mask=True)
+    real, same, stale = afno_fused._bf16_blocks, [], {}
+
+    def check(w, out):
+        same.append(torch.equal(out, afno_fused._convert_blocks(w.detach())))
+        return out
+
+    def spy(w):
+        return check(w, real(w))
+
+    def stale_spy(w):
+        stale.setdefault(id(w), afno_fused._convert_blocks(w.detach()))
+        return check(w, stale[id(w)])
+
+    steps, first = [], None
+    for i in range(args["steps"] + args["control"]):
+        g = torch.Generator().manual_seed(i)
+        x = torch.randn((4, 128, 128, 6, 4), generator=g)
+        y = torch.randn((4, 128, 128, 1, 4), generator=g)
+        n = 4 // world
+        rows = slice(rank * n, (rank + 1) * n)
+        batch = {"x": x[rows].to(device, torch.bfloat16), "y": y[rows].to(device),
+                 "cls": torch.zeros(n, dtype=torch.long, device=device)}
+        same.clear()
+        afno_fused._bf16_blocks = stale_spy if i >= args["steps"] else spy
+        try:
+            with block_cache_marks(model) as marks:
+                step_fn(state, batch)
+        finally:
+            afno_fused._bf16_blocks = real
+        first = marks[:2] if first is None else first  # the first forward's
+        steps.append(dict(calls=len(same), mismatched=same.count(False)))
+    return {"steps": steps, "launches": dict(afno_fused.fused_gn_afno.launches_by_path),
+            "cache_blocks": first}
+
+
+CASES = {"train": case_train, "step": case_step, "cache_check": case_cache_check}
+
+
+def main() -> None:
+    case, out_dir, args = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from dpot_tpu_torch.data.registry import make_synthetic_spec
+    from dpot_tpu_torch.parallel import maybe_initialize
+
+    torch.set_num_threads(1)
+    torch.backends.cudnn.deterministic = bool(args.get("cudnn_deterministic"))
+    for name, kw in args.get("specs", {}).items():
+        make_synthetic_spec(name, **kw)
+    if not maybe_initialize(args.get("backend", "gloo"), timeout=60):
+        raise RuntimeError("torchrun's variables are not set")
+    result = CASES[case](args)
+    torch.save(result, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
