@@ -228,7 +228,18 @@ start up, the 2-rank jobs once the nccl rank is done (phase_parallel):
      the weights FSDP2 gathered, bit for bit, each of those weights marked
      uncached, and a control forward through a cache keyed on the weight
      tensor alone (filled in the last step) fails that check; each rank's
-     peak memory against one process's, the collectives' time.
+     peak memory against one process's, the collectives' time;
+  27. tp_l, pp_l, sp_l, tp_serve_l: the same seeded DPOT-L, optimization
+     and batches on the same 2 ranks under shard_params tp (model = 2),
+     mesh_pipe 2 and mesh_spatial 2 (f32), each rank held
+     to one process on its losses, its first prediction, its first step's
+     gradient and its parameter change after the steps, with controls
+     (faults on purpose: fc2's all-reduce or the copy's backward all-reduce
+     left out, the permute's wrong slot, the all-to-alls skipped) above
+     their limits; launches exact per rank; and the L model served over
+     model = 2 against one process's answers.
+`python3 chip_smoke.py layouts` builds the kernels and runs phase 27
+alone, printing its rows.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -289,6 +300,9 @@ DPOT_S = dict(H=16, W=16, C=1024, nb=8, modes=32, groups=8, depth=6)
 # GroupNorm(8)'s groups of 192 channels straddle two blocks (the kernels for
 # 96-channel blocks, afno_hopper_l.cu and afno_hopper_f32_l.cu)
 DPOT_L = dict(H=16, W=16, C=1536, nb=16, modes=32, groups=8, depth=24)
+# a tensor-parallel rank's share of DPOT-L over model = 2 (tp_l, tp_serve_l):
+# half the channels, AFNO blocks and norm1 groups
+DPOT_L_TP = dict(DPOT_L, C=768, nb=8, groups=4)
 TI_FLAGS = [
     "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "512",
     "--n_layers", "4", "--n_blocks", "4", "--modes", "32", "--mlp_ratio", "1",
@@ -424,7 +438,10 @@ RUN_DIR = ROOT / "build" / "chip_smoke"
 # directory (log_path). Every other key is the file's: width 1536, depth 24,
 # 16 blocks, bf16, lamb, remat, batch 16, noise 5e-4, lr 5e-4, cycle
 L_CONFIG = ROOT / "configs" / "pretrain_large.yaml"
-TRAIN_L = dict(epochs=2, ntrain=2, ntest=2)
+# train_l's model (and so dispatch_l's, which trains it on) is cut to 12 of
+# L's 24 blocks, to keep the cold smoke under 1000 s with the parallel
+# layouts' jobs; its widths stay L's
+TRAIN_L = dict(epochs=2, ntrain=2, ntest=2, depth=12)
 # one bf16 L step at batch 16 with remat and without, from the same weights,
 # batch and noise: the recomputation runs the same kernels on the same
 # inputs, so the two are expected to be identical
@@ -576,6 +593,41 @@ PROFILE_STEPS = 5
 # (filled in the last step), stale on purpose, each of which must fail that
 # check
 FSDP_L = dict(steps=3, control=1, tol=2e-2, seed=61, lr=PARAMS_LP["lr"])
+# tp_l, pp_l, sp_l: fsdp_l's seeded DPOT-L at full width and depth, its
+# optimization and its global batches, FSDP_L's steps, in three more layouts
+# on the same 2 gloo ranks: shard_params tp over model = 2 (each rank's mixer
+# on C = 768, 8 AFNO blocks, 4 groups of 192: afno_hopper_l.cu), mesh_pipe 2
+# (12 blocks a stage, "micro" microbatches of 8) and mesh_spatial 2 in f32
+# (each rank 8 of the 16 latent rows, the pencil FFT, no kernel). tp_l and
+# pp_l against fsdp_l's one process, sp_l against one process on the single-
+# device FFT route (norm1, then afno_filter_2d). Each rank is held to one
+# process on what it holds, each within LAYOUT_TOL[job]: the losses
+# (relative); the first forward's prediction (relative L2; sp_l's rows of it);
+# the first step's gradient and the parameter change after the steps, each as
+# one relative L2 over the rank's leaves (its TP shards against one process's
+# slices, its stage's blocks, the replicated leaves). The loss of seeded
+# weights on random targets sits near its ceiling whatever the prediction, so
+# the loss alone would pass a wrong layout. Controls, each of which must land
+# above its limit: tp_l's forward without fc2's all-reduce (the prediction)
+# and its first step's gradient without the all-reduce of the copy's backward;
+# pp_l's forward with the permute taking the wrong stage's slot; sp_l's
+# forward with the pencil FFT's all-to-alls skipped (the seeded mixer adds
+# little to a block's output, so this one moves the prediction least). Each
+# limit lies between the largest sound reading on the H100 and the control's
+# (prediction / gradient / change: tp_l 7.0e-3 / 7.1e-3 / 1.4e-2, its controls
+# 0.46 / 0.50; pp_l 0 / 7.6e-4 / 4.0e-3, its control 0.97; sp_l 2.0e-6 /
+# 3.2e-4 / 5.2e-4, its control 7.6e-5; PERF.md §6). tp_serve_l: the L model
+# served over model = 2, rank 0 answering a request of each batch of
+# "serve_batches" at "serve_steps" steps, within "serve_tol" (relative L2) of
+# one process's graphed answers
+LAYOUT_L = dict(micro=2, serve_batches=(1, 4), serve_steps=4, serve_tol=3e-2,
+                serve_seed=67)
+LAYOUT_TOL = {"tp_l": dict(loss=FSDP_L["tol"], pred=2e-2, grad=5e-2, delta=5e-2),
+              "pp_l": dict(loss=FSDP_L["tol"], pred=1e-4, grad=5e-3, delta=2e-2),
+              "sp_l": dict(loss=1e-4, pred=2e-5, grad=2e-3, delta=3e-3)}
+# the one-process references of the layout jobs (one_process_steps)
+LAYOUT_REFS = {"tp_l": RUN_DIR / "ref_l.pt", "sp_l": RUN_DIR / "ref_sp_l.pt"}
+LAYOUT_REFS["pp_l"] = LAYOUT_REFS["tp_l"]
 # a torchrun launch's time limit, and the profiler names of collectives
 RANK_TIMEOUT = 600
 COLLECTIVE = re.compile(r"gloo|nccl|c10d|all_reduce|allreduce|all_gather|allgather|"
@@ -885,10 +937,12 @@ KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
                 ("S/", DPOT_S, torch.bfloat16, ("general", "hopper")),
                 ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")),
                 ("L/", DPOT_L, torch.bfloat16, ("general", "hopper_l")),
+                ("LTP/", DPOT_L_TP, torch.bfloat16, ("general", "hopper_l")),
                 ("L/", DPOT_L, torch.float32, ("general", "hopper_f32_l")))
 KERNEL_BATCHES = (1, 8, TRAIN["batch"])
 # the batches of each case: L in bf16 also at the batch of its pretraining
-CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"])}
+CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"]),
+                ("LTP/", torch.bfloat16): (1, 4, L_BATCH)}
 
 
 def phase_kernels() -> dict:
@@ -1674,14 +1728,14 @@ def phase_train_card_vs_cpu(B: int = 4) -> dict:
     return row
 
 
-def preset_model(preset: str, dtype: str, seed: int, device: str = "cuda"):
+def preset_model(preset: str, dtype: str, seed: int, device: str = "cuda", **kw):
     """A seeded DPOT of a registry preset on the 128^2 grid (patch 8, T_in
-    10, 4 channels, one dataset class)."""
+    10, 4 channels, one dataset class); kw to build_model (a mesh)."""
     from dpot_tpu_torch.models import build_model
 
     return build_model("DPOT", preset=preset, img_size=128, patch_size=8, in_channels=4,
                        in_timesteps=10, n_cls=1, dtype=getattr(torch, dtype),
-                       device=device, seed=seed)
+                       device=device, seed=seed, **kw)
 
 
 def save_reference_pth(model, path: Path) -> str:
@@ -1968,8 +2022,8 @@ def phase_convert_resume_serve() -> dict:
 
 def sweep_file(config: Path, tag: str, cut: dict, run_dir: Path) -> tuple[Path, list]:
     """Write the copy of the sweep file `config` with only its data cut
-    (`cut`: ntrain and ntest trajectories of each corpus, epochs) into
-    run_dir, its corpora the synthetic sets synthetic_{tag}_{corpus} of
+    (`cut`: ntrain and ntest trajectories of each corpus, epochs; and the
+    depth, n_layers, where `cut` names one) into run_dir, its corpora the synthetic sets synthetic_{tag}_{corpus} of
     their namesakes' grids, channels and lengths, its logs under
     run_dir/train_{tag}; returns its path and the sets' specs, in the
     file's order of corpora."""
@@ -1989,6 +2043,8 @@ def sweep_file(config: Path, tag: str, cut: dict, run_dir: Path) -> tuple[Path, 
     doc.update(train_paths=names, test_paths=names, ntrain_list=[cut["ntrain"]] * len(names),
                log_path=str(run_dir / f"train_{tag.lower()}"))
     doc["tasks"]["epochs"] = [cut["epochs"]]
+    if "depth" in cut:
+        doc["tasks"]["n_layers"] = [cut["depth"]]
     path = run_dir / f"{config.stem}_data_cut.yaml"
     path.write_text(yaml.safe_dump(doc, sort_keys=False))
     return path, specs
@@ -2045,8 +2101,8 @@ def phase_train_l() -> tuple[dict, torch.nn.Module]:
     if not model.remat or state.step != steps:
         raise AssertionError(f"train_l: remat {model.remat}, {state.step} steps, expected "
                              f"remat and {steps}")
-    want = DPOT_L["depth"] * (2 * steps + eval_apps)
-    if launches != want:
+    want = TRAIN_L["depth"] * (2 * steps + eval_apps)
+    if launches != want or len(model.blocks) != TRAIN_L["depth"]:
         raise AssertionError(f"train_l: fused_gn_afno launched {launches} times, expected "
                              f"depth x (2 x train + eval applications) = {want}")
     by_path = check_paths("bfloat16", launches, "hopper_l")
@@ -2466,9 +2522,9 @@ def phase_dispatch_l(model) -> dict:
     by_path = check_paths("bfloat16", launches, "hopper_l")
     # the first call's K steps, the replay's K and twice K eager, two
     # applications a step under remat
-    if launches != 4 * K * 2 * DPOT_L["depth"]:
+    if launches != 4 * K * 2 * len(model.blocks):
         raise AssertionError(f"dispatch_l: {launches} launches, expected "
-                             f"{4 * K * 2 * DPOT_L['depth']}")
+                             f"{4 * K * 2 * len(model.blocks)}")
     ref = ways["eager"].pop("out")
     got = ways["graphed"].pop("out")
     loss_spread = max_rel(ways["eager_again"]["losses"], ways["eager"]["losses"])
@@ -3934,7 +3990,7 @@ def rank_fsdp(args: dict) -> dict:
     state = fsdp_l_state(model)
     torch.cuda.reset_peak_memory_stats()
     build_s = time.perf_counter() - t0
-    shard_state_fsdp(state, make_mesh(None, device))
+    shard_state_fsdp(state, make_mesh(device=device))
     shard_s = time.perf_counter() - t0 - build_s
     step_s = []
     unsharded = check_fsdp_shardings(state)
@@ -4017,15 +4073,275 @@ def rank_fsdp(args: dict) -> dict:
                 job_s=dict(build=build_s, shard=shard_s, steps=step_s))
 
 
+@contextlib.contextmanager
+def fft_route():
+    """Every trunk block's norm1 and mixer as the single-device FFT route,
+    the JAX package's non-fused path: GroupNorm, then afno_filter_2d (no
+    kernel): sp_l's one-process reference."""
+    from dpot_tpu_torch.models.dpot import AFNO2D
+    from dpot_tpu_torch.ops.activations import get_activation
+    from dpot_tpu_torch.ops.norms import group_norm
+    from dpot_tpu_torch.ops.spectral import afno_filter_2d
+
+    def forward(self, x, norm):
+        xn = group_norm(x, norm.weight, norm.bias, norm.num_groups)
+        return afno_filter_2d(xn, self.w1, self.b1, self.w2, self.b2, self.modes,
+                              get_activation(self.act), x.dtype)
+
+    real = AFNO2D.forward
+    AFNO2D.forward = forward
+    try:
+        yield
+    finally:
+        AFNO2D.forward = real
+
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """module.name replaced by fn inside the block: a control's fault."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def layout_controls(job: str) -> dict:
+    """Each job's faults on purpose, which its checks must catch: the name
+    of the check each must fail, and the fault."""
+    from dpot_tpu_torch.parallel import dist_fft, pipeline, tensor
+
+    wrong_slot = pipeline.permute
+    return {
+        "tp_l": {"without_fc2_reduce": ("pred", lambda: patched(
+                     tensor, "reduce", lambda z, axis: z)),
+                 "without_copy_backward_reduce": ("grad", lambda: patched(
+                     tensor, "copy", lambda h, axis: h))},
+        # the permute taking the stage's own slot (a shift of 0 at P = 2)
+        "pp_l": {"wrong_permute_shift": ("pred", lambda: patched(
+                     pipeline, "permute", lambda t, axis, shift: wrong_slot(t, axis, shift + 1)))},
+        "sp_l": {"all_to_all_skipped": ("pred", lambda: patched(
+                     dist_fft, "all_to_all", lambda z, axis: z))},
+    }[job]
+
+
+def held_to(ref: dict, named: dict, tp_dims: dict, axis) -> dict:
+    """A rank's tensors (name -> its part: a TP shard, a stage's block, a
+    replicated leaf) against one process's full ones (`ref`, on the host):
+    one relative L2 over all of them, and the worst leaf's."""
+    from dpot_tpu_torch.parallel.tensor import local_shard
+
+    if not set(named) <= set(ref):
+        raise AssertionError(f"leaves that one process has not: {sorted(set(named) - set(ref))[:4]}")
+    num = den = 0.0
+    per = {}
+    for n, t in named.items():
+        r = ref[n]
+        if n in tp_dims:
+            r = local_shard(r, tp_dims[n], axis)
+        r = r.to(t.device, torch.float32)
+        d = (t.detach().float() - r).square().sum().item()
+        q = r.square().sum().item()
+        per[n] = math.sqrt(d / q) if q > 0 else (0.0 if d == 0 else math.inf)
+        num, den = num + d, den + q
+    worst = max(per, key=per.get)
+    return dict(rel_l2=math.sqrt(num / den), leaves=len(per), worst=worst,
+                worst_rel_l2=per[worst])
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+# the config keys of each layout job (cli.train's flags)
+LAYOUT_CFG = {"tp_l": dict(shard_params="tp", mesh_model=2),
+              "pp_l": dict(mesh_pipe=2, pipe_microbatches=LAYOUT_L["micro"]),
+              "sp_l": dict(mesh_spatial=2)}
+
+
+def layout_rows(b: dict, mesh) -> dict:
+    """A layout rank's part of fsdp_l's global batch: all of its rows (the
+    data axis has one rank), under 'spatial' its H rows."""
+    s = mesh.size("spatial")
+    if s == 1:
+        return b
+    n = b["x"].shape[1] // s
+    r = mesh.coords["spatial"]
+    return {k: v if k == "cls" else v[:, r * n:(r + 1) * n] for k, v in b.items()}
+
+
+def rank_layout(job: str, device: torch.device, args: dict) -> dict:
+    """A tp_l, pp_l or sp_l rank: seeded DPOT-L laid out as cli.train lays
+    it out (LAYOUT_CFG, train/loop.py place_state); the first forward's
+    prediction and the controls' (layout_controls); FSDP_L's steps on this
+    rank's part of fsdp_l's batches, the last one profiled (the
+    collectives' share); the first step's gradient and the parameter change
+    after the steps held to one process's (`held_to`, args["refs"][job]);
+    launches, peak memory."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpot_tpu_torch.ops.spectral import separable_gn_afno
+    from dpot_tpu_torch.parallel.mesh import make_mesh
+    from dpot_tpu_torch.train.loop import model_mesh_kw, place_state
+    from dpot_tpu_torch.train.step import make_train_step
+    from dpot_tpu_torch.utils.config import TrainConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = TrainConfig(train_paths=["synthetic"], **LAYOUT_CFG[job])
+    mesh = make_mesh(None, cfg.mesh_spatial, cfg.mesh_model, cfg.mesh_pipe, device)
+    dtype = "float32" if job == "sp_l" else "bfloat16"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = preset_model("L", dtype, FSDP_L["seed"], device=str(device),
+                         **model_mesh_kw(cfg, mesh))
+    model.remat = True
+    state = fsdp_l_state(model)
+    state.mesh = mesh
+    place_state(state, cfg, device)
+    tp_dims = getattr(model, "tp_dims", {})
+    axis = mesh.axis("model")
+    row = dict(job=job, dtype=dtype, mesh=mesh.sizes, coords=mesh.coords,
+               blocks=len(model.blocks), local_w1=list(next(iter(model.blocks)).filter.w1.shape),
+               tp_leaves=len(tp_dims), build_s=time.perf_counter() - t0)
+    ref = torch.load(args["refs"][job], mmap=True, weights_only=True)
+    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    b0 = layout_rows(fsdp_l_batch(0), mesh)
+    with torch.no_grad():
+        row["pred"] = model(b0["x"])[0].cpu()
+    # the controls, before the steps: a forward's prediction, or a step's
+    # gradient with the update left out and the noise stream put back
+    row["controls"] = {}
+    for name, (check, fault) in layout_controls(job).items():
+        with fault():
+            if check == "pred":
+                with torch.no_grad():
+                    row["controls"][name] = (check, model(b0["x"])[0].cpu())
+                continue
+            gen = state.generator.get_state()
+            state.apply_gradients = lambda *a, **k: None
+            try:
+                step_fn(state, b0)
+            finally:
+                del state.apply_gradients
+                state.generator.set_state(gen)
+        row["controls"][name] = (check, held_to(ref["grad"], grads_of(model), tp_dims, axis))
+    before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    reset_launch_counts()
+    losses, walls, prof_row = [], [], {}
+    for i in range(FSDP_L["steps"]):
+        b = layout_rows(fsdp_l_batch(i), mesh)
+        torch.cuda.synchronize()
+        if i == FSDP_L["steps"] - 1:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                aux = step_fn(state, b)[1]
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+            coll = collective_ms(prof.events(), 1)
+            kernels = [e for e in prof.events() if is_kernel(e)]
+            prof_row = dict(wall_ms=wall, collective_share=coll["collective_host_ms"] / wall,
+                            device_busy_ms=union_us(kernels) / 1e3 if kernels
+                            else "not measured", **coll)
+        else:
+            t1 = time.perf_counter()
+            aux = step_fn(state, b)[1]
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(aux["loss_step"]))
+        if i == 0:
+            row["grad"] = held_to(ref["grad"], grads_of(model), tp_dims, axis)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        row["delta"] = held_to(ref["delta"], {n: p - before[n].to(p.device) for n, p in
+                                              model.named_parameters()}, tp_dims, axis)
+    row.update(losses=losses, wall_ms_each=walls, profile=prof_row,
+               launches=fused_gn_afno.launches,
+               launches_by_path=dict(fused_gn_afno.launches_by_path),
+               bias_act_launches=bias_act.launches, separable_calls=separable_gn_afno.calls,
+               peak_memory_gb=peak,
+               job_s=time.perf_counter() - t0)
+    return row
+
+
+def serve_l_inputs() -> list[np.ndarray]:
+    """tp_serve_l's requests: one seeded input of each batch size."""
+    rng = np.random.default_rng(LAYOUT_L["serve_seed"])
+    return [rng.standard_normal((B, 128, 128, 10, 4)).astype(np.float32)
+            for B in LAYOUT_L["serve_batches"]]
+
+
+def serve_l_requests(rs) -> dict:
+    """serve_l_inputs through a started server: the answers and each
+    request's wall (ms)."""
+    answers, ms = [], []
+    for x in serve_l_inputs():
+        t0 = time.perf_counter()
+        answers.append(rs.submit(x, LAYOUT_L["serve_steps"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(answers=answers, request_ms=ms)
+
+
+def rank_tp_serve(device: torch.device) -> dict:
+    """A tp_serve_l rank: seeded DPOT-L (bf16) served over model = 2; rank 0
+    answers the requests, rank 1 follows until rank 0 stops. Launches on
+    each rank, the requests' walls on rank 0."""
+    import gc
+
+    from dpot_tpu_torch.parallel.mesh import make_mesh
+    from dpot_tpu_torch.serve.server import RolloutServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = preset_model("L", "bfloat16", FSDP_L["seed"], device=str(device))
+    rs = RolloutServer(model, mesh=make_mesh(model=2, device=device), device=device,
+                       batch_buckets=LAYOUT_L["serve_batches"], max_wait_ms=1.0,
+                       warmup_steps=(LAYOUT_L["serve_steps"],))
+    reset_launch_counts()
+    rs.start()  # rank 1: the follower loop, until rank 0 stops
+    row = dict(job="tp_serve_l", leader=rs.leader, tp_leaves=len(model.tp_dims),
+               local_w1=list(model.blocks[0].filter.w1.shape),
+               warmup_applications=sum(rs._warmup_steps))
+    if rs.leader:
+        row.update(serve_l_requests(rs))
+        rs.stop(drain=True)
+    torch.cuda.synchronize()
+    row.update(launches=fused_gn_afno.launches,
+               launches_by_path=dict(fused_gn_afno.launches_by_path),
+               bias_act_launches=bias_act.launches, job_s=time.perf_counter() - t0)
+    return row
+
+
 def rank_pair(args: dict) -> dict:
     """A rank of the parallel phases' 2-rank launch: ddp_cdpot's job
-    (args["train"]), then fsdp_l's (args["fsdp"]) in the process group
-    that cli.train started, one launch's start-up for both."""
+    (args["train"]), then fsdp_l's (args["fsdp"]), tp_l's, pp_l's, sp_l's
+    and tp_serve_l's in the process group that cli.train started, one
+    launch's start-up for all."""
     ddp = rank_train(args["train"])
-    return dict(rank=ddp["rank"], train=ddp, fsdp=rank_fsdp(args["fsdp"]))
+    fsdp = rank_fsdp(args["fsdp"])
+    return dict(rank_layouts(args), train=ddp, fsdp=fsdp)
 
 
-RANK_JOBS = {"train": rank_train, "pair": rank_pair}
+def rank_layouts(args: dict) -> dict:
+    """A rank's tp_l, pp_l, sp_l and tp_serve_l jobs (args["layouts"]; also
+    a launch of its own, args["init"] set, to run this slice's jobs alone)."""
+    import torch.distributed as dist
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    row = {job: rank_layout(job, device, args["layouts"]) for job in LAYOUT_CFG}
+    return dict(row, rank=dist.get_rank(), tp_serve_l=rank_tp_serve(device))
+
+
+def layout_args() -> dict:
+    """The layout jobs' arguments for their ranks."""
+    return dict(refs={job: str(p) for job, p in LAYOUT_REFS.items()})
+
+
+RANK_JOBS = {"train": rank_train, "pair": rank_pair, "layouts": rank_layouts}
 
 
 def rank_main(job: str, args_path: str) -> int:
@@ -4116,14 +4432,19 @@ def phase_parallel() -> tuple[dict, dict]:
         # two ranks sharing the card (gloo with CUDA tensors), held until
         # the nccl rank is done
         launches.append(Launch(2, "pair", dict(
-            device="cuda:0", fsdp={},
+            device="cuda:0", fsdp={}, layouts=layout_args(),
             train=dict(common, profile=True, argv=argv + [
                 "--log_path", str(RUN_DIR / "ddp_2"), "--dist_backend", "gloo",
                 "--device", "cuda:0"])), "pair_2", hold=True))
         nccl_launch, pair_launch = launches
         t1 = time.perf_counter()
         fsdp_one = fsdp_l_single()  # while the launches start up
+        pred0 = fsdp_one.pop("pred0")
         clock["one_process_l"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        sp_one = sp_l_single()
+        serve_one = tp_serve_l_single()
+        clock["one_process_layouts"] = time.perf_counter() - t1
         (nccl,) = nccl_launch.finish()
         clock["nccl_launch"] = nccl_launch.seconds
         pair_launch.go()
@@ -4140,10 +4461,11 @@ def phase_parallel() -> tuple[dict, dict]:
     del single
     torch.cuda.empty_cache()
     fsdp = fsdp_l_checks(fsdp_one, [r["fsdp"] for r in pair])
+    layouts = layout_checks(fsdp_one, pred0, sp_one, serve_one, pair)
     clock["total"] = time.perf_counter() - t0
     log("ddp_cdpot", **ddp, parallel_s=clock)
     log("fsdp_l", **fsdp, parallel_s=clock)
-    return ddp, fsdp
+    return ddp, fsdp, layouts
 
 
 def ddp_cdpot_single(argv: list) -> tuple[dict, dict]:
@@ -4274,15 +4596,21 @@ def ddp_cdpot_checks(job: dict, specs, doc: dict, single: dict, one: dict, ranks
                 served_requests=len(sent))
 
 
-def fsdp_l_single() -> dict:
-    """FSDP_L's steps of seeded DPOT-L in one process, eagerly: the losses,
-    walls, launches and peak memory."""
+def one_process_steps(model, path: Path) -> dict:
+    """FSDP_L's steps of `model` (seeded, on the card) in one process,
+    eagerly: the first forward's prediction, the losses, walls, launches
+    and peak memory; the first step's gradient and the parameter change
+    after the steps saved to `path` (on the host, f32), which the layout
+    ranks are held to."""
     from dpot_tpu_torch.train.step import make_train_step
 
-    model = preset_model("L", "bfloat16", FSDP_L["seed"])
     model.remat = True
     state = fsdp_l_state(model)
     step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+    with torch.no_grad():  # the layouts' first predictions are held to it
+        pred0 = model(fsdp_l_batch(0)["x"])[0].cpu()
+    before = {n: p.detach().to("cpu", torch.float32, copy=True)
+              for n, p in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -4292,14 +4620,197 @@ def fsdp_l_single() -> dict:
         t0 = time.perf_counter()
         losses.append(float(step_fn(state, b)[1]["loss_step"]))
         walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grad = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                    if p.grad is not None}
     torch.cuda.synchronize()
     one = dict(losses=losses, wall_ms_each=walls, launches=fused_gn_afno.launches,
                launches_by_path=dict(fused_gn_afno.launches_by_path),
                bias_act_launches=bias_act.launches,
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, pred0=pred0,
+               blocks=len(model.blocks))
+    delta = {n: p.detach().float().cpu() - before[n] for n, p in model.named_parameters()}
+    torch.save({"grad": grad, "delta": delta}, path)
     del model, state, b
     torch.cuda.empty_cache()
     return one
+
+
+def fsdp_l_single() -> dict:
+    """FSDP_L's steps of seeded DPOT-L (bf16) in one process
+    (`one_process_steps`): fsdp_l's, tp_l's and pp_l's reference."""
+    return one_process_steps(preset_model("L", "bfloat16", FSDP_L["seed"]),
+                             LAYOUT_REFS["tp_l"])
+
+
+def sp_l_single() -> dict:
+    """FSDP_L's steps of the seeded DPOT-L in f32 in one process on the
+    single-device FFT route (`fft_route`): sp_l's reference; no kernel
+    launches."""
+    model = preset_model("L", "float32", FSDP_L["seed"])
+    with fft_route():
+        return one_process_steps(model, LAYOUT_REFS["sp_l"])
+
+
+def tp_serve_l_single() -> dict:
+    """tp_serve_l's requests to the seeded DPOT-L (bf16) served in one
+    process, graphed and eager (`_graphed` off): answers, walls, launches."""
+    from dpot_tpu_torch.serve.server import RolloutServer
+
+    model = preset_model("L", "bfloat16", FSDP_L["seed"])
+    out = {}
+    for graphed in (True, False):
+        rs = RolloutServer(model, device="cuda", batch_buckets=LAYOUT_L["serve_batches"],
+                           max_wait_ms=1.0, warmup_steps=(LAYOUT_L["serve_steps"],))
+        rs._graphed = graphed
+        reset_launch_counts()
+        rs.start()
+        try:
+            out["graphed" if graphed else "eager"] = dict(
+                serve_l_requests(rs), launches=fused_gn_afno.launches,
+                launches_by_path=dict(fused_gn_afno.launches_by_path),
+                bias_act_launches=bias_act.launches)
+        finally:
+            rs.stop(drain=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_checks(fsdp_one: dict, pred0: torch.Tensor, sp_one: dict, serve_one: dict,
+                  pair: list) -> dict:
+    """tp_l, pp_l, sp_l and tp_serve_l on 2 ranks sharing the card (gloo with
+    CUDA tensors) against one process: each rank of tp_l and pp_l against
+    fsdp_l's one process (pred0: its first prediction), of sp_l against
+    one process on the FFT route (sp_one), each reading within
+    LAYOUT_TOL[job] (the losses, the first prediction, the first step's
+    gradient and the parameter change) and each control above the limit of
+    the reading it spoils; each rank's launches exact (2 x FSDP_L's steps x
+    depth under TP, 2 x steps x micro x depth / 2 a stage, all on
+    afno_hopper_l.cu, at C = 768 (8 AFNO blocks of 96) under TP and 12
+    blocks at C = 1536 a stage; none under spatial); tp_serve_l's answers
+    within "serve_tol" of one process's graphed answers, each rank's
+    launches depth x applications on hopper_l. Logs a row per job, then
+    raises if any check failed; returns the rows."""
+    depth, steps = DPOT_L["depth"], FSDP_L["steps"]
+    rows, bad = {}, []
+    sp_pred0 = sp_one.pop("pred0")
+    jobs = {"tp_l": (fsdp_one, pred0, 2 * steps * depth, [2, 8, 96, 96], depth),
+            "pp_l": (fsdp_one, pred0, 2 * steps * LAYOUT_L["micro"] * depth // 2,
+                     [2, 16, 96, 96], depth // 2),
+            "sp_l": (sp_one, sp_pred0, 0, [2, 16, 96, 96], sp_one["blocks"])}
+    for job, (one, want_pred, want, w1, blocks) in jobs.items():
+        ranks = [r[job] for r in pair]
+        tol = LAYOUT_TOL[job]
+        for r in ranks:
+            n = r["pred"].shape[1]  # a spatial rank's rows of the prediction
+            rows_of = slice(r["coords"]["spatial"] * n, (r["coords"]["spatial"] + 1) * n)
+            ref = want_pred[:, rows_of]
+            r["readings"] = dict(
+                loss=max(abs(a - c) / abs(c) for a, c in zip(r["losses"], one["losses"],
+                                                            strict=True)),
+                pred=rel_l2(r.pop("pred"), ref), grad=r["grad"]["rel_l2"],
+                delta=r["delta"]["rel_l2"])
+            r["controls"] = {name: dict(check=check, limit=tol[check],
+                                        rel_l2=rel_l2(v, ref) if check == "pred"
+                                        else v["rel_l2"])
+                             for name, (check, v) in r["controls"].items()}
+            over = {k: v for k, v in r["readings"].items() if not v <= tol[k]}
+            if over:
+                bad.append(f"{job} {r['coords']}: {over} over {tol}")
+            caught = [c for c in r["controls"].values() if not c["rel_l2"] > c["limit"]]
+            if caught:
+                bad.append(f"{job} {r['coords']}: controls not above their limit: {caught}")
+            if (r["launches"] != want or r["launches_by_path"].get("hopper_l", 0) != want
+                    or r["separable_calls"] or one["launches"] and not want):
+                bad.append(f"{job} {r['coords']}: launches {r['launches_by_path']}, separable "
+                           f"{r['separable_calls']}, expected {want} on hopper_l")
+            if r["local_w1"] != w1 or r["blocks"] != blocks:
+                bad.append(f"{job} {r['coords']}: w1 {r['local_w1']}, {r['blocks']} blocks")
+        rows[job] = layout_row(ranks, one, tol)
+    ranks = [r["tp_serve_l"] for r in pair]
+    apps = ranks[0]["warmup_applications"] + len(LAYOUT_L["serve_batches"]) * LAYOUT_L[
+        "serve_steps"]
+    graphed = serve_one["graphed"]
+    errs = [rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+            for a, b in zip(ranks[0]["answers"], graphed["answers"], strict=True)]
+    for r in ranks:
+        if r["launches"] != depth * apps or r["launches_by_path"]["hopper_l"] != depth * apps:
+            bad.append(f"tp_serve_l launches {r['launches_by_path']}, expected depth x {apps} "
+                       "applications on hopper_l")
+    if not max(errs) <= LAYOUT_L["serve_tol"] or not all(
+            np.isfinite(a).all() for a in ranks[0]["answers"]):
+        bad.append(f"tp_serve_l answers against one process's: rel {errs}")
+    per_app = {k: [ms / LAYOUT_L["serve_steps"] for ms in v["request_ms"]]
+               for k, v in (("tp", ranks[0]), ("one_process_graphed", graphed),
+                            ("one_process_eager", serve_one["eager"]))}
+    rows["tp_serve_l"] = dict(
+        dtype="bfloat16", world=2, batches=LAYOUT_L["serve_batches"],
+        steps=LAYOUT_L["serve_steps"], limit=LAYOUT_L["serve_tol"], rel_l2=errs,
+        ms_per_application=per_app, applications=apps,
+        launches_per_rank=[r["launches"] for r in ranks],
+        launches=sum(r["launches"] for r in ranks) + sum(
+            v["launches"] for v in serve_one.values()),
+        launches_by_path={p: sum(r["launches_by_path"][p] for r in ranks) + sum(
+            v["launches_by_path"][p] for v in serve_one.values()) for p in afno_fused.PATHS},
+        bias_act_launches=sum(r["bias_act_launches"] for r in ranks),
+        local_w1=ranks[0]["local_w1"], job_s=[r["job_s"] for r in ranks])
+    for job, row in rows.items():
+        log(job, **row)
+    if bad:
+        raise AssertionError("parallel layouts: " + "; ".join(bad))
+    return rows
+
+
+def layout_row(ranks: list, one: dict, limits: dict) -> dict:
+    """A layout job's row: each rank's readings against one process and its
+    controls', the step walls, the collectives' share and the peak memory
+    per rank beside one process's."""
+    return dict(
+        dtype=ranks[0]["dtype"], world=2, mesh=ranks[0]["mesh"], global_batch=L_BATCH,
+        steps=FSDP_L["steps"], limits=limits, one_process_losses=one["losses"],
+        rank_losses=[r["losses"] for r in ranks],
+        readings=[r["readings"] for r in ranks], controls=[r["controls"] for r in ranks],
+        worst_leaf={k: [dict(leaf=r[k]["worst"], rel_l2=r[k]["worst_rel_l2"],
+                             leaves=r[k]["leaves"]) for r in ranks] for k in ("grad", "delta")},
+        step_wall_ms=[r["wall_ms_each"] for r in ranks],
+        one_process_wall_ms=one["wall_ms_each"],
+        rank_profiles=[r["profile"] for r in ranks],
+        rank_peak_memory_gb=[r["peak_memory_gb"] for r in ranks],
+        one_process_peak_memory_gb=one["peak_memory_gb"],
+        launches_per_rank=[r["launches"] for r in ranks],
+        launches=sum(r["launches"] for r in ranks),
+        launches_by_path={p: sum(r["launches_by_path"][p] for r in ranks)
+                          for p in afno_fused.PATHS},
+        bias_act_launches=sum(r["bias_act_launches"] for r in ranks),
+        local_w1=ranks[0]["local_w1"], blocks_per_rank=ranks[0]["blocks"],
+        tp_leaves=ranks[0]["tp_leaves"], build_s=[r["build_s"] for r in ranks],
+        job_s=[r["job_s"] for r in ranks])
+
+
+def phase_layouts_alone() -> dict:
+    """This slice's layout jobs alone (`python3 chip_smoke.py layouts`):
+    the kernels built, one process's references, then one 2-rank gloo
+    launch of tp_l, pp_l, sp_l and tp_serve_l, and layout_checks."""
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    launch = Launch(2, "layouts", dict(device="cuda:0", init=True, backend="gloo",
+                                       layouts=layout_args()), "layouts_2", hold=True)
+    try:
+        t0 = time.perf_counter()
+        fsdp_one = fsdp_l_single()
+        pred0 = fsdp_one.pop("pred0")
+        sp_one = sp_l_single()
+        serve_one = tp_serve_l_single()
+        log("layout_references", seconds=time.perf_counter() - t0,
+            fsdp_one=fsdp_one, sp_one={k: v for k, v in sp_one.items() if k != "pred0"})
+        launch.go()
+        t0 = time.perf_counter()
+        pair = launch.finish()
+        log("layout_launch", seconds=time.perf_counter() - t0,
+            launch_s=[r["launch_s"] for r in pair])
+    finally:
+        launch.kill()
+    return layout_checks(fsdp_one, pred0, sp_one, serve_one, pair)
 
 
 def fsdp_l_checks(one: dict, ranks: list) -> dict:
@@ -4361,7 +4872,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["rank"]:  # a rank of ddp_cdpot or fsdp_l, under torchrun
+    if sys.argv[1:2] == ["rank"]:  # a rank of a multi-process phase, under torchrun
         return rank_main(*sys.argv[2:4])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4375,6 +4886,9 @@ def main() -> int:
     log("build", seconds=time.perf_counter() - t0,
         libraries=[p.name for p in build.library_paths().values()],
         torch=torch.__version__, cuda=torch.version.cuda)
+    if sys.argv[1:2] == ["layouts"]:  # this slice's layout jobs alone
+        phase_layouts_alone()
+        return 0
 
     k = phase_kernels()
     vjp = phase_vjp()
@@ -4420,7 +4934,7 @@ def main() -> int:
     train_cdpot, serve_cdpot = phase_train_cdpot()
     families = phase_card_vs_cpu_families()
     torch.cuda.empty_cache()
-    ddp, fsdp = phase_parallel()
+    ddp, fsdp, layouts = phase_parallel()
     shutil.rmtree(RUN_DIR)
 
     def batches(prefix, dtype):
@@ -4446,7 +4960,8 @@ def main() -> int:
                 "ddp_cdpot": ddp}
     l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "rollouts": rollouts,
               "train_l": train_l, "remat_l": remat_l, "dispatch_l": dispatch_l,
-              "params_lp_l": params_lp_l, "fsdp_l": fsdp}
+              "params_lp_l": params_lp_l, "fsdp_l": fsdp, "tp_l": layouts["tp_l"],
+              "pp_l": layouts["pp_l"], "tp_serve_l": layouts["tp_serve_l"]}
     # (name, kernel-phase key prefixes of the shapes its main path gives it,
     # the first the one whose times the row carries, dtype, path, source,
     # the runs whose launches count)
@@ -4454,7 +4969,7 @@ def main() -> int:
              bf16_runs),
             ("fused_gn_afno[bf16,hopper_wide]", ("H/",), "bfloat16", "hopper_wide",
              "afno_hopper_wide.cu", {"serve_h": serve_h, "train_h": train_h}),
-            ("fused_gn_afno[bf16,hopper_l]", ("L/",), "bfloat16", "hopper_l",
+            ("fused_gn_afno[bf16,hopper_l]", ("L/", "LTP/"), "bfloat16", "hopper_l",
              "afno_hopper_l.cu", l_runs),
             ("fused_gn_afno[bf16,general]", ("L/",), "bfloat16", "general", "afno_fused.cu",
              {**l_runs, **bf16_runs}),
@@ -4492,6 +5007,8 @@ def main() -> int:
         ))
         if "S/" in prefixes:
             kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
+        if "LTP/" in prefixes:  # a TP rank's shapes: C = 768, 8 blocks, 4 groups
+            kernels[-1]["by_batch_at_l_tp"] = by_batch("LTP/", dtype, path)
         if path == "general":  # forced on at the L, Ti, S and H shapes
             kernels[-1]["by_batch_at_ti"] = by_batch("", dtype, path)
             if dtype == "bfloat16":
@@ -4501,7 +5018,8 @@ def main() -> int:
     bias_act_launches = sum(r["bias_act_launches"] for r in (
         serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, serve_h, train_h,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
-        cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families, ddp, fsdp))
+        cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families, ddp, fsdp,
+        *layouts.values()))
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
         kernels.append(dict(

@@ -15,6 +15,17 @@ keeping them (torch.utils.checkpoint, the counterpart of JAX's
 `nn.remat(Block)`). The parameters may also be a bfloat16 working copy
 (train/state.py): every op then takes them as they are, or upcasts them
 where it computes in float32.
+
+`mesh` (parallel/mesh.py Mesh) lays the model over the ranks of a
+multi-process run, as JAX's `spatial_mesh` and `pipe_mesh` do: with a
+'spatial' axis above 1 each rank holds its H rows of every activation, the
+norms, the instance statistics and the classifier's mean sum over the axis
+and each block's mixer is norm1 and then the pencil FFT
+(parallel/dist_fft.py; the fused kernel is off, as in JAX); with a 'pipe'
+axis above 1 the trunk runs as the GPipe schedule (parallel/pipeline.py),
+each stage on its blocks (`cut_stage` drops the others once the weights are
+loaded). Tensor parallelism is placed on the blocks afterwards, as JAX
+places it (parallel/tensor.py `shard_model_tp`).
 """
 
 from __future__ import annotations
@@ -43,6 +54,10 @@ from dpot_tpu_torch.ops.spectral import (
     kept_modes,
     separable_gn_afno,
 )
+from dpot_tpu_torch.parallel.dist_fft import afno_filter_2d_sharded
+from dpot_tpu_torch.parallel.mesh import all_sum
+from dpot_tpu_torch.parallel.pipeline import StageBlocks, pipeline_blocks
+from dpot_tpu_torch.parallel.tensor import block_forward
 from dpot_tpu_torch.utils.device import resolve_device
 
 
@@ -117,8 +132,10 @@ class AFNO2D(nn.Module):
     def forward(self, x: torch.Tensor, norm: GroupNorm) -> torch.Tensor:
         """norm(x) mixed, plus the normed x (the AFNO-internal residual).
         x: (B, H, W, C) of the compute dtype, which is the kernel's operand
-        type. The mode MLP applies `act` as ops/activations defines it for
-        that dtype: gelu is the tanh form under bf16 and erf under f32."""
+        type; `norm` anything with GroupNorm's weight, bias and num_groups
+        (a tensor-parallel rank's slices, parallel/tensor.py). The mode MLP
+        applies `act` as ops/activations defines it for that dtype: gelu is
+        the tanh form under bf16 and erf under f32."""
         B, H, W, C = x.shape
         if H * W > COMBINED_MAX_PIXELS:
             return separable_gn_afno(x, norm.weight, norm.bias, norm.num_groups, self.w1,
@@ -135,7 +152,10 @@ class AFNO2D(nn.Module):
 
 
 class Block(nn.Module):
-    """GroupNorm(8) -> AFNO -> GroupNorm(8) -> pointwise MLP -> residual."""
+    """GroupNorm(8) -> AFNO -> GroupNorm(8) -> pointwise MLP -> residual.
+    `tp` (parallel/tensor.py BlockShards) runs it on a tensor-parallel
+    rank's shards; `spatial` (a mesh's 'spatial' Axis) on a rank's rows of
+    the latent (DPOTNet's docstring)."""
 
     def __init__(self, width: int, num_blocks: int, modes: int, mlp_ratio: float,
                  act: str, dtype: torch.dtype, generator: torch.Generator,
@@ -150,10 +170,22 @@ class Block(nn.Module):
             Activation(act),
             Dense(hidden, width, generator, conv=True, dtype=dtype),
         ])
+        self.tp = None
+        self.spatial = None
 
     def forward(self, x):
+        if self.tp is not None:
+            return block_forward(self, x)
         residual = x
-        x = self.norm2(self.filter(x, self.norm1))
+        if self.spatial is None:
+            x = self.norm2(self.filter(x, self.norm1))
+        else:
+            n1, n2, f = self.norm1, self.norm2, self.filter
+            x = group_norm(x, n1.weight, n1.bias, n1.num_groups, n1.eps, self.spatial)
+            x = afno_filter_2d_sharded(x, f.w1, f.b1, f.w2, f.b2, f.modes,
+                                       get_activation(f.act), self.spatial,
+                                       compute_dtype=x.dtype)
+            x = group_norm(x, n2.weight, n2.bias, n2.num_groups, n2.eps, self.spatial)
         for layer in self.mlp:
             x = layer(x)
         return x + residual
@@ -206,7 +238,9 @@ class PatchConv(nn.Module):
         )
         self.bias = nn.Parameter(torch_uniform((features,), fan_in, generator))
 
-    def forward(self, x):
+    def forward(self, x, rows: tuple[int, int] | None = None):
+        """rows: (H, first row) when x holds rows of an H-row input (a
+        'spatial' rank's), whose grid channels are those rows'."""
         p, dt = self.p, self.dtype
         E = self.weight.shape[0]
         # (E, C(+3), a, b) -> rows in (a, b, c) order
@@ -223,7 +257,8 @@ class PatchConv(nn.Module):
         kg = k[:, :, C:].reshape(p * p * 3, E).to(dt)
         x = x.to(dt).reshape(B, h, p, w, p, T, C).permute(0, 1, 3, 5, 2, 4, 6)
         y = x.reshape(B, h, w, T, p * p * C) @ kx
-        y = y + grid_patches(H, W, T, p, dt, x.device) @ kg
+        full, r0 = rows or (H, 0)
+        y = y + grid_patches(full, W, T, p, dt, x.device)[r0 // p:r0 // p + h] @ kg
         return y + self.bias.to(dt)
 
 
@@ -266,8 +301,9 @@ class PatchEmbed(nn.Module):
             Dense(embed_dim, out_dim, generator, conv=True, dtype=dtype),
         ])
 
-    def forward(self, x):
-        for layer in self.proj:
+    def forward(self, x, rows: tuple[int, int] | None = None):
+        x = self.proj[0](x, rows)
+        for layer in self.proj[1:]:
             x = layer(x)
         return x
 
@@ -326,6 +362,8 @@ class DPOTNet(nn.Module):
         device: str | torch.device | None = "cuda",
         seed: int = 0,
         remat: bool = False,
+        mesh=None,
+        pipe_microbatches: int = 0,
     ):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
@@ -333,6 +371,7 @@ class DPOTNet(nn.Module):
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         p = patch_size
+        self.depth = depth
         self.img_size = img_size
         self.patch_size = p
         self.in_channels = in_channels
@@ -367,36 +406,83 @@ class DPOTNet(nn.Module):
             Activation(act),
             Dense(out_layer_dim, out_channels * out_timesteps, g, conv=True, dtype=dtype),
         ])
+        # the mesh's 'spatial' or 'pipe' axis, if above 1 (the module docstring)
+        self.spatial = self.pipe = None
+        self.pipe_microbatches = pipe_microbatches
+        if mesh is not None and mesh.size("spatial") > 1:
+            if mesh.size("pipe") > 1:
+                raise ValueError("pipeline and spatial sharding cannot combine (as in the JAX "
+                                 "package)")
+            if h % mesh.size("spatial"):
+                raise ValueError(f"the {h}-row latent does not divide over "
+                                 f"{mesh.size('spatial')} spatial ranks")
+            self.spatial = mesh.axis("spatial")
+            for blk in self.blocks:
+                blk.spatial = self.spatial
+        if mesh is not None and mesh.size("pipe") > 1:
+            if depth % mesh.size("pipe"):
+                raise ValueError(f"depth {depth} must divide over pipe={mesh.size('pipe')} "
+                                 "stages")
+            self.pipe = mesh.axis("pipe")
         self.to(device)
 
+    def stage_blocks(self) -> list[nn.Module]:
+        """This pipeline stage's blocks (all of them without a 'pipe' axis)."""
+        blocks = list(self.blocks)
+        if self.pipe is None or isinstance(self.blocks, StageBlocks):
+            return blocks
+        per = self.depth // self.pipe.size
+        return blocks[self.pipe.rank * per:(self.pipe.rank + 1) * per]
+
+    def cut_stage(self) -> None:
+        """Keep only this pipeline stage's blocks, under their names."""
+        if self.pipe is not None and not isinstance(self.blocks, StageBlocks):
+            per = self.depth // self.pipe.size
+            first = self.pipe.rank * per
+            self.blocks = StageBlocks({first + j: blk
+                                       for j, blk in enumerate(self.stage_blocks())})
+
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, H, W, T, C), under 'spatial' this rank's H / s rows."""
         B, H, W, T, C = x.shape
-        if H != self.img_size or W != self.img_size:
-            raise ValueError(f"input {H}x{W} != model img_size {self.img_size}")
+        sp = self.spatial
+        s = 1 if sp is None else sp.size
+        if H * s != self.img_size or W != self.img_size:
+            raise ValueError(f"input {H * s}x{W} != model img_size {self.img_size}")
         dt = self.dtype
+        r0 = 0 if sp is None else sp.rank * H  # this rank's first row
 
         if self.normalize:
             # reversible instance norm + AdaIN scales from the statistics
-            mu, sigma = instance_stats(x, dims=(1, 2, 3))
+            mu, sigma = instance_stats(x, dims=(1, 2, 3), axis=sp)
             x = (x - mu) / sigma
             stats = torch.cat([mu, sigma], dim=-1)[:, 0, 0, 0, :]
             scale_mu = self.scale_feats_mu(stats)[:, None, None, :]
             scale_sigma = self.scale_feats_sigma(stats)[:, None, None, :]
 
-        x = self.patch_embed(x)                                  # (B, h, w, T, D)
-        x = x + self.pos_embed.permute(0, 2, 3, 1)[:, :, :, None, :]
+        p = self.patch_size
+        x = self.patch_embed(x, (H * s, r0))                     # (B, h, w, T, D)
+        pos = self.pos_embed.permute(0, 2, 3, 1)[:, r0 // p:(r0 + H) // p]
+        x = x + pos[:, :, :, None, :]
         x = self.time_agg_layer(x)                               # (B, h, w, D)
         if self.normalize:
             x = scale_sigma.to(dt) * x + scale_mu.to(dt)         # AdaIN
 
         remat = self.remat and torch.is_grad_enabled()
-        for blk in self.blocks:
-            # a block draws no random numbers, so its recomputation needs no
-            # saved RNG state
-            x = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=False)
-                 if remat else blk(x))
+        if self.pipe is not None:
+            x = pipeline_blocks(self.stage_blocks(), x, self.pipe,
+                                self.pipe_microbatches or self.pipe.size, self.remat)
+        else:
+            for blk in self.blocks:
+                # a block draws no random numbers, so its recomputation needs
+                # no saved RNG state
+                x = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=False)
+                     if remat else blk(x))
 
-        ct = x.mean(dim=(1, 2)).float()                          # classifier head
+        if sp is None:
+            ct = x.mean(dim=(1, 2)).float()                      # classifier head
+        else:
+            ct = all_sum(x.float().sum(dim=(1, 2)), sp) / (x.shape[1] * s * x.shape[2])
         for layer in self.cls_head:
             ct = layer(ct)
 

@@ -36,7 +36,6 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
-from dpot_tpu_torch.parallel.multihost import rank_world
 
 
 def _shard_dim(shape: torch.Size, world: int) -> int:
@@ -88,7 +87,9 @@ def no_block_cache(model) -> None:
 def shard_state_fsdp(state, mesh):
     """Shard the model's parameters and the optimizer's moments of `state`
     (train/state.py TrainState, its parameters identical on every rank:
-    seeded or restored) over `mesh` in place; returns the state."""
+    seeded or restored, or already this rank's tensor-parallel shards) over
+    the 'data' axis of `mesh` (parallel/mesh.py Mesh) in place; returns the
+    state."""
     from torch.distributed.fsdp import fully_shard
 
     if state.params_lp is not None:
@@ -98,20 +99,21 @@ def shard_state_fsdp(state, mesh):
     model, opt = state.model, state.optimizer
     if [id(p) for p in model.parameters()] != [id(p) for p in opt.params]:
         raise ValueError("the optimizer must update the model's parameters, in order")
-    world = mesh.size()
+    data = mesh.axis("data")
+    world = data.size
 
     def placement(p):
         return Shard(_shard_dim(p.shape, world))
 
     for blk in getattr(model, "blocks", ()):
-        fully_shard(blk, mesh=mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=mesh, shard_placement_fn=placement)
+        fully_shard(blk, mesh=mesh.data_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=mesh.data_mesh, shard_placement_fn=placement)
     no_block_cache(model)
     opt.params = list(model.parameters())
     opt.mu = [shard_like(m, p) for m, p in zip(opt.mu, opt.params)]
     opt.nu = [shard_like(v, p) for v, p in zip(opt.nu, opt.params)]
     state.train_module = model
-    state.rank, state.world = rank_world()
+    state.place_over(mesh)
     state.sharded = True
     return state
 
@@ -120,7 +122,7 @@ def check_fsdp_shardings(state) -> list[str]:
     """The parameters and moments of a sharded `state` that are not sharded
     over the ranks: not DTensors, or holding more than their share on this
     rank where an axis divides over the ranks. Empty means good."""
-    _, world = rank_world()
+    world = state.world
     names = [n for n, _ in state.model.named_parameters()]
     opt = state.optimizer
     bad = []

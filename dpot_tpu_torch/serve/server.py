@@ -30,6 +30,17 @@ bfloat16 on the host: numpy has no bfloat16 without ml_dtypes, so a bf16
 wire keeps raw 16-bit words as np.int16 on the host and views them as
 torch.bfloat16 once they are on the device.
 
+Tensor-parallel serving (`mesh`, a parallel/mesh.py Mesh whose 'model'
+axis holds every rank, the JAX server's TP-sharded params and mesh): every
+rank builds a RolloutServer over the same full model, which it cuts into its
+TP shards (parallel/tensor.py). Rank 0 runs the micro-batcher and the HTTP
+front end as above; before each application it broadcasts the batch's
+shape, its step count and the input over 'model', and the other ranks,
+whose `start()` runs the follower loop, compute the same rollout with it
+until rank 0 broadcasts a stop (when its worker ends, after `stop()`). Under
+a mesh the server runs eagerly: gloo's collectives run on the host, where
+no CUDA graph can hold them.
+
 Hardening: optional bearer-token auth for /rollout and /metrics; `steps`
 validated against `max_steps`; request bodies capped at `max_body_bytes`;
 `stop(drain=True)` finishes queued work; TLS via serve(ssl_certfile=...).
@@ -48,8 +59,11 @@ from typing import Any, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dpot_tpu_torch.ops.cuda import graphs
+from dpot_tpu_torch.parallel.mesh import as_words
+from dpot_tpu_torch.parallel.tensor import shard_model_tp
 from dpot_tpu_torch.utils.device import resolve_device
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -91,9 +105,23 @@ class RolloutServer:
         wire_dtype: str = "auto",
         response_dtype: str = "float32",
         device: str | torch.device | None = "cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        self.leader = True
+        if self.mesh is not None:
+            if self.mesh.size("model") != self.mesh.size():
+                raise NotImplementedError(
+                    "serving over a mesh takes its 'model' axis alone (tensor "
+                    "parallelism); data, pipe and spatial axes are not ported for "
+                    "serving (ROADMAP, 'Modules to port', item 12)")
+            self._axis = self.mesh.axis("model")
+            self._src = dist.get_global_rank(self._axis.group, 0)
+            self.leader = self._axis.rank == 0
+            if not getattr(model, "tp_dims", None):
+                shard_model_tp(self.model, self._axis)
         self.t_bundle = t_bundle
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.max_wait_ms = max_wait_ms
@@ -117,14 +145,17 @@ class RolloutServer:
             raise ValueError(f"response_dtype {response_dtype!r} not in float32|float16")
         self.response_dtype = response_dtype
         self._seen_steps: set[int] = set()
-        self._graphed = self.device.type == "cuda"
+        self._graphed = self.device.type == "cuda" and self.mesh is None
         self._graphs = graphs.GraphCache()
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._holdover: list[_Pending] = []  # worker-owned deferred items
         self._stop = threading.Event()
         self._accepting = True
         self._worker = threading.Thread(target=self._drain, daemon=True)
-        self.n_params = sum(p.numel() for p in model.parameters())
+        # the full model's (a TP rank holds a shard of some)
+        shards = getattr(model, "tp_dims", {}) if self.mesh is not None else {}
+        self.n_params = sum(p.numel() * (self._axis.size if n in shards else 1)
+                            for n, p in model.named_parameters())
         self._warmup_steps = warmup_steps
         self._mlock = threading.Lock()
         self._m = {
@@ -192,6 +223,8 @@ class RolloutServer:
         update its buffers) raises."""
         if self.model.training:
             raise RuntimeError("the served model is in train mode; serve it in eval mode")
+        if self.mesh is not None:
+            self._announce(n_steps, x)
         if not self._graphed:
             return self._eager_rollout(x, n_steps).cpu().numpy()
         captures = self._graphs.captures
@@ -199,6 +232,40 @@ class RolloutServer:
                             key=(n_steps,))
         self._count(compiles=self._graphs.captures - captures)
         return pred.cpu().numpy()
+
+    # ---- tensor parallelism -----------------------------------------
+
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        dist.broadcast(as_words(t), src=self._src, group=self._axis.group)
+        return t
+
+    def _announce(self, n_steps: int, x: Optional[torch.Tensor] = None) -> None:
+        """Rank 0: the next application's step count and input (0 and none:
+        stop) to the other ranks of 'model'."""
+        shape = tuple(x.shape) if x is not None else (0,) * 5
+        self._bcast(torch.tensor([n_steps, *shape], dtype=torch.int64, device=self.device))
+        if x is not None:
+            self._bcast(x.contiguous())
+
+    @torch.inference_mode()
+    def follow(self) -> None:
+        """A rank > 0 of the mesh: compute each rollout that rank 0
+        announces, until it announces the stop. A rollout that fails here is
+        counted under "errors" and the loop goes on to the next
+        announcement, as rank 0's worker goes on to its next batch (a
+        failure between two of the forward's collectives leaves the ranks
+        out of step, which the process group's time limit then ends)."""
+        wire = _WIRE[self.wire_dtype]
+        while True:
+            head = self._bcast(torch.zeros(6, dtype=torch.int64, device=self.device))
+            n_steps, *shape = head.tolist()
+            if n_steps == 0:
+                return
+            x = self._bcast(torch.empty(shape, dtype=wire, device=self.device))
+            try:
+                self._eager_rollout(x, n_steps)
+            except Exception:  # rank 0 reports its own failures to its callers
+                self._count(errors=1)
 
     def _note_steps(self, n_steps: int) -> None:
         if n_steps not in self._seen_steps:
@@ -253,6 +320,13 @@ class RolloutServer:
                 it.event.set()
 
     def _drain(self) -> None:
+        try:
+            self._serve()
+        finally:
+            if self.mesh is not None:
+                self._announce(0)  # the followers stop, whatever ended the worker
+
+    def _serve(self) -> None:
         holdover = self._holdover  # deferred to the NEXT round, in order
         # after _stop, keep going until BOTH holdover and the queue are
         # empty, so no accepted request is left blocked on its event
@@ -292,6 +366,11 @@ class RolloutServer:
     # ---- lifecycle ---------------------------------------------------
 
     def start(self) -> None:
+        """Warm up and start the worker; on a rank > 0 of a mesh, run the
+        follower loop instead (it returns when rank 0 stops)."""
+        if not self.leader:
+            self.follow()
+            return
         # one batch per warm-up step count: of the largest bucket, and on
         # the card of every bucket, so that each one's graph is captured
         caps = self.batch_buckets if self._graphed else self.batch_buckets[-1:]

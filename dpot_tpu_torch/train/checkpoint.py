@@ -17,9 +17,11 @@ Writes are synchronous: the file is written beside its target and renamed
 into place, so a crash mid-write leaves the previous checkpoint whole.
 
 In a multi-process run the checkpoint is the single-process one: the
-module's own state dict (no DDP 'module.' prefix) and the full moments.
-Rank 0 alone writes it; under FSDP2 every rank calls `save_checkpoint`,
-since gathering the shards is a collective. A restore happens on every rank
+module's own state dict (no DDP 'module.' prefix) and the full moments, in
+the reference layout under every layout (train/state.py
+`params_state_dict`, `full_moments`). Rank 0 alone writes it; under FSDP2,
+TP or a pipeline every rank calls `save_checkpoint`, since gathering the
+shards is a collective (`TrainState.gathers`). A restore happens on every rank
 before the state is placed over the ranks (train/loop.py), so a checkpoint
 written by N ranks resumes on any number of them.
 
@@ -38,6 +40,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from dpot_tpu_torch.parallel.fsdp import gathered
+from dpot_tpu_torch.parallel.multihost import rank_world
 from dpot_tpu_torch.train.interop import load_reference_state_dict, strip_module_prefix
 from dpot_tpu_torch.train.state import TrainState
 
@@ -52,17 +55,17 @@ def save_checkpoint(path: Optional[str], state: TrainState,
                     config: Optional[dict] = None) -> Optional[str]:
     """Write the checkpoint directory `path`; returns the model file's path.
     Only rank 0 writes (the others return None, and may pass path None)."""
-    opt = state.optimizer.state_dict()
+    opt = state.optimizer
+    mu, nu = state.full_moments()
     payload = {
         "args": argparse.Namespace(**(config or {})),
         "model": {k: _cpu(v) for k, v in state.params_state_dict().items()},
-        "optimizer": {"count": opt["count"], "mu": [_cpu(m) for m in opt["mu"]],
-                      "nu": [_cpu(v) for v in opt["nu"]],
-                      "grad_norm": _cpu(opt["grad_norm"])},
+        "optimizer": {"count": opt.count, "mu": [_cpu(m) for m in mu],
+                      "nu": [_cpu(v) for v in nu], "grad_norm": _cpu(opt.grad_norm)},
         "step": int(state.step),
         "generator": state.generator.get_state(),
     }
-    if state.rank != 0:
+    if rank_world()[0] != 0:
         return None
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, MODEL_FILE)

@@ -17,15 +17,27 @@ as B-sized single steps, so an epoch takes the samples and optimizer steps
 of K = 1. Options of the JAX loop that are not ported raise
 NotImplementedError naming their ROADMAP item; none is ignored.
 
-Under torchrun (parallel/multihost.py) the loop runs on every rank: each
-loads its contiguous slice of every global batch (an uneven tail whole),
-and the parameters are placed after init or restore, as in the JAX loop:
-replicated under DDP (`shard_params: replicate`) or sharded by FSDP2
-(`fsdp`). Every rank computes, and logs, what one process computes on the
-same global batches: the train and eval sums are all-reduced, so the
-rollback decides on the same loss everywhere. Rank 0 alone writes logs
-and checkpoints; under FSDP every rank takes part in gathering the state
-that it writes.
+Under torchrun (parallel/multihost.py) the loop runs on every rank over the
+mesh of the config's mesh_* axes (parallel/mesh.py): each rank loads the
+contiguous slice of every global batch that its 'data' coordinate selects
+(an uneven tail whole), and under 'spatial' keeps its H rows of it. The
+parameters are placed after init or restore, as in the JAX loop:
+replicated under DDP (`shard_params: replicate`), sharded by FSDP2
+(`fsdp`), cut into tensor-parallel shards over 'model' (`tp`, with FSDP2
+over 'data' in `tp_fsdp`), or cut to a pipeline stage's blocks
+(`mesh_pipe`); under 'spatial' the model itself splits the grid. Every rank
+computes, and logs, what one process computes on the same global batches:
+the train and eval sums are all-reduced over 'data', so the rollback
+decides on the same loss everywhere, and evaluation runs the same
+distributed forward on every rank. Under any axis but 'data' the forward
+holds collectives, which run on the host under gloo and which a CUDA graph
+cannot hold, so the eval rollout runs eagerly. Rank 0 alone writes logs
+and checkpoints; where the state is sharded every rank takes part in
+gathering the state that it writes.
+
+The log directory is the JAX loop's timestamped name, or, when a run of
+the same second took it already, that name with the first free suffix
+_1, _2, ... (`unique_log_dir`), so that two runs never share one.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 from dpot_tpu_torch.models import build_model
 from dpot_tpu_torch.parallel import make_mesh, maybe_initialize, rank_world, replicate, shard_rows
 from dpot_tpu_torch.parallel.mesh import check_mesh_data
+from dpot_tpu_torch.parallel.pipeline import shard_state_pipe
+from dpot_tpu_torch.parallel.tensor import shard_state_tp
 from dpot_tpu_torch.train.checkpoint import restore_checkpoint, restore_params, save_checkpoint
 from dpot_tpu_torch.train.optimizers import build_optimizer
 from dpot_tpu_torch.train.schedules import build_schedule, onecycle_momentum
@@ -73,32 +87,42 @@ def _opt_steps_per_epoch(cfg: TrainConfig, train_dl, train_ds) -> int:
 
 
 def check_ported(cfg: TrainConfig, world: int = 1) -> None:
-    """Raise for the combinations the JAX loop refuses and a mesh_data that
-    is not the world size (ValueError), for FSDP without a process group
-    (RuntimeError), and NotImplementedError for every option of the JAX
-    loop that the port does not have yet, over `world` ranks."""
+    """Raise for the combinations the JAX loop refuses and mesh axes whose
+    product is not the world size (ValueError), for FSDP without a process
+    group (RuntimeError), and NotImplementedError for every option of the
+    JAX loop that the port does not have yet, over `world` ranks."""
     if cfg.steps_per_dispatch > 1 and world > 1:
         raise ValueError("steps_per_dispatch > 1 is single-process only (the batches of "
-                         "a multi-process run are assembled a step at a time)")
+                         "a multi-process run are assembled a step at a time, and a CUDA "
+                         "graph cannot hold gloo's collectives, which run on the host)")
     if cfg.steps_per_dispatch > 1 and cfg.mesh_spatial > 1:
         raise ValueError("steps_per_dispatch does not compose with spatial sharding "
                          "(mesh_spatial)")
-    check_mesh_data(cfg.mesh_data, world)
-    if cfg.shard_params == "fsdp" and not dist.is_initialized():
-        raise RuntimeError("shard_params=fsdp needs the default process group: launch "
-                           "under torchrun (one rank per card, --nproc_per_node 1 for one)")
+    if cfg.mesh_pipe > 1 and cfg.mesh_spatial > 1:
+        raise ValueError("pipeline and spatial sharding cannot combine (mesh_pipe, "
+                         "mesh_spatial), as in the JAX package")
+    check_mesh_data(cfg.mesh_data, world, cfg.mesh_spatial * cfg.mesh_model * cfg.mesh_pipe)
     item = "ROADMAP, 'Modules to port', item"
+    tp = cfg.shard_params in ("tp", "tp_fsdp")
+    axes = [a for a, n in (("mesh_spatial", cfg.mesh_spatial), ("mesh_model", cfg.mesh_model),
+                           ("mesh_pipe", cfg.mesh_pipe)) if n > 1]
     missing = [
-        (cfg.mesh_spatial > 1 or cfg.mesh_model > 1 or cfg.mesh_pipe > 1,
-         f"the spatial, model and pipe mesh axes (mesh_spatial, mesh_model, mesh_pipe) "
+        (len(axes) > 1 or (tp and (cfg.mesh_spatial > 1 or cfg.mesh_pipe > 1)),
+         f"combining tensor, pipeline and spatial parallelism ({', '.join(axes)}) "
          f"({item} 12)"),
-        (cfg.shard_params in ("tp", "tp_fsdp"),
-         f"shard_params={cfg.shard_params!r} ({item} 12)"),
+        (cfg.shard_params == "fsdp" and bool(axes),
+         f"shard_params='fsdp' over {', '.join(axes)} ({item} 12)"),
+        (bool(axes or tp) and cfg.model not in ("DPOT", "dpot", "AFNO", "afno"),
+         f"the model axes (mesh_spatial, mesh_model, mesh_pipe, tp) for {cfg.model} "
+         f"({item} 12)"),
         (bool(cfg.viz_dir), f"viz_dir (utils/viz.py) ({item} 13)"),
     ]
     for bad, what in missing:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.shard_params == "fsdp" and not dist.is_initialized():
+        raise RuntimeError("shard_params=fsdp needs the default process group: launch "
+                           "under torchrun (one rank per card, --nproc_per_node 1 for one)")
 
 
 def _rollback_tensors(state: TrainState) -> tuple[torch.Tensor, ...]:
@@ -147,10 +171,16 @@ def loader_arch(cfg: TrainConfig) -> tuple[int, int]:
 
 def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
     """Datasets, loaders (this rank's shards of them), model, schedule and
-    the train state at step 0."""
+    the train state at step 0, the mesh on the state (None in one process
+    without a process group)."""
     rank, world = rank_world()
     check_ported(cfg, world)
     device = resolve_device(device)
+    mesh = None
+    if dist.is_initialized():
+        mesh = make_mesh(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_model, cfg.mesh_pipe,
+                         device)
+        rank, world = mesh.coords["data"], mesh.size("data")
     shard_kw = dict(num_shards=world, shard_index=rank)
     train_ds = MixedTemporalDataset(
         cfg.train_paths, cfg.ntrain_list, res=cfg.res, t_in=cfg.T_in,
@@ -179,7 +209,7 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
         out_layer_dim=cfg.out_layer_dim, act=cfg.act, n_cls=len(cfg.train_paths),
         normalize=cfg.normalize, use_ln=cfg.use_ln, remat=cfg.remat,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
-        device=device, seed=cfg.seed,
+        device=device, seed=cfg.seed, **model_mesh_kw(cfg, mesh),
     )
     steps_per_epoch = _opt_steps_per_epoch(cfg, train_dl, train_ds)
     sched = build_schedule(
@@ -198,7 +228,26 @@ def build_everything(cfg: TrainConfig, device: str | torch.device = "cuda"):
         moment_dtype=torch.bfloat16 if cfg.opt_moment_dtype == "bfloat16" else None,
     )
     state = TrainState.create(model, opt, seed=cfg.seed + 1)
+    state.mesh = mesh
     return model, state, sched, train_dl, test_dls, train_ds
+
+
+def model_mesh_kw(cfg: TrainConfig, mesh) -> dict:
+    """The model's mesh arguments: DPOTNet takes the mesh under a 'spatial'
+    or 'pipe' axis (the JAX loop's spatial_mesh and pipe_mesh)."""
+    if mesh is None or (cfg.mesh_spatial == 1 and cfg.mesh_pipe == 1):
+        return {}
+    return dict(mesh=mesh, pipe_microbatches=cfg.pipe_microbatches)
+
+
+def unique_log_dir(cfg: TrainConfig) -> str:
+    """The run's log directory (the module docstring)."""
+    base = os.path.join(cfg.log_path or "./logs", time.strftime("%m%d_%H_%M_%S") + cfg.comment)
+    path, i = base, 0
+    while os.path.exists(path):
+        i += 1
+        path = f"{base}_{i}"
+    return path
 
 
 def global_sizes(dl) -> list[int]:
@@ -210,24 +259,51 @@ def global_sizes(dl) -> list[int]:
 
 def place_state(state: TrainState, cfg: TrainConfig, device: torch.device) -> None:
     """Place the state over the ranks, as the JAX loop does after init or
-    restore: DDP over replicas (`shard_params: replicate`) or FSDP2 shards
-    (`fsdp`, also on one rank)."""
-    rank, world = rank_world()
+    restore (the loop's docstring): DDP over replicas (`shard_params:
+    replicate` over 'data' alone), FSDP2 shards (`fsdp`, also on one rank),
+    tensor-parallel shards (`tp`, `tp_fsdp`), a pipeline stage's blocks
+    (`mesh_pipe`), or, under 'spatial' or a replicated 'model' axis, the
+    model itself with its gradients averaged by the step."""
     if any(True for _ in state.model.buffers()):
         raise NotImplementedError(
             "a model with buffers over several ranks (UNet's BatchNorm, whose batch "
             "statistics would be per rank) is not ported yet (ROADMAP, 'Modules to "
             "port', item 12)")
+    mesh = state.mesh
+    if mesh is None:
+        raise RuntimeError(f"shard_params={cfg.shard_params} over ranks needs the default "
+                           "process group: launch under torchrun")
     if cfg.shard_params == "fsdp":
         from dpot_tpu_torch.parallel.fsdp import check_fsdp_shardings, shard_state_fsdp
 
-        shard_state_fsdp(state, make_mesh(cfg.mesh_data, device))
+        shard_state_fsdp(state, mesh)
         bad = check_fsdp_shardings(state)
         if bad:
             raise RuntimeError(f"FSDP left {len(bad)} tensors unsharded: {bad[:4]}")
-    else:
+    elif cfg.shard_params in ("tp", "tp_fsdp"):
+        shard_state_tp(state, mesh, fsdp=cfg.shard_params == "tp_fsdp")
+    elif cfg.mesh_pipe > 1:
+        shard_state_pipe(state, mesh)
+    elif mesh.size("data") == mesh.size():
         state.train_module = replicate(state.model, UNTRAINED)
-        state.rank, state.world = rank, world
+        state.place_over(mesh)
+    else:
+        # the forward runs collectives ('spatial') or the 'model' ranks compute
+        # alike (replicated): the gradients are averaged over the ranks that
+        # hold different rows, 'data' and 'spatial'
+        state.train_module = state.model
+        state.place_over(mesh, dist.group.WORLD if cfg.mesh_spatial > 1
+                         else mesh.axis("data").group)
+
+
+def spatial_rows(a, cfg: TrainConfig, mesh):
+    """This rank's H rows of a host batch column (B, H, W, ...) under
+    'spatial', else the column."""
+    if mesh is None or cfg.mesh_spatial == 1:
+        return a
+    n = a.shape[1] // cfg.mesh_spatial
+    r = mesh.coords["spatial"]
+    return a[:, r * n:(r + 1) * n]
 
 
 def train(cfg: TrainConfig, log_dir: Optional[str] = None,
@@ -251,11 +327,12 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     maybe_initialize(dist_backend, resolve_device(device))
     rank, world = rank_world()
     model, state, sched, train_dl, test_dls, train_ds = build_everything(cfg, device)
+    mesh = state.mesh
     device = next(model.parameters()).device
-    if log_dir is None and cfg.use_writer:
-        log_dir = os.path.join(cfg.log_path or "./logs",
-                               time.strftime("%m%d_%H_%M_%S") + cfg.comment)
-    saves = bool(log_dir)  # the same on every rank
+    saves = bool(log_dir) or cfg.use_writer  # the same on every rank
+    if log_dir is None and cfg.use_writer and rank == 0:
+        # rank 0's choice counts: it alone writes
+        log_dir = unique_log_dir(cfg)
     if rank:
         # rank 0 writes; the others only take part in gathering a sharded
         # checkpoint
@@ -281,9 +358,14 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         train_dl.set_epoch(start_epoch)
         writer.text(f"resumed full train state from {cfg.resume_path}: step "
                     f"{state.step}, continuing at epoch {start_epoch}")
-    if world > 1 or cfg.shard_params == "fsdp":
+    if world > 1 or cfg.shard_params != "replicate":
         place_state(state, cfg, device)
+    # the rows of a global batch are split over 'data' only
+    rank, world = state.rank, state.world
 
+    if cfg.mesh_spatial > 1:
+        # spatial sharding takes the standard host layout, as in the JAX loop
+        train_ds.time_major_batches = False
     time_major = bool(train_ds.time_major_batches)
     ones_mask = bool(train_ds.train_masks_are_ones)
     # wire formats: x in bf16 when the compute is bf16 anyway; no mask when
@@ -305,9 +387,9 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     # a tail batch that does not divide into grad_accum takes one full step
     noaccum_step_fn = make_train_step(**step_kw) if cfg.grad_accum > 1 else tail_step_fn
     roll_fn = make_eval_rollout(t_bundle=cfg.T_bundle)
-    if state.sharded:
-        # FSDP2 gathers the weights with collectives, which a CUDA graph
-        # cannot hold: the rollout runs eagerly
+    if state.sharded or (mesh is not None and mesh.size() > mesh.size("data")):
+        # FSDP2 gathers the weights, and the other layouts' forwards hold
+        # collectives, which a CUDA graph cannot hold: the rollout runs eagerly
         roll_fn = roll_fn.run
 
     def sharded(n: int) -> bool:
@@ -317,7 +399,8 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
 
     n_params = sum(p.numel() for p in model.parameters())
     writer.text(f"model {cfg.model} params {n_params / 1e6:.2f}M device {device}"
-                + (f" ranks {world} ({cfg.shard_params})" if world > 1 else ""))
+                + (f" ranks {rank_world()[1]} ({cfg.shard_params})"
+                   if rank_world()[1] > 1 else ""))
 
     it = start_epoch * steps_per_epoch
     loss_ema = None
@@ -387,9 +470,10 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         for x, y, msk, cls, k_unit, n in dispatch_units(train_dl):
             t_load += time.perf_counter() - t_1
             t_1 = time.perf_counter()
-            host = {"x": x, "y": y, "cls": cls}
+            host = {"x": spatial_rows(x, cfg, mesh), "y": spatial_rows(y, cfg, mesh),
+                    "cls": cls}
             if not ones_mask:
-                host["msk"] = msk
+                host["msk"] = spatial_rows(msk, cfg, mesh)
             if k_unit > 1:
                 # (K * B, ...) -> (K, B, ...), a view
                 host = {k: v.reshape(k_unit, cfg.batch_size, *v.shape[1:])
@@ -437,11 +521,11 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                         f"{t_y} and {y.shape[-2]}"
                     )
                 t_y = y.shape[-2]
-                out = roll_fn(model, {"x": _to_device(x, device), "y": _to_device(y, device),
-                                      "msk": _to_device(msk, device)})
+                out = roll_fn(model, {k: _to_device(spatial_rows(v, cfg, mesh), device)
+                                      for k, v in (("x", x), ("y", y), ("msk", msk))})
                 sums = torch.stack([out["loss_step"], out["loss_full"]])
                 if sharded(n):
-                    dist.all_reduce(sums)
+                    dist.all_reduce(sums, group=state.data_group)
                 s_b, f_b = sums.tolist()
                 s_sum += s_b
                 f_sum += f_b
@@ -463,7 +547,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
             # that the next train step gathers weights autograd can track
             model.reshard()
 
-        if (saves and (rank == 0 or state.sharded)
+        if (saves and (rank_world()[0] == 0 or state.gathers)
                 and (ep % cfg.save_every == 0 or ep == cfg.epochs - 1)):
             target = ckpt_dir
             if ckpt_dir and cfg.ckpt_bucket_epochs > 0:

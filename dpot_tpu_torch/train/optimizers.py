@@ -38,8 +38,13 @@ dense gradient tree gives it.
 Under FSDP2 (parallel/fsdp.py) the parameters, their gradients and the
 moments are DTensor shards: the same arithmetic runs on each rank's local
 shards, and the global norm is the square root of the shards' squared
-norms summed over the ranks by one all-reduce. One process takes the
-unsharded route, bit for bit as before.
+norms summed over the ranks by one all-reduce. Tensor and pipeline
+parallelism (parallel/tensor.py, parallel/pipeline.py) hold some
+parameters as shards (a TP slice, a stage's blocks) and set
+`shard_groups`: per parameter, the process groups over which its shards
+are spread, so that the squared norms of the shards are summed over those
+groups and a leaf that every rank holds whole is counted once. One process
+takes the unsharded route, bit for bit as before.
 """
 
 from __future__ import annotations
@@ -67,6 +72,24 @@ def _local(ts: Sequence[Optional[torch.Tensor]]) -> list[Optional[torch.Tensor]]
     """This rank's shards of DTensors (views: an in-place update of one
     updates the DTensor); other entries as they are."""
     return [t.to_local() if isinstance(t, DTensor) else t for t in ts]
+
+
+def _sharded_norm(grads: list[torch.Tensor], groups: list[tuple]) -> torch.Tensor:
+    """The global norm of gradients some of which are shards: the squared
+    norms summed per set of groups (in the order of first appearance, the
+    same on every rank), each sum all-reduced over its groups, the sums
+    added."""
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    buckets: dict[tuple, list[int]] = {}
+    for i, g in enumerate(groups):
+        buckets.setdefault(tuple(id(x) for x in g), []).append(i)
+    total = sq.new_zeros(())
+    for idx in buckets.values():
+        part = sq[idx].sum()
+        for group in groups[idx[0]]:
+            dist.all_reduce(part, group=group)
+        total = total + part
+    return total.sqrt()
 
 
 def _broadcast(s: torch.Tensor, like: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -107,6 +130,9 @@ class Optimizer:
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         device = self.params[0].device if self.params else None
         self.grad_norm = torch.zeros((), device=device)
+        # per parameter, the process groups its shards are spread over
+        # (parallel/tensor.py, parallel/pipeline.py); None: none is a shard
+        self.shard_groups: Optional[list[tuple]] = None
 
     def lr_at(self, count: int) -> float:
         return _at(self.learning_rate, count)
@@ -160,11 +186,12 @@ class Optimizer:
         b1c, b1c_rest, step_size, inv_sqrt_bc2, decay = values.unbind()
         b2, eps, wd = self.b2, self.eps, self.weight_decay
 
+        groups = self.shard_groups or [()] * len(params)
         if sharded:
-            # the global norm from the shards' squared norms, summed over ranks
-            sq = torch.stack(torch._foreach_norm(grads)).square().sum()
-            dist.all_reduce(sq)
-            gnorm = sq.sqrt()
+            groups = [g + ((p.device_mesh.get_group(),) if isinstance(p, DTensor) else ())
+                      for g, p in zip(groups, self.params)]
+        if any(groups):
+            gnorm = _sharded_norm(grads, groups)
         else:
             gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # out of place: the parameters' .grad stay as the backward left them

@@ -23,12 +23,21 @@ nearest even). The gradients arrive in bf16 and the optimizer upcasts them
 for all of its arithmetic. Checkpoints and the loop's rollback read and
 write the master (`params_state_dict`, `load_params`), never the copy.
 
-In a multi-process run (parallel/) `model` stays the module itself, whose
-state dict keeps the reference layout, and `train_module` is what the train
-step calls: its DistributedDataParallel wrapper, or the model itself once
-FSDP2 has sharded it in place (`sharded`: the parameters and moments are
-DTensor shards, which `params_state_dict` gathers, a collective that every
-rank calls).
+In a multi-process run (parallel/) `model` stays the module itself, and
+`train_module` is what the train step calls: its DistributedDataParallel
+wrapper, or the model itself once FSDP2 has sharded it in place
+(`sharded`: the parameters and moments are DTensor shards), tensor
+parallelism has cut its block weights (the model's `tp_dims`: the sharded
+leaves and their axes) or a pipeline stage has kept only its blocks
+(parallel/pipeline.py `stage_depth`). `place_over` puts the state on its
+mesh: `rank` and `world` are the rank's coordinate on the mesh's 'data'
+axis and that axis's size (the rows of a global batch are split over it),
+`data_group` its process group (None: the axis has one rank), and
+`grad_group`, where set, the group over which the step averages the
+gradients after the backward (the layouts that run without DDP's
+wrapper). `params_state_dict` and `full_moments` give the full model's
+tensors in the reference layout and order whatever the layout: gathering
+them is a collective that every rank calls (`gathers`).
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from typing import Mapping, Optional, Sequence
 import torch
 from torch.distributed.tensor import DTensor
 
-from dpot_tpu_torch.parallel.fsdp import gathered, shard_like
+from dpot_tpu_torch.parallel.fsdp import gathered
+from dpot_tpu_torch.parallel.pipeline import gather_stages, stage_depth
+from dpot_tpu_torch.parallel.tensor import gather_tp
 from dpot_tpu_torch.train.optimizers import Optimizer
 
 
@@ -58,6 +69,10 @@ class TrainState:
     rank: int = 0
     world: int = 1
     sharded: bool = False
+    data_group: Optional[object] = None
+    grad_group: Optional[object] = None
+    # the mesh (parallel/mesh.py) of a multi-process run
+    mesh: Optional[object] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: Optimizer, seed: int,
@@ -125,16 +140,54 @@ class TrainState:
         params = list(self.model.parameters()) + list(self.model.buffers())
         return params + list(self.optimizer.params) if self.params_lp is not None else params
 
+    def place_over(self, mesh, grad_group=None) -> None:
+        """Put the state on `mesh` (parallel/mesh.py Mesh): this rank's
+        place on its 'data' axis (the module docstring), and the group over
+        which the step averages the gradients (None: none, or DDP's or
+        FSDP2's own sync)."""
+        data = mesh.axis("data")
+        self.mesh, self.grad_group = mesh, grad_group
+        self.rank, self.world, self.data_group = data.rank, data.size, data.group
+
+    @property
+    def gathers(self) -> bool:
+        """Whether the full tensors are gathered over the ranks (FSDP2, TP or
+        a pipeline), a collective that every rank calls."""
+        return (self.sharded or bool(getattr(self.model, "tp_dims", None))
+                or stage_depth(self.model) > 0)
+
+    def _full(self, tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The full model's tensors from this rank's, by name: FSDP2's
+        gathered, TP shards gathered over 'model', a stage's blocks over
+        'pipe', in the reference order."""
+        out = {k: gathered(v) for k, v in tensors.items()}
+        tp_dims = getattr(self.model, "tp_dims", None)
+        if tp_dims:
+            axis = self.mesh.axis("model")
+            out = {k: gather_tp(v, k, tp_dims, axis) for k, v in out.items()}
+        per = stage_depth(self.model)
+        if per:
+            out = gather_stages(list(out.items()), self.mesh.axis("pipe"), per)
+        return out
+
     def params_state_dict(self) -> dict[str, torch.Tensor]:
         """The model's state dict with the f32 master in place of the working
         copy (under every name a parameter has): the weights that
         checkpoints save. Sharded tensors come back whole."""
-        sd = {k: gathered(v) for k, v in self.model.state_dict().items()}
+        sd = dict(self.model.state_dict())
         if self.params_lp is not None:
             master = {id(p): m for p, m in zip(self.params_lp, self.optimizer.params)}
             for name, p in self.model.named_parameters(remove_duplicate=False):
                 sd[name] = master[id(p)].detach()
-        return sd
+        return self._full(sd)
+
+    def full_moments(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        """The optimizer's moments of the full model, in its parameters'
+        order (a collective under a layout that `gathers`)."""
+        names = [n for n, _ in self.model.named_parameters()]
+        mu = self._full(dict(zip(names, self.optimizer.mu)))
+        nu = self._full(dict(zip(names, self.optimizer.nu)))
+        return list(mu.values()), list(nu.values())
 
     @torch.no_grad()
     def load_params(self, sd: Mapping[str, torch.Tensor]) -> None:

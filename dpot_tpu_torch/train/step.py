@@ -22,7 +22,14 @@ world size for the backward, so that DDP's and FSDP2's averaging of the
 gradients over the ranks gives the global sum; the metric sums are
 all-reduced. A batch that every rank holds whole (`replicated`, an epoch's
 tail that does not divide over the ranks) runs as in one process, its
-gradients averaged over identical copies.
+gradients averaged over identical copies. Over a mesh with more axes
+(parallel/mesh.py) the rows are split over its 'data' axis only (the
+state's `rank` and `world`), the metric sums are all-reduced over the
+'data' group, and the layouts that run without DDP's wrapper (tensor,
+pipeline and spatial parallelism) average the gradients over the state's
+`grad_group` after the backward. Under 'spatial' each rank holds its rows
+of the grid: the noise's norm and the loss sum over the axis, and its
+noise is its rows of the global draw.
 
 One dispatch, the counterpart of JAX's jitted `lax.scan`: on the card,
 `make_train_step(scan_steps=K)` runs K steps as one CUDA graph and the
@@ -41,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 from dpot_tpu_torch.ops.cuda.graphs import Graph, GraphCache, copy_into, side_stream, signature
-from dpot_tpu_torch.parallel.mesh import grad_sync
+from dpot_tpu_torch.parallel.mesh import all_reduce_mean, all_sum, grad_sync
 from dpot_tpu_torch.train.state import TrainState
 from dpot_tpu_torch.utils.criterion import cross_entropy_sum, rel_lp_loss
 
@@ -65,13 +72,9 @@ def _add_f32(acc: Optional[list], grads: list) -> list:
             for a, g in zip(acc, grads)]
 
 
-def _all_reduce_mean(ts: list[torch.Tensor], world: int) -> None:
-    """ts averaged over the ranks in place, in one all-reduce."""
-    flat = torch.cat([t.reshape(-1) for t in ts])
-    dist.all_reduce(flat)
-    flat /= world
-    for t, f in zip(ts, flat.split([t.numel() for t in ts])):
-        t.copy_(f.view_as(t))
+def spatial_axis(state: TrainState):
+    """The 'spatial' axis that the state's model is split over, else None."""
+    return getattr(state.model, "spatial", None)
 
 
 def pred_and_cls(model: torch.nn.Module, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -118,7 +121,7 @@ def make_train_step(
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
 
-    def loss_fn(model, batch: Batch, gen: torch.Generator):
+    def loss_fn(model, batch: Batch, gen: torch.Generator, axis=None):
         x, y, cls = batch["x"], batch["y"], batch["cls"]
         msk = None if ones_mask else batch["msk"]
         ext_noise = batch.get("noise")
@@ -134,7 +137,8 @@ def make_train_step(
             y_s = y[..., s * t_bundle:(s + 1) * t_bundle, :]
             if noise_scale > 0.0:
                 norm_axes = tuple(range(1, x.dim() - 1))
-                xnorm = x.square().sum(dim=norm_axes, keepdim=True).sqrt()
+                xsq = x.square().sum(dim=norm_axes, keepdim=True)
+                xnorm = (xsq if axis is None else all_sum(xsq, axis)).sqrt()
                 if ext_noise is not None:
                     eps = ext_noise[s].to(x.dtype)
                 else:
@@ -142,7 +146,7 @@ def make_train_step(
                                       dtype=x.dtype)
                 x = x + noise_scale * xnorm * eps
             im, cls_pred = pred_and_cls(model, x)
-            loss = loss + rel_lp_loss(im, y_s, msk)
+            loss = loss + rel_lp_loss(im, y_s, msk, axis=axis)
             with torch.no_grad():
                 cls_loss += cross_entropy_sum(cls_pred, cls)
                 cls_correct += (cls_pred.argmax(dim=-1) == cls).sum()
@@ -150,7 +154,8 @@ def make_train_step(
             x = torch.cat([x[..., t_bundle:, :], im.to(torch.result_type(x, im))], dim=-2)
         with torch.no_grad():
             pred_full = torch.cat(preds, dim=-2)
-            loss_full = rel_lp_loss(pred_full, y[..., : pred_full.shape[-2], :], msk)
+            loss_full = rel_lp_loss(pred_full, y[..., : pred_full.shape[-2], :], msk,
+                                    axis=axis)
         aux = {"loss_step": loss.detach(), "loss_full": loss_full,
                "cls_loss": cls_loss, "cls_correct": cls_correct}
         return loss, aux, n_steps
@@ -179,12 +184,20 @@ def make_train_step(
         B, world = x.shape[0], state.world
         n_micro = grad_accum if B * world % grad_accum == 0 else 1
         mb = B * world // n_micro
-        draws = [[torch.randn((mb, *x.shape[1:]), generator=state.generator,
+        sp = spatial_axis(state)
+        shape = list(x.shape[1:])
+        if sp is not None:  # the whole grid's draw, then this rank's rows
+            shape[0] *= sp.size
+        draws = [[torch.randn((mb, *shape), generator=state.generator,
                               device=x.device, dtype=dt) for dt in dtypes]
                  for _ in range(n_micro)]
         full = torch.stack([torch.cat([d[s] for d in draws]).to(dtypes[-1])
                             for s in range(n_steps)])
-        return full[:, state.rank * B:(state.rank + 1) * B]
+        full = full[:, state.rank * B:(state.rank + 1) * B]
+        if sp is not None:
+            rows = x.shape[1]
+            full = full[:, :, sp.rank * rows:(sp.rank + 1) * rows]
+        return full
 
     def train_step(state: TrainState, batch: Batch, values: Optional[torch.Tensor] = None,
                    replicated: bool = False) -> tuple[TrainState, dict]:
@@ -197,7 +210,8 @@ def make_train_step(
         sharded = state.world > 1 and not replicated
         if grad_accum > 1 and "noise" in batch:
             raise ValueError("external noise draws do not split into microbatches")
-        if sharded and noise_scale > 0.0 and "noise" not in batch:
+        if ((sharded or spatial_axis(state) is not None) and noise_scale > 0.0
+                and "noise" not in batch):
             batch = {**batch, "noise": global_noise(state, batch)}
         if grad_accum > 1 and B % grad_accum == 0:
             micro = split(batch, grad_accum)
@@ -214,17 +228,22 @@ def make_train_step(
         aux = gsum = None
         for i, b in enumerate(micro):
             with grad_sync(fwd, lp is None and i == len(micro) - 1):
-                loss, a, n_steps = loss_fn(fwd, b, state.generator)
+                loss, a, n_steps = loss_fn(fwd, b, state.generator, spatial_axis(state))
                 (loss * scale if scale > 1 else loss).backward()
             aux = a if aux is None else {k: aux[k] + a[k] for k in aux}
             if lp is not None:
                 gsum = _add_f32(gsum, [p.grad for p in lp])
                 model.zero_grad(set_to_none=True)
         if gsum is not None and state.world > 1:
-            _all_reduce_mean([g for g in gsum if g is not None], state.world)
+            all_reduce_mean([g for g in gsum if g is not None], state.data_group)
+        if state.grad_group is not None:
+            # the same parameters on every rank of the group, whose gradients
+            # are None alike (the untrained class head)
+            all_reduce_mean([p.grad for p in model.parameters() if p.grad is not None],
+                            state.grad_group)
         if sharded:
             sums = torch.stack([aux[k].float() for k in SUMS])
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=state.data_group)
             aux.update(zip(SUMS, sums.unbind()))
         state.apply_gradients(gsum, values)
         aux["n_steps"] = torch.tensor(float(n_steps))
@@ -338,11 +357,13 @@ class EvalRollout:
                 ims.append(im)
                 x = torch.cat([x[..., t_bundle:, :], im.to(x.dtype)], dim=-2)
             pred = torch.cat(ims, dim=-2)[..., :t_test, :]
+            axis = getattr(model, "spatial", None)
             step_loss = 0.0
             for s in range(n_steps):
                 sl = slice(s * t_bundle, min((s + 1) * t_bundle, t_test))
-                step_loss = step_loss + rel_lp_loss(pred[..., sl, :], y[..., sl, :], msk)
-            full_loss = rel_lp_loss(pred, y, msk)
+                step_loss = step_loss + rel_lp_loss(pred[..., sl, :], y[..., sl, :], msk,
+                                                    axis=axis)
+            full_loss = rel_lp_loss(pred, y, msk, axis=axis)
         return {"loss_step": step_loss, "loss_full": full_loss, "pred": pred}
 
     @torch.inference_mode()

@@ -21,19 +21,27 @@ def rel_lp_loss(
     mask: torch.Tensor | None = None,
     p: int = 2,
     reduce_batch: bool = True,
+    axis=None,
 ) -> torch.Tensor:
     """Per-channel relative Lp norm over flattened space-time, masked, summed
     over channels, divided by the count of channels with a non-zero mask,
     summed over the batch (the reference's SimpleLpLoss, size_average=False).
     pred/target: (B, ..., C); mask broadcastable to them (the data layer
     gives (B, H, W, 1, C)). reduce_batch=False returns the per-sample
-    vector."""
+    vector. `axis`: a mesh's 'spatial' axis (parallel/mesh.py) when the
+    fields are this rank's rows of the grid; the sums over space-time are
+    then summed over its ranks."""
+    from dpot_tpu_torch.parallel.mesh import all_sum
+
+    def total(t):
+        return t if axis is None else all_sum(t, axis)
+
     B, C = pred.shape[0], pred.shape[-1]
     if mask is not None:
         x, y = pred * mask, target * mask
         # channels with any non-zero mask weight
         msk_channels = torch.count_nonzero(
-            mask.sum(dim=tuple(range(1, mask.dim() - 1))), dim=-1
+            total(mask.sum(dim=tuple(range(1, mask.dim() - 1)))), dim=-1
         ).to(x.dtype)
     else:
         x, y = pred, target
@@ -42,11 +50,11 @@ def rel_lp_loss(
     xf = x.reshape(B, -1, C)
     yf = y.reshape(B, -1, C)
     if p == 2:
-        diff_norms = (xf - yf).square().sum(dim=1).sqrt()
-        y_norms = yf.square().sum(dim=1).sqrt() + 1e-8
+        diff_norms = total((xf - yf).square().sum(dim=1)).sqrt()
+        y_norms = total(yf.square().sum(dim=1)).sqrt() + 1e-8
     else:
-        diff_norms = (xf - yf).abs().pow(p).sum(dim=1).pow(1.0 / p)
-        y_norms = yf.abs().pow(p).sum(dim=1).pow(1.0 / p) + 1e-8
+        diff_norms = total((xf - yf).abs().pow(p).sum(dim=1)).pow(1.0 / p)
+        y_norms = total(yf.abs().pow(p).sum(dim=1)).pow(1.0 / p) + 1e-8
     per_sample = (diff_norms / y_norms).sum(dim=-1) / msk_channels
     return per_sample.sum() if reduce_batch else per_sample
 

@@ -26,7 +26,9 @@ from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 from dpot_tpu_torch.data.registry import make_synthetic_spec
 from dpot_tpu_torch.models import build_model
 from dpot_tpu_torch.parallel import shard_rows
+from dpot_tpu_torch.parallel.fsdp import shard_state_fsdp
 from dpot_tpu_torch.parallel.mesh import check_mesh_data
+from dpot_tpu_torch.parallel.tensor import shard_state_tp
 from dpot_tpu_torch.train import loop
 from dpot_tpu_torch.train.interop import state_dict_from_jax
 from dpot_tpu_torch.train.optimizers import build_optimizer
@@ -142,29 +144,51 @@ def test_tail_goes_whole_to_every_shard(monkeypatch):
     assert shard_rows.fallbacks == 1
 
 
-@pytest.mark.parametrize("cfg,match", [
-    (dict(shard_params="tp"), "item 12"),
-    (dict(shard_params="tp_fsdp"), "item 12"),
-    (dict(mesh_pipe=2), "item 12"),
-    (dict(mesh_model=2), "item 12"),
-    (dict(mesh_spatial=2), "item 12"),
+@pytest.mark.parametrize("cfg,data", [
+    (dict(shard_params="tp"), 2),
+    (dict(shard_params="tp_fsdp", mesh_model=2), 1),
+    (dict(mesh_pipe=2), 1),
+    (dict(mesh_model=2), 1),
+    (dict(mesh_spatial=2), 1),
 ])
-def test_unported_layouts_raise(cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
-        loop.check_ported(TrainConfig(model="DPOT", train_paths=[NAME], **cfg), world=2)
+def test_unported_layouts_raise(cfg, data):
+    """The layouts of item 12's second half, refused until they were ported,
+    are accepted at a world size that their axes make, and leave the data
+    axis what the others leave of it; at a world size they do not make,
+    they raise."""
+    config = TrainConfig(model="DPOT", train_paths=[NAME], **cfg)
+    loop.check_ported(config, world=2)
+    others = config.mesh_spatial * config.mesh_model * config.mesh_pipe
+    assert check_mesh_data(config.mesh_data, 2, others) == data
+    if others > 1:
+        with pytest.raises(ValueError, match="do not make the 3 ranks"):
+            loop.check_ported(config, world=3)
 
 
 def test_refused_combinations():
     """What the JAX loop asserts against: K-step dispatches over several
-    ranks, or with spatial sharding; a mesh_data that is not the world
-    size; and the port's own refusals: BatchNorm over ranks, FSDP without
-    a process group, an unknown shard_params."""
+    ranks, or with spatial sharding, pipe with spatial; a mesh_data that is
+    not the world size; and the port's own refusals: the layouts combined
+    (tp or model with pipe or spatial, fsdp over another axis), the model
+    axes for another family, viz_dir, BatchNorm over ranks, FSDP without a
+    process group, an unknown shard_params, the bf16 working copy under
+    FSDP2 or TP."""
     cfg = dict(model="DPOT", train_paths=[NAME])
     with pytest.raises(ValueError, match="single-process only"):
         loop.check_ported(TrainConfig(steps_per_dispatch=2, **cfg), world=2)
     loop.check_ported(TrainConfig(steps_per_dispatch=2, **cfg), world=1)
     with pytest.raises(ValueError, match="spatial"):
         loop.check_ported(TrainConfig(steps_per_dispatch=2, mesh_spatial=2, **cfg))
+    with pytest.raises(ValueError, match="cannot combine"):
+        loop.check_ported(TrainConfig(mesh_pipe=2, mesh_spatial=2, **cfg), world=4)
+    for combo in (dict(mesh_model=2, mesh_spatial=2), dict(shard_params="tp", mesh_pipe=2),
+                  dict(shard_params="fsdp", mesh_model=2)):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            loop.check_ported(TrainConfig(**combo, **cfg), world=4)
+    with pytest.raises(NotImplementedError, match="for UNet"):
+        loop.check_ported(TrainConfig(**{**cfg, "model": "UNet"}, mesh_model=2), world=2)
+    with pytest.raises(NotImplementedError, match="viz_dir"):
+        loop.check_ported(TrainConfig(viz_dir="viz", **cfg), world=2)
     with pytest.raises(ValueError, match="mesh_data=3"):
         check_mesh_data(3, 2)
     assert check_mesh_data(None, 2) == check_mesh_data(2, 2) == 2
@@ -180,6 +204,11 @@ def test_refused_combinations():
     state = TrainState.create(dpot, build_optimizer("adam", dpot.parameters(), 1e-3), 0)
     with pytest.raises(RuntimeError, match="process group"):
         loop.place_state(state, TrainConfig(shard_params="fsdp", **cfg), torch.device("cpu"))
+    lp = TrainState.create(dpot, build_optimizer("adam", dpot.parameters(), 1e-3), 0,
+                           param_working_dtype=torch.bfloat16)
+    for shard in (shard_state_fsdp, shard_state_tp):
+        with pytest.raises(NotImplementedError, match="working copy"):
+            shard(lp, None)
 
 
 FAMILIES = {

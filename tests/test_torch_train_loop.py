@@ -56,6 +56,28 @@ def test_cli_trains_evaluates_and_writes_a_servable_checkpoint(tmp_path):
         torch.testing.assert_close(served.state_dict()[k], v, rtol=0, atol=0)
 
 
+def test_runs_in_one_second_get_a_log_directory_each(tmp_path, monkeypatch):
+    """Two runs whose timestamps agree (time.strftime patched to a constant)
+    write into two directories: the first keeps the JAX loop's name, the
+    second takes the suffix _1, and each holds its own run's metrics and
+    checkpoint."""
+    monkeypatch.setattr(loop.time, "strftime", lambda fmt: "1018_01_26_01")
+    argv = TINY + ["--train_paths", "synthetic_tloop", "--epochs", "1",
+                   "--log_path", str(tmp_path)]
+    first = main(argv)
+    second = main(argv + ["--lr", "3e-3"])
+    assert first["log_dir"] == str(tmp_path / "1018_01_26_01")
+    assert second["log_dir"] == str(tmp_path / "1018_01_26_01_1")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["1018_01_26_01", "1018_01_26_01_1"]
+    for out in (first, second):
+        assert len(tags(out["log_dir"], "train_loss_step")) == 2  # its own 2 steps
+        saved = torch.load(f"{out['log_dir']}/model/model.pth", weights_only=False)["model"]
+        for k, v in out["state"].params_state_dict().items():
+            torch.testing.assert_close(saved[k], v, rtol=0, atol=0)
+    assert tags(first["log_dir"], "train_loss_step") != tags(second["log_dir"],
+                                                             "train_loss_step")
+
+
 def test_kill_and_resume_continues_step_for_step(tmp_path):
     """Three epochs uninterrupted against two epochs, a checkpoint and a
     resume for the third (the same 3-epoch config, so the same schedule):
@@ -105,13 +127,15 @@ def test_nan_loss_rolls_back_to_the_last_good_state(tmp_path, monkeypatch):
     dict(shard_params="fsdp"), dict(viz_dir="viz"),
 ])
 def test_options_not_ported_raise(override):
-    """The options still to port raise naming their ROADMAP item; mesh_data
-    and shard_params=fsdp, ported since, raise in one process without a
-    process group: a mesh_data that is not the world size, and FSDP without
-    torchrun's group."""
+    """The options still to port raise naming their ROADMAP item; mesh_data,
+    the spatial, model and pipe axes and shard_params=fsdp, ported since,
+    raise in one process without a process group: mesh axes that do not
+    make the world size, and FSDP without torchrun's group."""
     cfg = TrainConfig(model="DPOT", train_paths=["synthetic_tloop"], res=16, patch_size=4,
                       width=32, n_layers=1, n_blocks=4, modes=4, T_in=6, **override)
+    axes = (ValueError, "mesh axes .* do not make the 1 ranks")
     exc, match = {"mesh_data": (ValueError, "mesh_data=2 does not match the 1 ranks"),
+                  "mesh_spatial": axes, "mesh_model": axes, "mesh_pipe": axes,
                   "shard_params": (RuntimeError, "process group")}.get(
         next(iter(override)), (NotImplementedError, "ROADMAP"))
     with pytest.raises(exc, match=match):

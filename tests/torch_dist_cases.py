@@ -137,10 +137,9 @@ def case_step(args: dict) -> dict:
     rank's rows of the global batch in args['batch'] (external noise), in
     each layout of args['layouts']: the aux and the weights after it."""
     import torch
-    from torch.distributed.device_mesh import init_device_mesh
 
     from dpot_tpu_torch.models import build_model
-    from dpot_tpu_torch.parallel import rank_world, replicate, shard_rows
+    from dpot_tpu_torch.parallel import make_mesh, rank_world, replicate, shard_rows
     from dpot_tpu_torch.parallel.fsdp import shard_state_fsdp
     from dpot_tpu_torch.train.optimizers import build_optimizer
     from dpot_tpu_torch.train.state import TrainState
@@ -161,7 +160,7 @@ def case_step(args: dict) -> dict:
             state.train_module = replicate(model, UNTRAINED)
             state.rank, state.world = rank, world
         else:
-            shard_state_fsdp(state, init_device_mesh("cpu", (world,)))
+            shard_state_fsdp(state, make_mesh(device="cpu"))
         state, aux = make_train_step(noise_scale=args["noise"])(state, local)
         out[layout] = {"aux": {k: float(v) for k, v in aux.items()},
                        "params": {k: v.detach().clone()
@@ -196,7 +195,7 @@ def case_cache_check(args: dict) -> dict:
                         embed_dim=256, depth=2, n_blocks=2, modes=8, n_cls=1,
                         dtype=torch.bfloat16, remat=True, device=device, seed=0)
     state = TrainState.create(model, build_optimizer("lamb", model.parameters(), 1e-3), 0)
-    shard_state_fsdp(state, make_mesh(None, device))
+    shard_state_fsdp(state, make_mesh(device=device))
     step_fn = make_train_step(noise_scale=1e-3, ones_mask=True)
     real, same, stale = afno_fused._bf16_blocks, [], {}
 
@@ -233,7 +232,151 @@ def case_cache_check(args: dict) -> dict:
             "cache_blocks": first}
 
 
-CASES = {"train": case_train, "step": case_step, "cache_check": case_cache_check}
+def rank_batch(b: dict, state, mesh) -> dict:
+    """This rank's part of a global batch (x, y, msk, cls and external noise
+    (steps, B, ...)): its rows over 'data' and, under 'spatial', its H rows."""
+    from dpot_tpu_torch.parallel import shard_rows
+
+    rows = shard_rows(b["x"].shape[0], state.rank, state.world) or slice(None)
+    out = {k: v[:, rows] if k == "noise" else v[rows] for k, v in b.items()}
+    s = mesh.size("spatial")
+    if s > 1:
+        n = b["x"].shape[1] // s
+        h = slice(mesh.coords["spatial"] * n, (mesh.coords["spatial"] + 1) * n)
+        out = {k: v[:, :, h] if k == "noise" else v if k == "cls" else v[:, h]
+               for k, v in out.items()}
+    return out
+
+
+def case_layout_step(args: dict) -> dict:
+    """Train steps of the tiny DPOT from the weights in args['sd'] on the
+    global batches in args['batches'] (external noise), in each layout of
+    args['layouts'] (name, mesh axes, shard_params, pipe_microbatches,
+    remat), placed as cli.train places them (train/loop.py place_state):
+    per layout the aux of each step, the full weights after them (gathered
+    in the reference layout), the gradients of the last step's parameters
+    that are not shards, the sharded leaves and the fused kernel's calls."""
+    import torch
+
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno
+    from dpot_tpu_torch.parallel import make_mesh
+    from dpot_tpu_torch.train.loop import model_mesh_kw, place_state
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+    from dpot_tpu_torch.utils.config import TrainConfig
+
+    sd = torch.load(args["sd"])
+    batches = torch.load(args["batches"])
+    out = {}
+    for lay in args["layouts"]:
+        axes = lay["mesh"]
+        mesh = make_mesh(device="cpu", **axes)
+        cfg = TrainConfig(model="DPOT", train_paths=["x"],
+                          shard_params=lay.get("shard_params", "replicate"),
+                          mesh_spatial=axes.get("spatial", 1), mesh_model=axes.get("model", 1),
+                          mesh_pipe=axes.get("pipe", 1),
+                          pipe_microbatches=lay.get("micro", 0))
+        model = build_model("DPOT", device="cpu", remat=lay.get("remat", False),
+                            **model_mesh_kw(cfg, mesh), **args["cfg"])
+        model.load_state_dict(sd)
+        opt = build_optimizer("adam", model.parameters(), args["lr"], grad_clip=args["clip"])
+        state = TrainState.create(model, opt, seed=0)
+        state.mesh = mesh
+        place_state(state, cfg, torch.device("cpu"))
+        with torch.no_grad():
+            pred = model(rank_batch(batches[0], state, mesh)["x"])
+        step = make_train_step(noise_scale=args["noise"])
+        calls = fused_gn_afno.launches
+        block_calls = []
+        hooks = [blk.register_forward_pre_hook(lambda *_: block_calls.append(1))
+                 for blk in model.blocks]
+        auxes = []
+        for b in batches:
+            state, aux = step(state, rank_batch(b, state, mesh))
+            auxes.append({k: float(v) for k, v in aux.items()})
+        for h in hooks:
+            h.remove()
+        out[lay["name"]] = {
+            "forward": [t.detach() for t in pred], "block_calls": len(block_calls),
+            "aux": auxes,
+            "params": {k: v.detach().clone() for k, v in state.params_state_dict().items()},
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                      if p.grad is not None and n not in getattr(model, "tp_dims", {})},
+            "local_shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
+            "tp_dims": dict(getattr(model, "tp_dims", {})), "world": state.world,
+            "calls": fused_gn_afno.launches - calls,
+        }
+    return out
+
+
+def case_serve(args: dict) -> dict:
+    """TP serving: every rank builds the tiny DPOT from args['sd'] and a
+    RolloutServer over the 'model' axis of all ranks; rank 0 answers the
+    requests args['requests'] ((x, steps) pairs from args['xs']), the
+    others follow until it stops. Rank 0's answers and counters."""
+    import torch
+
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.parallel import make_mesh, rank_world
+    from dpot_tpu_torch.serve.server import RolloutServer
+
+    model = build_model("DPOT", device="cpu", **args["cfg"])
+    model.load_state_dict(torch.load(args["sd"]))
+    rs = RolloutServer(model, mesh=make_mesh(model=rank_world()[1], device="cpu"),
+                       device="cpu", batch_buckets=(1, 2), max_wait_ms=1.0)
+    xs = torch.load(args["xs"])
+    rs.start()
+    if not rs.leader:
+        return {"preds": None, "shards": len(model.tp_dims)}
+    preds = [rs.submit(xs[i].numpy(), steps) for i, steps in args["requests"]]
+    rs.stop(drain=True)
+    return {"preds": preds, "metrics": rs.metrics(), "n_params": rs.n_params,
+            "shards": len(model.tp_dims)}
+
+
+def case_mixer(args: dict) -> dict:
+    """The pencil-FFT mixer (parallel/dist_fft.py) on this rank's rows of the
+    global x in args['inputs'] for each case (modes, compute dtype): the
+    output rows and, in float32, the gradients of sum(y * r) (r from the
+    file) with respect to this rank's x rows and to the weights."""
+    import torch
+
+    from dpot_tpu_torch.ops.activations import get_activation
+    from dpot_tpu_torch.parallel import make_mesh, rank_world
+    from dpot_tpu_torch.parallel.dist_fft import afno_filter_2d_sharded
+
+    _, world = rank_world()
+    axis = make_mesh(spatial=world, device="cpu").axis("spatial")
+    inp = torch.load(args["inputs"])
+    n = inp["x"].shape[1] // world
+    rows = slice(axis.rank * n, (axis.rank + 1) * n)
+    out = {}
+    for modes, dtype in args["cases"]:
+        x = inp["x"][:, rows].clone().requires_grad_(dtype == "float32")
+        ws = [w.clone().requires_grad_(dtype == "float32") for w in inp["weights"]]
+        cd = getattr(torch, dtype)
+        y = afno_filter_2d_sharded(x, *ws, modes, get_activation("gelu"), axis,
+                                   compute_dtype=cd)
+        res = {"y": y.detach()}
+        if dtype == "float32":
+            (y * inp["r"][:, rows]).sum().backward()
+            res["dx"] = x.grad
+            res["dw"] = [w.grad for w in ws]
+        out[f"{modes}/{dtype}"] = res
+    return out
+
+
+def case_suite(args: dict) -> dict:
+    """Several cases in one launch: args['suite'] holds (key, case, args)
+    triples; their results by key."""
+    return {key: CASES[case](sub) for key, case, sub in args["suite"]}
+
+
+CASES = {"train": case_train, "step": case_step, "cache_check": case_cache_check,
+         "layout_step": case_layout_step, "serve": case_serve, "mixer": case_mixer,
+         "suite": case_suite}
 
 
 def main() -> None:
