@@ -238,8 +238,22 @@ start up, the 2-rank jobs once the nccl rank is done (phase_parallel):
      left out, the permute's wrong slot, the all-to-alls skipped) above
      their limits; launches exact per rank; and the L model served over
      model = 2 against one process's answers.
-`python3 chip_smoke.py layouts` builds the kernels and runs phase 27
-alone, printing its rows.
+  28. the rest of the parallel layer, in the same launch, each rank
+     held to one process as phase 27's are, with controls above their
+     limits: fsdp_lp_l, tp_lp_l and pp_lp_l, L's widths at 6 blocks with
+     the bf16 working copy under FSDP2, TP and the pipeline (fsdp_lp_l also
+     writes a checkpoint over gloo, gathered with c10d collectives, which
+     one process resumes; its control, a checkpoint gathered in the wrong
+     shard order); fsdp_pp_l, FSDP2 with the pipeline (data 1 x pipe 2 on
+     the 2 ranks); dpot3d_tp_l, DPOT3D at L's widths (2 blocks, 64^3)
+     under TP; cdpot_tp, CDPOT at configs/cdpot_parallel.yaml's widths
+     under TP (the fused kernel's route at a rank's channels reported);
+     unet_ddp, UNet on 2 DDP ranks with its BatchNorm statistics over the
+     ranks and grad_accum 2 (control: each rank's own statistics); and L
+     served over pipe = 2 and data = 2 (serve_pp_l, serve_dp_l) against
+     one process's answers.
+`python3 chip_smoke.py layouts` builds the kernels and runs phases 27
+and 28 alone, printing their rows.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -625,9 +639,83 @@ LAYOUT_L = dict(micro=2, serve_batches=(1, 4), serve_steps=4, serve_tol=3e-2,
 LAYOUT_TOL = {"tp_l": dict(loss=FSDP_L["tol"], pred=2e-2, grad=5e-2, delta=5e-2),
               "pp_l": dict(loss=FSDP_L["tol"], pred=1e-4, grad=5e-3, delta=2e-2),
               "sp_l": dict(loss=1e-4, pred=2e-5, grad=2e-3, delta=3e-3)}
-# the one-process references of the layout jobs (one_process_steps)
+# phase 28's layout jobs, in the same launch after phase 27's, each held to
+# one process as those are (a rank's readings, controls above their
+# limits). L's widths at CUT_L_DEPTH blocks (bf16, fsdp_l's optimization and
+# batches): fsdp_lp_l, tp_lp_l and pp_lp_l with the bf16 working copy under
+# FSDP2 (data = 2), TP and the pipeline, against one process's working-copy
+# run; fsdp_pp_l, FSDP2 with the pipeline on data 1 x pipe 2 (the 2 ranks
+# cannot hold both axes above 1: the composition, not the sharding, which
+# the CPU tests hold at data 2 x pipe 2), against one process. fsdp_lp_l
+# then writes a checkpoint over gloo (gathered with c10d collectives) and
+# one process resumes it: its forward against the ranks' after the steps
+# ("resume", relative L2), and one more step's loss against theirs; its
+# control, a checkpoint gathered in the wrong shard order, must exceed the
+# forward's limit. dpot3d_tp_l: DPOT3D at L's widths (L3D, 2 blocks, 64^3,
+# B = 2) under TP; cdpot_tp: CDPOT at configs/cdpot_parallel.yaml's widths
+# (f32, B = 20) under TP, the fused kernel's route at a rank's C = 256
+# reported; unet_ddp: UNet (width 32, 128^2, f32, B = 8, grad_accum 2) on 2
+# DDP ranks, its BatchNorm statistics over them, its running statistics
+# held too ("stats"); control: each rank's own statistics. Limits first
+# set from a prediction, then between the sound readings and the controls
+# of a layouts-only run on the H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+# readings / controls, prediction, gradient,
+# change: fsdp_lp_l 0 / 2.9e-3 / 4.0e-3, its resume 0 and the wrong-order
+# checkpoint 1.09; tp_lp_l 2.9e-3 / 2.1e-3 / 7.1e-3, controls 0.21 /
+# 0.26; pp_lp_l 0 / 4.3e-4 / 3.0e-3 and fsdp_pp_l 0 / 3.3e-4 / 3.0e-3,
+# controls 0.32; dpot3d_tp_l 1.1e-3 / 1.9e-4 / 3.2e-3, controls 0.029 /
+# 0.021; cdpot_tp 3.0e-7 / 1.5e-7 / 6.3e-7, controls 0.29 / 0.79;
+# unet_ddp 0 / 3.5e-5 / 1.1e-3, statistics 5.8e-6, control 0.036;
+# PERF.md section 6)
+MORE_L = dict(cdpot_batch=20, d3_batch=2, unet_batch=8, unet_accum=2)
+# job: how it is laid out (cli.train's keys), the model ("L" at the cut
+# depth unless named), its compute type, the working copy, its faults,
+# the kernel route its launches take (None: reported)
+LAYOUT_JOBS = {
+    "tp_l": dict(cfg=dict(shard_params="tp", mesh_model=2), faults="tp_l"),
+    "pp_l": dict(cfg=dict(mesh_pipe=2, pipe_microbatches=LAYOUT_L["micro"]), faults="pp_l"),
+    "sp_l": dict(cfg=dict(mesh_spatial=2), dtype="float32", faults="sp_l", route=None),
+    "fsdp_lp_l": dict(cfg=dict(shard_params="fsdp"), depth=CUT_L_DEPTH, lp=True,
+                      faults="ckpt"),
+    "tp_lp_l": dict(cfg=dict(shard_params="tp", mesh_model=2), depth=CUT_L_DEPTH, lp=True,
+                    faults="tp_l"),
+    "pp_lp_l": dict(cfg=dict(mesh_pipe=2, pipe_microbatches=LAYOUT_L["micro"]),
+                    depth=CUT_L_DEPTH, lp=True, faults="pp_l"),
+    "fsdp_pp_l": dict(cfg=dict(shard_params="fsdp", mesh_pipe=2,
+                               pipe_microbatches=LAYOUT_L["micro"]),
+                      depth=CUT_L_DEPTH, faults="pp_l"),
+    "dpot3d_tp_l": dict(cfg=dict(shard_params="tp", mesh_model=2), model="DPOT3D",
+                        faults="tp_l", route=None),
+    "cdpot_tp": dict(cfg=dict(shard_params="tp", mesh_model=2), model="CDPOT",
+                     dtype="float32", faults="tp_l", route=None, remat=False),
+    "unet_ddp": dict(cfg=dict(), model="UNet", dtype="float32", faults="bn", route=None,
+                     remat=False),
+}
+LAYOUT_TOL.update({
+    "fsdp_lp_l": dict(loss=FSDP_L["tol"], pred=1e-4, grad=5e-2, delta=5e-2, resume=1e-3),
+    "tp_lp_l": dict(loss=FSDP_L["tol"], pred=2e-2, grad=5e-2, delta=5e-2),
+    "pp_lp_l": dict(loss=FSDP_L["tol"], pred=1e-4, grad=5e-3, delta=2e-2),
+    "fsdp_pp_l": dict(loss=FSDP_L["tol"], pred=1e-4, grad=5e-3, delta=2e-2),
+    "dpot3d_tp_l": dict(loss=FSDP_L["tol"], pred=1e-2, grad=5e-3, delta=2e-2),
+    "cdpot_tp": dict(loss=1e-5, pred=1e-5, grad=1e-4, delta=1e-3),
+    "unet_ddp": dict(loss=1e-5, pred=1e-5, grad=1e-3, delta=1e-2, stats=1e-4),
+})
+# the one-process references of the layout jobs (one_process_steps), by
+# (model, compute type, depth, working copy)
 LAYOUT_REFS = {"tp_l": RUN_DIR / "ref_l.pt", "sp_l": RUN_DIR / "ref_sp_l.pt"}
 LAYOUT_REFS["pp_l"] = LAYOUT_REFS["tp_l"]
+LAYOUT_REFS.update({"fsdp_lp_l": RUN_DIR / "ref_lp_l6.pt", "fsdp_pp_l": RUN_DIR / "ref_l6.pt",
+                    "dpot3d_tp_l": RUN_DIR / "ref_3d_l.pt", "cdpot_tp": RUN_DIR / "ref_cdpot.pt",
+                    "unet_ddp": RUN_DIR / "ref_unet.pt"})
+LAYOUT_REFS["tp_lp_l"] = LAYOUT_REFS["pp_lp_l"] = LAYOUT_REFS["fsdp_lp_l"]
+# L served over pipe = 2 and data = 2 (tp_serve_l's requests and limit),
+# against one process's graphed answers; controls: the pipeline's permute
+# taking the wrong slot (serve_pp_l), and on data, where each replica
+# computes the batch, a follower that drops the broadcast input: every
+# replica's prediction must equal the leader's answer within
+# "replica_tol", and the control's must not
+SERVE_MESHES = {"serve_pp_l": dict(pipe=2), "serve_dp_l": dict(data=2)}
+SERVE_REPLICA_TOL = 1e-6
 # a torchrun launch's time limit, and the profiler names of collectives
 RANK_TIMEOUT = 600
 COLLECTIVE = re.compile(r"gloo|nccl|c10d|all_reduce|allreduce|all_gather|allgather|"
@@ -3776,6 +3864,8 @@ class Launch:
         self.work = RUN_DIR / tag
         self.work.mkdir(parents=True, exist_ok=True)
         self.go_path = self.work / "go" if hold else None
+        if hold:
+            self.go_path.unlink(missing_ok=True)  # a go left by an earlier launch
         (self.work / "args.json").write_text(json.dumps(
             {**args, "out": str(self.work), "go": self.go_path and str(self.go_path)}))
         self.log_path = self.work / "torchrun.log"
@@ -3948,15 +4038,17 @@ def fsdp_l_batch(i: int) -> dict:
             "cls": torch.zeros(L_BATCH, dtype=torch.long, device="cuda")}
 
 
-def fsdp_l_state(model):
-    """fsdp_l's train state: lamb with configs/pretrain_large.yaml's clip."""
+def fsdp_l_state(model, lp: bool = False):
+    """fsdp_l's train state: lamb with configs/pretrain_large.yaml's clip;
+    `lp`, the bf16 working copy."""
     from dpot_tpu_torch.train.optimizers import build_optimizer
     from dpot_tpu_torch.train.state import TrainState
     from dpot_tpu_torch.utils.config import TrainConfig
 
     clip = TrainConfig(train_paths=["synthetic"]).grad_clip  # the file sets none
     return TrainState.create(model, build_optimizer("lamb", model.parameters(), FSDP_L["lr"],
-                                                    grad_clip=clip), 0)
+                                                    grad_clip=clip), 0,
+                             param_working_dtype=torch.bfloat16 if lp else None)
 
 
 def rank_fsdp(args: dict) -> dict:
@@ -4107,9 +4199,10 @@ def patched(module, name: str, fn):
         setattr(module, name, real)
 
 
-def layout_controls(job: str) -> dict:
+def layout_controls(faults: str, model) -> dict:
     """Each job's faults on purpose, which its checks must catch: the name
     of the check each must fail, and the fault."""
+    from dpot_tpu_torch.models.unet import local_batch_stats
     from dpot_tpu_torch.parallel import dist_fft, pipeline, tensor
 
     wrong_slot = pipeline.permute
@@ -4123,15 +4216,28 @@ def layout_controls(job: str) -> dict:
                      pipeline, "permute", lambda t, axis, shift: wrong_slot(t, axis, shift + 1)))},
         "sp_l": {"all_to_all_skipped": ("pred", lambda: patched(
                      dist_fft, "all_to_all", lambda z, axis: z))},
-    }[job]
+        # each rank's BatchNorm statistics of its own rows
+        "bn": {"local_batch_stats": ("grad", lambda: local_batch_stats(model))},
+        "ckpt": {},
+    }[faults]
+
+
+def full(named: dict) -> dict:
+    """name -> tensor with FSDP2's shards gathered (a collective every rank
+    calls, in the same order)."""
+    from dpot_tpu_torch.parallel.fsdp import gathered
+
+    return {n: gathered(t) for n, t in named.items()}
 
 
 def held_to(ref: dict, named: dict, tp_dims: dict, axis) -> dict:
     """A rank's tensors (name -> its part: a TP shard, a stage's block, a
-    replicated leaf) against one process's full ones (`ref`, on the host):
-    one relative L2 over all of them, and the worst leaf's."""
+    replicated leaf, FSDP2's gathered) against one process's full ones
+    (`ref`, on the host): one relative L2 over all of them, and the worst
+    leaf's."""
     from dpot_tpu_torch.parallel.tensor import local_shard
 
+    named = full(named)
     if not set(named) <= set(ref):
         raise AssertionError(f"leaves that one process has not: {sorted(set(named) - set(ref))[:4]}")
     num = den = 0.0
@@ -4150,35 +4256,101 @@ def held_to(ref: dict, named: dict, tp_dims: dict, axis) -> dict:
                 worst_rel_l2=per[worst])
 
 
+def master_of(state) -> dict:
+    """The weights the optimizer updates, by the model's parameter names:
+    the f32 master of a working copy, else the parameters themselves."""
+    return {n: m.detach() for (n, _), m in zip(state.model.named_parameters(),
+                                                state.optimizer.params, strict=True)}
+
+
 def grads_of(model) -> dict:
     return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
 
 
-# the config keys of each layout job (cli.train's flags)
-LAYOUT_CFG = {"tp_l": dict(shard_params="tp", mesh_model=2),
-              "pp_l": dict(mesh_pipe=2, pipe_microbatches=LAYOUT_L["micro"]),
-              "sp_l": dict(mesh_spatial=2)}
+def stats_of(model) -> dict:
+    """A model's float buffers (UNet's running statistics)."""
+    return {n: b for n, b in model.named_buffers() if b.is_floating_point()}
 
 
-def layout_rows(b: dict, mesh) -> dict:
-    """A layout rank's part of fsdp_l's global batch: all of its rows (the
-    data axis has one rank), under 'spatial' its H rows."""
-    s = mesh.size("spatial")
-    if s == 1:
+def job_spec(job: str) -> dict:
+    spec = dict(model="L", dtype="bfloat16", depth=None, lp=False, route="hopper_l",
+                remat=True)
+    spec.update(LAYOUT_JOBS[job])
+    return spec
+
+
+def job_model(job: str, device, **kw):
+    """A layout job's seeded model on `device` (kw: a mesh)."""
+    from dpot_tpu_torch.models import build_model
+
+    spec = job_spec(job)
+    dtype = getattr(torch, spec["dtype"])
+    seed = FSDP_L["seed"]
+    if spec["model"] == "L":
+        depth = {} if spec["depth"] is None else dict(depth=spec["depth"])
+        model = preset_model("L", spec["dtype"], seed, device=str(device), **depth, **kw)
+    elif spec["model"] == "DPOT3D":
+        model = build_model("DPOT3D", depth=2, dtype=dtype, device=str(device), seed=seed, **L3D)
+    elif spec["model"] == "CDPOT":
+        model = build_model("CDPOT", dtype=dtype, device=str(device), seed=seed,
+                            **cdpot_sweep_model_kw())
+    else:
+        model = build_model("UNet", img_size=128, in_channels=4, out_channels=4,
+                            in_timesteps=10, out_layer_dim=32, n_cls=1, dtype=dtype,
+                            device=str(device), seed=seed)
+    model.remat = spec["remat"]
+    return model
+
+
+def job_batch(job: str, i: int) -> dict:
+    """A layout job's i-th global batch, drawn on the host from a seed (the
+    same in every process): fsdp_l's for L, else one of the model's grid."""
+    spec = job_spec(job)
+    if spec["model"] == "L":
+        return fsdp_l_batch(i)
+    g = torch.Generator().manual_seed(FSDP_L["seed"] + 100 + i)
+    if spec["model"] == "DPOT3D":
+        B, grid, c = MORE_L["d3_batch"], (64, 64, 64), 5
+    else:
+        B, grid, c = (MORE_L["cdpot_batch"] if spec["model"] == "CDPOT"
+                      else MORE_L["unet_batch"]), (128, 128), 4
+    x = torch.randn((B, *grid, 10, c), generator=g)
+    y = torch.randn((B, *grid, 1, c), generator=g)
+    return {"x": x.to("cuda", getattr(torch, spec["dtype"])), "y": y.cuda(),
+            "cls": torch.zeros(B, dtype=torch.long, device="cuda")}
+
+
+def job_step(job: str):
+    from dpot_tpu_torch.train.step import make_train_step
+
+    accum = MORE_L["unet_accum"] if job_spec(job)["model"] == "UNet" else 1
+    return make_train_step(noise_scale=5e-4, ones_mask=True, grad_accum=accum)
+
+
+def layout_rows(b: dict, mesh, model) -> dict:
+    """A layout rank's part of a global batch: all of its rows under a data
+    axis of one rank, its share over 'data', its H rows where the model
+    splits the grid over 'spatial'."""
+    sp = getattr(model, "spatial", None)
+    data = mesh.axis("data")
+    if data.size > 1:
+        n = b["x"].shape[0] // data.size
+        b = {k: v[data.rank * n:(data.rank + 1) * n] for k, v in b.items()}
+    if sp is None:
         return b
-    n = b["x"].shape[1] // s
-    r = mesh.coords["spatial"]
-    return {k: v if k == "cls" else v[:, r * n:(r + 1) * n] for k, v in b.items()}
+    n = b["x"].shape[1] // sp.size
+    return {k: v if k == "cls" else v[:, sp.rank * n:(sp.rank + 1) * n] for k, v in b.items()}
 
 
 def rank_layout(job: str, device: torch.device, args: dict) -> dict:
-    """A tp_l, pp_l or sp_l rank: seeded DPOT-L laid out as cli.train lays
-    it out (LAYOUT_CFG, train/loop.py place_state); the first forward's
+    """A layout job's rank (LAYOUT_JOBS): the seeded model laid out as
+    cli.train lays it out (train/loop.py place_state); the first forward's
     prediction and the controls' (layout_controls); FSDP_L's steps on this
-    rank's part of fsdp_l's batches, the last one profiled (the
-    collectives' share); the first step's gradient and the parameter change
-    after the steps held to one process's (`held_to`, args["refs"][job]);
-    launches, peak memory."""
+    rank's part of the job's batches, the last one profiled (the
+    collectives' share); the first step's gradient, the parameter change
+    after the steps and a model's running statistics held to one
+    process's (`held_to`, args["refs"][job]); launches, peak memory; for
+    fsdp_lp_l the checkpoint and its control (`ckpt_job`)."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
@@ -4186,54 +4358,69 @@ def rank_layout(job: str, device: torch.device, args: dict) -> dict:
     from dpot_tpu_torch.ops.spectral import separable_gn_afno
     from dpot_tpu_torch.parallel.mesh import make_mesh
     from dpot_tpu_torch.train.loop import model_mesh_kw, place_state
-    from dpot_tpu_torch.train.step import make_train_step
     from dpot_tpu_torch.utils.config import TrainConfig
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = TrainConfig(train_paths=["synthetic"], **LAYOUT_CFG[job])
+    spec = job_spec(job)
+    cfg = TrainConfig(train_paths=["synthetic"], model=spec["model"].replace("L", "DPOT"),
+                      **spec["cfg"])
     mesh = make_mesh(None, cfg.mesh_spatial, cfg.mesh_model, cfg.mesh_pipe, device)
-    dtype = "float32" if job == "sp_l" else "bfloat16"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = preset_model("L", dtype, FSDP_L["seed"], device=str(device),
-                         **model_mesh_kw(cfg, mesh))
-    model.remat = True
-    state = fsdp_l_state(model)
+    model = job_model(job, device, **model_mesh_kw(cfg, mesh))
+    state = fsdp_l_state(model, spec["lp"])
     state.mesh = mesh
     place_state(state, cfg, device)
     tp_dims = getattr(model, "tp_dims", {})
     axis = mesh.axis("model")
-    row = dict(job=job, dtype=dtype, mesh=mesh.sizes, coords=mesh.coords,
-               blocks=len(model.blocks), local_w1=list(next(iter(model.blocks)).filter.w1.shape),
-               tp_leaves=len(tp_dims), build_s=time.perf_counter() - t0)
+    w1 = [m.w1 for m in model.modules() if hasattr(m, "w1") and hasattr(m, "b2")]
+    row = dict(job=job, dtype=spec["dtype"], mesh=mesh.sizes, coords=mesh.coords,
+               blocks=len(getattr(model, "blocks", ())), tp_leaves=len(tp_dims),
+               local_w1=list(w1[0].to_local().shape if hasattr(w1[0], "to_local")
+                             else w1[0].shape) if w1 else None,
+               sharded=state.sharded, working_copy=state.params_lp is not None,
+               build_s=time.perf_counter() - t0)
     ref = torch.load(args["refs"][job], mmap=True, weights_only=True)
-    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
-    b0 = layout_rows(fsdp_l_batch(0), mesh)
-    with torch.no_grad():
-        row["pred"] = model(b0["x"])[0].cpu()
+    step_fn = job_step(job)
+    b0 = layout_rows(job_batch(job, 0), mesh, model)
+
+    def predict(x):
+        model.eval()
+        with torch.no_grad():
+            out = model(x)
+        if state.sharded:
+            model.reshard()  # FSDP2 keeps the root gathered after a forward alone
+        return (out[0] if isinstance(out, tuple) else out).float().cpu()
+
+    row["pred"] = predict(b0["x"])
     # the controls, before the steps: a forward's prediction, or a step's
-    # gradient with the update left out and the noise stream put back
+    # gradient with the update left out, the noise stream and the buffers
+    # put back
     row["controls"] = {}
-    for name, (check, fault) in layout_controls(job).items():
+    for name, (check, fault) in layout_controls(spec["faults"], model).items():
         with fault():
             if check == "pred":
-                with torch.no_grad():
-                    row["controls"][name] = (check, model(b0["x"])[0].cpu())
+                row["controls"][name] = (check, predict(b0["x"]))
                 continue
             gen = state.generator.get_state()
+            bufs = [b.clone() for b in model.buffers()]
             state.apply_gradients = lambda *a, **k: None
             try:
                 step_fn(state, b0)
             finally:
                 del state.apply_gradients
                 state.generator.set_state(gen)
+                with torch.no_grad():
+                    for b, c in zip(model.buffers(), bufs):
+                        b.copy_(c)
         row["controls"][name] = (check, held_to(ref["grad"], grads_of(model), tp_dims, axis))
-    before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    before = {n: t.to("cpu", torch.float32, copy=True)
+              for n, t in full(master_of(state)).items()}
     reset_launch_counts()
     losses, walls, prof_row = [], [], {}
     for i in range(FSDP_L["steps"]):
-        b = layout_rows(fsdp_l_batch(i), mesh)
+        b = layout_rows(job_batch(job, i), mesh, model)
         torch.cuda.synchronize()
         if i == FSDP_L["steps"] - 1:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4255,16 +4442,43 @@ def rank_layout(job: str, device: torch.device, args: dict) -> dict:
         if i == 0:
             row["grad"] = held_to(ref["grad"], grads_of(model), tp_dims, axis)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(launches=fused_gn_afno.launches,
+                    launches_by_path=dict(fused_gn_afno.launches_by_path),
+                    bias_act_launches=bias_act.launches, separable_calls=separable_gn_afno.calls)
     with torch.no_grad():
-        row["delta"] = held_to(ref["delta"], {n: p - before[n].to(p.device) for n, p in
-                                              model.named_parameters()}, tp_dims, axis)
-    row.update(losses=losses, wall_ms_each=walls, profile=prof_row,
-               launches=fused_gn_afno.launches,
-               launches_by_path=dict(fused_gn_afno.launches_by_path),
-               bias_act_launches=bias_act.launches, separable_calls=separable_gn_afno.calls,
-               peak_memory_gb=peak,
-               job_s=time.perf_counter() - t0)
+        now = full(master_of(state))
+        row["delta"] = held_to(ref["delta"], {n: p.float().cpu() - before[n]
+                                              for n, p in now.items()}, tp_dims, axis)
+        if "stats" in ref:
+            row["stats"] = held_to(ref["stats"], stats_of(model), {}, axis)
+    if spec["faults"] == "ckpt":
+        row.update(ckpt_job(job, state, b0, predict))
+    row.update(losses=losses, wall_ms_each=walls, profile=prof_row, peak_memory_gb=peak,
+               job_s=time.perf_counter() - t0, **launches)
     return row
+
+
+def ckpt_job(job: str, state, b0: dict, predict) -> dict:
+    """fsdp_lp_l after its steps: the checkpoint written over gloo (every
+    rank gathers, rank 0 writes), then its control, gathered with the
+    shards in the wrong order; the forward of the first batch and one more
+    step's loss, which one process, resuming the checkpoint, is held to
+    (`resume_checks`)."""
+    from dpot_tpu_torch.parallel import fsdp
+    from dpot_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    good, bad = RUN_DIR / f"{job}_ckpt", RUN_DIR / f"{job}_ckpt_control"
+    save_checkpoint(str(good), state)
+    real = fsdp.gather_stacked
+    with patched(fsdp, "gather_stacked", lambda t, axis: real(t, axis).flip(0)):
+        save_checkpoint(str(bad), state)
+    save_s = time.perf_counter() - t0
+    pred = predict(b0["x"])
+    b = layout_rows(job_batch(job, FSDP_L["steps"]), state.mesh, state.model)
+    loss = float(job_step(job)(state, b)[1]["loss_step"])
+    return dict(ckpt=dict(good=str(good), bad=str(bad), pred_after=pred, next_loss=loss,
+                          save_s=save_s))
 
 
 def serve_l_inputs() -> list[np.ndarray]:
@@ -4316,10 +4530,73 @@ def rank_tp_serve(device: torch.device) -> dict:
     return row
 
 
+def rank_mesh_serve(job: str, device: torch.device) -> dict:
+    """A serve_pp_l or serve_dp_l rank: seeded DPOT-L (bf16) built over the
+    job's mesh (SERVE_MESHES) and served; rank 0 answers tp_serve_l's
+    requests and then the control's (the first input again), rank 1
+    follows. Each rank keeps what its rollouts computed; launches are
+    counted over the requests. The control: pipe's permute taking the
+    wrong slot on both ranks; data's follower dropping the broadcast input
+    (zeros) for the control's rollout."""
+    import gc
+
+    from dpot_tpu_torch.parallel import pipeline
+    from dpot_tpu_torch.parallel.mesh import make_mesh
+    from dpot_tpu_torch.serve.server import RolloutServer
+    from dpot_tpu_torch.train.loop import model_mesh_kw
+    from dpot_tpu_torch.utils.config import TrainConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    axes = SERVE_MESHES[job]
+    mesh = make_mesh(device=device, **axes)
+    cfg = TrainConfig(train_paths=["synthetic"], mesh_pipe=axes.get("pipe", 1))
+    model = preset_model("L", "bfloat16", FSDP_L["seed"], device=str(device),
+                         **model_mesh_kw(cfg, mesh))
+    rs = RolloutServer(model, mesh=mesh, device=device, batch_buckets=LAYOUT_L["serve_batches"],
+                       max_wait_ms=1.0, warmup_steps=(LAYOUT_L["serve_steps"],))
+    computed = []
+    eager = rs._eager_rollout
+    control_rollout = 2 + len(LAYOUT_L["serve_batches"])  # after the warm-up and requests
+    wrong_slot = pipeline.permute
+
+    def rollout(x, n_steps):
+        if len(computed) + 1 == control_rollout:
+            if "pipe" in axes:
+                with patched(pipeline, "permute",
+                             lambda t, axis, shift: wrong_slot(t, axis, shift + 1)):
+                    out = eager(x, n_steps)
+            else:
+                out = eager(torch.zeros_like(x) if not rs.leader else x, n_steps)
+        else:
+            out = eager(x, n_steps)
+        computed.append(out.float().cpu())
+        if len(computed) + 1 == control_rollout:
+            launches.update(launches=fused_gn_afno.launches,
+                            launches_by_path=dict(fused_gn_afno.launches_by_path),
+                            bias_act_launches=bias_act.launches)
+        return out
+
+    launches: dict = {}
+    rs._eager_rollout = rollout
+    reset_launch_counts()
+    rs.start()  # rank 1: the follower loop, until rank 0 stops
+    row = dict(job=job, leader=rs.leader, mesh=mesh.sizes, blocks=len(model.blocks),
+               warmup_applications=sum(rs._warmup_steps))
+    if rs.leader:
+        row.update(serve_l_requests(rs))
+        row["control_answer"] = rs.submit(serve_l_inputs()[0], LAYOUT_L["serve_steps"])
+        rs.stop(drain=True)
+    torch.cuda.synchronize()
+    row.update(computed=computed, job_s=time.perf_counter() - t0, **launches)
+    return row
+
+
 def rank_pair(args: dict) -> dict:
     """A rank of the parallel phases' 2-rank launch: ddp_cdpot's job
-    (args["train"]), then fsdp_l's (args["fsdp"]), tp_l's, pp_l's, sp_l's
-    and tp_serve_l's in the process group that cli.train started, one
+    (args["train"]), then fsdp_l's (args["fsdp"]), and the layout jobs
+    (rank_layouts) in the process group that cli.train started, one
     launch's start-up for all."""
     ddp = rank_train(args["train"])
     fsdp = rank_fsdp(args["fsdp"])
@@ -4327,12 +4604,14 @@ def rank_pair(args: dict) -> dict:
 
 
 def rank_layouts(args: dict) -> dict:
-    """A rank's tp_l, pp_l, sp_l and tp_serve_l jobs (args["layouts"]; also
-    a launch of its own, args["init"] set, to run this slice's jobs alone)."""
+    """A rank's layout jobs (LAYOUT_JOBS, args["layouts"]), tp_serve_l and
+    the mesh serving jobs (also a launch of its own, args["init"] set, to
+    run them alone)."""
     import torch.distributed as dist
 
     device = torch.device("cuda", torch.cuda.current_device())
-    row = {job: rank_layout(job, device, args["layouts"]) for job in LAYOUT_CFG}
+    row = {job: rank_layout(job, device, args["layouts"]) for job in LAYOUT_JOBS}
+    row.update({job: rank_mesh_serve(job, device) for job in SERVE_MESHES})
     return dict(row, rank=dist.get_rank(), tp_serve_l=rank_tp_serve(device))
 
 
@@ -4438,12 +4717,7 @@ def phase_parallel() -> tuple[dict, dict]:
                 "--device", "cuda:0"])), "pair_2", hold=True))
         nccl_launch, pair_launch = launches
         t1 = time.perf_counter()
-        fsdp_one = fsdp_l_single()  # while the launches start up
-        pred0 = fsdp_one.pop("pred0")
-        clock["one_process_l"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        sp_one = sp_l_single()
-        serve_one = tp_serve_l_single()
+        ones, serve_one = layout_references()  # while the launches start up
         clock["one_process_layouts"] = time.perf_counter() - t1
         (nccl,) = nccl_launch.finish()
         clock["nccl_launch"] = nccl_launch.seconds
@@ -4460,8 +4734,9 @@ def phase_parallel() -> tuple[dict, dict]:
                            [{**r["train"], "launch_s": r["launch_s"]} for r in pair], nccl)
     del single
     torch.cuda.empty_cache()
-    fsdp = fsdp_l_checks(fsdp_one, [r["fsdp"] for r in pair])
-    layouts = layout_checks(fsdp_one, pred0, sp_one, serve_one, pair)
+    fsdp = fsdp_l_checks({k: v for k, v in ones["tp_l"].items() if k != "pred0"},
+                         [r["fsdp"] for r in pair])
+    layouts = layout_checks(ones, serve_one, pair)
     clock["total"] = time.perf_counter() - t0
     log("ddp_cdpot", **ddp, parallel_s=clock)
     log("fsdp_l", **fsdp, parallel_s=clock)
@@ -4596,27 +4871,29 @@ def ddp_cdpot_checks(job: dict, specs, doc: dict, single: dict, one: dict, ranks
                 served_requests=len(sent))
 
 
-def one_process_steps(model, path: Path) -> dict:
-    """FSDP_L's steps of `model` (seeded, on the card) in one process,
-    eagerly: the first forward's prediction, the losses, walls, launches
-    and peak memory; the first step's gradient and the parameter change
-    after the steps saved to `path` (on the host, f32), which the layout
-    ranks are held to."""
-    from dpot_tpu_torch.train.step import make_train_step
-
-    model.remat = True
-    state = fsdp_l_state(model)
-    step_fn = make_train_step(noise_scale=5e-4, ones_mask=True)
+def one_process_steps(job: str, model, path: Path) -> dict:
+    """FSDP_L's steps of a layout job's model (seeded, on the card) in one
+    process, eagerly, on the job's global batches (with the job's working
+    copy): the first forward's prediction, the losses, walls, launches and
+    peak memory; the first step's gradient, the parameter change after the
+    steps and a model's running statistics saved to `path` (on the host,
+    f32), which the layout ranks are held to."""
+    spec = job_spec(job)
+    model.remat = spec["remat"]
+    state = fsdp_l_state(model, spec["lp"])
+    step_fn = job_step(job)
+    model.eval()
     with torch.no_grad():  # the layouts' first predictions are held to it
-        pred0 = model(fsdp_l_batch(0)["x"])[0].cpu()
+        out = model(job_batch(job, 0)["x"])
+        pred0 = (out[0] if isinstance(out, tuple) else out).float().cpu()
     before = {n: p.detach().to("cpu", torch.float32, copy=True)
-              for n, p in model.named_parameters()}
+              for n, p in master_of(state).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, walls = [], []
     for i in range(FSDP_L["steps"]):
-        b = fsdp_l_batch(i)
+        b = job_batch(job, i)
         t0 = time.perf_counter()
         losses.append(float(step_fn(state, b)[1]["loss_step"]))
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -4628,9 +4905,12 @@ def one_process_steps(model, path: Path) -> dict:
                launches_by_path=dict(fused_gn_afno.launches_by_path),
                bias_act_launches=bias_act.launches,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, pred0=pred0,
-               blocks=len(model.blocks))
-    delta = {n: p.detach().float().cpu() - before[n] for n, p in model.named_parameters()}
-    torch.save({"grad": grad, "delta": delta}, path)
+               blocks=len(getattr(model, "blocks", ())))
+    delta = {n: p.detach().float().cpu() - before[n] for n, p in master_of(state).items()}
+    ref = {"grad": grad, "delta": delta}
+    if any(True for _ in model.buffers()):
+        ref["stats"] = {n: b.float().cpu() for n, b in stats_of(model).items()}
+    torch.save(ref, path)
     del model, state, b
     torch.cuda.empty_cache()
     return one
@@ -4639,7 +4919,7 @@ def one_process_steps(model, path: Path) -> dict:
 def fsdp_l_single() -> dict:
     """FSDP_L's steps of seeded DPOT-L (bf16) in one process
     (`one_process_steps`): fsdp_l's, tp_l's and pp_l's reference."""
-    return one_process_steps(preset_model("L", "bfloat16", FSDP_L["seed"]),
+    return one_process_steps("tp_l", preset_model("L", "bfloat16", FSDP_L["seed"]),
                              LAYOUT_REFS["tp_l"])
 
 
@@ -4649,7 +4929,20 @@ def sp_l_single() -> dict:
     launches."""
     model = preset_model("L", "float32", FSDP_L["seed"])
     with fft_route():
-        return one_process_steps(model, LAYOUT_REFS["sp_l"])
+        return one_process_steps("sp_l", model, LAYOUT_REFS["sp_l"])
+
+
+def ref_job(job: str) -> str:
+    """The job whose one-process run is `job`'s reference: the first with
+    its reference file (LAYOUT_REFS)."""
+    return next(j for j, path in LAYOUT_REFS.items() if path == LAYOUT_REFS[job])
+
+
+def more_layouts_single() -> dict:
+    """The one-process references of phase 28's layout jobs (LAYOUT_JOBS after
+    sp_l), one run for each reference file."""
+    return {job: one_process_steps(job, job_model(job, "cuda"), LAYOUT_REFS[job])
+            for job in LAYOUT_JOBS if ref_job(job) == job and job not in ("tp_l", "sp_l")}
 
 
 def tp_serve_l_single() -> dict:
@@ -4677,40 +4970,101 @@ def tp_serve_l_single() -> dict:
     return out
 
 
-def layout_checks(fsdp_one: dict, pred0: torch.Tensor, sp_one: dict, serve_one: dict,
-                  pair: list) -> dict:
-    """tp_l, pp_l, sp_l and tp_serve_l on 2 ranks sharing the card (gloo with
-    CUDA tensors) against one process: each rank of tp_l and pp_l against
-    fsdp_l's one process (pred0: its first prediction), of sp_l against
-    one process on the FFT route (sp_one), each reading within
-    LAYOUT_TOL[job] (the losses, the first prediction, the first step's
-    gradient and the parameter change) and each control above the limit of
-    the reading it spoils; each rank's launches exact (2 x FSDP_L's steps x
-    depth under TP, 2 x steps x micro x depth / 2 a stage, all on
-    afno_hopper_l.cu, at C = 768 (8 AFNO blocks of 96) under TP and 12
-    blocks at C = 1536 a stage; none under spatial); tp_serve_l's answers
-    within "serve_tol" of one process's graphed answers, each rank's
-    launches depth x applications on hopper_l. Logs a row per job, then
-    raises if any check failed; returns the rows."""
-    depth, steps = DPOT_L["depth"], FSDP_L["steps"]
+def expected_launches(job: str) -> int:
+    """A layout rank's fused-kernel launches over FSDP_L's steps: depth x
+    applications (twice under remat; a stage's blocks, each microbatch);
+    none on the spatial route, for DPOT3D or UNet."""
+    spec, steps = job_spec(job), FSDP_L["steps"]
+    if spec["model"] == "CDPOT":
+        return steps * cdpot_sweep_model_kw()["depth"]
+    if spec["model"] != "L" or spec["cfg"].get("mesh_spatial", 1) > 1:
+        return 0
+    depth = spec["depth"] or DPOT_L["depth"]
+    pipe = spec["cfg"].get("mesh_pipe", 1)
+    micro = LAYOUT_L["micro"] if pipe > 1 else 1
+    return 2 * steps * micro * depth // pipe
+
+
+def rank_part(want: torch.Tensor, got: torch.Tensor, coords: dict, mesh: dict) -> torch.Tensor:
+    """The rows of one process's prediction that a rank's covers: its part
+    of the batch over 'data', its H rows over 'spatial'."""
+    B, H = got.shape[0], got.shape[1]
+    if mesh.get("data", 1) > 1:
+        want = want[coords["data"] * B:(coords["data"] + 1) * B]
+    if mesh.get("spatial", 1) > 1:
+        want = want[:, coords["spatial"] * H:(coords["spatial"] + 1) * H]
+    return want
+
+
+def resume_checks(job: str, ranks: list) -> dict:
+    """fsdp_lp_l's checkpoint, written by the 2 FSDP2 ranks over gloo,
+    resumed by one process: its forward of the first batch against the
+    ranks' after the steps (relative L2), one more step's loss against
+    theirs; the control checkpoint's forward (its shards gathered in the
+    wrong order). The files are removed."""
+    from dpot_tpu_torch.train.checkpoint import restore_checkpoint
+
+    spec = job_spec(job)
+    ck = ranks[0]["ckpt"]
+    out = {}
+    for tag in ("good", "bad"):
+        model = job_model(job, "cuda")
+        state = fsdp_l_state(model, spec["lp"])
+        restore_checkpoint(ck[tag], state)
+        model.eval()
+        with torch.no_grad():
+            pred = model(job_batch(job, 0)["x"])[0].float().cpu()
+        rel = rel_l2(rank_part(pred, ck["pred_after"], ranks[0]["coords"], ranks[0]["mesh"]),
+                     ck["pred_after"]) if tag == "good" else None
+        if tag == "good":
+            out["resume"] = rel
+            out["step"] = state.step
+            loss = float(job_step(job)(state, job_batch(job, FSDP_L["steps"]))[1]["loss_step"])
+            out["next_loss_rel"] = abs(loss - ck["next_loss"]) / abs(ck["next_loss"])
+        else:
+            out["control"] = rel_l2(rank_part(pred, ck["pred_after"], ranks[0]["coords"],
+                                              ranks[0]["mesh"]), ck["pred_after"])
+        del model, state
+        torch.cuda.empty_cache()
+        shutil.rmtree(ck[tag], ignore_errors=True)
+    out["save_s"] = [r["ckpt"]["save_s"] for r in ranks]
+    return out
+
+
+def layout_checks(ones: dict, serve_one: dict, pair: list) -> dict:
+    """The layout jobs (LAYOUT_JOBS) and the served ones on 2 ranks sharing
+    the card (gloo with CUDA tensors) against one process (`ones`, by the
+    job whose reference each shares, `ref_job`; their first predictions
+    under "pred0"): each rank's readings within LAYOUT_TOL[job] (the
+    losses, the first prediction, the first step's gradient, the parameter
+    change and a model's running statistics) and each control above the
+    limit of the reading it spoils; each rank's launches exact
+    (`expected_launches`), on the job's route (afno_hopper_l.cu for L; the
+    route CDPOT's TP rank takes is reported); fsdp_lp_l's checkpoint
+    resumed by one process (`resume_checks`); tp_serve_l's, serve_pp_l's
+    and serve_dp_l's answers within "serve_tol" of one process's graphed
+    answers, their controls above it, each rank's launches depth x
+    applications on hopper_l (a stage's blocks x each application's
+    microbatches), and serve_dp_l's replicas
+    computing what the leader computes. Logs a row per job, then raises if
+    any check failed; returns the rows."""
+    depth = DPOT_L["depth"]
     rows, bad = {}, []
-    sp_pred0 = sp_one.pop("pred0")
-    jobs = {"tp_l": (fsdp_one, pred0, 2 * steps * depth, [2, 8, 96, 96], depth),
-            "pp_l": (fsdp_one, pred0, 2 * steps * LAYOUT_L["micro"] * depth // 2,
-                     [2, 16, 96, 96], depth // 2),
-            "sp_l": (sp_one, sp_pred0, 0, [2, 16, 96, 96], sp_one["blocks"])}
-    for job, (one, want_pred, want, w1, blocks) in jobs.items():
+    for job in LAYOUT_JOBS:
+        spec = job_spec(job)
+        one = ones[ref_job(job)]
         ranks = [r[job] for r in pair]
         tol = LAYOUT_TOL[job]
+        want = expected_launches(job)
         for r in ranks:
-            n = r["pred"].shape[1]  # a spatial rank's rows of the prediction
-            rows_of = slice(r["coords"]["spatial"] * n, (r["coords"]["spatial"] + 1) * n)
-            ref = want_pred[:, rows_of]
+            ref = rank_part(one["pred0"], r["pred"], r["coords"], r["mesh"])
             r["readings"] = dict(
                 loss=max(abs(a - c) / abs(c) for a, c in zip(r["losses"], one["losses"],
                                                             strict=True)),
                 pred=rel_l2(r.pop("pred"), ref), grad=r["grad"]["rel_l2"],
                 delta=r["delta"]["rel_l2"])
+            if "stats" in r:
+                r["readings"]["stats"] = r["stats"]["rel_l2"]
             r["controls"] = {name: dict(check=check, limit=tol[check],
                                         rel_l2=rel_l2(v, ref) if check == "pred"
                                         else v["rel_l2"])
@@ -4721,40 +5075,86 @@ def layout_checks(fsdp_one: dict, pred0: torch.Tensor, sp_one: dict, serve_one: 
             caught = [c for c in r["controls"].values() if not c["rel_l2"] > c["limit"]]
             if caught:
                 bad.append(f"{job} {r['coords']}: controls not above their limit: {caught}")
-            if (r["launches"] != want or r["launches_by_path"].get("hopper_l", 0) != want
-                    or r["separable_calls"] or one["launches"] and not want):
+            route = spec["route"]
+            if (r["launches"] != want or r["separable_calls"]
+                    or route and r["launches_by_path"].get(route, 0) != want):
                 bad.append(f"{job} {r['coords']}: launches {r['launches_by_path']}, separable "
-                           f"{r['separable_calls']}, expected {want} on hopper_l")
-            if r["local_w1"] != w1 or r["blocks"] != blocks:
-                bad.append(f"{job} {r['coords']}: w1 {r['local_w1']}, {r['blocks']} blocks")
+                           f"{r['separable_calls']}, expected {want} on {route or 'any route'}")
+            blocks = (spec["depth"] or depth) // spec["cfg"].get("mesh_pipe", 1)
+            if spec["model"] == "L" and r["blocks"] != blocks:
+                bad.append(f"{job} {r['coords']}: {r['blocks']} blocks, expected {blocks}")
+            if spec["cfg"].get("shard_params") == "tp" and spec["model"] != "UNet" and (
+                    not r["tp_leaves"] or r["local_w1"][1] * 2 != (
+                        16 if spec["model"] in ("L", "DPOT3D")
+                        else cdpot_sweep_model_kw()["n_blocks"])):
+                bad.append(f"{job} {r['coords']}: TP leaves {r['tp_leaves']}, w1 {r['local_w1']}")
         rows[job] = layout_row(ranks, one, tol)
-    ranks = [r["tp_serve_l"] for r in pair]
-    apps = ranks[0]["warmup_applications"] + len(LAYOUT_L["serve_batches"]) * LAYOUT_L[
-        "serve_steps"]
+        if spec["faults"] == "ckpt":
+            res = resume_checks(job, ranks)
+            rows[job]["resume"] = res
+            if not (res["resume"] <= tol["resume"] and res["control"] > tol["resume"]
+                    and res["next_loss_rel"] <= tol["loss"] and res["step"] == FSDP_L["steps"]):
+                bad.append(f"{job}: the checkpoint resumed by one process {res} against "
+                           f"{tol}")
+    from dpot_tpu_torch.parallel.pipeline import micro_count
+
     graphed = serve_one["graphed"]
-    errs = [rel_l2(torch.from_numpy(a), torch.from_numpy(b))
-            for a, b in zip(ranks[0]["answers"], graphed["answers"], strict=True)]
-    for r in ranks:
-        if r["launches"] != depth * apps or r["launches_by_path"]["hopper_l"] != depth * apps:
-            bad.append(f"tp_serve_l launches {r['launches_by_path']}, expected depth x {apps} "
-                       "applications on hopper_l")
-    if not max(errs) <= LAYOUT_L["serve_tol"] or not all(
-            np.isfinite(a).all() for a in ranks[0]["answers"]):
-        bad.append(f"tp_serve_l answers against one process's: rel {errs}")
-    per_app = {k: [ms / LAYOUT_L["serve_steps"] for ms in v["request_ms"]]
-               for k, v in (("tp", ranks[0]), ("one_process_graphed", graphed),
-                            ("one_process_eager", serve_one["eager"]))}
-    rows["tp_serve_l"] = dict(
-        dtype="bfloat16", world=2, batches=LAYOUT_L["serve_batches"],
-        steps=LAYOUT_L["serve_steps"], limit=LAYOUT_L["serve_tol"], rel_l2=errs,
-        ms_per_application=per_app, applications=apps,
-        launches_per_rank=[r["launches"] for r in ranks],
-        launches=sum(r["launches"] for r in ranks) + sum(
-            v["launches"] for v in serve_one.values()),
-        launches_by_path={p: sum(r["launches_by_path"][p] for r in ranks) + sum(
-            v["launches_by_path"][p] for v in serve_one.values()) for p in afno_fused.PATHS},
-        bias_act_launches=sum(r["bias_act_launches"] for r in ranks),
-        local_w1=ranks[0]["local_w1"], job_s=[r["job_s"] for r in ranks])
+    # applications: the warm-up at the largest bucket, then a request of
+    # each bucket; under the pipeline each runs micro_count microbatches
+    buckets = LAYOUT_L["serve_batches"][-1:] + LAYOUT_L["serve_batches"]
+    apps = LAYOUT_L["serve_steps"] * len(buckets)
+    micro = LAYOUT_L["serve_steps"] * sum(micro_count(B, 2) for B in buckets)
+    for job, blocks in (("tp_serve_l", depth * apps), ("serve_pp_l", depth // 2 * micro),
+                        ("serve_dp_l", depth * apps)):
+        ranks = [r[job] for r in pair]
+        leader = next(r for r in ranks if r["leader"])
+        errs = [rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+                for a, b in zip(leader["answers"], graphed["answers"], strict=True)]
+        row = dict(dtype="bfloat16", world=2, batches=LAYOUT_L["serve_batches"],
+                   steps=LAYOUT_L["serve_steps"], limit=LAYOUT_L["serve_tol"], rel_l2=errs,
+                   applications=apps, launches_per_rank=[r["launches"] for r in ranks],
+                   launches=sum(r["launches"] for r in ranks),
+                   launches_by_path={p: sum(r["launches_by_path"][p] for r in ranks)
+                                     for p in afno_fused.PATHS},
+                   bias_act_launches=sum(r["bias_act_launches"] for r in ranks),
+                   job_s=[r["job_s"] for r in ranks],
+                   ms_per_application=[ms / LAYOUT_L["serve_steps"]
+                                       for ms in leader["request_ms"]])
+        for r in ranks:
+            want = blocks
+            if r["launches"] != want or r["launches_by_path"]["hopper_l"] != want:
+                bad.append(f"{job} launches {r['launches_by_path']}, expected {want} on "
+                           "hopper_l")
+        if not max(errs) <= LAYOUT_L["serve_tol"] or not all(
+                np.isfinite(a).all() for a in leader["answers"]):
+            bad.append(f"{job} answers against one process's: rel {errs}")
+        if job == "serve_pp_l":
+            row["control"] = rel_l2(torch.from_numpy(leader["control_answer"]),
+                                    torch.from_numpy(graphed["answers"][0]))
+            if not row["control"] > LAYOUT_L["serve_tol"]:
+                bad.append(f"{job}: the wrong permute's answer {row['control']} not above "
+                           f"{LAYOUT_L['serve_tol']}")
+        if job == "serve_dp_l":
+            follower = next(r for r in ranks if not r["leader"])
+            n = len(leader["computed"])
+            row["replicas"] = [rel_l2(follower["computed"][i], leader["computed"][i])
+                               for i in range(n - 1)]
+            row["control"] = rel_l2(follower["computed"][-1], leader["computed"][-1])
+            row["replica_limit"] = SERVE_REPLICA_TOL
+            if not (max(row["replicas"]) <= SERVE_REPLICA_TOL
+                    and row["control"] > SERVE_REPLICA_TOL):
+                bad.append(f"{job}: replicas {row['replicas']}, control {row['control']} "
+                           f"against {SERVE_REPLICA_TOL}")
+        if job == "tp_serve_l":
+            row["ms_per_application"] = {
+                k: [ms / LAYOUT_L["serve_steps"] for ms in v["request_ms"]]
+                for k, v in (("tp", leader), ("one_process_graphed", graphed),
+                             ("one_process_eager", serve_one["eager"]))}
+            row["launches"] += sum(v["launches"] for v in serve_one.values())
+            for p in afno_fused.PATHS:
+                row["launches_by_path"][p] += sum(v["launches_by_path"][p]
+                                                  for v in serve_one.values())
+        rows[job] = row
     for job, row in rows.items():
         log(job, **row)
     if bad:
@@ -4767,7 +5167,7 @@ def layout_row(ranks: list, one: dict, limits: dict) -> dict:
     controls', the step walls, the collectives' share and the peak memory
     per rank beside one process's."""
     return dict(
-        dtype=ranks[0]["dtype"], world=2, mesh=ranks[0]["mesh"], global_batch=L_BATCH,
+        dtype=ranks[0]["dtype"], world=2, mesh=ranks[0]["mesh"],
         steps=FSDP_L["steps"], limits=limits, one_process_losses=one["losses"],
         rank_losses=[r["losses"] for r in ranks],
         readings=[r["readings"] for r in ranks], controls=[r["controls"] for r in ranks],
@@ -4784,25 +5184,30 @@ def layout_row(ranks: list, one: dict, limits: dict) -> dict:
                           for p in afno_fused.PATHS},
         bias_act_launches=sum(r["bias_act_launches"] for r in ranks),
         local_w1=ranks[0]["local_w1"], blocks_per_rank=ranks[0]["blocks"],
+        sharded=ranks[0]["sharded"], working_copy=ranks[0]["working_copy"],
         tp_leaves=ranks[0]["tp_leaves"], build_s=[r["build_s"] for r in ranks],
         job_s=[r["job_s"] for r in ranks])
 
 
+def layout_references() -> tuple[dict, dict]:
+    """One process's references of every layout job (by `ref_job`) and
+    tp_serve_l's one-process answers."""
+    ones = {"tp_l": fsdp_l_single(), "sp_l": sp_l_single(), **more_layouts_single()}
+    return ones, tp_serve_l_single()
+
+
 def phase_layouts_alone() -> dict:
-    """This slice's layout jobs alone (`python3 chip_smoke.py layouts`):
-    the kernels built, one process's references, then one 2-rank gloo
-    launch of tp_l, pp_l, sp_l and tp_serve_l, and layout_checks."""
+    """The layout jobs alone (`python3 chip_smoke.py layouts`): the kernels
+    built, one process's references, then one 2-rank gloo launch of the
+    layout and serving jobs, and layout_checks."""
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     launch = Launch(2, "layouts", dict(device="cuda:0", init=True, backend="gloo",
                                        layouts=layout_args()), "layouts_2", hold=True)
     try:
         t0 = time.perf_counter()
-        fsdp_one = fsdp_l_single()
-        pred0 = fsdp_one.pop("pred0")
-        sp_one = sp_l_single()
-        serve_one = tp_serve_l_single()
+        ones, serve_one = layout_references()
         log("layout_references", seconds=time.perf_counter() - t0,
-            fsdp_one=fsdp_one, sp_one={k: v for k, v in sp_one.items() if k != "pred0"})
+            ones={k: {n: v for n, v in o.items() if n != "pred0"} for k, o in ones.items()})
         launch.go()
         t0 = time.perf_counter()
         pair = launch.finish()
@@ -4810,7 +5215,7 @@ def phase_layouts_alone() -> dict:
             launch_s=[r["launch_s"] for r in pair])
     finally:
         launch.kill()
-    return layout_checks(fsdp_one, pred0, sp_one, serve_one, pair)
+    return layout_checks(ones, serve_one, pair)
 
 
 def fsdp_l_checks(one: dict, ranks: list) -> dict:
@@ -4957,11 +5362,13 @@ def main() -> int:
     f32_runs = {"serve[float32]": serve_f32, "train[float32]": train["float32"],
                 "card_vs_cpu_3d": cpu_3d, "separable_ti[float32]": separable["float32"],
                 "train_cdpot": train_cdpot, "card_vs_cpu_families": families,
-                "ddp_cdpot": ddp}
+                "ddp_cdpot": ddp, "cdpot_tp": layouts["cdpot_tp"]}
     l_runs = {"eval_l[bfloat16]": eval_l["bfloat16"], "rollouts": rollouts,
               "train_l": train_l, "remat_l": remat_l, "dispatch_l": dispatch_l,
-              "params_lp_l": params_lp_l, "fsdp_l": fsdp, "tp_l": layouts["tp_l"],
-              "pp_l": layouts["pp_l"], "tp_serve_l": layouts["tp_serve_l"]}
+              "params_lp_l": params_lp_l, "fsdp_l": fsdp,
+              **{job: layouts[job] for job in ("tp_l", "pp_l", "tp_serve_l", "fsdp_lp_l",
+                                               "tp_lp_l", "pp_lp_l", "fsdp_pp_l", "serve_pp_l",
+                                               "serve_dp_l")}}
     # (name, kernel-phase key prefixes of the shapes its main path gives it,
     # the first the one whose times the row carries, dtype, path, source,
     # the runs whose launches count)

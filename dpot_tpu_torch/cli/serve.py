@@ -16,6 +16,15 @@ where fleet.yaml maps `models:` names to TrainConfig fields and may name a
 `default:` (see dpot_tpu/cli/serve.py). --device picks the device (cuda by
 default; cpu runs the kernels' plain versions). Endpoints: GET /healthz,
 GET /metrics, POST /rollout?steps=N[&model=NAME] (dpot_tpu_torch/serve).
+
+Under torchrun a single model is served over the mesh of the config's
+mesh_* axes (parallel/mesh.py; the process group from --dist_backend, by
+default nccl on CUDA and gloo on the CPU): rank 0 listens and answers, the
+other ranks follow it (serve/server.py), e.g. over two pipeline stages on
+one card:
+
+    torchrun --nproc_per_node 2 -m dpot_tpu_torch.cli.serve <model flags> \
+        --mesh_pipe 2 --dist_backend gloo --device cuda:0
 """
 
 from __future__ import annotations
@@ -26,11 +35,13 @@ import sys
 import torch
 
 
-def _build_served(cfg, device: str):
+def _build_served(cfg, device: str, mesh=None):
     """The served model for one TrainConfig: seeded weights, or those at
     cfg.resume_path (a reference-layout .pth, or a checkpoint directory that
-    the port wrote or its model.pth)."""
+    the port wrote or its model.pth); built over `mesh`'s 'pipe' or
+    'spatial' axis where it has one."""
     from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.loop import model_mesh_kw
 
     model = build_model(
         cfg.model, img_size=cfg.res, patch_size=cfg.patch_size,
@@ -40,7 +51,7 @@ def _build_served(cfg, device: str):
         out_layer_dim=cfg.out_layer_dim, n_cls=len(cfg.train_paths),
         act=cfg.act, normalize=cfg.normalize, use_ln=cfg.use_ln,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
-        device=device, seed=cfg.seed,
+        device=device, seed=cfg.seed, **model_mesh_kw(cfg, mesh),
     )
     if cfg.resume_path:
         from dpot_tpu_torch.train.interop import params_from_any
@@ -64,6 +75,7 @@ def main(argv=None, wait=True):
     wire_dtype = pop_flag(argv, "--wire_dtype", "auto")
     response_dtype = pop_flag(argv, "--response_dtype", "float32")
     device = pop_flag(argv, "--device", "cuda")
+    dist_backend = pop_flag(argv, "--dist_backend", None)
     models_yaml = pop_flag(argv, "--models", None)
     server_kw = dict(max_steps=max_steps, wire_dtype=wire_dtype,
                      response_dtype=response_dtype, device=device)
@@ -104,13 +116,24 @@ def main(argv=None, wait=True):
         )
         desc = f"{len(servers)} models ({', '.join(sorted(servers))}; default={rs.default})"
     else:
-        from dpot_tpu_torch.serve import serve
+        from dpot_tpu_torch.parallel import make_mesh, maybe_initialize
+        from dpot_tpu_torch.serve import RolloutServer, serve
+        from dpot_tpu_torch.utils.device import resolve_device
 
         cfg = load_config(argv)
+        mesh = None
+        if maybe_initialize(dist_backend, resolve_device(device)):
+            mesh = make_mesh(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_model, cfg.mesh_pipe,
+                             resolve_device(device))
+        model = _build_served(cfg, device, mesh)
+        if mesh is not None and mesh.coords != dict.fromkeys(mesh.coords, 0):
+            # a follower: computes what rank 0 announces, until it stops
+            rs = RolloutServer(model, t_bundle=cfg.T_bundle, mesh=mesh, **server_kw)
+            rs.start()
+            return None, rs
         httpd, rs = serve(
-            _build_served(cfg, device), host=host, port=port,
-            t_bundle=cfg.T_bundle, auth_token=auth_token,
-            ssl_certfile=ssl_certfile, ssl_keyfile=ssl_keyfile, **server_kw,
+            model, host=host, port=port, t_bundle=cfg.T_bundle, auth_token=auth_token,
+            ssl_certfile=ssl_certfile, ssl_keyfile=ssl_keyfile, mesh=mesh, **server_kw,
         )
         desc = f"{cfg.model} ({rs.n_params / 1e6:.1f}M params, {rs.device})"
 

@@ -173,19 +173,29 @@ class Block(nn.Module):
         self.tp = None
         self.spatial = None
 
+    def mix(self, x, norm):
+        """norm1 (`norm`: its weight, bias, num_groups and eps, or a
+        tensor-parallel rank's slice of them) and the mixer, on the
+        channels of x that the mixer's weights hold."""
+        if self.spatial is None:
+            return self.filter(x, norm)
+        f = self.filter
+        x = group_norm(x, norm.weight, norm.bias, norm.num_groups, norm.eps, self.spatial)
+        return afno_filter_2d_sharded(x, f.w1, f.b1, f.w2, f.b2, f.modes,
+                                      get_activation(f.act), self.spatial,
+                                      compute_dtype=x.dtype)
+
+    def post_norm(self, x):
+        """norm2, over the whole latent (under 'spatial' its sums over the
+        axis)."""
+        n2 = self.norm2
+        return group_norm(x, n2.weight, n2.bias, n2.num_groups, n2.eps, self.spatial)
+
     def forward(self, x):
         if self.tp is not None:
             return block_forward(self, x)
         residual = x
-        if self.spatial is None:
-            x = self.norm2(self.filter(x, self.norm1))
-        else:
-            n1, n2, f = self.norm1, self.norm2, self.filter
-            x = group_norm(x, n1.weight, n1.bias, n1.num_groups, n1.eps, self.spatial)
-            x = afno_filter_2d_sharded(x, f.w1, f.b1, f.w2, f.b2, f.modes,
-                                       get_activation(f.act), self.spatial,
-                                       compute_dtype=x.dtype)
-            x = group_norm(x, n2.weight, n2.bias, n2.num_groups, n2.eps, self.spatial)
+        x = self.post_norm(self.mix(x, self.norm1))
         for layer in self.mlp:
             x = layer(x)
         return x + residual

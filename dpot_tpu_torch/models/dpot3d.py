@@ -28,8 +28,9 @@ from dpot_tpu_torch.models.dpot import Activation, Dense, GroupNorm, TimeAggrega
 from dpot_tpu_torch.ops.activations import get_activation
 from dpot_tpu_torch.ops.cuda.graphs import capturing
 from dpot_tpu_torch.ops.initializers import scaled_uniform, torch_uniform, trunc_normal
-from dpot_tpu_torch.ops.norms import instance_stats
+from dpot_tpu_torch.ops.norms import group_norm, instance_stats
 from dpot_tpu_torch.ops.spectral import afno_filter_3d
+from dpot_tpu_torch.parallel.tensor import block_forward
 from dpot_tpu_torch.utils.device import resolve_device
 
 
@@ -60,7 +61,10 @@ class AFNO3D(nn.Module):
 
 
 class Block3D(nn.Module):
-    """GroupNorm(8) -> AFNO3D -> GroupNorm(8) -> pointwise MLP -> residual."""
+    """GroupNorm(8) -> AFNO3D -> GroupNorm(8) -> pointwise MLP -> residual.
+    `tp` (parallel/tensor.py BlockShards) runs it on a tensor-parallel
+    rank's shards, as the 2D Block: JAX's name-keyed rules shard AFNO3D's
+    block axis and the Megatron pair (dpot_tpu/parallel/tensor.py:47-56)."""
 
     def __init__(self, width: int, num_blocks: int, modes: int, temporal_modes: int,
                  mlp_ratio: float, act: str, dtype: torch.dtype,
@@ -75,10 +79,21 @@ class Block3D(nn.Module):
             Activation(act),
             Dense(hidden, width, generator, conv=True, dtype=dtype, spatial=3),
         ])
+        self.tp = None
+
+    def mix(self, x, norm):
+        """norm1 (`norm`, or a tensor-parallel rank's slice of it) and the
+        mixer, on the channels of x that the mixer's weights hold."""
+        return self.filter(group_norm(x, norm.weight, norm.bias, norm.num_groups, norm.eps))
+
+    def post_norm(self, x):
+        return self.norm2(x)
 
     def forward(self, x):
+        if self.tp is not None:
+            return block_forward(self, x)
         residual = x
-        x = self.norm2(self.filter(self.norm1(x)))
+        x = self.post_norm(self.mix(x, self.norm1))
         for layer in self.mlp:
             x = layer(x)
         return x + residual

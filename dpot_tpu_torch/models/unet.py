@@ -19,10 +19,23 @@ statistics as its `batch_stats` collection. A train step's rollout updates
 them once per model application, as JAX does; the eval rollout and serving
 run in eval mode. Parameter names are the reference's (the layout of
 dpot_tpu/train/interop.py `unet_params_from_torch`).
+
+Over several ranks (`sync_batch_stats`, set by train/loop.py place_state)
+each BatchNorm's batch statistics are those of the global batch, as the
+JAX package computes them over a data-sharded batch: each rank's
+per-channel count and sum are summed over the 'data' axis, then the sum of
+squares about the global mean, each an all-reduce whose backward
+all-reduces the gradients (parallel/mesh.py `all_sum`), so every rank's
+running buffers take the same update, with the global count's unbiased
+factor. A batch that every rank holds whole (an epoch's tail that does not
+divide over the ranks) takes the statistics of its own copy
+(`local_batch_stats`). Not torch.nn.SyncBatchNorm: it does not run over
+gloo on the CPU, and the arithmetic here is this module's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -32,6 +45,7 @@ import torch.nn.functional as F
 from dpot_tpu_torch.models.dpot import Activation
 from dpot_tpu_torch.models.fno import axis_grid
 from dpot_tpu_torch.ops.initializers import torch_uniform
+from dpot_tpu_torch.parallel.mesh import all_sum
 from dpot_tpu_torch.utils.device import resolve_device
 
 
@@ -47,24 +61,63 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        # the 'data' axis (parallel/mesh.py Axis) whose ranks' rows make the
+        # batch, else None (the module docstring)
+        self.axis = None
 
     def forward(self, x):
         x32 = x.float()
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
-            mean = x32.mean(dim=dims)
-            var = (x32 - mean.reshape(shape)).square().mean(dim=dims)
             n = x.numel() // x.shape[1]
+            if self.axis is None:
+                mean = x32.mean(dim=dims)
+                var = (x32 - mean.reshape(shape)).square().mean(dim=dims)
+            else:  # the global batch's: true counts, then the centred squares
+                sums = all_sum(torch.cat([x32.sum(dim=dims), x32.new_full((1,), n)]),
+                               self.axis)
+                n = sums[-1]
+                mean = sums[:-1] / n
+                var = all_sum((x32 - mean.reshape(shape)).square().sum(dim=dims),
+                              self.axis) / n
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+                unbiased = (n / (n - 1).clamp(min=1) if isinstance(n, torch.Tensor)
+                            else n / max(n - 1, 1))
+                self.running_var.mul_(1 - m).add_(m * var * unbiased)
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
         xn = (x32 - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
         return (xn * self.weight.reshape(shape) + self.bias.reshape(shape)).to(x.dtype)
+
+
+def batch_norms(model: nn.Module) -> list[BatchNorm]:
+    return [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+
+def sync_batch_stats(model: nn.Module, axis) -> None:
+    """Every BatchNorm of `model` takes its batch statistics over the ranks
+    of `axis` (a parallel/mesh.py Axis; None or one rank: its own batch)."""
+    for bn in batch_norms(model):
+        bn.axis = axis if axis is not None and axis.size > 1 else None
+
+
+@contextlib.contextmanager
+def local_batch_stats(model: nn.Module):
+    """Within the block every BatchNorm of `model` takes the statistics of
+    the batch it is given (a batch that every rank holds whole)."""
+    bns = batch_norms(model)
+    axes = [bn.axis for bn in bns]
+    for bn in bns:
+        bn.axis = None
+    try:
+        yield
+    finally:
+        for bn, a in zip(bns, axes):
+            bn.axis = a
 
 
 class ConvNd(nn.Module):

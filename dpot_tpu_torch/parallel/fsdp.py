@@ -26,8 +26,31 @@ version counter; the bf16 Hopper kernels' cache of converted weights
 the previous step's weights. So `no_block_cache` gives every AFNO module of
 a sharded model a forward pre-hook that marks the weights it is about to
 read (the gathered ones) as not to be cached, and the kernels convert them
-on every call. The bf16 working copy of the parameters (train/state.py
-`params_lp`) is refused under FSDP.
+on every call.
+
+The bf16 working copy (train/state.py `params_lp`) shards as the model's
+parameters do: FSDP2 shards the bf16 copy, its f32 master is sharded with
+the same placements, and the optimizer updates the master's local shards,
+from which the copy's local shards are cast again (no collective). FSDP2
+then all-gathers bf16 shards that are the master's cast, which is JAX's
+"cast, then gather" (dpot_tpu/train/state.py:101-104), and reduce-scatters
+the ranks' gradients in float32 (`MixedPrecisionPolicy(reduce_dtype=
+float32)`), rounding the sum once to bf16, the working copy's gradient
+dtype in the JAX step (dpot_tpu/train/step.py:236-242). Each rank's
+gradient is bf16 before that sum (autograd gives a bf16 parameter a bf16
+gradient), where JAX's float32-compute layout sums the float32 cotangent
+before its cast: over a split batch the two differ by a bf16 rounding of
+the gradient.
+
+Under a pipeline (parallel/pipeline.py) FSDP2 wraps the stage's model
+alone, not each block: the stage's parameters are gathered once before the
+schedule and stay so through its backward, whose autograd.Function hands
+their gradients to FSDP2's reduce-scatter at the end.
+
+`gathered` assembles a sharded tensor with c10d's all-gather of the local
+shards, not DTensor's `full_tensor`, which crashes over gloo with CUDA
+tensors (tools/gloo_cuda_collectives.py), so a sharded checkpoint is
+written over either backend.
 """
 
 from __future__ import annotations
@@ -36,6 +59,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
+from dpot_tpu_torch.parallel.mesh import Axis, gather_stacked
 
 
 def _shard_dim(shape: torch.Size, world: int) -> int:
@@ -49,17 +73,26 @@ def _shard_dim(shape: torch.Size, world: int) -> int:
 
 
 def gathered(t):
-    """The full tensor of a DTensor (a collective every rank calls), else t.
-    Refused over gloo with CUDA tensors, where full_tensor crashes the
-    process (tools/gloo_cuda_collectives.py on the H100): FSDP2 trains
-    there, but its state is gathered over nccl."""
+    """The full tensor of a DTensor sharded over one mesh axis (a collective
+    every rank of it calls), else t: each rank's local shard padded to
+    torch.chunk's size along the sharded axis, all-gathered with c10d, the
+    shards concatenated in rank order and the padding cut off."""
     if not isinstance(t, DTensor):
         return t
-    if t.device.type == "cuda" and dist.get_backend(t.device_mesh.get_group()) == "gloo":
-        raise RuntimeError("gathering a sharded tensor over gloo with CUDA tensors crashes "
-                           "the process: launch with nccl (one rank a card) to checkpoint "
-                           "a sharded run")
-    return t.full_tensor()
+    (place,) = t.placements
+    local = t.to_local().detach()
+    if place.is_replicate():
+        return local
+    dim, n = place.dim, t.shape[place.dim]
+    group = t.device_mesh.get_group()
+    world = dist.get_world_size(group)
+    chunk = -(-n // world)
+    if local.shape[dim] < chunk:
+        pad = list(local.shape)
+        pad[dim] = chunk - local.shape[dim]
+        local = torch.cat([local, local.new_zeros(pad)], dim)
+    parts = gather_stacked(local, Axis(group, world, dist.get_rank(group)))
+    return torch.cat(parts.unbind(0), dim).narrow(dim, 0, n)
 
 
 def shard_like(full: torch.Tensor, like: DTensor) -> DTensor:
@@ -84,20 +117,22 @@ def no_block_cache(model) -> None:
             m.register_forward_pre_hook(_mark_uncached)
 
 
-def shard_state_fsdp(state, mesh):
+def shard_state_fsdp(state, mesh, grad_group=None):
     """Shard the model's parameters and the optimizer's moments of `state`
     (train/state.py TrainState, its parameters identical on every rank:
-    seeded or restored, or already this rank's tensor-parallel shards) over
-    the 'data' axis of `mesh` (parallel/mesh.py Mesh) in place; returns the
-    state."""
-    from torch.distributed.fsdp import fully_shard
+    seeded or restored, or already this rank's tensor-parallel shards or
+    pipeline stage) over the 'data' axis of `mesh` (parallel/mesh.py Mesh)
+    in place, and with them the f32 master of a working copy; returns the
+    state. `grad_group`: the groups over which the step still averages the
+    gradients after FSDP2's reduce-scatter ('spatial', train/loop.py
+    place_state), else None."""
+    from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
-    if state.params_lp is not None:
-        raise NotImplementedError(
-            "the bf16 working copy (param_working_dtype) under shard_params=fsdp is not "
-            "ported yet (ROADMAP, 'Modules to port', item 12)")
+    from dpot_tpu_torch.parallel.pipeline import stage_depth
+
     model, opt = state.model, state.optimizer
-    if [id(p) for p in model.parameters()] != [id(p) for p in opt.params]:
+    lp = state.params_lp
+    if [id(p) for p in model.parameters()] != [id(p) for p in (lp or opt.params)]:
         raise ValueError("the optimizer must update the model's parameters, in order")
     data = mesh.axis("data")
     world = data.size
@@ -105,15 +140,24 @@ def shard_state_fsdp(state, mesh):
     def placement(p):
         return Shard(_shard_dim(p.shape, world))
 
-    for blk in getattr(model, "blocks", ()):
-        fully_shard(blk, mesh=mesh.data_mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=mesh.data_mesh, shard_placement_fn=placement)
+    kw = dict(mesh=mesh.data_mesh, shard_placement_fn=placement)
+    if lp is not None:
+        kw["mp_policy"] = MixedPrecisionPolicy(reduce_dtype=torch.float32)
+    if not stage_depth(model):
+        for blk in getattr(model, "blocks", ()):
+            fully_shard(blk, **kw)
+    fully_shard(model, **kw)
     no_block_cache(model)
-    opt.params = list(model.parameters())
-    opt.mu = [shard_like(m, p) for m, p in zip(opt.mu, opt.params)]
-    opt.nu = [shard_like(v, p) for v, p in zip(opt.nu, opt.params)]
+    params = list(model.parameters())
+    if lp is not None:
+        opt.params = [shard_like(m, p) for m, p in zip(opt.params, params)]
+        state.params_lp = params
+    else:
+        opt.params = params
+    opt.mu = [shard_like(m, p) for m, p in zip(opt.mu, params)]
+    opt.nu = [shard_like(v, p) for v, p in zip(opt.nu, params)]
     state.train_module = model
-    state.place_over(mesh)
+    state.place_over(mesh, grad_group)
     state.sharded = True
     return state
 

@@ -193,10 +193,15 @@ def all_sum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 def all_reduce_mean(ts: list[torch.Tensor], group=None, n: Optional[int] = None) -> None:
     """ts averaged over the group's ranks in place, in one all-reduce (sum,
-    then divided by `n`, by default the group's size)."""
+    then divided by `n`, by default the group's size); low-precision floats
+    are summed in float32 and rounded once, DTensors as their local shards."""
+    from torch.distributed.tensor import DTensor
+
+    ts = [t.to_local() if isinstance(t, DTensor) else t for t in ts]
     if not ts:
         return
-    flat = torch.cat([t.reshape(-1) for t in ts])
+    wide = torch.float32 if any(t.dtype in (torch.bfloat16, torch.float16) for t in ts) else None
+    flat = torch.cat([t.reshape(-1).to(wide or t.dtype) for t in ts])
     dist.all_reduce(flat, group=group)
     flat /= n or dist.get_world_size(group)
     for t, f in zip(ts, flat.split([t.numel() for t in ts])):

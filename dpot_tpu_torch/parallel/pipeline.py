@@ -186,26 +186,36 @@ def pipeline_blocks(blocks: list[nn.Module], x: torch.Tensor, axis: Axis, n_micr
 def shard_state_pipe(state, mesh):
     """Place `state` (train/state.py TrainState, the full model's weights and
     moments on every rank) over `mesh`'s 'pipe' axis in place: each stage
-    keeps only its blocks' parameters and moments, the clip's norm sums the
-    blocks' squared norms over 'pipe' and counts the replicated leaves once,
-    and the gradients are averaged over 'data' after each backward
-    (train/step.py). Returns the state."""
+    keeps only its blocks' parameters and moments (and their bf16 working
+    copy and f32 master), the clip's norm sums the blocks' squared norms
+    over 'pipe' and counts the replicated leaves once, and the gradients
+    are averaged over 'data' after each backward (train/step.py; under
+    `fsdp` FSDP2 then shards the stage's tensors over 'data' instead,
+    train/loop.py place_state, JAX's tests/test_pipeline.py:149). Returns
+    the state."""
     model, opt = state.model, state.optimizer
-    if state.params_lp is not None:
-        raise NotImplementedError(
-            "the bf16 working copy (param_working_dtype) under mesh_pipe is not ported "
-            "yet (ROADMAP, 'Modules to port', item 12)")
-    if [id(p) for p in model.parameters()] != [id(p) for p in opt.params]:
+    lp = state.params_lp
+    if [id(p) for p in model.parameters()] != [id(p) for p in (lp or opt.params)]:
         raise ValueError("the optimizer must update the model's parameters, in order")
     axis = mesh.axis("pipe")
     names = [n for n, _ in model.named_parameters()]
     model.cut_stage()
     keep = {n for n, _ in model.named_parameters()}
-    opt.params = list(model.parameters())
-    opt.mu = [m for n, m in zip(names, opt.mu) if n in keep]
-    opt.nu = [v for n, v in zip(names, opt.nu) if n in keep]
-    opt.shard_groups = [(axis.group,) if n.startswith("blocks.") else ()
-                        for n in names if n in keep]
+
+    def kept(ts):
+        return [t for n, t in zip(names, ts) if n in keep]
+
+    if lp is not None:  # the stage's blocks' copy and master
+        opt.params = kept(opt.params)
+        state.params_lp = list(model.parameters())
+    else:
+        opt.params = list(model.parameters())
+    opt.mu, opt.nu = kept(opt.mu), kept(opt.nu)
+    # a stage's blocks are spread over 'pipe' (and TP shards, if cut
+    # before, over 'model' too)
+    groups = opt.shard_groups or [()] * len(names)
+    opt.shard_groups = [g + ((axis.group,) if n.startswith("blocks.") else ())
+                        for n, g in zip(names, groups) if n in keep]
     state.train_module = model
     state.place_over(mesh, mesh.axis("data").group)
     return state

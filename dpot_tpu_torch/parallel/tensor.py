@@ -140,25 +140,29 @@ def reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 @dataclasses.dataclass
 class GroupAffine:
-    """norm1 as the mixer reads it (models/dpot.py AFNO2D): this rank's
+    """norm1 as the mixer reads it (models/dpot.py Block.mix): this rank's
     slices of its affine and its groups among them."""
     weight: torch.Tensor
     bias: torch.Tensor
     num_groups: int
+    eps: float
 
 
 def block_forward(blk, x: torch.Tensor) -> torch.Tensor:
-    """models/dpot.py Block's forward on this rank's shards (module
-    docstring). x: (B, H, W, C), the same on every rank of 'model'."""
+    """The forward of a trunk block (models/dpot.py Block, models/dpot3d.py
+    Block3D: `mix` runs norm1 and the mixer, `post_norm` norm2) on this
+    rank's shards (module docstring). x: (B, spatial..., C), the same on
+    every rank of 'model' (under 'spatial' this rank's rows)."""
     tp = blk.tp
     axis = tp.axis
+    n1 = blk.norm1
     if tp.mixer:
-        norm = GroupAffine(split(blk.norm1.weight, axis), split(blk.norm1.bias, axis),
-                           blk.norm1.num_groups // axis.size)
-        y = gather(blk.filter(split(x, axis), norm), axis)
+        norm = GroupAffine(split(n1.weight, axis), split(n1.bias, axis),
+                           n1.num_groups // axis.size, n1.eps)
+        y = gather(blk.mix(split(x, axis), norm), axis)
     else:
-        y = blk.filter(x, blk.norm1)
-    h = blk.norm2(y)
+        y = blk.mix(x, n1)
+    h = blk.post_norm(y)
     fc1, act, fc2 = blk.mlp
     if not tp.mlp:
         return fc2(act(fc1(h))) + x
@@ -177,10 +181,13 @@ def _leaf(model: nn.Module, name: str) -> tuple[nn.Module, str]:
 
 
 def tp_specs(model: nn.Module, tp: int) -> dict[str, int]:
-    """The sharded leaves of a DPOTNet under `tp`-way TP, by state-dict name:
-    the axis of each (module docstring)."""
+    """The sharded leaves of a model under `tp`-way TP, by state-dict name:
+    the axis of each (module docstring). The rules are keyed by names, as
+    JAX's: they reach the trunk blocks of DPOTNet, DPOTNet3D and CDPOTNet;
+    a model without them (FNO, UNet) stays replicated, as in JAX
+    (tests/test_tp.py:62)."""
     specs = {}
-    for i, blk in enumerate(model.blocks):
+    for i, blk in enumerate(getattr(model, "blocks", ())):
         mixer = blk.norm1.num_groups % tp == 0
         for (parent, leaf), dim in _TP_RULES.items():
             name = f"blocks.{i}.{parent}.{leaf}"
@@ -211,7 +218,7 @@ def shard_model_tp(model: nn.Module, axis: Axis) -> dict[str, int]:
         for name, dim in specs.items():
             mod, leaf = _leaf(model, name)
             setattr(mod, leaf, nn.Parameter(local_shard(getattr(mod, leaf), dim, axis)))
-    for i, blk in enumerate(model.blocks):
+    for i, blk in enumerate(getattr(model, "blocks", ())):
         blk.tp = BlockShards(axis, mixer=f"blocks.{i}.filter.w1" in specs,
                              mlp=f"blocks.{i}.mlp.0.weight" in specs)
     model.tp_dims = specs
@@ -224,32 +231,35 @@ def local_shard(t: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     return t.detach().narrow(dim, axis.rank * n, n).clone(memory_format=torch.contiguous_format)
 
 
-def shard_state_tp(state, mesh, fsdp: bool = False):
+def shard_state_tp(state, mesh):
     """Place `state` (train/state.py TrainState, its weights and moments the
     full model's on every rank) over `mesh`'s 'model' axis in place: the
     parameters and both moments cut to this rank's shards, the clip's norm
-    told which leaves are shards; with `fsdp` (tp_fsdp) FSDP2 then shards
-    every tensor over the 'data' axis (parallel/fsdp.py), else the
-    gradients are averaged over 'data' after each backward (train/step.py).
-    Returns the state."""
+    told which leaves are shards, the gradients averaged over 'data' after
+    each backward (train/step.py; tp_fsdp then has FSDP2 shard every tensor
+    over 'data', train/loop.py place_state). A bf16 working copy
+    (train/state.py) becomes this rank's bf16 shards, its f32 master the
+    same shards in f32. Returns the state."""
     model, opt = state.model, state.optimizer
-    if state.params_lp is not None:
-        raise NotImplementedError(
-            "the bf16 working copy (param_working_dtype) under shard_params=tp is not "
-            "ported yet (ROADMAP, 'Modules to port', item 12)")
-    if [id(p) for p in model.parameters()] != [id(p) for p in opt.params]:
+    lp = state.params_lp
+    if [id(p) for p in model.parameters()] != [id(p) for p in (lp or opt.params)]:
         raise ValueError("the optimizer must update the model's parameters, in order")
     axis = mesh.axis("model")
     names = [n for n, _ in model.named_parameters()]
     specs = shard_model_tp(model, axis)
-    opt.params = list(model.parameters())
-    opt.mu = [local_shard(m, specs[n], axis) if n in specs else m for n, m in zip(names, opt.mu)]
-    opt.nu = [local_shard(v, specs[n], axis) if n in specs else v for n, v in zip(names, opt.nu)]
-    opt.shard_groups = [(axis.group,) if n in specs else () for n in names]
-    if fsdp:
-        from dpot_tpu_torch.parallel.fsdp import shard_state_fsdp
 
-        return shard_state_fsdp(state, mesh)
+    def cut(ts):
+        return [local_shard(t, specs[n], axis) if n in specs else t for n, t in zip(names, ts)]
+
+    if lp is not None:
+        # the working copy is the shards' cast: the bf16 shards cut above,
+        # the f32 master cut alike
+        opt.params = cut(opt.params)
+        state.params_lp = list(model.parameters())
+    else:
+        opt.params = list(model.parameters())
+    opt.mu, opt.nu = cut(opt.mu), cut(opt.nu)
+    opt.shard_groups = [(axis.group,) if n in specs else () for n in names]
     state.train_module = model
     state.place_over(mesh, mesh.axis("data").group)
     return state

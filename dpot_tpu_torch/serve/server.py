@@ -30,16 +30,22 @@ bfloat16 on the host: numpy has no bfloat16 without ml_dtypes, so a bf16
 wire keeps raw 16-bit words as np.int16 on the host and views them as
 torch.bfloat16 once they are on the device.
 
-Tensor-parallel serving (`mesh`, a parallel/mesh.py Mesh whose 'model'
-axis holds every rank, the JAX server's TP-sharded params and mesh): every
-rank builds a RolloutServer over the same full model, which it cuts into its
-TP shards (parallel/tensor.py). Rank 0 runs the micro-batcher and the HTTP
-front end as above; before each application it broadcasts the batch's
-shape, its step count and the input over 'model', and the other ranks,
+Serving over a mesh (`mesh`, a parallel/mesh.py Mesh over every rank of
+the default group; the JAX server's `mesh`, over which it replicates the
+request batch, dpot_tpu/serve/server.py:226-232): every rank builds a
+RolloutServer over the same full model. Over 'model' it cuts the model into
+its TP shards (parallel/tensor.py); over 'pipe' the model, built with the
+mesh, keeps its stage's blocks and runs the GPipe schedule
+(parallel/pipeline.py); over 'spatial' the model, built with the mesh,
+takes each rank's H rows, and the prediction's rows are gathered at the
+end; over 'data' the replicas compute the same batch, as JAX's do (no load
+is balanced across them). Rank 0 runs the micro-batcher and the HTTP front
+end as above; before each application it broadcasts the batch's shape, its
+step count and the input over the default group, and the other ranks,
 whose `start()` runs the follower loop, compute the same rollout with it
-until rank 0 broadcasts a stop (when its worker ends, after `stop()`). Under
-a mesh the server runs eagerly: gloo's collectives run on the host, where
-no CUDA graph can hold them.
+until rank 0 broadcasts a stop (when its worker ends, after `stop()`).
+Under a mesh the server runs eagerly: gloo's collectives run on the host,
+where no CUDA graph can hold them.
 
 Hardening: optional bearer-token auth for /rollout and /metrics; `steps`
 validated against `max_steps`; request bodies capped at `max_body_bytes`;
@@ -62,7 +68,7 @@ import torch
 import torch.distributed as dist
 
 from dpot_tpu_torch.ops.cuda import graphs
-from dpot_tpu_torch.parallel.mesh import as_words
+from dpot_tpu_torch.parallel.mesh import as_words, all_gather_dim
 from dpot_tpu_torch.parallel.tensor import shard_model_tp
 from dpot_tpu_torch.utils.device import resolve_device
 
@@ -111,17 +117,25 @@ class RolloutServer:
         self.model = model.to(self.device).eval()
         self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
         self.leader = True
+        # the full model's parameters (a TP rank may hold shards of some)
+        tp_dims = getattr(model, "tp_dims", None) or {}
+        tp = mesh.size("model") if tp_dims and mesh is not None else 1
+        self.n_params = sum(p.numel() * (tp if n in tp_dims else 1)
+                            for n, p in model.named_parameters())
+        self._spatial = None
         if self.mesh is not None:
-            if self.mesh.size("model") != self.mesh.size():
-                raise NotImplementedError(
-                    "serving over a mesh takes its 'model' axis alone (tensor "
-                    "parallelism); data, pipe and spatial axes are not ported for "
-                    "serving (ROADMAP, 'Modules to port', item 12)")
-            self._axis = self.mesh.axis("model")
-            self._src = dist.get_global_rank(self._axis.group, 0)
-            self.leader = self._axis.rank == 0
-            if not getattr(model, "tp_dims", None):
-                shard_model_tp(self.model, self._axis)
+            for axis in ("pipe", "spatial"):
+                held = getattr(model, axis, None)
+                if (held.size if held is not None else 1) != self.mesh.size(axis):
+                    raise ValueError(
+                        f"serving over {self.mesh.size(axis)} '{axis}' ranks takes a model "
+                        f"built with the mesh (build_model(..., mesh=mesh))")
+            self.leader = dist.get_rank() == 0
+            if self.mesh.size("model") > 1 and not tp_dims:
+                shard_model_tp(self.model, self.mesh.axis("model"))
+            if getattr(model, "pipe", None) is not None:
+                model.cut_stage()
+            self._spatial = getattr(model, "spatial", None)
         self.t_bundle = t_bundle
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.max_wait_ms = max_wait_ms
@@ -152,10 +166,6 @@ class RolloutServer:
         self._stop = threading.Event()
         self._accepting = True
         self._worker = threading.Thread(target=self._drain, daemon=True)
-        # the full model's (a TP rank holds a shard of some)
-        shards = getattr(model, "tp_dims", {}) if self.mesh is not None else {}
-        self.n_params = sum(p.numel() * (self._axis.size if n in shards else 1)
-                            for n, p in model.named_parameters())
         self._warmup_steps = warmup_steps
         self._mlock = threading.Lock()
         self._m = {
@@ -203,6 +213,10 @@ class RolloutServer:
         response dtype."""
         tb = self.t_bundle
         ims = []
+        sp = self._spatial
+        if sp is not None:  # this rank's H rows
+            n = x.shape[1] // sp.size
+            x = x[:, sp.rank * n:(sp.rank + 1) * n]
         carry = x
         for _ in range(n_steps):
             out = self.model(carry)
@@ -212,7 +226,8 @@ class RolloutServer:
             # model would cast the fed-back frame to bf16 on its first op
             # anyway
             carry = torch.cat([carry[..., tb:, :], im.to(carry.dtype)], dim=-2)
-        return torch.cat(ims, dim=-2).to(_RESPONSE[self.response_dtype])
+        pred = torch.cat(ims, dim=-2).to(_RESPONSE[self.response_dtype])
+        return pred if sp is None else all_gather_dim(pred.contiguous(), 1, sp)
 
     @torch.inference_mode()
     def _rollout(self, x: torch.Tensor, n_steps: int) -> np.ndarray:
@@ -233,15 +248,15 @@ class RolloutServer:
         self._count(compiles=self._graphs.captures - captures)
         return pred.cpu().numpy()
 
-    # ---- tensor parallelism -----------------------------------------
+    # ---- a mesh -----------------------------------------------------
 
     def _bcast(self, t: torch.Tensor) -> torch.Tensor:
-        dist.broadcast(as_words(t), src=self._src, group=self._axis.group)
+        dist.broadcast(as_words(t), src=0)
         return t
 
     def _announce(self, n_steps: int, x: Optional[torch.Tensor] = None) -> None:
         """Rank 0: the next application's step count and input (0 and none:
-        stop) to the other ranks of 'model'."""
+        stop) to every other rank."""
         shape = tuple(x.shape) if x is not None else (0,) * 5
         self._bcast(torch.tensor([n_steps, *shape], dtype=torch.int64, device=self.device))
         if x is not None:

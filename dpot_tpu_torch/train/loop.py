@@ -20,12 +20,15 @@ NotImplementedError naming their ROADMAP item; none is ignored.
 Under torchrun (parallel/multihost.py) the loop runs on every rank over the
 mesh of the config's mesh_* axes (parallel/mesh.py): each rank loads the
 contiguous slice of every global batch that its 'data' coordinate selects
-(an uneven tail whole), and under 'spatial' keeps its H rows of it. The
-parameters are placed after init or restore, as in the JAX loop:
-replicated under DDP (`shard_params: replicate`), sharded by FSDP2
-(`fsdp`), cut into tensor-parallel shards over 'model' (`tp`, with FSDP2
-over 'data' in `tp_fsdp`), or cut to a pipeline stage's blocks
-(`mesh_pipe`); under 'spatial' the model itself splits the grid. Every rank
+(an uneven tail whole), and where the model splits the grid over
+'spatial' keeps its H rows of it. The parameters are placed after init or
+restore, as in the JAX loop (`place_state`): replicated under DDP
+(`shard_params: replicate`), sharded by FSDP2 (`fsdp`), cut into
+tensor-parallel shards over 'model' (`tp`, with FSDP2 over 'data' in
+`tp_fsdp`), cut to a pipeline stage's blocks (`mesh_pipe`), or these
+combined; under 'spatial' the model itself splits the grid, and a model
+that no layout reaches (FNO, UNet) is computed alike by the ranks of the
+other axes, its BatchNorm statistics taken over 'data'. Every rank
 computes, and logs, what one process computes on the same global batches:
 the train and eval sums are all-reduced over 'data', so the rollback
 decides on the same loss everywhere, and evaluation runs the same
@@ -102,24 +105,17 @@ def check_ported(cfg: TrainConfig, world: int = 1) -> None:
         raise ValueError("pipeline and spatial sharding cannot combine (mesh_pipe, "
                          "mesh_spatial), as in the JAX package")
     check_mesh_data(cfg.mesh_data, world, cfg.mesh_spatial * cfg.mesh_model * cfg.mesh_pipe)
-    item = "ROADMAP, 'Modules to port', item"
-    tp = cfg.shard_params in ("tp", "tp_fsdp")
-    axes = [a for a, n in (("mesh_spatial", cfg.mesh_spatial), ("mesh_model", cfg.mesh_model),
-                           ("mesh_pipe", cfg.mesh_pipe)) if n > 1]
-    missing = [
-        (len(axes) > 1 or (tp and (cfg.mesh_spatial > 1 or cfg.mesh_pipe > 1)),
-         f"combining tensor, pipeline and spatial parallelism ({', '.join(axes)}) "
-         f"({item} 12)"),
-        (cfg.shard_params == "fsdp" and bool(axes),
-         f"shard_params='fsdp' over {', '.join(axes)} ({item} 12)"),
-        (bool(axes or tp) and cfg.model not in ("DPOT", "dpot", "AFNO", "afno"),
-         f"the model axes (mesh_spatial, mesh_model, mesh_pipe, tp) for {cfg.model} "
-         f"({item} 12)"),
-        (bool(cfg.viz_dir), f"viz_dir (utils/viz.py) ({item} 13)"),
-    ]
-    for bad, what in missing:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    family = cfg.model.upper()
+    if family in ("DPOT3D", "CDPOT") and (cfg.mesh_spatial > 1 or cfg.mesh_pipe > 1):
+        # JAX's DPOTNet3D and CDPOTNet take no spatial_mesh or pipe_mesh
+        # (dpot_tpu/models/dpot3d.py, cdpot.py; its loop passes them,
+        # dpot_tpu/train/loop.py:160-168, and the model's construction raises
+        # TypeError): there is no 3D pencil FFT and no pipelined CDPOT trunk
+        raise ValueError(f"{cfg.model} takes no spatial or pipeline sharding (mesh_spatial, "
+                         "mesh_pipe), as in the JAX package, whose model has no such mesh")
+    if cfg.viz_dir:
+        raise NotImplementedError("viz_dir (utils/viz.py) is not ported yet (ROADMAP, "
+                                  "'Modules to port', item 13)")
     if cfg.shard_params == "fsdp" and not dist.is_initialized():
         raise RuntimeError("shard_params=fsdp needs the default process group: launch "
                            "under torchrun (one rank per card, --nproc_per_node 1 for one)")
@@ -259,51 +255,56 @@ def global_sizes(dl) -> list[int]:
 
 def place_state(state: TrainState, cfg: TrainConfig, device: torch.device) -> None:
     """Place the state over the ranks, as the JAX loop does after init or
-    restore (the loop's docstring): DDP over replicas (`shard_params:
-    replicate` over 'data' alone), FSDP2 shards (`fsdp`, also on one rank),
-    tensor-parallel shards (`tp`, `tp_fsdp`), a pipeline stage's blocks
-    (`mesh_pipe`), or, under 'spatial' or a replicated 'model' axis, the
-    model itself with its gradients averaged by the step."""
-    if any(True for _ in state.model.buffers()):
-        raise NotImplementedError(
-            "a model with buffers over several ranks (UNet's BatchNorm, whose batch "
-            "statistics would be per rank) is not ported yet (ROADMAP, 'Modules to "
-            "port', item 12)")
+    restore (the loop's docstring): tensor-parallel shards (`tp`,
+    `tp_fsdp`), a pipeline stage's blocks (`mesh_pipe`), either of them
+    with FSDP2 over 'data' (`fsdp`, `tp_fsdp`), FSDP2 alone (`fsdp`, also
+    on one rank), DDP over replicas (`replicate` over 'data' alone), or the
+    model itself, split by its own forward ('spatial') or computed alike
+    by the ranks of the other axes (a model whose leaves no TP rule
+    reaches, FNO and UNet, as JAX leaves them replicated). The gradients
+    are then averaged by the step over 'data' and 'spatial', where
+    neither DDP nor FSDP2 reduces them. A model's BatchNorm takes its
+    statistics over 'data' (models/unet.py `sync_batch_stats`)."""
+    from dpot_tpu_torch.models.unet import sync_batch_stats
+    from dpot_tpu_torch.parallel.fsdp import check_fsdp_shardings, shard_state_fsdp
+
     mesh = state.mesh
     if mesh is None:
         raise RuntimeError(f"shard_params={cfg.shard_params} over ranks needs the default "
                            "process group: launch under torchrun")
-    if cfg.shard_params == "fsdp":
-        from dpot_tpu_torch.parallel.fsdp import check_fsdp_shardings, shard_state_fsdp
-
-        shard_state_fsdp(state, mesh)
+    model = state.model
+    sync_batch_stats(model, mesh.axis("data"))
+    spatial = getattr(model, "spatial", None)
+    # the groups whose ranks hold different rows: 'data', and 'spatial'
+    # where the model splits the grid
+    rows = tuple(a.group for a in (mesh.axis("data"), spatial) if a is not None and a.size > 1)
+    tp = cfg.shard_params in ("tp", "tp_fsdp")
+    pipe = getattr(model, "pipe", None) is not None
+    if tp:
+        shard_state_tp(state, mesh)
+    if pipe:
+        shard_state_pipe(state, mesh)
+    if cfg.shard_params in ("fsdp", "tp_fsdp"):
+        # FSDP2 averages over 'data'; the step then over 'spatial'
+        shard_state_fsdp(state, mesh, (spatial.group,) if spatial is not None else None)
         bad = check_fsdp_shardings(state)
         if bad:
             raise RuntimeError(f"FSDP left {len(bad)} tensors unsharded: {bad[:4]}")
-    elif cfg.shard_params in ("tp", "tp_fsdp"):
-        shard_state_tp(state, mesh, fsdp=cfg.shard_params == "tp_fsdp")
-    elif cfg.mesh_pipe > 1:
-        shard_state_pipe(state, mesh)
-    elif mesh.size("data") == mesh.size():
-        state.train_module = replicate(state.model, UNTRAINED)
-        state.place_over(mesh)
+    elif tp or pipe or mesh.size("data") < mesh.size():
+        state.train_module = model
+        state.place_over(mesh, rows or None)
     else:
-        # the forward runs collectives ('spatial') or the 'model' ranks compute
-        # alike (replicated): the gradients are averaged over the ranks that
-        # hold different rows, 'data' and 'spatial'
-        state.train_module = state.model
-        state.place_over(mesh, dist.group.WORLD if cfg.mesh_spatial > 1
-                         else mesh.axis("data").group)
+        state.train_module = replicate(model, UNTRAINED)
+        state.place_over(mesh)
 
 
-def spatial_rows(a, cfg: TrainConfig, mesh):
-    """This rank's H rows of a host batch column (B, H, W, ...) under
-    'spatial', else the column."""
-    if mesh is None or cfg.mesh_spatial == 1:
+def spatial_rows(a, axis):
+    """This rank's H rows of a host batch column (B, H, W, ...) under the
+    model's 'spatial' axis (`axis`), else the column."""
+    if axis is None:
         return a
-    n = a.shape[1] // cfg.mesh_spatial
-    r = mesh.coords["spatial"]
-    return a[:, r * n:(r + 1) * n]
+    n = a.shape[1] // axis.size
+    return a[:, axis.rank * n:(axis.rank + 1) * n]
 
 
 def train(cfg: TrainConfig, log_dir: Optional[str] = None,
@@ -363,6 +364,8 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     # the rows of a global batch are split over 'data' only
     rank, world = state.rank, state.world
 
+    # the model's 'spatial' axis, whose ranks each take their H rows
+    split = getattr(model, "spatial", None)
     if cfg.mesh_spatial > 1:
         # spatial sharding takes the standard host layout, as in the JAX loop
         train_ds.time_major_batches = False
@@ -470,10 +473,9 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         for x, y, msk, cls, k_unit, n in dispatch_units(train_dl):
             t_load += time.perf_counter() - t_1
             t_1 = time.perf_counter()
-            host = {"x": spatial_rows(x, cfg, mesh), "y": spatial_rows(y, cfg, mesh),
-                    "cls": cls}
+            host = {"x": spatial_rows(x, split), "y": spatial_rows(y, split), "cls": cls}
             if not ones_mask:
-                host["msk"] = spatial_rows(msk, cfg, mesh)
+                host["msk"] = spatial_rows(msk, split)
             if k_unit > 1:
                 # (K * B, ...) -> (K, B, ...), a view
                 host = {k: v.reshape(k_unit, cfg.batch_size, *v.shape[1:])
@@ -521,7 +523,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                         f"{t_y} and {y.shape[-2]}"
                     )
                 t_y = y.shape[-2]
-                out = roll_fn(model, {k: _to_device(spatial_rows(v, cfg, mesh), device)
+                out = roll_fn(model, {k: _to_device(spatial_rows(v, split), device)
                                       for k, v in (("x", x), ("y", y), ("msk", msk))})
                 sums = torch.stack([out["loss_step"], out["loss_full"]])
                 if sharded(n):

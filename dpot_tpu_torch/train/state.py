@@ -54,6 +54,11 @@ from dpot_tpu_torch.parallel.tensor import gather_tp
 from dpot_tpu_torch.train.optimizers import Optimizer
 
 
+def _local(ts: list) -> list:
+    """This rank's shards of DTensors (views), other tensors as they are."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in ts]
+
+
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
@@ -116,9 +121,9 @@ class TrainState:
     @torch.no_grad()
     def refresh_working_copy(self) -> None:
         """Cast the working copy again from the f32 master (round to nearest
-        even, as JAX's astype)."""
+        even, as JAX's astype); sharded, shard by shard (no collective)."""
         if self.params_lp is not None:
-            torch._foreach_copy_(self.params_lp, self.optimizer.params)
+            torch._foreach_copy_(_local(self.params_lp), _local(self.optimizer.params))
 
     def apply_gradients(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None,
                         values: Optional[torch.Tensor] = None) -> None:

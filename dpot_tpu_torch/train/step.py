@@ -47,8 +47,11 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+import contextlib
+
+from dpot_tpu_torch.models.unet import batch_norms, local_batch_stats
 from dpot_tpu_torch.ops.cuda.graphs import Graph, GraphCache, copy_into, side_stream, signature
-from dpot_tpu_torch.parallel.mesh import all_reduce_mean, all_sum, grad_sync
+from dpot_tpu_torch.parallel.mesh import Axis, all_gather_dim, all_reduce_mean, all_sum, grad_sync
 from dpot_tpu_torch.train.state import TrainState
 from dpot_tpu_torch.utils.criterion import cross_entropy_sum, rel_lp_loss
 
@@ -70,6 +73,31 @@ def _add_f32(acc: Optional[list], grads: list) -> list:
         return [None if g is None else g.float() for g in grads]
     return [a if g is None else g.float() if a is None else a.add_(g)
             for a, g in zip(acc, grads)]
+
+
+def regroup_micro(batch: Batch, n: int, state: TrainState) -> Batch:
+    """This rank's rows of a global batch (its contiguous slice on each
+    rank) regrouped so that its i-th microbatch is its slice of the global
+    batch's i-th, as JAX splits the global batch (dpot_tpu/train/step.py
+    `_accum_grads`): the batch all-gathered over 'data' (external noise
+    along its axis 1), then each microbatch's rows taken. Needed where the
+    microbatches' composition matters: BatchNorm statistics over ranks."""
+    axis = Axis(state.data_group, state.world, state.rank)
+    out = {}
+    for k, v in batch.items():
+        d = 1 if k == "noise" else 0
+        full = all_gather_dim(v.contiguous(), d, axis)
+        MB = full.shape[d] // n
+        mb = MB // state.world
+        out[k] = torch.cat([full.narrow(d, i * MB + state.rank * mb, mb) for i in range(n)], d)
+    return out
+
+
+def grad_groups(state: TrainState) -> tuple:
+    """The groups over which the step averages the gradients after the
+    backward (the state's `grad_group`: one group, several, or None)."""
+    g = state.grad_group
+    return () if g is None else tuple(g) if isinstance(g, (tuple, list)) else (g,)
 
 
 def spatial_axis(state: TrainState):
@@ -213,7 +241,10 @@ def make_train_step(
         if ((sharded or spatial_axis(state) is not None) and noise_scale > 0.0
                 and "noise" not in batch):
             batch = {**batch, "noise": global_noise(state, batch)}
+        synced_stats = any(bn.axis is not None for bn in batch_norms(model))
         if grad_accum > 1 and B % grad_accum == 0:
+            if sharded and synced_stats:
+                batch = regroup_micro(batch, grad_accum, state)
             micro = split(batch, grad_accum)
         elif grad_accum > 1 and not sharded:
             raise ValueError(f"batch {B} must divide into grad_accum={grad_accum} "
@@ -222,25 +253,34 @@ def make_train_step(
             micro = [batch]
         # the microbatch gradients of a bf16 working copy are summed in f32,
         # not by backward() into its bf16 .grad, which would round each add;
-        # over several ranks the sum is then averaged over them here
+        # over several ranks the sum is then averaged over them here (under
+        # FSDP2, whose sharded gradients exist only after its reduce-scatter,
+        # each microbatch's is reduced first and then summed)
         lp = state.params_lp if len(micro) > 1 else None
         scale = state.world if sharded else 1
         aux = gsum = None
-        for i, b in enumerate(micro):
-            with grad_sync(fwd, lp is None and i == len(micro) - 1):
-                loss, a, n_steps = loss_fn(fwd, b, state.generator, spatial_axis(state))
-                (loss * scale if scale > 1 else loss).backward()
-            aux = a if aux is None else {k: aux[k] + a[k] for k in aux}
-            if lp is not None:
-                gsum = _add_f32(gsum, [p.grad for p in lp])
-                model.zero_grad(set_to_none=True)
-        if gsum is not None and state.world > 1:
-            all_reduce_mean([g for g in gsum if g is not None], state.data_group)
-        if state.grad_group is not None:
+        # a batch that every rank holds whole takes its own BatchNorm statistics
+        stats = (local_batch_stats(model) if synced_stats and not sharded
+                 else contextlib.nullcontext())
+        sync_each = lp is not None and state.sharded
+        with stats:
+            for i, b in enumerate(micro):
+                with grad_sync(fwd, sync_each or (lp is None and i == len(micro) - 1)):
+                    loss, a, n_steps = loss_fn(fwd, b, state.generator, spatial_axis(state))
+                    (loss * scale if scale > 1 else loss).backward()
+                aux = a if aux is None else {k: aux[k] + a[k] for k in aux}
+                if lp is not None:
+                    gsum = _add_f32(gsum, [p.grad for p in lp])
+                    model.zero_grad(set_to_none=True)
+        groups = grad_groups(state)
+        if gsum is not None and not groups and state.world > 1 and not state.sharded:
+            groups = (state.data_group,)  # DDP's sync was off for the microbatches
+        for group in groups:
             # the same parameters on every rank of the group, whose gradients
-            # are None alike (the untrained class head)
-            all_reduce_mean([p.grad for p in model.parameters() if p.grad is not None],
-                            state.grad_group)
+            # are None alike (the untrained class head); the mean over each
+            # group in turn is the mean over their product
+            all_reduce_mean([g for g in (gsum or [p.grad for p in model.parameters()])
+                             if g is not None], group)
         if sharded:
             sums = torch.stack([aux[k].float() for k in SUMS])
             dist.all_reduce(sums, group=state.data_group)

@@ -26,9 +26,7 @@ from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 from dpot_tpu_torch.data.registry import make_synthetic_spec
 from dpot_tpu_torch.models import build_model
 from dpot_tpu_torch.parallel import shard_rows
-from dpot_tpu_torch.parallel.fsdp import shard_state_fsdp
 from dpot_tpu_torch.parallel.mesh import check_mesh_data
-from dpot_tpu_torch.parallel.tensor import shard_state_tp
 from dpot_tpu_torch.train import loop
 from dpot_tpu_torch.train.interop import state_dict_from_jax
 from dpot_tpu_torch.train.optimizers import build_optimizer
@@ -168,11 +166,11 @@ def test_unported_layouts_raise(cfg, data):
 def test_refused_combinations():
     """What the JAX loop asserts against: K-step dispatches over several
     ranks, or with spatial sharding, pipe with spatial; a mesh_data that is
-    not the world size; and the port's own refusals: the layouts combined
-    (tp or model with pipe or spatial, fsdp over another axis), the model
-    axes for another family, viz_dir, BatchNorm over ranks, FSDP without a
-    process group, an unknown shard_params, the bf16 working copy under
-    FSDP2 or TP."""
+    not the world size; DPOT3D and CDPOT over 'spatial' or 'pipe' (JAX's
+    models take no such mesh); and the port's own refusals: viz_dir, FSDP
+    or a placement without a process group, an unknown shard_params. The
+    layouts combined, fsdp over another axis and the other families over
+    the model axes are accepted, as the JAX package runs them."""
     cfg = dict(model="DPOT", train_paths=[NAME])
     with pytest.raises(ValueError, match="single-process only"):
         loop.check_ported(TrainConfig(steps_per_dispatch=2, **cfg), world=2)
@@ -182,11 +180,16 @@ def test_refused_combinations():
     with pytest.raises(ValueError, match="cannot combine"):
         loop.check_ported(TrainConfig(mesh_pipe=2, mesh_spatial=2, **cfg), world=4)
     for combo in (dict(mesh_model=2, mesh_spatial=2), dict(shard_params="tp", mesh_pipe=2),
-                  dict(shard_params="fsdp", mesh_model=2)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            loop.check_ported(TrainConfig(**combo, **cfg), world=4)
-    with pytest.raises(NotImplementedError, match="for UNet"):
-        loop.check_ported(TrainConfig(**{**cfg, "model": "UNet"}, mesh_model=2), world=2)
+                  dict(shard_params="tp_fsdp", mesh_model=2, mesh_spatial=2, mesh_data=1)):
+        loop.check_ported(TrainConfig(**combo, **cfg), world=4)
+    with pytest.raises(RuntimeError, match="process group"):  # past every refusal
+        loop.check_ported(TrainConfig(shard_params="fsdp", mesh_model=2, **cfg), world=4)
+    for family in ("UNet", "FNO", "CDPOT", "DPOT3D"):
+        loop.check_ported(TrainConfig(**{**cfg, "model": family}, mesh_model=2), world=2)
+    for family in ("CDPOT", "DPOT3D"):
+        for axis in ("mesh_spatial", "mesh_pipe"):
+            with pytest.raises(ValueError, match="as in the JAX package"):
+                loop.check_ported(TrainConfig(**{**cfg, "model": family}, **{axis: 2}), world=2)
     with pytest.raises(NotImplementedError, match="viz_dir"):
         loop.check_ported(TrainConfig(viz_dir="viz", **cfg), world=2)
     with pytest.raises(ValueError, match="mesh_data=3"):
@@ -197,18 +200,13 @@ def test_refused_combinations():
     unet = build_model("UNet", img_size=16, in_channels=2, out_channels=2, in_timesteps=4,
                        out_layer_dim=4, n_cls=1, device="cpu")
     state = TrainState.create(unet, build_optimizer("adam", unet.parameters(), 1e-3), 0)
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
+    with pytest.raises(RuntimeError, match="process group"):
         loop.place_state(state, TrainConfig(**cfg), torch.device("cpu"))
     dpot = build_model("DPOT", img_size=16, patch_size=4, in_channels=2, in_timesteps=4,
                        embed_dim=32, depth=1, n_blocks=4, modes=4, device="cpu")
     state = TrainState.create(dpot, build_optimizer("adam", dpot.parameters(), 1e-3), 0)
     with pytest.raises(RuntimeError, match="process group"):
         loop.place_state(state, TrainConfig(shard_params="fsdp", **cfg), torch.device("cpu"))
-    lp = TrainState.create(dpot, build_optimizer("adam", dpot.parameters(), 1e-3), 0,
-                           param_working_dtype=torch.bfloat16)
-    for shard in (shard_state_fsdp, shard_state_tp):
-        with pytest.raises(NotImplementedError, match="working copy"):
-            shard(lp, None)
 
 
 FAMILIES = {

@@ -1,5 +1,6 @@
 """Rank programs of the port's multi-process CPU tests (test_torch_ddp.py,
-test_torch_fsdp.py), and `launch`, which runs one of them on N gloo ranks.
+test_torch_fsdp.py, the layout tests), and `launch` / `start`, which run one
+of them on N gloo ranks.
 
 A rank runs as `python tests/torch_dist_cases.py CASE OUT_DIR ARGS_JSON`
 with torchrun's variables set (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
@@ -40,8 +41,14 @@ def free_port() -> int:
 
 def launch(case: str, out_dir, args: dict, world: int = 2, timeout: float = 120.0) -> list:
     """Run `case` on `world` gloo ranks; the ranks' results, in rank order."""
-    import torch
+    return start(case, out_dir, args, world, timeout)()
 
+
+def start(case: str, out_dir, args: dict, world: int = 2, timeout: float = 120.0):
+    """Start `case` on `world` gloo ranks and return a function that waits
+    for them (within `timeout` of the start, else kills them all and
+    fails) and returns their results, in rank order: the caller works
+    while the ranks run."""
     env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
            "WORLD_SIZE": str(world), "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
     procs, logs = [], []
@@ -52,6 +59,13 @@ def launch(case: str, out_dir, args: dict, world: int = 2, timeout: float = 120.
             env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=ROOT,
             stdout=logs[-1], stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
+    return lambda: _finish(case, out_dir, procs, logs, deadline, timeout)
+
+
+def _finish(case, out_dir, procs, logs, deadline, timeout) -> list:
+    import torch
+
+    world = len(procs)
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 0.1))
@@ -234,106 +248,190 @@ def case_cache_check(args: dict) -> dict:
 
 def rank_batch(b: dict, state, mesh) -> dict:
     """This rank's part of a global batch (x, y, msk, cls and external noise
-    (steps, B, ...)): its rows over 'data' and, under 'spatial', its H rows."""
+    (steps, B, ...)): its rows over 'data' and, where the model splits the
+    grid over 'spatial', its H rows."""
     from dpot_tpu_torch.parallel import shard_rows
 
     rows = shard_rows(b["x"].shape[0], state.rank, state.world) or slice(None)
     out = {k: v[:, rows] if k == "noise" else v[rows] for k, v in b.items()}
-    s = mesh.size("spatial")
-    if s > 1:
-        n = b["x"].shape[1] // s
-        h = slice(mesh.coords["spatial"] * n, (mesh.coords["spatial"] + 1) * n)
+    sp = getattr(state.model, "spatial", None)
+    if sp is not None:
+        n = b["x"].shape[1] // sp.size
+        h = slice(sp.rank * n, (sp.rank + 1) * n)
         out = {k: v[:, :, h] if k == "noise" else v if k == "cls" else v[:, h]
                for k, v in out.items()}
     return out
 
 
 def case_layout_step(args: dict) -> dict:
-    """Train steps of the tiny DPOT from the weights in args['sd'] on the
-    global batches in args['batches'] (external noise), in each layout of
+    """Train steps from the weights in args['sd'] on the global batches in
+    args['batches'] (external noise, or none), in each layout of
     args['layouts'] (name, mesh axes, shard_params, pipe_microbatches,
-    remat), placed as cli.train places them (train/loop.py place_state):
-    per layout the aux of each step, the full weights after them (gathered
-    in the reference layout), the gradients of the last step's parameters
-    that are not shards, the sharded leaves and the fused kernel's calls."""
+    remat; the model family, its config, weights and batches where they
+    are not args'; 'lp': the bf16 working copy; 'accum': grad_accum, a
+    batch that does not divide taking one full step, as in the loop), placed
+    as cli.train places them (train/loop.py place_state): per layout the
+    aux of each step, the full weights after them (gathered in the
+    reference layout, buffers included), the gradients of the last step's
+    parameters that are not shards, the sharded leaves, the fused kernel's
+    calls and whether the working copy is its master's cast."""
     import torch
 
     from dpot_tpu_torch.models import build_model
     from dpot_tpu_torch.ops.cuda.afno_fused import fused_gn_afno
-    from dpot_tpu_torch.parallel import make_mesh
-    from dpot_tpu_torch.train.loop import model_mesh_kw, place_state
+    from dpot_tpu_torch.parallel import make_mesh, rank_world, shard_rows
+    from dpot_tpu_torch.parallel.fsdp import gathered
+    from dpot_tpu_torch.train.loop import check_ported, model_mesh_kw, place_state
     from dpot_tpu_torch.train.optimizers import build_optimizer
-    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.state import TrainState, _local
     from dpot_tpu_torch.train.step import make_train_step
     from dpot_tpu_torch.utils.config import TrainConfig
 
-    sd = torch.load(args["sd"])
-    batches = torch.load(args["batches"])
     out = {}
     for lay in args["layouts"]:
         axes = lay["mesh"]
+        family = lay.get("model", "DPOT")
+        sd = torch.load(lay["sd"] if "sd" in lay else args["sd"])
+        batches = torch.load(lay["batches"] if "batches" in lay else args["batches"])
         mesh = make_mesh(device="cpu", **axes)
-        cfg = TrainConfig(model="DPOT", train_paths=["x"],
+        cfg = TrainConfig(model=family, train_paths=["x"],
                           shard_params=lay.get("shard_params", "replicate"),
                           mesh_spatial=axes.get("spatial", 1), mesh_model=axes.get("model", 1),
                           mesh_pipe=axes.get("pipe", 1),
                           pipe_microbatches=lay.get("micro", 0))
-        model = build_model("DPOT", device="cpu", remat=lay.get("remat", False),
-                            **model_mesh_kw(cfg, mesh), **args["cfg"])
+        check_ported(cfg, rank_world()[1])
+        model = build_model(family, device="cpu", remat=lay.get("remat", False),
+                            **model_mesh_kw(cfg, mesh), **lay.get("cfg", args.get("cfg")))
         model.load_state_dict(sd)
         opt = build_optimizer("adam", model.parameters(), args["lr"], grad_clip=args["clip"])
-        state = TrainState.create(model, opt, seed=0)
+        state = TrainState.create(model, opt, seed=0,
+                                  param_working_dtype=torch.bfloat16 if lay.get("lp") else None)
         state.mesh = mesh
         place_state(state, cfg, torch.device("cpu"))
+        model.eval()  # a BatchNorm's buffers stay as they are
         with torch.no_grad():
             pred = model(rank_batch(batches[0], state, mesh)["x"])
-        step = make_train_step(noise_scale=args["noise"])
+        accum = lay.get("accum", 1)
+        noise = lay.get("noise", args["noise"])
+        step, whole = (make_train_step(noise_scale=noise, grad_accum=accum),
+                       make_train_step(noise_scale=noise))
         calls = fused_gn_afno.launches
         block_calls = []
         hooks = [blk.register_forward_pre_hook(lambda *_: block_calls.append(1))
-                 for blk in model.blocks]
+                 for blk in getattr(model, "blocks", ())]
         auxes = []
         for b in batches:
-            state, aux = step(state, rank_batch(b, state, mesh))
+            n = b["x"].shape[0]
+            fn = whole if n % accum else step
+            replicated = state.world > 1 and shard_rows(n, state.rank, state.world) is None
+            state, aux = fn(state, rank_batch(b, state, mesh), replicated=replicated)
             auxes.append({k: float(v) for k, v in aux.items()})
         for h in hooks:
             h.remove()
+        lp_cast = None
+        if state.params_lp is not None:
+            lp_cast = all(torch.equal(p, m.to(p.dtype)) for p, m in
+                          zip(_local(state.params_lp), _local(state.optimizer.params)))
         out[lay["name"]] = {
-            "forward": [t.detach() for t in pred], "block_calls": len(block_calls),
-            "aux": auxes,
+            "forward": [t.detach() for t in pred] if isinstance(pred, tuple) else [pred],
+            "block_calls": len(block_calls), "aux": auxes,
             "params": {k: v.detach().clone() for k, v in state.params_state_dict().items()},
-            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            "grads": {n: gathered(p.grad).detach().clone() for n, p in model.named_parameters()
                       if p.grad is not None and n not in getattr(model, "tp_dims", {})},
             "local_shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
             "tp_dims": dict(getattr(model, "tp_dims", {})), "world": state.world,
-            "calls": fused_gn_afno.launches - calls,
+            "calls": fused_gn_afno.launches - calls, "lp_cast": lp_cast,
+            "sharded": state.sharded,
         }
     return out
 
 
 def case_serve(args: dict) -> dict:
-    """TP serving: every rank builds the tiny DPOT from args['sd'] and a
-    RolloutServer over the 'model' axis of all ranks; rank 0 answers the
-    requests args['requests'] ((x, steps) pairs from args['xs']), the
-    others follow until it stops. Rank 0's answers and counters."""
+    """Serving over a mesh: every rank builds the tiny DPOT from args['sd']
+    (over the mesh's 'pipe' or 'spatial' axis where it has one) and a
+    RolloutServer over the mesh args['mesh'] (by default 'model' over all
+    ranks); rank 0 answers the requests args['requests'] ((x, steps) pairs
+    from args['xs']), the others follow until it stops. Rank 0's answers
+    and counters."""
     import torch
 
     from dpot_tpu_torch.models import build_model
     from dpot_tpu_torch.parallel import make_mesh, rank_world
     from dpot_tpu_torch.serve.server import RolloutServer
+    from dpot_tpu_torch.train.loop import model_mesh_kw
+    from dpot_tpu_torch.utils.config import TrainConfig
 
-    model = build_model("DPOT", device="cpu", **args["cfg"])
+    axes = args.get("mesh") or dict(model=rank_world()[1])
+    mesh = make_mesh(device="cpu", **axes)
+    cfg = TrainConfig(train_paths=["x"], mesh_pipe=axes.get("pipe", 1),
+                      mesh_spatial=axes.get("spatial", 1))
+    model = build_model("DPOT", device="cpu", **model_mesh_kw(cfg, mesh), **args["cfg"])
     model.load_state_dict(torch.load(args["sd"]))
-    rs = RolloutServer(model, mesh=make_mesh(model=rank_world()[1], device="cpu"),
-                       device="cpu", batch_buckets=(1, 2), max_wait_ms=1.0)
+    rs = RolloutServer(model, mesh=mesh, device="cpu", batch_buckets=(1, 2), max_wait_ms=1.0)
     xs = torch.load(args["xs"])
     rs.start()
+    shards = dict(shards=len(getattr(model, "tp_dims", {})), blocks=len(model.blocks))
     if not rs.leader:
-        return {"preds": None, "shards": len(model.tp_dims)}
+        return {"preds": None, **shards}
     preds = [rs.submit(xs[i].numpy(), steps) for i, steps in args["requests"]]
     rs.stop(drain=True)
-    return {"preds": preds, "metrics": rs.metrics(), "n_params": rs.n_params,
-            "shards": len(model.tp_dims)}
+    return {"preds": preds, "metrics": rs.metrics(), "n_params": rs.n_params, **shards}
+
+
+def case_serve_cli(args: dict) -> dict:
+    """cli.serve under torchrun (args['argv'], its mesh from the --mesh_*
+    flags): rank 0 listens and answers the request (args['xs'][0] at
+    args['steps'] steps) in-process, then stops; the others follow until
+    then. Rank 0's answer."""
+    import torch
+
+    from dpot_tpu_torch.cli.serve import main
+
+    httpd, rs = main(args["argv"], wait=False)
+    if httpd is None:  # a follower, back once rank 0 stopped
+        return {"pred": None, "blocks": len(rs.model.blocks)}
+    pred = rs.submit(torch.load(args["xs"])[0].numpy(), args["steps"])
+    rs.stop(drain=True)
+    httpd.shutdown()
+    return {"pred": pred, "blocks": len(rs.model.blocks)}
+
+
+def case_fsdp_ckpt(args: dict) -> dict:
+    """FSDP2 checkpoints gathered without DTensor's full_tensor (made to
+    raise here): cli.train's runs of args['runs'] (case_train), the first
+    writing a checkpoint; that checkpoint restored into a fresh state of
+    the tiny DPOT (args['cfg']) placed under FSDP2, whose gathered weights
+    and moments come back (bit for bit the file's, if the gather is
+    right); then cli.train on args['resume'] resuming from it."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from dpot_tpu_torch.cli.train import main
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.parallel import make_mesh
+    from dpot_tpu_torch.parallel.fsdp import shard_state_fsdp
+    from dpot_tpu_torch.train.checkpoint import restore_checkpoint
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+
+    def refused(self, *a, **k):
+        raise AssertionError("DTensor.full_tensor called")
+
+    DTensor.full_tensor = refused
+    out = case_train(args)
+    path = [out["runs"][0]["log_dir"]]
+    dist.broadcast_object_list(path, src=0)  # rank 0 wrote it, then got here
+    ckpt = f"{path[0]}/model"
+    model = build_model("DPOT", device="cpu", **args["cfg"])
+    state = TrainState.create(model, build_optimizer("lamb", model.parameters(), 1e-3), 0)
+    restore_checkpoint(ckpt, state)
+    shard_state_fsdp(state, make_mesh(device="cpu"))
+    mu, nu = state.full_moments()
+    out["restored"] = dict(params=state.params_state_dict(), mu=mu, nu=nu, step=state.step,
+                           local=[tuple(p.to_local().shape) for p in model.parameters()])
+    out["resumed"] = case_train({"runs": [args["resume"] + ["--resume_path", ckpt]]})["runs"][0]
+    return out
 
 
 def case_mixer(args: dict) -> dict:
@@ -376,7 +474,7 @@ def case_suite(args: dict) -> dict:
 
 CASES = {"train": case_train, "step": case_step, "cache_check": case_cache_check,
          "layout_step": case_layout_step, "serve": case_serve, "mixer": case_mixer,
-         "suite": case_suite}
+         "fsdp_ckpt": case_fsdp_ckpt, "serve_cli": case_serve_cli, "suite": case_suite}
 
 
 def main() -> None:

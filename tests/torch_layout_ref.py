@@ -65,13 +65,16 @@ def save_inputs(tmp, sd, batches) -> dict:
                 noise=NOISE)
 
 
-def jax_steps(jm, jvars, batches, mesh=None, place=replicate, spatial=False):
+def jax_steps(jm, jvars, batches, mesh=None, place=replicate, spatial=False, apply=None,
+              lp=False, noise=NOISE):
     """The JAX package's adam steps (the clip active, external noise) on one
     device or over `mesh`, the state placed by `place(state, mesh)`: the aux
-    of each step and the final params as a port state dict."""
+    of each step and the final params as a port state dict. `apply`
+    (default jm.apply), `lp` a bf16 working copy."""
     tx = jax_build_optimizer("adam", LR, grad_clip=CLIP)
-    step = jax_train_step(noise_scale=NOISE, donate=False)
-    st = JaxTrainState.create(jm.apply, jvars, tx, jax.random.key(0))
+    step = jax_train_step(noise_scale=noise, donate=False)
+    st = JaxTrainState.create(apply or jm.apply, jvars, tx, jax.random.key(0),
+                              param_working_dtype=jnp.bfloat16 if lp else None)
     auxes = []
 
     def run(st, b):
@@ -96,22 +99,53 @@ def jax_steps(jm, jvars, batches, mesh=None, place=replicate, spatial=False):
     return auxes, state_dict_from_jax(jax.device_get(st.params))
 
 
-def port_steps(cfg: dict, sd, batches):
+def port_steps(cfg: dict, sd, batches, family="DPOT", lp=False, accum=1, noise=NOISE):
     """One port process's steps: the aux of each, the final weights, the
-    last step's gradients and the forward of the first batch's x."""
-    model = build_model("DPOT", device="cpu", **cfg)
+    last step's gradients and the forward of the first batch's x (in eval
+    mode); `lp`, `accum` and `noise` as in jax_steps."""
+    model = build_model(family, device="cpu", **cfg)
     model.load_state_dict(sd)
+    model.eval()
     with torch.no_grad():
         pred = model(torch.from_numpy(batches[0]["x"]))
     state = TrainState.create(
-        model, build_optimizer("adam", model.parameters(), LR, grad_clip=CLIP), seed=0)
-    step = make_train_step(noise_scale=NOISE)
+        model, build_optimizer("adam", model.parameters(), LR, grad_clip=CLIP), seed=0,
+        param_working_dtype=torch.bfloat16 if lp else None)
+    steps = {n: make_train_step(noise_scale=noise, grad_accum=n) for n in {1, accum}}
     auxes = []
     for b in batches:
+        step = steps[1 if b["x"].shape[0] % accum else accum]
         state, aux = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
         auxes.append({k: float(v) for k, v in aux.items()})
     grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
     return dict(aux=auxes, params=state.params_state_dict(), grads=grads, forward=pred)
+
+
+def family_weights(family: str, cfg: dict, seed: int = 3):
+    """A seeded port model's weights of any family through the JAX
+    package's layout: the JAX model, its apply for the steps (pred-only
+    models wrapped), the JAX variables and the port state dict made back
+    from them."""
+    from dpot_tpu.models import build_model as jax_build_model
+    from dpot_tpu.train import interop as ji
+    from dpot_tpu.train.step import wrap_pred_only
+
+    seeded = {k: v.numpy() for k, v in
+              build_model(family, device="cpu", seed=seed, **cfg).state_dict().items()}
+    depth = cfg.get("depth", 4)
+    if family == "DPOT3D":
+        jvars = ji.dpot3d_params_from_torch(seeded, depth=depth)
+    elif family == "CDPOT":
+        jvars = ji.cdpot_params_from_torch(seeded, depth=depth)
+    elif family == "FNO":
+        jvars = ji.fno2d_params_from_torch(seeded, n_layers=depth)
+    elif family == "UNet":
+        jvars = ji.unet_params_from_torch({k: v.copy() for k, v in seeded.items()})
+    else:
+        jvars = dpot_params_from_torch(seeded, depth=depth, normalize=False)
+    jm = jax_build_model(family, **cfg)
+    apply = wrap_pred_only(jm.apply) if family == "DPOT3D" else jm.apply
+    return jm, apply, jvars, state_dict_from_jax(jax.device_get(jvars))
 
 
 def assert_run(got: dict, want_aux: list, want_params: dict, tol: float, what) -> None:
