@@ -27,7 +27,13 @@ Phases, each printing its results as JSON lines:
        training (B = 20), with the plain version made to raise while the
        backward runs;
      - bias_act, all nine activations in f32 and bf16, at (8, 64, 64, 512)
-       and at a ragged (3, 17, 5, 37), forward and gradient;
+       and at a ragged (3, 17, 5, 37), forward and gradient; then on its
+       one caller's path, filtered_lrelu (ops/upfirdn2d.py: upfirdn2d up 2,
+       bias_act lrelu, upfirdn2d down 2) at x (8, 64, 64, 512) f32 and bf16
+       with a 12-tap separable lowpass and a 4x4 filter, each padded to a
+       64^2 output: one bias_act launch a call (these are the kernel row's
+       launches), the output and first-order gradient against the same
+       composition through bias_act_ref, and its times;
   3. serve: `python -m dpot_tpu_torch.cli.serve` in-process at DPOT-Ti full
      width and depth (seeded weights), bf16 and then f32 compute, each
      answering rollout requests over HTTP on 127.0.0.1; every served
@@ -37,7 +43,10 @@ Phases, each printing its results as JSON lines:
      path), and the served model's forward on the card against the same
      weights' forward on the CPU (the plain versions there);
   4. step: where one model application's time goes at B = 1 and 8 (wall
-     time, device busy time and idle share, the fused kernel's part);
+     time, device busy time and idle share, the fused kernel's part); at Ti
+     bf16 a few applications inside utils/profiling.py's trace under a
+     profiled_function range, the Chrome trace naming the range and
+     afno_hopper.cu's kernel;
   5. train: `python -m dpot_tpu_torch.cli.train` in-process at DPOT-Ti full
      width and depth on a synthetic 128x128 dataset (40 train and 4 test
      trajectories of 21 frames, 4 channels) with the optimization of
@@ -49,7 +58,12 @@ Phases, each printing its results as JSON lines:
      checkpoint stepped twice from the same state giving the same losses,
      and where a train step's time goes (wall, device busy, idle share,
      samples/s; the shares of the fused kernel with its bf16 weight
-     copies, its VJP and the optimizer);
+     copies, its VJP and the optimizer); the loop's checkpoints written on
+     the asynchronous writer's thread, the last one bit-equal to a
+     synchronous save of the same state; the loop's rollback snapshots,
+     host (pinned) and device, taken with no synchronisation before a
+     step, each giving the state back bit for bit, and the snapshot rule's
+     mode and bytes;
   6. train card vs CPU: one f32 Ti train step at B = 4 on shared weights,
      batch and noise, on the card and on the CPU: the loss and every
      parameter's gradient;
@@ -61,7 +75,7 @@ Phases, each printing its results as JSON lines:
      application profiled at B = 1 and 8 as in phase 4; three adam train
      steps (noise 5e-4) at B = 64 through make_train_step: finite losses,
      launches = depth x steps on the same kernel, and where a step's time
-     goes as in phase 5;
+     goes as in phase 5; the rollback snapshots' mode and bytes at H;
   8. eval_L: DPOT-L (preset L: embed 1536, depth 24, 16 AFNO blocks of 96
      channels, GroupNorm groups of 192; seeded weights written as a
      reference-layout .pth) evaluated through `python -m
@@ -72,7 +86,10 @@ Phases, each printing its results as JSON lines:
      afno_hopper_f32_l.cu), a rollout with AFNO weights redrawn against
      the same rollout with the mixer's plain version on the card and with
      plain mixers wrong on purpose, one application profiled at B = 1 and
-     8 as in phase 4, peak memory;
+     8 as in phase 4, peak memory; in bf16 with --viz_dir (the JAX
+     package's file names where matplotlib imports on the card's host,
+     else none written), in f32 the rollback snapshots' mode and bytes at L
+     with lamb's moments;
   9. train_L: `python -m dpot_tpu_torch.cli.sweep --config_file <copy of
      configs/pretrain_large.yaml>` in-process, the copy's data cut (twelve
      synthetic sets of their namesakes' grids, channels and lengths, 2
@@ -95,8 +112,9 @@ Phases, each printing its results as JSON lines:
   12. finetune_S: `python -m dpot_tpu_torch.cli.finetune` from a seeded
      4-channel DPOT-S .pth onto a synthetic 3-channel 128^2 set (40 train,
      8 test) with configs/dpot_finetune.yaml's optimization (load_components
-     all) for 2 epochs in bf16: the units copied, finite losses, launches
-     all on the Hopper kernel; then cli.evaluate --config_from_ckpt on the
+     all) for 2 epochs in bf16 with --viz_dir (as eval_L's): the units
+     copied, finite losses, launches all on the Hopper kernel, the final
+     epoch's visuals; then cli.evaluate --config_from_ckpt on the
      run's checkpoint directory, whose loss_full equals the loop's last
      test metric;
   13. varyres_Ti: cli.evaluate --varyres at DPOT-Ti over the 11 default
@@ -144,7 +162,8 @@ XLA), after phase 14:
      and temporal_modes 8, bf16, batch 4, 2 epochs, inflated from eval_L's
      seeded L .pth (4 channels, 128^2): the inflated count, finite losses,
      no fused_gn_afno launch, the checkpoint restoring; cli.evaluate
-     --metrics on its checkpoint (loss_full = the loop's last test metric);
+     --metrics --viz_dir on its checkpoint (loss_full = the loop's last
+     test metric; the mid-Z plane's and the volume's visuals as eval_L's);
      where a train step's time goes (wall, busy, idle, samples/s; the
      shares of the cuFFT kernels, the mode MLP, out_layer.0's product, the
      other dense GEMMs and the optimizer), its peak memory, and the
@@ -218,8 +237,11 @@ start up, the 2-rank jobs once the nccl rank is done (phase_parallel):
      0 alone writing the checkpoint, in the reference layout, which
      cli.serve then serves; each rank's step wall, global samples/s, busy,
      idle and the collectives' share (torch.profiler) beside one
-     process's; and the job on 1 rank on torchrun's default nccl, its
-     evaluation cut to the first corpus, against one process within 1e-5;
+     process's; every replicated tensor bit for bit over the 2 ranks
+     (utils/inspection.py check_replica_consistency), and a control, one
+     ulp changed in one rank's copy, caught; and the job on 1 rank on
+     torchrun's default nccl, its evaluation cut to the first corpus,
+     against one process within 1e-5;
   26. fsdp_l: seeded DPOT-L at full width and depth with
      configs/pretrain_large.yaml's optimization (bf16, lamb, its clip,
      remat, global B = 16) and shard_params fsdp on the 2 ranks, 3 steps,
@@ -242,9 +264,10 @@ start up, the 2-rank jobs once the nccl rank is done (phase_parallel):
      held to one process as phase 27's are, with controls above their
      limits: fsdp_lp_l, tp_lp_l and pp_lp_l, L's widths at 6 blocks with
      the bf16 working copy under FSDP2, TP and the pipeline (fsdp_lp_l also
-     writes a checkpoint over gloo, gathered with c10d collectives, which
-     one process resumes; its control, a checkpoint gathered in the wrong
-     shard order); fsdp_pp_l, FSDP2 with the pipeline (data 1 x pipe 2 on
+     writes a checkpoint over gloo, gathered with c10d collectives, rank
+     0's write on the asynchronous writer's thread (the seconds in the
+     call against the write's), which one process resumes; its control, a
+     checkpoint gathered in the wrong shard order, saved synchronously); fsdp_pp_l, FSDP2 with the pipeline (data 1 x pipe 2 on
      the 2 ranks); dpot3d_tp_l, DPOT3D at L's widths (2 blocks, 64^3)
      under TP; cdpot_tp, CDPOT at configs/cdpot_parallel.yaml's widths
      under TP (the fused kernel's route at a rank's channels reported);
@@ -418,6 +441,20 @@ BIAS_ACT_SHAPES = ((8, 64, 64, 512), (3, 17, 5, 37))
 # exp, tanh or log counts as one
 BIAS_ACT_OPS = dict(linear=0, relu=1, lrelu=2, tanh=1, sigmoid=3, elu=2, selu=4,
                     softplus=5, swish=3)
+# filtered_lrelu (ops/upfirdn2d.py), bias_act's one caller: x (8, 64, 64,
+# 512) up 2 -> lrelu -> down 2 back to 64^2, through a 12-tap separable
+# lowpass and a 4x4 (2D) filter, each with the padding that gives 64^2;
+# held to the same composition through bias_act_ref at BIAS_ACT_TOL carried
+# through the down filter (err <= rtol (|fd| * |mid|) + atol sum|fd|, plus
+# in bf16 one rounding of the filtered value, 2^-8 of it); the gradient
+# (first order) at FILTERED_LRELU_GRAD_TOL (relative L2). BiasAct's backward
+# differentiates bias_act_ref, so the gradient checks the wrapper's plumbing
+# (the op stays differentiable, x's and b's gradients routed through both
+# filters), not the kernel, which the forward check holds
+FILTERED_LRELU_SHAPE = BIAS_ACT_SHAPES[0]
+FILTERED_LRELU_FILTERS = {"separable12": (np.hanning(14)[1:-1], (12, 10, 12, 10)),
+                          "dense4x4": ([1.0, 3.0, 3.0, 1.0], (3, 2, 3, 2))}
+FILTERED_LRELU_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 # DPOT-Ti pretraining on a synthetic 128^2 dataset, with the optimization of
 # configs/pretrain_tiny.yaml (its tasks: values; its 12 corpora are not here)
@@ -1120,12 +1157,14 @@ def phase_vjp() -> dict:
     return results
 
 
-def bias_act_bound_ms(shape, dtype: torch.dtype, act: str) -> tuple[float, str]:
-    """Least time for one call: x read and the output written once (the
-    bias is C values), or its f32 operations over the f32 peak."""
+def bias_act_bound_ms(shape, dtype: torch.dtype, act: str,
+                      bias: bool = True) -> tuple[float, str]:
+    """Least time for one call: x read and the output written once (and
+    the bias's C values, where there is one), or its f32 operations over
+    the f32 peak."""
     n, C = math.prod(shape), shape[-1]
     s = torch.empty((), dtype=dtype).element_size()
-    t_bytes = (2 * n + C) * s / PEAK_BYTES * 1e3
+    t_bytes = (2 * n + (C if bias else 0)) * s / PEAK_BYTES * 1e3
     t_ops = n * (4 + BIAS_ACT_OPS[act]) / PEAK_FLOPS[torch.float32] * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
@@ -1180,7 +1219,91 @@ def phase_bias_act() -> dict:
                     )
                     results[f"{dname}/{act}"] = row
                 log("kernel", name="bias_act", **row)
+    results["filtered_lrelu"] = check_filtered_lrelu()
     return results
+
+
+def filtered_lrelu_plain(x, fu, fd, b, pad):
+    """filtered_lrelu's composition with bias_act's plain version in the
+    middle; also returns that middle (the activation's output)."""
+    from dpot_tpu_torch.ops.upfirdn2d import upfirdn2d
+
+    mid = bias_act_ref(upfirdn2d(x + b.reshape(1, 1, 1, -1), fu, up=2, padding=pad, gain=4),
+                       None, -1, "lrelu", alpha=0.2, gain=math.sqrt(2))
+    return upfirdn2d(mid, fd, down=2), mid
+
+
+def check_filtered_lrelu() -> dict:
+    """filtered_lrelu on the card against its plain composition, f32 and
+    bf16, each filter of FILTERED_LRELU_FILTERS: the output (the kernel's
+    check), the gradient of x and b (the wrapper's plumbing: both sides'
+    backward runs through bias_act_ref), exactly one bias_act launch a call
+    (the calls' launches are bias_act's on this path), the times of the
+    whole op, the plain composition and the kernel's share, and the
+    kernel's bound at the shape it gets here (no bias)."""
+    from dpot_tpu_torch.ops.upfirdn2d import filtered_lrelu, setup_filter, upfirdn2d
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shape = FILTERED_LRELU_SHAPE
+    rows, launches = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        rtol, atol = BIAS_ACT_TOL[dtype]
+        x = (2 * torch.randn(shape, device="cuda", generator=gen)).to(dtype)
+        b = torch.randn(shape[-1], device="cuda", generator=gen).to(dtype)
+        for fname, (taps, pad) in FILTERED_LRELU_FILTERS.items():
+            f = setup_filter(np.asarray(taps, np.float32), device="cuda")
+
+            def run():
+                return filtered_lrelu(x, f, f, b, up=2, down=2, padding=pad)
+
+            calls, before = 0, bias_act.launches
+            got = run()
+            calls += 1
+            want, mid = filtered_lrelu_plain(x, f, f, b, pad)
+            bound = upfirdn2d(mid.float().abs(), f.abs(), down=2)
+            lim = (rtol + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0)) * bound \
+                + atol * float(f.abs().sum()) ** (2 if f.dim() == 1 else 1)
+            err = (got.float() - want.float()).abs()
+            if got.shape != (*shape[:3], shape[3]) or got.dtype != dtype:
+                raise AssertionError(f"filtered_lrelu {fname} {dname}: {tuple(got.shape)} "
+                                     f"{got.dtype}")
+            if not (err <= lim).all():
+                raise AssertionError(f"filtered_lrelu {fname} {dname}: max error "
+                                     f"{err.max().item()} above its limit")
+            g = torch.randn(got.shape, device="cuda", generator=gen).to(dtype)
+            xs, bs = x.clone().requires_grad_(), b.clone().requires_grad_()
+            grads = torch.autograd.grad(
+                filtered_lrelu(xs, f, f, bs, up=2, down=2, padding=pad), [xs, bs], g)
+            calls += 1
+            plain = torch.autograd.grad(filtered_lrelu_plain(xs, f, f, bs, pad)[0], [xs, bs], g)
+            torch.cuda.synchronize()
+            if bias_act.launches - before != calls:
+                raise AssertionError(f"filtered_lrelu {fname} {dname}: "
+                                     f"{bias_act.launches - before} bias_act launches in "
+                                     f"{calls} calls, expected one a call")
+            launches += calls
+            grad_rel = max(rel_l2(a, w) for a, w in zip(grads, plain))
+            if not grad_rel <= FILTERED_LRELU_GRAD_TOL[dtype]:
+                raise AssertionError(f"filtered_lrelu {fname} {dname}: gradient rel_l2 "
+                                     f"{grad_rel}")
+            events = [e for e in profile_events(run, 10) if is_kernel(e)]
+            total = union_us(events) / 10 / 1e3 if events else None
+            bias = (sum(e.time_range.elapsed_us() for e in events
+                        if "bias_act_kernel" in e.name) / 10 / 1e3 if events else None)
+            row = dict(shape=list(shape), dtype=dname, filter=fname, padding=list(pad),
+                       max_abs_err=err.max().item(), limit_min=lim.min().item(),
+                       grad_rel_l2=grad_rel, grad_limit=FILTERED_LRELU_GRAD_TOL[dtype],
+                       launches=calls, ms=cuda_ms(run, runs=10),
+                       plain_ms=cuda_ms(lambda: filtered_lrelu_plain(x, f, f, b, pad), runs=10),
+                       device_ms=total if total is not None else "not measured",
+                       bias_act_shape=[*mid.shape],
+                       bias_act_device_ms=bias if bias is not None else "not measured",
+                       bias_act_bound_ms=bias_act_bound_ms(mid.shape, dtype, "lrelu",
+                                                           bias=False)[0])
+            rows[f"{dname}/{fname}"] = row
+            log("filtered_lrelu", **row)
+    return dict(rows=rows, launches=launches)
 
 
 def post_rollout(port: int, body: bytes, steps: int) -> tuple[np.ndarray, float]:
@@ -1509,6 +1632,8 @@ def phase_step(dtype: str, runs: int = 10, model=None, preset: str = "Ti",
                        top_kernels={k[:80]: v / runs / 1e3 for k, v in top})
         else:
             row.update(device_busy_ms="not measured")
+        if preset == "Ti" and dtype == "bfloat16" and B == batches[-1]:
+            row["trace"] = check_trace(step, "step Ti")
         log("step", **row)
         rows.append(row)
     return rows
@@ -1520,6 +1645,135 @@ def read_metrics(log_dir: str) -> dict[str, list[float]]:
         for rec in map(json.loads, f):
             out.setdefault(rec["tag"], []).append(rec["value"])
     return out
+
+
+@contextlib.contextmanager
+def viz_recorded():
+    """save_eval_viz's calls in the block (utils/viz.py, which the loop and
+    the evaluator call for viz_dir): each call's set and the names of the
+    files it returned."""
+    from dpot_tpu_torch.utils import viz
+
+    real, calls = viz.save_eval_viz, []
+
+    def record(pred, target, out_dir, dataset, channel=0):
+        written = real(pred, target, out_dir, dataset, channel)
+        calls.append([dataset, [os.path.basename(p) for p in written]])
+        return written
+
+    with patched(viz, "save_eval_viz", record):
+        yield calls
+
+
+def check_viz(calls: list, names: list, volume: bool, what: str) -> dict:
+    """One save_eval_viz call per set, in order; where matplotlib imports on
+    this host, the JAX package's file names (a 3D set's volume, then the
+    rollout's PNG and GIF), else none written ([] returned)."""
+    from dpot_tpu_torch.utils.viz import _plt
+
+    have = _plt() is not None
+    want = [[n, ([f"{n}_volume.png"] if volume else []) + [f"{n}_rollout.png",
+                                                            f"{n}_rollout.gif"]]
+            if have else [n, []] for n in names]
+    if calls != want:
+        raise AssertionError(f"{what} viz_dir: save_eval_viz wrote {calls}, expected {want}")
+    return dict(matplotlib=have, written=calls)
+
+
+@contextlib.contextmanager
+def writes_recorded():
+    """The checkpoint writes in the block (train/checkpoint.py
+    _write_payload): for each, the thread that ran it and its seconds."""
+    import threading
+
+    from dpot_tpu_torch.train import checkpoint
+
+    real, writes = checkpoint._write_payload, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = real(*args)
+        writes.append(dict(thread=threading.current_thread().name,
+                           write_s=time.perf_counter() - t0))
+        return out
+
+    with patched(checkpoint, "_write_payload", timed):
+        yield writes
+
+
+def same_checkpoint(a: str, b: str) -> int:
+    """Two checkpoint files of the same state, tensor for tensor bit-equal
+    (weights, moments, count, grad norm, step, generator); returns the
+    tensors compared."""
+    x, y = (torch.load(p, map_location="cpu", weights_only=False) for p in (a, b))
+    pairs = [(f"model.{k}", v, y["model"][k]) for k, v in x["model"].items()]
+    pairs += [(f"{m}.{i}", u, v) for m in ("mu", "nu")
+              for i, (u, v) in enumerate(zip(x["optimizer"][m], y["optimizer"][m], strict=True))]
+    pairs += [("grad_norm", x["optimizer"]["grad_norm"], y["optimizer"]["grad_norm"]),
+              ("generator", x["generator"], y["generator"])]
+    if list(x["model"]) != list(y["model"]) or x["step"] != y["step"] or \
+            x["optimizer"]["count"] != y["optimizer"]["count"]:
+        raise AssertionError(f"{a} and {b}: keys, step or count differ")
+    for name, u, v in pairs:
+        if u.dtype != v.dtype or not torch.equal(u, v):
+            raise AssertionError(f"{a} and {b}: {name} differs")
+    return len(pairs)
+
+
+def check_host_snapshot(state, batch, step_fn) -> dict:
+    """The loop's rollback snapshots on the card (train/loop.py): a host
+    snapshot (pinned, a non_blocking copy) and a device one taken with no
+    synchronisation, a train step queued behind them, then each restored
+    after a step: both give the state before the steps back, bit for
+    bit; and the rule's mode and bytes at these shapes."""
+    from dpot_tpu_torch.train import loop
+
+    before = [t.detach().clone() for t in loop._rollback_tensors(state)]
+    host, device = loop._host_snapshot(state), loop._snapshot(state)
+    restored = {}
+    for mode, snap in (("host", host), ("device", device)):
+        step_fn(state, batch)
+        loop._restore(state, snap)
+        restored[mode] = [t.detach().clone() for t in loop._rollback_tensors(state)]
+    torch.cuda.synchronize()
+    for mode, ts in restored.items():
+        if not all(torch.equal(a, b) for a, b in zip(ts, before, strict=True)):
+            raise AssertionError(f"a {mode} snapshot restored another state")
+    if not all(t.is_pinned() for t in host):
+        raise AssertionError("the host snapshot is not pinned")
+    return dict(tensors=len(before), bit_equal=True, rule=snapshot_rule(state))
+
+
+def snapshot_rule(state) -> dict:
+    """The rollback snapshots' mode that the loop's rule picks for `state`
+    on this card, and the bytes it reckoned (train/loop.py snapshot_mode)."""
+    from dpot_tpu_torch.train.loop import snapshot_mode
+
+    mode, per_dev, limit = snapshot_mode(state)
+    return dict(mode=mode, state_bytes=per_dev, card_bytes=limit,
+                share=2 * per_dev / limit if limit else None)
+
+
+def check_trace(step, what: str) -> dict:
+    """A few calls of `step` inside utils/profiling.py's trace, each under a
+    profiled_function range: the Chrome trace's file exists and names that
+    range and the bf16 Hopper kernel (afno_hopper.cu's spectral_kernel)."""
+    from dpot_tpu_torch.utils.profiling import profiled_function, trace
+
+    def ti_application():
+        return step()
+
+    annotated = profiled_function(ti_application)
+    with trace(str(RUN_DIR / "trace")) as prof, torch.inference_mode():
+        for _ in range(3):
+            annotated()
+    path = prof.trace_file
+    names = {e.get("name") or "" for e in json.load(open(path))["traceEvents"]}
+    kernels = sorted(n for n in names if "spectral_kernel" in n)
+    if "ti_application" not in names or not kernels:
+        raise AssertionError(f"{what}: the trace {path} lacks the range or the kernel")
+    return dict(file=os.path.basename(path), bytes=os.path.getsize(path), events=len(names),
+                kernels=kernels[:2])
 
 
 EVAL_FN = "autograd::engine::evaluate_function: "
@@ -1665,11 +1919,14 @@ def phase_train(dtype: str) -> dict:
     from dpot_tpu_torch.train.step import make_train_step
     from dpot_tpu_torch.utils.config import load_config
 
+    from dpot_tpu_torch.train.checkpoint import save_checkpoint
+
     make_synthetic_spec(**TRAIN_SPEC)
     argv = TRAIN_FLAGS + ["--dtype", dtype, "--log_path", str(RUN_DIR / f"train_{dtype}")]
     t0 = time.perf_counter()
     reset_launch_counts()
-    out = train_main(argv + ["--device", "cuda"])
+    with writes_recorded() as writes:
+        out = train_main(argv + ["--device", "cuda"])
     torch.cuda.synchronize()
     launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
     run_s = time.perf_counter() - t0
@@ -1695,6 +1952,13 @@ def phase_train(dtype: str) -> dict:
                *out["test_l2_fulls"]]
     if len(metrics.get("train_loss_step", [])) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"train losses missing or not finite: {metrics}")
+    # the loop's checkpoints went through the writer's thread; the last one
+    # against a synchronous save of the state it holds
+    if [w["thread"] for w in writes] != ["checkpoint-writer"] * TRAIN["epochs"]:
+        raise AssertionError(f"train checkpoints were written by {writes}")
+    sync_path = save_checkpoint(str(RUN_DIR / f"train_{dtype}_sync"), out["state"])
+    async_ckpt = dict(writes=writes, tensors=same_checkpoint(
+        str(Path(out["log_dir"]) / "model" / "model.pth"), sync_path), bit_equal=True)
 
     # resume from the last checkpoint, twice, and take two steps each time
     cfg = load_config(argv)
@@ -1717,13 +1981,14 @@ def phase_train(dtype: str) -> dict:
     if not diff <= RESUME_TOL:
         raise AssertionError(f"two resumes from one checkpoint give losses {resumed}")
 
+    snapshots = check_host_snapshot(state, batch, step_fn)
     prof = train_step_profile(state, batch, step_fn)
     row = dict(dtype=dtype, batch=B, steps=steps, train_applications=train_apps,
                eval_applications=eval_apps, launches=launches, launches_by_path=by_path,
                bias_act_launches=bias_act_launches, run_s=run_s,
                loop_step_s=out["step_seconds"], train_l2_step=out["train_l2_step"],
                test_l2_steps=out["test_l2_steps"], resumed_losses=resumed,
-               resume_rel_diff=diff, **prof)
+               resume_rel_diff=diff, async_ckpt=async_ckpt, snapshots=snapshots, **prof)
     log("train", **row)
     return row
 
@@ -1762,6 +2027,7 @@ def phase_train_h(model) -> dict:
     if not np.isfinite(losses).all():
         raise AssertionError(f"DPOT-H train losses not finite: {losses}")
     row = dict(dtype="bfloat16", batch=B, steps=H_TRAIN["steps"], losses=losses,
+               snapshot_rule=snapshot_rule(state),
                launches=launches, launches_by_path=by_path, bias_act_launches=bias_act_launches,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                **train_step_profile(state, batch, step_fn, runs=5))
@@ -1872,11 +2138,13 @@ def phase_eval_l(dtype: str) -> tuple[dict, torch.nn.Module]:
     argv = L_ARCH + ["--dtype", dtype, "--resume_path", str(pth), "--test_paths", name,
                      "--batch_size", str(EVAL_BATCH), "--num_workers", "4", "--metrics",
                      "--device", "cuda"]
+    if dtype == "bfloat16":
+        argv += ["--viz_dir", str(RUN_DIR / "viz_eval_l")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), viz_recorded() as viz_calls:
         got = evaluate_main(argv)
     torch.cuda.synchronize()
     launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
@@ -1890,6 +2158,15 @@ def phase_eval_l(dtype: str) -> tuple[dict, torch.nn.Module]:
     vals = got[name]
     if not finite([*vals.values(), got["avg_step_time"]]) or not got["avg_step_time"] > 0:
         raise AssertionError(f"DPOT-L eval {dtype}: {got}")
+    viz = (check_viz(viz_calls, [name], False, f"eval_L {dtype}") if dtype == "bfloat16"
+           else None)
+    rule = None
+    if dtype == "float32":  # the snapshot rule at L: f32 weights and lamb's moments
+        from dpot_tpu_torch.train.optimizers import build_optimizer
+        from dpot_tpu_torch.train.state import TrainState
+
+        rule = snapshot_rule(TrainState.create(
+            model, build_optimizer("lamb", model.parameters(), 1e-4), seed=0))
     steps = phase_step(dtype, model=model, preset="L")
     ds = MixedTemporalDataset([name], res=128, t_in=10, t_ar=-1, n_channels=4, train=False)
     x, y, msk, _ = next(iter(DataLoader(ds, EVAL_BATCH, shuffle=False, num_workers=0)))
@@ -1906,7 +2183,8 @@ def phase_eval_l(dtype: str) -> tuple[dict, torch.nn.Module]:
 
     rels = mixer_readings(graphed_preds, "L", dtype, f"DPOT-L eval {dtype}")
     row = dict(dtype=dtype, applications=apps, launches=launches, launches_by_path=by_path,
-               bias_act_launches=bias_act_launches, results=vals,
+               bias_act_launches=bias_act_launches, results=vals, viz=viz,
+               snapshot_rule=rule,
                avg_step_time_s=got["avg_step_time"], plain_mixer_rel_l2=rels,
                plain_mixer_limit=MIXER_TOL[f"L/{dtype}"], run_s=run_s,
                build_and_write_s=build_s, peak_memory_gb=peak,
@@ -1935,10 +2213,10 @@ def phase_finetune_s() -> dict:
             "--epochs", "2", "--warmup_epochs", "40", "--batch_size", "8",
             "--noise_scale", "0", "--T_in", "10", "--dtype", "bfloat16", "--seed", "0",
             "--num_workers", "4", "--log_path", str(RUN_DIR / "finetune"),
-            "--device", "cuda"]
+            "--viz_dir", str(RUN_DIR / "viz_finetune_s"), "--device", "cuda"]
     reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), viz_recorded() as viz_calls:
         out = finetune_main(argv)
     torch.cuda.synchronize()
     launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
@@ -1951,6 +2229,7 @@ def phase_finetune_s() -> dict:
     by_path = check_paths("bfloat16", launches, "hopper")
     if sorted(out["copied"]) != FT_COPIED:
         raise AssertionError(f"finetune copied {sorted(out['copied'])}, expected {FT_COPIED}")
+    viz = check_viz(viz_calls, [name], False, "finetune_S")
     metrics = read_metrics(out["log_dir"])
     losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
     if not losses or not finite(losses + out["test_l2_fulls"] + [out["train_l2_step"]]):
@@ -1972,7 +2251,7 @@ def phase_finetune_s() -> dict:
     if not rel <= FT_EVAL_TOL:
         raise AssertionError(f"evaluate's loss_full {got[name]['loss_full']} against the loop's "
                              f"{out['test_l2_fulls'][-1]}: rel {rel} (limit {FT_EVAL_TOL})")
-    row = dict(dtype="bfloat16", copied=sorted(out["copied"]), steps=out["state"].step,
+    row = dict(dtype="bfloat16", copied=sorted(out["copied"]), steps=out["state"].step, viz=viz,
                launches=launches, train_launches_by_path=by_path, eval_launches=eval_launches,
                eval_launches_by_path=eval_by_path, bias_act_launches=bias_act_launches,
                launches_by_path={k: v + eval_by_path[k] for k, v in by_path.items()},
@@ -2456,13 +2735,89 @@ def dispatch_profile(state, batches, fn, runs: int = 10) -> dict:
     return row
 
 
+def check_loop_host_rollback(flags: list[str]) -> dict:
+    """The loop's own rollback with host snapshots, on the card: the Ti
+    dispatch run at K = DISPATCH_K with a snapshot after every dispatch and
+    the first K-step dispatch's second loss read back as NaN, once with
+    DPOT_SNAPSHOT_MODE=host and once =device. The host snapshot the loop
+    restores is a pinned non_blocking copy with the next K-step graph's
+    in-place update queued behind it: the restore gives back the state of
+    the snapshot's time (a device clone queued beside it), bit for bit, and
+    the two runs end in the same state, bit for bit."""
+    from dpot_tpu_torch.cli.train import main as train_main
+    from dpot_tpu_torch.train import loop
+
+    real_rows, real_host, real_restore = loop._fetch_rows, loop._host_snapshot, loop._restore
+    finals, result = {}, {}
+    for mode in ("host", "device"):
+        calls, latest, restores = {"n": 0}, [], []
+
+        def nan_rows(*ts):
+            calls["n"] += 1
+            rows = real_rows(*ts)
+            if calls["n"] == 1:
+                rows[0][1] = float("nan")
+            return rows
+
+        def host_snapshot(state):
+            snap = real_host(state)
+            latest[:] = [(snap, [t.detach().clone() for t in loop._rollback_tensors(state)])]
+            return snap
+
+        def restore(state, snap):
+            real_restore(state, snap)
+            if mode == "host":
+                held, ref = latest[0]
+                torch.cuda.synchronize()
+                restores.append(held is snap and all(
+                    torch.equal(a, b)
+                    for a, b in zip(loop._rollback_tensors(state), ref, strict=True)))
+            else:
+                restores.append(True)
+
+        argv = flags + ["--dtype", "bfloat16", "--steps_per_dispatch", str(DISPATCH_K),
+                        "--rollback_snapshot_steps", "1", "--log_path",
+                        str(RUN_DIR / f"dispatch_rollback_{mode}"), "--device", "cuda"]
+        old = os.environ.get("DPOT_SNAPSHOT_MODE")
+        os.environ["DPOT_SNAPSHOT_MODE"] = mode
+        reset_launch_counts()
+        try:
+            with patched(loop, "_fetch_rows", nan_rows), \
+                    patched(loop, "_host_snapshot", host_snapshot), \
+                    patched(loop, "_restore", restore), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                out = train_main(argv)
+        finally:
+            if old is None:
+                os.environ.pop("DPOT_SNAPSHOT_MODE")
+            else:
+                os.environ["DPOT_SNAPSHOT_MODE"] = old
+        torch.cuda.synchronize()
+        logs = (Path(out["log_dir"]) / "logs.txt").read_text()
+        if f"rollback snapshots on {mode.upper()}" not in logs or restores != [True] \
+                or logs.count("restoring previous good state") != 1:
+            raise AssertionError(f"dispatch_ti rollback {mode}: restores {restores}; the log "
+                                 "lacks the mode or one rollback")
+        finals[mode] = [t.detach().clone() for t in loop._rollback_tensors(out["state"])]
+        result[mode] = dict(restores=len(restores), fetches=calls["n"],
+                            dispatch_units=out["dispatch_steps"],
+                            bias_act_launches=bias_act.launches)
+    if not all(torch.equal(a, b) for a, b in zip(finals["host"], finals["device"], strict=True)):
+        raise AssertionError("dispatch_ti rollback: host mode ends in another state than "
+                             "device mode")
+    return dict(result, tensors=len(finals["host"]), restored_bit_equal=True,
+                final_bit_equal=True)
+
+
 def phase_dispatch_ti() -> dict:
     """DPOT-Ti pretrained through the train CLI at 4 steps a dispatch (one
     CUDA graph of 4 steps, tails as single eager steps) against the same
     run at 1 step a dispatch, twice (the eager path's own spread), from the
     same seed: every per-step loss, the optimizer steps and dispatch units
-    and the launches exact; then where a step's time goes at K = 1 and at
-    K = 4 on the run's state and one loader batch of 4 x 20 samples."""
+    and the launches exact; the loop's rollback from host snapshots against
+    device ones (check_loop_host_rollback); then where a step's time goes
+    at K = 1 and at K = 4 on the run's state and one loader batch of 4 x 20
+    samples."""
     from dpot_tpu_torch.cli.train import main as train_main
     from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
     from dpot_tpu_torch.data.registry import make_synthetic_spec
@@ -2523,6 +2878,8 @@ def phase_dispatch_ti() -> dict:
         raise AssertionError(f"dispatch_ti: K = {K} losses differ from K = 1 by {dev} (test "
                              f"{test_dev}); limit {limit} (eager spread {spread})")
 
+    rollback = check_loop_host_rollback(flags)
+
     ds = MixedTemporalDataset([name], res=128, t_in=10, t_ar=1, train=True)
     x, y, _, cls = next(iter(DataLoader(ds, K * B, shuffle=True, num_workers=4, seed=1)))
     stacked = {"x": torch.from_numpy(x).to("cuda", torch.bfloat16),
@@ -2535,9 +2892,11 @@ def phase_dispatch_ti() -> dict:
     graphed = dispatch_profile(state, stacked, make_train_step(scan_steps=K, **kw))
     row = dict(dtype="bfloat16", batch=B, steps=steps, dispatch_units=units,
                launches=runs["k4"]["launches"], launches_by_path=runs["k4"]["launches_by_path"],
-               bias_act_launches=sum(r["bias_act_launches"] for r in runs.values()),
+               bias_act_launches=sum(r["bias_act_launches"] for r in (
+                   *runs.values(), rollback["host"], rollback["device"])),
                loss_rel_diff=dev, test_loss_rel_diff=test_dev, eager_spread=spread,
-               limit=limit, runs=runs, profile_k1=eager, profile_k4=graphed)
+               limit=limit, runs=runs, loop_host_rollback=rollback, profile_k1=eager,
+               profile_k4=graphed)
     log("dispatch_ti", **row)
     return row
 
@@ -2907,13 +3266,15 @@ def phase_finetune3d_l() -> dict:
             raise AssertionError(f"finetune3d checkpoint: {k} does not restore")
     del restored
 
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), viz_recorded() as viz_calls:
         got = evaluate_main(["--config_from_ckpt", "true", "--resume_path", str(log_path),
                              "--test_paths", name, "--batch_size", str(FT3D["batch"]),
                              "--dtype", "bfloat16", "--num_workers", "8", "--metrics",
+                             "--viz_dir", str(RUN_DIR / "viz_finetune3d_l"),
                              "--device", "cuda"])
     torch.cuda.synchronize()
     check_no_launch(0, "finetune3d_L's evaluation")
+    viz = check_viz(viz_calls, [name], True, "finetune3d_L's evaluation")
     vals = got[name]
     rel = abs(vals["loss_full"] - out["test_l2_full"][-1]) / out["test_l2_full"][-1]
     if not finite(vals.values()) or not rel <= FT_EVAL_TOL:
@@ -2951,7 +3312,7 @@ def phase_finetune3d_l() -> dict:
     row = dict(dtype="bfloat16", inflated=len(out["copied"]), steps=steps,
                params_m=sum(q.numel() for q in state.model.parameters()) / 1e6,
                train_l2_step=out["train_l2_step"], test_l2_full=out["test_l2_full"],
-               evaluate=vals, evaluate_rel=rel, evaluate_limit=FT_EVAL_TOL,
+               evaluate=vals, evaluate_rel=rel, evaluate_limit=FT_EVAL_TOL, viz=viz,
                launches=fused_gn_afno.launches, launches_by_path=by_path,
                bias_act_launches=bias_act_launches, run_s=run_s, run_peak_memory_gb=run_peak,
                cli_step_s=out["step_seconds"], loader_s_per_batch=statistics.median(loads),
@@ -4016,7 +4377,8 @@ def rank_train(args: dict) -> dict:
                loop_step_s=out["step_seconds"], log_dir=out["log_dir"],
                history={k: out[k] for k in ("train_l2_step", "train_l2_full", "test_l2_steps",
                                             "test_l2_fulls")},
-               params={k: v.detach().cpu() for k, v in state.params_state_dict().items()})
+               params={k: v.detach().cpu() for k, v in state.params_state_dict().items()},
+               replicas=replica_check(state.model))
     if args.get("profile"):
         (b,) = corpus_batches(CDPOT_CONFIG, args["tag"], DDP_CDPOT, args["batch"],
                               torch.float32, 1, seed=1)
@@ -4026,6 +4388,35 @@ def rank_train(args: dict) -> dict:
         row["profile"] = rank_profile(lambda: step_fn(state, b), PROFILE_STEPS, args["batch"])
     row["job_s"] = dict(train=train_s, after=time.perf_counter() - t0 - train_s)
     return row
+
+
+def replica_check(model) -> dict:
+    """utils/inspection.py check_replica_consistency over the ranks (a
+    collective): the tensors it compared, bit for bit, and the error it
+    raised for a control in which rank 1's copy of the first parameter is
+    one ulp off in one element (one rank: nothing to compare)."""
+    import torch.distributed as dist
+
+    from dpot_tpu_torch.utils.inspection import check_replica_consistency
+
+    compared = check_replica_consistency(model)
+    if dist.get_world_size() < 2:
+        return dict(compared=compared, control=None)
+    p = next(model.parameters())
+    saved = p.detach().clone()
+    control = None
+    with torch.no_grad():
+        if dist.get_rank() == 1:
+            flat = p.view(-1)
+            flat[:1] = torch.nextafter(flat[:1], torch.full_like(flat[:1], math.inf))
+        try:
+            check_replica_consistency(model)
+        except AssertionError as e:
+            control = str(e)
+        p.copy_(saved)
+    if control is None:
+        raise AssertionError("check_replica_consistency missed a rank's changed copy")
+    return dict(compared=compared, control=control)
 
 
 def fsdp_l_batch(i: int) -> dict:
@@ -4459,26 +4850,37 @@ def rank_layout(job: str, device: torch.device, args: dict) -> dict:
 
 
 def ckpt_job(job: str, state, b0: dict, predict) -> dict:
-    """fsdp_lp_l after its steps: the checkpoint written over gloo (every
-    rank gathers, rank 0 writes), then its control, gathered with the
-    shards in the wrong order; the forward of the first batch and one more
-    step's loss, which one process, resuming the checkpoint, is held to
-    (`resume_checks`)."""
-    from dpot_tpu_torch.parallel import fsdp
-    from dpot_tpu_torch.train.checkpoint import save_checkpoint
+    """fsdp_lp_l after its steps: the control checkpoint, gathered with the
+    shards in the wrong order, written synchronously (its seconds); then
+    the checkpoint over gloo (every rank gathers, rank 0 hands the write to
+    an AsyncCheckpointWriter, as the loop does): rank 0's seconds inside
+    the save call against the write's own on the thread, which runs while
+    the forward of the first batch and one more step go on; one process,
+    resuming the checkpoint, is held to those (`resume_checks`)."""
+    from dpot_tpu_torch.parallel import fsdp, rank_world
+    from dpot_tpu_torch.train.checkpoint import AsyncCheckpointWriter, save_checkpoint
 
-    t0 = time.perf_counter()
     good, bad = RUN_DIR / f"{job}_ckpt", RUN_DIR / f"{job}_ckpt_control"
-    save_checkpoint(str(good), state)
+    t0 = time.perf_counter()
     real = fsdp.gather_stacked
     with patched(fsdp, "gather_stacked", lambda t, axis: real(t, axis).flip(0)):
         save_checkpoint(str(bad), state)
-    save_s = time.perf_counter() - t0
-    pred = predict(b0["x"])
-    b = layout_rows(job_batch(job, FSDP_L["steps"]), state.mesh, state.model)
-    loss = float(job_step(job)(state, b)[1]["loss_step"])
+    sync_s = time.perf_counter() - t0
+    writer = AsyncCheckpointWriter() if rank_world()[0] == 0 else None
+    with writes_recorded() as writes:
+        t0 = time.perf_counter()
+        save_checkpoint(str(good), state, writer=writer)
+        call_s = time.perf_counter() - t0
+        pred = predict(b0["x"])
+        b = layout_rows(job_batch(job, FSDP_L["steps"]), state.mesh, state.model)
+        loss = float(job_step(job)(state, b)[1]["loss_step"])
+        t0 = time.perf_counter()
+        if writer is not None:
+            writer.close()
+        wait_s = time.perf_counter() - t0
     return dict(ckpt=dict(good=str(good), bad=str(bad), pred_after=pred, next_loss=loss,
-                          save_s=save_s))
+                          save_s=sync_s, async_call_s=call_s, async_wait_s=wait_s,
+                          writes=writes))
 
 
 def serve_l_inputs() -> list[np.ndarray]:
@@ -4810,7 +5212,12 @@ def ddp_cdpot_checks(job: dict, specs, doc: dict, single: dict, one: dict, ranks
         worst[r["rank"]] = d
     nccl_rel = max(abs(nccl["history"][k] - s_hist[k]) / abs(s_hist[k])
                    for k in ("train_l2_step", "train_l2_full"))
-    log("ddp_cdpot_against_one_process", ranks=worst, nccl_rel=nccl_rel, limit=DDP_TOL)
+    # the replicas bit for bit over the 2 ranks, and the control caught
+    replicas = [r["replicas"] for r in ranks]
+    if any(not rep["compared"] or not rep["control"] for rep in replicas):
+        raise AssertionError(f"ddp_cdpot replica check: {replicas}")
+    log("ddp_cdpot_against_one_process", ranks=worst, nccl_rel=nccl_rel, limit=DDP_TOL,
+        replicas=replicas)
     for r in ranks:
         d = worst[r["rank"]]
         if list(r["params"]) != list(s_params) or not all(
@@ -5028,6 +5435,13 @@ def resume_checks(job: str, ranks: list) -> dict:
         torch.cuda.empty_cache()
         shutil.rmtree(ck[tag], ignore_errors=True)
     out["save_s"] = [r["ckpt"]["save_s"] for r in ranks]
+    # the asynchronous save: rank 0's stall in the call against the write
+    ck0 = ranks[0]["ckpt"]
+    if [w["thread"] for w in ck0["writes"]] != ["checkpoint-writer"] or any(
+            r["ckpt"]["writes"] for r in ranks[1:]):
+        raise AssertionError(f"{job}: the checkpoint writes {[r['ckpt']['writes'] for r in ranks]}")
+    out["async"] = dict(call_s=[r["ckpt"]["async_call_s"] for r in ranks],
+                        write_s=ck0["writes"][0]["write_s"], wait_s=ck0["async_wait_s"])
     return out
 
 
@@ -5421,25 +5835,35 @@ def main() -> int:
             if dtype == "bfloat16":
                 kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
                 kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
-    # bias_act lies on no main path: its count over the serve and train runs
-    bias_act_launches = sum(r["bias_act_launches"] for r in (
+    # bias_act's one caller is filtered_lrelu (the kernel phase's check); no
+    # model path calls it, which the count over the other runs shows
+    other_launches = sum(r["bias_act_launches"] for r in (
         serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, serve_h, train_h,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
         cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families, ddp, fsdp,
         *layouts.values()))
+    flr = ba["filtered_lrelu"]["rows"]
     for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
         r = ba[f"{dtype}/lrelu"]
+        path_rows = {k: v for k, v in flr.items() if k.startswith(dtype)}
+        launches = sum(v["launches"] for v in path_rows.values())
+        if not launches:
+            raise AssertionError(f"bias_act {dtype}: no launch on filtered_lrelu's path")
         kernels.append(dict(
             name=f"bias_act[{short},lrelu]", route="cuda",
             source="dpot_tpu_torch/csrc/bias_act.cu",
             replaces="dpot_tpu/ops/pallas/bias_act_kernel.py:47",
-            launches=bias_act_launches,
+            launches=launches,
             max_abs_err=max(v["max_abs_err"] for key, v in ba.items()
                             if key.startswith(dtype)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
-            phase="none: no main path calls bias_act", shapes=r["shape"],
-            check="pass", device_ms=r["device_ms"],
+            phase="filtered_lrelu (ops/upfirdn2d.py), in the kernel phase", shapes=r["shape"],
+            check="pass", device_ms=r["device_ms"], other_phases_launches=other_launches,
+            filtered_lrelu={k.split("/")[1]: {key: v[key] for key in (
+                "launches", "ms", "plain_ms", "device_ms", "bias_act_shape",
+                "bias_act_device_ms", "bias_act_bound_ms", "max_abs_err", "grad_rel_l2")}
+                for k, v in path_rows.items()},
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

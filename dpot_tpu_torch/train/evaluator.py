@@ -95,11 +95,10 @@ def evaluate(
     is not timed (on the card it also builds the kernels), so an evaluation
     with one batch per shape reports 0.0. full_metrics=True adds the
     reference Evaluator's battery (nmae, nmse, nmxe, bdmse, fmse_*),
-    averaged over batches."""
-    if viz_dir:
-        raise NotImplementedError(
-            "viz_dir (utils/viz.py) is not ported yet (ROADMAP, 'Modules to port', "
-            "item 13)")
+    averaged over batches. viz_dir: the first sample of each set's first
+    batch, prediction and target masked, drawn into that directory
+    (utils/viz.py save_eval_viz: 2D, or for a 3D set its mid-Z plane and
+    the volume), as the JAX evaluator does."""
     device = _device_of(model)
     roll = make_eval_rollout(t_bundle=t_bundle)
     results: dict = {}
@@ -131,6 +130,10 @@ def evaluate(
                 seen_shapes.add(shape_key)
             s_sum += float(out["loss_step"])
             f_sum += f_val
+            if viz_dir and n_batches == 0:
+                from dpot_tpu_torch.train.loop import write_viz
+
+                write_viz(out["pred"][0], y[0], msk[0], None, viz_dir, path)
             n_batches += 1
             if full_metrics:
                 with torch.inference_mode():

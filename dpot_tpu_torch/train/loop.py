@@ -14,8 +14,28 @@ event recorded behind its copy (data/loader.py). With
 go to the device as (K, B, ...) and run as one K-step dispatch (a CUDA
 graph on the card, train/step.py); a tail that cannot fill a dispatch runs
 as B-sized single steps, so an epoch takes the samples and optimizer steps
-of K = 1. Options of the JAX loop that are not ported raise
-NotImplementedError naming their ROADMAP item; none is ignored.
+of K = 1. Every option of the JAX loop is ported; none is ignored.
+
+Checkpoints: with `async_ckpt` (the default, as in JAX) rank 0 hands each
+write to a worker thread (train/checkpoint.py AsyncCheckpointWriter): the
+state's CPU copies, and under a sharded layout the gather over the ranks,
+are taken synchronously, `torch.save` and the rename into place run on
+the thread while the next epoch trains, and `train()` waits for the last
+write before it returns (and when it raises).
+
+Rollback snapshots (`rollback_factor`): copies of the parameters, moments
+and buffers on the device, or pinned host copies when a device copy of
+this rank's local bytes would take the state past 80 % of the card's
+memory (`snapshot_mode`, as JAX's _choose_snapshot_fn;
+DPOT_SNAPSHOT_MODE=device|host overrides it). A host snapshot is a
+non_blocking copy on the current stream, so it is ordered before the next
+step's in-place update, and a restore copies it back the same way; neither
+is ever captured in a K-step graph (the loop takes them between
+dispatches).
+
+`viz_dir`: in the final epoch, rank 0 writes the first sample of each test
+set's first batch, prediction and target masked (utils/viz.py
+save_eval_viz; a split grid gathered over 'spatial' first).
 
 Under torchrun (parallel/multihost.py) the loop runs on every rank over the
 mesh of the config's mesh_* axes (parallel/mesh.py): each rank loads the
@@ -45,6 +65,7 @@ _1, _2, ... (`unique_log_dir`), so that two runs never share one.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
@@ -52,6 +73,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 from dpot_tpu_torch.models import build_model
@@ -59,7 +81,12 @@ from dpot_tpu_torch.parallel import make_mesh, maybe_initialize, rank_world, rep
 from dpot_tpu_torch.parallel.mesh import check_mesh_data
 from dpot_tpu_torch.parallel.pipeline import shard_state_pipe
 from dpot_tpu_torch.parallel.tensor import shard_state_tp
-from dpot_tpu_torch.train.checkpoint import restore_checkpoint, restore_params, save_checkpoint
+from dpot_tpu_torch.train.checkpoint import (
+    AsyncCheckpointWriter,
+    restore_checkpoint,
+    restore_params,
+    save_checkpoint,
+)
 from dpot_tpu_torch.train.optimizers import build_optimizer
 from dpot_tpu_torch.train.schedules import build_schedule, onecycle_momentum
 from dpot_tpu_torch.train.state import TrainState
@@ -92,8 +119,7 @@ def _opt_steps_per_epoch(cfg: TrainConfig, train_dl, train_ds) -> int:
 def check_ported(cfg: TrainConfig, world: int = 1) -> None:
     """Raise for the combinations the JAX loop refuses and mesh axes whose
     product is not the world size (ValueError), for FSDP without a process
-    group (RuntimeError), and NotImplementedError for every option of the
-    JAX loop that the port does not have yet, over `world` ranks."""
+    group (RuntimeError), over `world` ranks."""
     if cfg.steps_per_dispatch > 1 and world > 1:
         raise ValueError("steps_per_dispatch > 1 is single-process only (the batches of "
                          "a multi-process run are assembled a step at a time, and a CUDA "
@@ -113,9 +139,6 @@ def check_ported(cfg: TrainConfig, world: int = 1) -> None:
         # TypeError): there is no 3D pencil FFT and no pipelined CDPOT trunk
         raise ValueError(f"{cfg.model} takes no spatial or pipeline sharding (mesh_spatial, "
                          "mesh_pipe), as in the JAX package, whose model has no such mesh")
-    if cfg.viz_dir:
-        raise NotImplementedError("viz_dir (utils/viz.py) is not ported yet (ROADMAP, "
-                                  "'Modules to port', item 13)")
     if cfg.shard_params == "fsdp" and not dist.is_initialized():
         raise RuntimeError("shard_params=fsdp needs the default process group: launch "
                            "under torchrun (one rank per card, --nproc_per_node 1 for one)")
@@ -129,16 +152,58 @@ def _rollback_tensors(state: TrainState) -> tuple[torch.Tensor, ...]:
     return (*opt.params, *opt.mu, *opt.nu, *state.model.buffers())
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (a view), any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _snapshot(state: TrainState) -> list[torch.Tensor]:
     """Device copies of the rollback's tensors."""
     return [t.detach().clone() for t in _rollback_tensors(state)]
 
 
+def _host_snapshot(state: TrainState) -> list[torch.Tensor]:
+    """Host copies of this rank's rollback tensors (local shards), pinned
+    where they come from the card, each a non_blocking copy on the
+    current stream: the next step's in-place update is queued behind it."""
+    out = []
+    for t in _rollback_tensors(state):
+        t = _local(t).detach()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        out.append(h.copy_(t, non_blocking=True))
+    return out
+
+
 @torch.no_grad()
 def _restore(state: TrainState, snap: list[torch.Tensor]) -> None:
+    """Copy a snapshot (device or host) back into the live tensors, on the
+    current stream."""
     for dst, src in zip(_rollback_tensors(state), snap):
-        dst.copy_(src)
+        _local(dst).copy_(_local(src), non_blocking=True)
     state.refresh_working_copy()
+
+
+def _memory_limit(device: torch.device) -> Optional[int]:
+    """The card's memory in bytes; None for a CPU, which has no limit (as
+    JAX's CPU backend reports none)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
+def snapshot_mode(state: TrainState) -> tuple[str, int, Optional[int]]:
+    """('device' or 'host', this rank's bytes of the rollback's tensors,
+    the card's memory or None): host when two copies of those bytes (the
+    state and its snapshot) would exceed 80 % of the card's memory, as JAX's
+    _choose_snapshot_fn rules (dpot_tpu/train/loop.py:58-85); the bytes
+    count FSDP2's and tensor parallelism's local shards.
+    DPOT_SNAPSHOT_MODE=device|host overrides the rule."""
+    per_dev = sum(_local(t).numel() * t.element_size() for t in _rollback_tensors(state))
+    limit = _memory_limit(next(state.model.parameters()).device)
+    mode = os.environ.get("DPOT_SNAPSHOT_MODE", "")
+    if mode not in ("device", "host"):
+        mode = "host" if limit and 2 * per_dev > 0.8 * limit else "device"
+    return mode, per_dev, limit
 
 
 def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -298,6 +363,25 @@ def place_state(state: TrainState, cfg: TrainConfig, device: torch.device) -> No
         state.place_over(mesh)
 
 
+def write_viz(pred: torch.Tensor, y, msk, split, viz_dir: str, name: str) -> list[str]:
+    """One sample's visuals, prediction and target masked, by rank 0: the
+    final epoch's of a test set here, each set's first in the evaluator
+    (as the JAX loop and evaluator write them); a grid split over
+    'spatial' (`split`, else None) is gathered first, by every rank of the
+    axis. Returns the files written (none on the other ranks)."""
+    from dpot_tpu_torch.parallel.mesh import gather_stacked
+    from dpot_tpu_torch.utils.viz import save_eval_viz
+
+    if split is not None:
+        pred = torch.cat(gather_stacked(pred.contiguous(), split).unbind(0), 0)
+    if rank_world()[0] != 0:
+        return []
+    msk = torch.as_tensor(np.asarray(msk))
+    return save_eval_viz((pred.cpu() * msk).float().numpy(),
+                         (torch.as_tensor(np.asarray(y)) * msk).float().numpy(),
+                         viz_dir, name)
+
+
 def spatial_rows(a, axis):
     """This rank's H rows of a host batch column (B, H, W, ...) under the
     model's 'spatial' axis (`axis`), else the column."""
@@ -325,6 +409,14 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     Under torchrun the default process group starts here (`dist_backend`,
     by default nccl on CUDA and gloo on the CPU), unless the caller started
     it; each rank's default device is cuda:LOCAL_RANK."""
+    with contextlib.ExitStack() as resources:
+        return _train(cfg, log_dir, device, init_state_dict, dist_backend, resources)
+
+
+def _train(cfg, log_dir, device, init_state_dict, dist_backend,
+           resources: contextlib.ExitStack) -> dict:
+    """train()'s run; what it opens that outlives a step (the checkpoint
+    writer) it enters into `resources`, which train() closes."""
     maybe_initialize(dist_backend, resolve_device(device))
     rank, world = rank_world()
     model, state, sched, train_dl, test_dls, train_ds = build_everything(cfg, device)
@@ -339,9 +431,13 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         # checkpoint
         log_dir = None
     writer = MetricWriter(log_dir, echo=rank == 0)
+    resources.callback(writer.close)
     ckpt_dir = os.path.join(log_dir, "model") if log_dir else None
-    if saves and cfg.async_ckpt:
-        writer.text("async_ckpt: checkpoints are saved synchronously in this port")
+    # rank 0 writes on the writer's thread; the gather of a sharded state
+    # stays synchronous. Closing it waits for the last write.
+    ckpt_writer = None
+    if ckpt_dir and cfg.async_ckpt:
+        ckpt_writer = resources.enter_context(AsyncCheckpointWriter())
 
     steps_per_epoch = _opt_steps_per_epoch(cfg, train_dl, train_ds)
     start_epoch = 0
@@ -408,7 +504,16 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
     it = start_epoch * steps_per_epoch
     loss_ema = None
     rollback_on = cfg.rollback_factor > 0 and cfg.rollback_snapshot_steps >= 0
-    last_good = _snapshot(state) if rollback_on else None
+    take_snapshot = _snapshot
+    if rollback_on:
+        mode, per_dev, limit = snapshot_mode(state)
+        take_snapshot = _host_snapshot if mode == "host" else _snapshot
+        mem = "no memory limit" if limit is None else f"80% of {limit / 2**30:.1f} GiB HBM"
+        writer.text(f"rollback snapshots on {mode.upper()}: params+opt are "
+                    f"{per_dev / 2**30:.1f} GiB/device ({per_dev} bytes); {mem}"
+                    + (" (DPOT_SNAPSHOT_MODE)" if os.environ.get("DPOT_SNAPSHOT_MODE")
+                       in ("device", "host") else ""))
+    last_good = take_snapshot(state) if rollback_on else None
     history: dict = {}
     step_seconds: list[float] = []
     dispatch_steps: list[int] = []
@@ -502,7 +607,7 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                     != prev_it // cfg.rollback_snapshot_steps):
                 # mid-epoch snapshot, taken after the drain so that a
                 # just-detected explosion snapshots the restored state
-                last_good = _snapshot(state)
+                last_good = take_snapshot(state)
             pending = (aux, n // k_unit, steps_per_sample, it)
             dt = time.perf_counter() - t_1
             t_train += dt
@@ -525,6 +630,9 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
                 t_y = y.shape[-2]
                 out = roll_fn(model, {k: _to_device(spatial_rows(v, split), device)
                                       for k, v in (("x", x), ("y", y), ("msk", msk))})
+                if cfg.viz_dir and ep == cfg.epochs - 1 and n_seen == 0:
+                    write_viz(out["pred"][0], y[0], msk[0], split, cfg.viz_dir,
+                              cfg.test_paths[di])
                 sums = torch.stack([out["loss_step"], out["loss_full"]])
                 if sharded(n):
                     dist.all_reduce(sums, group=state.data_group)
@@ -554,9 +662,9 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
             target = ckpt_dir
             if ckpt_dir and cfg.ckpt_bucket_epochs > 0:
                 target = f"{ckpt_dir}_{ep // cfg.ckpt_bucket_epochs}"
-            save_checkpoint(target, state, config=vars(cfg))
+            save_checkpoint(target, state, config=vars(cfg), writer=ckpt_writer)
         if rollback_on and cfg.rollback_snapshot_steps == 0:
-            last_good = _snapshot(state)
+            last_good = take_snapshot(state)
 
         t_test = time.perf_counter() - t_1
         tls = train_l2_step / max(train_seen, 1) / steps_per_sample
@@ -575,6 +683,5 @@ def train(cfg: TrainConfig, log_dir: Optional[str] = None,
         history = {"epoch": ep, "train_l2_step": tls, "train_l2_full": tlf,
                    "test_l2_steps": test_l2_steps, "test_l2_fulls": test_l2_fulls}
 
-    writer.close()
     return {"state": state, "model": model, "log_dir": log_dir,
             "step_seconds": step_seconds, "dispatch_steps": dispatch_steps, **history}

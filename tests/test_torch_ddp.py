@@ -119,6 +119,20 @@ def test_one_process_checkpoint_resumes_on_two_ranks(runs):
         assert_same_run(r["runs"][1], s2)
 
 
+def test_replicas_are_bit_equal_over_the_ranks(runs):
+    """check_replica_consistency over the 2 DDP ranks compares every
+    parameter and buffer and finds them equal; a one-ulp change in rank 1's
+    copy of one parameter raises on both ranks, naming it."""
+    _, (s1, _), ranks = runs
+    model = s1["state"].model
+    n = len(list(model.parameters())) + len(list(model.buffers()))
+    first = next(iter(model.named_parameters()))[0]
+    for r in ranks:
+        for run in r["runs"]:
+            assert run["replicas"]["compared"] == n
+            assert run["replicas"]["control"] == f"replica mismatch at {first}"
+
+
 def test_tail_goes_whole_to_every_shard(monkeypatch):
     """An uneven batch (the 5-sample tail) goes whole to both shards, an
     even one splits in halves; shard_rows counts the fallback."""
@@ -167,10 +181,11 @@ def test_refused_combinations():
     """What the JAX loop asserts against: K-step dispatches over several
     ranks, or with spatial sharding, pipe with spatial; a mesh_data that is
     not the world size; DPOT3D and CDPOT over 'spatial' or 'pipe' (JAX's
-    models take no such mesh); and the port's own refusals: viz_dir, FSDP
-    or a placement without a process group, an unknown shard_params. The
-    layouts combined, fsdp over another axis and the other families over
-    the model axes are accepted, as the JAX package runs them."""
+    models take no such mesh); and the port's own refusals: FSDP or a
+    placement without a process group, an unknown shard_params. The
+    layouts combined, fsdp over another axis, the other families over the
+    model axes and viz_dir over ranks are accepted, as the JAX package
+    runs them."""
     cfg = dict(model="DPOT", train_paths=[NAME])
     with pytest.raises(ValueError, match="single-process only"):
         loop.check_ported(TrainConfig(steps_per_dispatch=2, **cfg), world=2)
@@ -190,8 +205,7 @@ def test_refused_combinations():
         for axis in ("mesh_spatial", "mesh_pipe"):
             with pytest.raises(ValueError, match="as in the JAX package"):
                 loop.check_ported(TrainConfig(**{**cfg, "model": family}, **{axis: 2}), world=2)
-    with pytest.raises(NotImplementedError, match="viz_dir"):
-        loop.check_ported(TrainConfig(viz_dir="viz", **cfg), world=2)
+    loop.check_ported(TrainConfig(viz_dir="viz", **cfg), world=2)
     with pytest.raises(ValueError, match="mesh_data=3"):
         check_mesh_data(3, 2)
     assert check_mesh_data(None, 2) == check_mesh_data(2, 2) == 2

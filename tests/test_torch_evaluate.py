@@ -243,10 +243,16 @@ def test_cli_on_the_cpu(pth, flags, capsys):
 
 
 def test_cli_rejects_what_is_not_ported(pth, tmp_path):
+    """--viz_dir, the last option ported, writes the JAX evaluator's files
+    (nothing where matplotlib is absent); the sweep refuses a 3D set, and
+    the CLI a mixture of 2D and 3D sets or no checkpoint."""
     _, path = pth
     base = CLI + ["--resume_path", path, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(base + ["--viz_dir", str(tmp_path)])
+    main(base + ["--viz_dir", str(tmp_path / "viz")])
+    from dpot_tpu_torch.utils.viz import _plt
+
+    want = [f"{EVAL_SET}_rollout.gif", f"{EVAL_SET}_rollout.png"] if _plt() else []
+    assert sorted(p.name for p in (tmp_path / "viz").iterdir()) == want
     registry.make_synthetic_spec("synthetic_torch_eval3d", in_size=(8, 8, 8), n_channels=2)
     with pytest.raises(SystemExit):
         main(base + ["--test_paths", "synthetic_torch_eval3d", "--varyres"])

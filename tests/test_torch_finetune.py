@@ -27,15 +27,38 @@ SMALL = dict(img_size=16, patch_size=4, in_timesteps=4, embed_dim=16, n_blocks=2
              modes=4, n_cls=1)
 
 
-def state_dict(depth, channels, seed, **kw):
-    m = build_model("DPOT", device="cpu", seed=seed, depth=depth, in_channels=channels,
-                    **{**SMALL, **kw})
+FAMILY_SMALL = {
+    "DPOT": SMALL,
+    "CDPOT": dict(img_size=16, patch_size=4, in_timesteps=4, embed_dim=16, n_blocks=2,
+                  modes=4, out_layer_dim=8, n_cls=1),
+    "FNO": dict(img_size=16, patch_size=1, in_timesteps=4, out_timesteps=1, embed_dim=8,
+                modes=4, n_cls=1),
+    "UNet": dict(img_size=16, in_timesteps=3, out_timesteps=1, out_layer_dim=4, n_cls=1),
+}
+
+
+def state_dict(depth, channels, seed, family="DPOT", **kw):
+    if family == "UNet":
+        kw = dict(kw, out_channels=channels)
+    else:
+        kw = dict(kw, depth=depth)
+    m = build_model(family, device="cpu", seed=seed, in_channels=channels,
+                    **{**FAMILY_SMALL[family], **kw})
     return m.state_dict()
 
 
-def jax_params(sd, depth):
-    return dpot_params_from_torch({k: v.numpy() for k, v in sd.items()}, depth=depth,
-                                  normalize="scale_feats_mu.weight" in sd)
+def jax_params(sd, depth, family="DPOT"):
+    from dpot_tpu.train import interop
+
+    sd = {k: v.numpy() for k, v in sd.items()}
+    normalize = "scale_feats_mu.weight" in sd
+    if family == "CDPOT":
+        return interop.cdpot_params_from_torch(sd, depth=depth, normalize=normalize)
+    if family == "FNO":
+        return interop.fno2d_params_from_torch(sd, n_layers=depth)
+    if family == "UNet":
+        return interop.unet_params_from_torch(sd)
+    return dpot_params_from_torch(sd, depth=depth, normalize=normalize)
 
 
 PAIRS = {
@@ -44,20 +67,29 @@ PAIRS = {
     "depth": ((11, 4, {}), (2, 4, {})),
     "cls_head": ((3, 4, dict(n_cls=1)), (3, 4, dict(n_cls=12))),
     "normalize": ((2, 3, dict(normalize=True)), (2, 4, dict(normalize=True))),
+    # the other families (their own heads and layouts)
+    "cdpot": ((2, 3, dict(family="CDPOT")), (2, 3, dict(family="CDPOT"))),
+    "cdpot_channels": ((2, 3, dict(family="CDPOT")), (3, 4, dict(family="CDPOT"))),
+    "fno": ((2, 3, dict(family="FNO")), (2, 3, dict(family="FNO", n_cls=4))),
+    "unet": ((0, 2, dict(family="UNet")), (0, 2, dict(family="UNet"))),
 }
 
 
 @pytest.mark.parametrize("components", [("blocks", "pos", "time_agg"), ("all",), "all",
-                                        ("out", "cls_head", "scale_feats", "patch_embed")])
+                                        ("out", "cls_head", "scale_feats", "patch_embed"),
+                                        ("out",)])
 @pytest.mark.parametrize("pair", list(PAIRS))
 def test_load_components_matches_jax(pair, components):
     """The units copied, under their JAX names, and the merged weights equal
-    JAX's for the same pair; depth 11 puts blocks.1. beside blocks.10."""
+    JAX's for the same pair; depth 11 puts blocks.1. beside blocks.10.
+    CDPOT's head is its own: out_layer.1 and .3 are JAX's out_conv1 and
+    out_conv2, and its CNO block (out_layer.0, JAX's out_cno) no unit."""
     (td, tc, tkw), (sd_, sc, skw) = PAIRS[pair]
+    family = tkw.get("family", "DPOT")
     target, source = state_dict(td, tc, 1, **tkw), state_dict(sd_, sc, 2, **skw)
     merged, copied = load_components(target, source, components)
-    jmerged, jcopied = jax_load_components(jax_params(target, td), jax_params(source, sd_),
-                                           components)
+    jmerged, jcopied = jax_load_components(jax_params(target, td, family),
+                                           jax_params(source, sd_, family), components)
     assert sorted(copied) == sorted(jcopied) and len(copied) == len(set(copied))
     want = state_dict_from_jax(jmerged)
     assert set(merged) == set(want) == set(target)
@@ -66,6 +98,12 @@ def test_load_components_matches_jax(pair, components):
     if pair == "channels" and components in ("all", ("all",)):
         assert "blocks_10" in copied and "blocks_1" in copied
         assert "patch_embed" not in copied and "out_conv2" not in copied
+    if pair == "cdpot" and components != ("blocks", "pos", "time_agg"):
+        assert {"out_conv1", "out_conv2"} <= set(copied) and "out_deconv" not in copied
+        assert all(torch.equal(merged[k], target[k]) for k in target
+                   if k.startswith("out_layer.0."))
+    if family == "UNet":
+        assert copied == []
 
 
 def test_load_components_leaves_the_target_alone():

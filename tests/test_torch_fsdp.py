@@ -97,6 +97,16 @@ def test_every_parameter_and_moment_is_sharded_and_the_weight_cache_is_off(runs)
             assert got["cache_blocks"] == [False]
 
 
+def test_replica_check_skips_fsdp_shards(runs):
+    """Every parameter is an FSDP2 shard, which check_replica_consistency
+    skips (as JAX skips shards of different indices): nothing compared,
+    no mismatch raised, no replicated parameter for the control."""
+    _, ranks, _, _ = runs
+    for r in ranks:
+        for run in r["runs"]:
+            assert run["replicas"] == {"compared": 0, "control": None}
+
+
 def test_sharded_checkpoint_resumes_in_one_process(runs):
     """F1, written by rank 0 from the gathered shards, holds the module's
     reference-layout keys and resumes in one process to S2's epoch 2."""

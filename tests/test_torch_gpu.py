@@ -544,6 +544,33 @@ def test_bias_act_kernel_matches_plain_version(cuda, dtype, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_filtered_lrelu_launches_bias_act_once(cuda, dtype):
+    """filtered_lrelu (ops/upfirdn2d.py) on the card: one bias_act kernel
+    launch a call, its output against the same composition through
+    bias_act_ref within bias_act's limits carried through the down filter
+    (a 12-tap filter of sum 1: rtol |.| + atol, plus a bf16 rounding)."""
+    from dpot_tpu_torch.ops.upfirdn2d import filtered_lrelu, setup_filter, upfirdn2d
+
+    gen = torch.Generator(cuda).manual_seed(4)
+    x = (2 * torch.randn(2, 32, 32, 64, device=cuda, generator=gen)).to(dtype)
+    b = torch.randn(64, device=cuda, generator=gen).to(dtype)
+    f = setup_filter(np.hanning(14)[1:-1], device=cuda)
+    pad = (12, 10, 12, 10)
+    before = bias_act.launches
+    got = filtered_lrelu(x, f, f, b, up=2, down=2, padding=pad)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + 1 and got.shape == x.shape
+    mid = bias_act_op.bias_act_ref(
+        upfirdn2d(x + b, f, up=2, padding=pad, gain=4), None, -1, "lrelu", alpha=0.2,
+        gain=2 ** 0.5)
+    want = upfirdn2d(mid, f, down=2)
+    rtol, atol = (1e-6, 1e-6) if dtype == torch.float32 else (2.0**-6 + 2.0**-8, 2.0**-9)
+    lim = rtol * upfirdn2d(mid.float().abs(), f.abs(), down=2) + atol
+    assert ((got.float() - want.float()).abs() <= lim).all()
+
+
+@pytest.mark.gpu
 def test_bias_act_gradients_on_the_card(cuda):
     """First and second order through the Function on CUDA tensors, against
     autograd through the plain version (f32, 1e-5 rel-L2)."""

@@ -1,8 +1,9 @@
 """The port stands alone: nothing in dpot_tpu_torch/ or chip_smoke.py imports
 JAX, its libraries (ml_dtypes among them) or the JAX package, even the
 JAX package's numpy-only modules and its native library (the port keeps
-its own copies); the port imports with jax blocked; and h5py is imported
-only inside the functions that read or write HDF5."""
+its own copies); the port imports with jax blocked; h5py is imported
+only inside the functions that read or write HDF5, and matplotlib only
+inside the functions that draw (the card's host may lack it)."""
 
 import ast
 import os
@@ -41,7 +42,7 @@ def test_no_jax_import(path):
 # the port's own copies of the JAX package's modules that import no JAX
 OWN_COPIES = ["native/build.py", "native/preprocess.py", "native/preprocess.cc",
               "utils/normalizer.py", "data/generation.py", "data/converters.py",
-              "data/raw_hdf5.py", "data/resize.py", "data/registry.py"]
+              "data/raw_hdf5.py", "data/resize.py", "data/registry.py", "utils/viz.py"]
 
 
 @pytest.mark.parametrize("rel", OWN_COPIES)
@@ -74,6 +75,33 @@ def module_level_imports(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_h5py_is_imported_only_inside_functions(path):
     assert "h5py" not in module_level_imports(path)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_matplotlib_is_imported_only_inside_functions(path):
+    assert "matplotlib" not in module_level_imports(path)
+
+
+def test_viz_imports_and_skips_without_matplotlib(tmp_path):
+    """In a fresh interpreter where `import matplotlib` fails, the viz
+    module, the loop and the evaluator import, and save_eval_viz writes
+    nothing and returns []."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import numpy as np\n"
+        "import dpot_tpu_torch.train.loop, dpot_tpu_torch.train.evaluator\n"
+        "from dpot_tpu_torch.utils import viz\n"
+        "assert viz._plt() is None\n"
+        f"out = viz.save_eval_viz(np.zeros((4, 4, 2, 1)), np.zeros((4, 4, 2, 1)), {str(tmp_path)!r}, 'a')\n"
+        "assert out == [], out\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_guard_sees_every_form_of_import(tmp_path):

@@ -108,12 +108,46 @@ def block_cache_marks(model):
             h.remove()
 
 
+def replica_check(state) -> dict:
+    """check_replica_consistency (utils/inspection.py) over the ranks of the
+    state's 'data' axis, which hold the same tensors (a pipeline's or a
+    tensor-parallel layout's other ranks do not): the count of tensors it
+    compared, and the error it raised for a control in which the axis's
+    second rank's copy of the first replicated parameter is one ulp off in
+    one element (None where nothing is compared: a 'data' axis of one
+    rank, or no replicated parameter)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from dpot_tpu_torch.utils.inspection import check_replica_consistency
+
+    if state.world < 2:
+        return {"compared": 0, "control": None}
+    model, group = state.model, state.data_group
+    compared = check_replica_consistency(model, group=group)
+    p = next((p for p in model.parameters() if not isinstance(p, DTensor)), None)
+    control = None
+    if compared and p is not None:
+        saved = p.detach().clone()
+        with torch.no_grad():
+            if dist.get_rank(group) == 1:
+                flat = p.view(-1)
+                flat[:1] = torch.nextafter(flat[:1], torch.full_like(flat[:1], float("inf")))
+            try:
+                check_replica_consistency(model, group=group)
+            except AssertionError as e:
+                control = str(e)
+            p.copy_(saved)
+    return {"compared": compared, "control": control}
+
+
 def case_train(args: dict) -> dict:
     """cli.train on this rank, once per argv of args['runs']: for each, its
     history, its final weights (gathered), its log directory, FSDP's
     unsharded tensors and, from one more forward, whether each AFNO module
-    read its weights with the bf16 cache on, and the count of replicated
-    batches."""
+    read its weights with the bf16 cache on, the count of replicated
+    batches and the replica check (`replica_check`)."""
     import torch
 
     from dpot_tpu_torch.cli.train import main
@@ -142,6 +176,7 @@ def case_train(args: dict) -> dict:
             "fallbacks": shard_rows.fallbacks,
             "ddp": type(state.train_module).__name__,
             "launches": dict(fused_gn_afno.launches_by_path),
+            "replicas": replica_check(state),
         })
     return {"runs": runs}
 
