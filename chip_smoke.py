@@ -20,8 +20,9 @@ Phases, each printing its results as JSON lines:
        256-channel blocks (afno_hopper_wide.cu) in the same way; at the
        DPOT-L block shapes (C 1536, 16 AFNO blocks of 96 channels, groups
        of 192) bf16 on afno_hopper_l.cu and f32 on afno_hopper_f32_l.cu in
-       the same way, bf16 also at B = 16 (L's pretraining batch); the five
-       shape gates against their mirrors in the CUDA sources;
+       the same way, bf16 also at B = 16 (L's pretraining batch); f32 at
+       the DPOT-H block shapes on afno_hopper_f32_wide.cu in the same way;
+       the six shape gates against their mirrors in the CUDA sources;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -76,6 +77,13 @@ Phases, each printing its results as JSON lines:
      steps (noise 5e-4) at B = 64 through make_train_step: finite losses,
      launches = depth x steps on the same kernel, and where a step's time
      goes as in phase 5; the rollback snapshots' mode and bytes at H;
+     then DPOT-H in f32, the serve CLI's default compute type (a second
+     model, drawn after the bf16 one is freed): served as in bf16 with
+     every AFNO weight of the served model redrawn from N(0,
+     MIXER_SCALE^2), launches = depth x model applications, all on
+     afno_hopper_f32_wide.cu, every answer within MIXER_TOL["H/float32"]
+     of the same rollout with the plain mixer and two faulty plain mixers
+     above it; one model application profiled at B = 1 and 8;
   8. eval_L: DPOT-L (preset L: embed 1536, depth 24, 16 AFNO blocks of 96
      channels, GroupNorm groups of 192; seeded weights written as a
      reference-layout .pth) evaluated through `python -m
@@ -313,6 +321,7 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno_vjp,
     hopper_f32_l_supported,
     hopper_f32_supported,
+    hopper_f32_wide_supported,
     hopper_l_supported,
     hopper_supported,
     hopper_wide_supported,
@@ -388,9 +397,11 @@ L_PATH = {"bfloat16": "hopper_l", "float32": "hopper_f32_l"}
 # mixers computed wrong on purpose, must land above it. Each limit lies
 # between the readings on the card (NVIDIA H100 80GB HBM3, 700 W): L bf16
 # kernel 4.7e-3, faults 3.7e-2 and up; L f32 kernel 8.7e-7, faults 1.9e-3
-# and up; the Ti sweep at 41 px kernel 1.1e-3, faults 3.5e-3 and up
+# and up; the Ti sweep at 41 px kernel 1.1e-3, faults 3.5e-3 and up; the
+# served f32 H (phase_serve_h) kernel 2.3e-6, faults 1.5e-2 and up
 MIXER_SCALE = 0.05
-MIXER_TOL = {"L/bfloat16": 1.3e-2, "L/float32": 2e-4, "Ti/bfloat16": 2e-3}
+MIXER_TOL = {"L/bfloat16": 1.3e-2, "L/float32": 2e-4, "Ti/bfloat16": 2e-3,
+             "H/float32": 2e-4}
 MIXER_FAULTS = ("block_groups", "conj_w2", "drop_mode")
 # bf16 rounding through the model moves the predictions by about as much as
 # the kernel's reading, whatever changes upstream: a fault smaller than that
@@ -412,6 +423,12 @@ FT_EVAL_TOL = 1e-3
 # fused_gn_afno's plain version: a few bf16 roundings per layer that fall
 # the other way, as card against CPU for Ti
 H_SERVE_TOL = 3e-2
+# the kernel that serves DPOT-H's mixer in each compute type
+H_PATH = {"bfloat16": "hopper_wide", "float32": "hopper_f32_wide"}
+# the faulty plain mixers the f32 DPOT-H serve check must catch: H's
+# GroupNorm groups are its AFNO blocks (8 of 256 channels), so
+# "block_groups" computes what the plain mixer computes there
+H_F32_CAUGHT = ("conj_w2", "drop_mode")
 # DPOT-H train steps: adam with noise 5e-4 (configs/pretrain_tiny.yaml's
 # optimizer). A step peaked at 29.0 GB at B = 16, 46.9 GB at B = 64 and
 # 79.1 GB at B = 128 on the 80 GiB (85.9 GB) card: 64 is the largest power
@@ -791,7 +808,8 @@ GENERAL_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
                    "mode_out_kernel", "synthesis_kernel")
 HOPPER_KERNELS = ("spectral_kernel", "spectral_wide_kernel", "spectral_l_kernel",
                   "tma_synthesis_kernel")
-HOPPER_F32_KERNELS = ("spectral_f32_kernel", "spectral_f32_l_kernel", "synthesis_f32_kernel")
+HOPPER_F32_KERNELS = ("spectral_f32_kernel", "spectral_f32_l_kernel",
+                      "spectral_f32_wide_kernel", "synthesis_f32_kernel")
 SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS + HOPPER_F32_KERNELS
 
 
@@ -933,7 +951,7 @@ def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int,
 # the kernels that read the bf16 weight copies, and those whose products are
 # 3xTF32 on the tensor cores
 BF16_WEIGHT_PATHS = ("hopper", "hopper_wide", "hopper_l")
-TF32_PATHS = ("hopper_f32", "hopper_f32_l")
+TF32_PATHS = ("hopper_f32", "hopper_f32_l", "hopper_f32_wide")
 
 
 def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str,
@@ -994,7 +1012,7 @@ def check_afno(B, dtype, weight_scale, seed, path, act="gelu", geo=TI) -> dict:
 
 def check_gate_mirror() -> int:
     """Each Hopper kernel's gate in afno_fused.py (hopper_supported, ...,
-    hopper_f32_l_supported) against its mirror in the CUDA source
+    hopper_f32_wide_supported) against its mirror in the CUDA source
     (dpot_afno_hopper_supported, ...), on the presets and on shapes any of
     them may refuse."""
     gates = []
@@ -1002,7 +1020,9 @@ def check_gate_mirror() -> int:
                              ("afno_hopper_wide", hopper_wide_supported, torch.bfloat16),
                              ("afno_hopper_l", hopper_l_supported, torch.bfloat16),
                              ("afno_hopper_f32", hopper_f32_supported, torch.float32),
-                             ("afno_hopper_f32_l", hopper_f32_l_supported, torch.float32)):
+                             ("afno_hopper_f32_l", hopper_f32_l_supported, torch.float32),
+                             ("afno_hopper_f32_wide", hopper_f32_wide_supported,
+                              torch.float32)):
         fn = getattr(build.load_library(lib), f"dpot_{lib}_supported")
         fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
@@ -1038,6 +1058,12 @@ def check_gate_mirror() -> int:
                (2, 512, 384, 144, 4, 4), (2, 1024, 384, 144, 4, 4), (2, 96, 384, 40, 4, 4),
                (65535, 256, 1536, 144, 16, 8), (65536, 256, 1536, 144, 16, 8),
                (0, 256, 1536, 144, 16, 8)]
+    # the f32 wide gate's: a TP rank's share of H (C 1024, 4 blocks), latents
+    # of 64 and 4096 px and of 96 px, ragged K
+    shapes += [(1, 256, 1024, 144, 4, g) for g in (2, 4, 8)]
+    shapes += [(2, 64, 2048, 16, 8, 8), (2, 4096, 512, 144, 2, 2), (2, 1024, 1024, 144, 4, 4),
+               (2, 96, 2048, 40, 8, 8), (2, 256, 2048, 143, 8, 8), (2, 256, 2048, 2, 8, 8),
+               (2, 8192, 2048, 144, 8, 8), (0, 256, 1024, 144, 4, 4)]
     for fn, gate, dtype in gates:
         for sh in shapes:
             if bool(fn(*sh)) != gate(*sh, dtype):
@@ -1063,7 +1089,8 @@ KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
                 ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")),
                 ("L/", DPOT_L, torch.bfloat16, ("general", "hopper_l")),
                 ("LTP/", DPOT_L_TP, torch.bfloat16, ("general", "hopper_l")),
-                ("L/", DPOT_L, torch.float32, ("general", "hopper_f32_l")))
+                ("L/", DPOT_L, torch.float32, ("general", "hopper_f32_l")),
+                ("H/", DPOT_H, torch.float32, ("general", "hopper_f32_wide")))
 KERNEL_BATCHES = (1, 8, TRAIN["batch"])
 # the batches of each case: L in bf16 also at the batch of its pretraining
 CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"]),
@@ -1072,8 +1099,8 @@ CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"]),
 
 def phase_kernels() -> dict:
     """fused_gn_afno against its plain version on each kernel that serves a
-    compute type at the Ti shapes, in bf16 at the DPOT-S and DPOT-H shapes
-    and in both types at the DPOT-L shapes, each beside the five-launch
+    compute type at the Ti, DPOT-H and DPOT-L shapes and in bf16 at the
+    DPOT-S shapes, each beside the five-launch
     kernel, and timed; returns per-config numbers."""
     log("kernel", name="fused_gn_afno", gate_mirror_shapes=check_gate_mirror())
     results = {}
@@ -1378,13 +1405,14 @@ def check_paths(dtype: str, launches: int, want: str | None = None) -> dict:
 def send_requests(port: int, batches, response_dtype: str, seed: int = 7) -> list[dict]:
     """Rollout requests of each batch size at steps 1 and 4, each sent as an
     f32 and as a bf16 .npy body; every answer checked for shape, dtype and
-    finite values. Returns the requests with their answers."""
+    finite values. Returns the requests with their answers and the body's
+    type."""
     rng = np.random.default_rng(seed)
     sent = []
     for B in batches:
         for steps in (1, 4):
             x = rng.standard_normal((B, 128, 128, 10, 4)).astype(np.float32)
-            for body in (npy(x), bf16_npy(x)):
+            for kind, body in (("float32", npy(x)), ("bfloat16", bf16_npy(x))):
                 pred, ms = post_rollout(port, body, steps)
                 if pred.shape != (B, 128, 128, steps, 4):
                     raise AssertionError(f"served shape {pred.shape}")
@@ -1392,7 +1420,7 @@ def send_requests(port: int, batches, response_dtype: str, seed: int = 7) -> lis
                     raise AssertionError(f"served dtype {pred.dtype}")
                 if not np.isfinite(pred).all():
                     raise AssertionError("served rollout has non-finite values")
-                sent.append(dict(x=x, steps=steps, pred=pred, ms=ms))
+                sent.append(dict(x=x, body=kind, steps=steps, pred=pred, ms=ms))
     return sent
 
 
@@ -1539,47 +1567,76 @@ def mixer_readings(preds, model: str, dtype: str, what: str) -> dict:
     return {name: r["rel_l2"] for name, r in readings.items()}
 
 
-def phase_serve_h() -> tuple[dict, torch.nn.Module]:
-    """Serve DPOT-H in bf16 through the CLI: every launch on the kernel for
-    AFNO blocks of 256 channels, depth x model applications of them, and
-    every answer against the same rollout on the card in which
-    fused_gn_afno runs its plain version. Returns the row and the served
-    model, which the H step and train phases reuse (1.03 B parameters,
-    drawn once)."""
+def phase_serve_h(dtype: str = "bfloat16") -> tuple[dict, torch.nn.Module]:
+    """Serve DPOT-H through the CLI, in bf16 or in f32 (the CLI's default
+    compute type: no --dtype flag): every launch on the kernel for AFNO
+    blocks of 256 channels of that type (H_PATH), depth x model
+    applications of them, and every answer against the same rollout on the
+    card in which fused_gn_afno runs its plain version. In bf16 the limit
+    is H_SERVE_TOL. In f32 every AFNO weight of the served model is first
+    redrawn from N(0, MIXER_SCALE^2), as eval_L's copy is (at the init's
+    scale the mixer adds almost nothing to the normed input, and a wrong
+    one would pass); the answers must lie within MIXER_TOL["H/float32"]
+    and the same rollout of one request with each faulty plain mixer of
+    H_F32_CAUGHT above it. Returns the row and the served model, which the
+    H step (and, in bf16, train) phases reuse (1.03 B parameters, drawn
+    once)."""
     from dpot_tpu_torch.cli.serve import main as serve_main
 
+    path = H_PATH[dtype]
     reset_launch_counts()
     httpd, rs = serve_main(
-        H_FLAGS + ["--dtype", "bfloat16", "--response_dtype", "float32", "--device", "cuda"],
+        H_FLAGS + (["--dtype", dtype] if dtype == "bfloat16" else [])
+        + ["--response_dtype", "float32", "--device", "cuda"],
         wait=False,
     )
     try:
+        if dtype == "float32":
+            # the served graphs read the weights where they lie: redrawn in place
+            draw_mixer_weights(rs.model, seed=17)
         sent = send_requests(httpd.server_address[1], (1, 2), "float32", seed=8)
         torch.cuda.synchronize()
         launches, bias_act_launches = fused_gn_afno.launches, bias_act.launches
         applications = warmup_applications(rs) + sum(r["steps"] for r in sent)
         if launches != DPOT_H["depth"] * applications:
             raise AssertionError(
-                f"DPOT-H: fused_gn_afno launched {launches} times, expected depth x "
+                f"DPOT-H {dtype}: fused_gn_afno launched {launches} times, expected depth x "
                 f"applications = {DPOT_H['depth'] * applications}")
-        by_path = check_paths("bfloat16", launches, "hopper_wide")
+        by_path = check_paths(dtype, launches, path)
         wire = torch.bfloat16 if rs.wire_dtype == "bfloat16" else torch.float32
     finally:
         rs.stop(drain=True)
         httpd.shutdown()
         httpd.server_close()
+
+    def rollout(r):
+        # the request as the server read it: a bf16 body is x rounded to bf16
+        x = r["x"] if r["body"] == "float32" else (
+            torch.from_numpy(r["x"]).to(torch.bfloat16).float().numpy())
+        return direct_rollout(rs.model, x, r["steps"], wire).cpu()
+
+    before = fused_gn_afno.launches
     with plain_mixer():
-        rels = [rel_l2(torch.from_numpy(r["pred"]),
-                       direct_rollout(rs.model, r["x"], r["steps"], wire).cpu())
-                for r in sent]
-    if not max(rels) <= H_SERVE_TOL:
-        raise AssertionError(f"DPOT-H answers differ from the plain mixer's rollout: rel_l2 "
-                             f"{rels} (limit {H_SERVE_TOL})")
-    out = dict(dtype="bfloat16", requests=len(sent), applications=applications,
+        plain = [rollout(r) for r in sent]
+    rels = [rel_l2(torch.from_numpy(r["pred"]), p) for r, p in zip(sent, plain)]
+    limit = H_SERVE_TOL if dtype == "bfloat16" else MIXER_TOL["H/float32"]
+    controls = {}
+    if dtype == "float32":
+        i = next(i for i, r in enumerate(sent) if r["x"].shape[0] == 2 and r["steps"] == 4)
+        for fault in H_F32_CAUGHT:
+            with plain_mixer(faulty_mixer(fault)):
+                controls[fault] = rel_l2(rollout(sent[i]), plain[i])
+    check_no_launch(before, f"DPOT-H {dtype} with the plain mixers")
+    if not max(rels) <= limit < min(controls.values(), default=math.inf):
+        raise AssertionError(
+            f"DPOT-H {dtype} answers against the plain mixer's rollout: rel_l2 {rels}, the "
+            f"faulty mixers' {controls}: the limit {limit} must lie between")
+    out = dict(dtype=dtype, requests=len(sent), applications=applications,
                launches=launches, launches_by_path=by_path, bias_act_launches=bias_act_launches,
                client_p50_ms=statistics.median(r["ms"] for r in sent),
                client_ms=[r["ms"] for r in sent], plain_mixer_rel_l2=rels,
-               plain_mixer_limit=H_SERVE_TOL, params_m=rs.n_params / 1e6)
+               plain_mixer_limit=limit, faulty_mixer_rel_l2=controls,
+               params_m=rs.n_params / 1e6)
     log("serve_h", **out)
     return out, rs.model
 
@@ -5726,6 +5783,12 @@ def main() -> int:
     phase_step("bfloat16", model=model_h, preset="H")
     train_h = phase_train_h(model_h)
     del model_h
+    torch.cuda.empty_cache()
+    # f32 DPOT-H, the serve CLI's default, drawn once the bf16 model is freed
+    serve_h32, model_h = phase_serve_h("float32")
+    phase_step("float32", model=model_h, preset="H")
+    del model_h
+    torch.cuda.empty_cache()
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     eval_l = {}
     for dtype in ("bfloat16", "float32"):
@@ -5798,8 +5861,11 @@ def main() -> int:
              f32_runs),
             ("fused_gn_afno[f32,hopper_l]", ("L/",), "float32", "hopper_f32_l",
              "afno_hopper_f32_l.cu", {"eval_l[float32]": eval_l["float32"]}),
+            ("fused_gn_afno[f32,hopper_f32_wide]", ("H/",), "float32", "hopper_f32_wide",
+             "afno_hopper_f32_wide.cu", {"serve_h[float32]": serve_h32}),
             ("fused_gn_afno[f32,general]", ("L/",), "float32", "general", "afno_fused.cu",
-             {"eval_l[float32]": eval_l["float32"], **f32_runs}))
+             {"eval_l[float32]": eval_l["float32"], "serve_h[float32]": serve_h32,
+              **f32_runs}))
     for name, prefixes, dtype, path, src, runs in rows:
         prefix = prefixes[0]
         # the row's times at the batch of the shapes' main path: L's
@@ -5832,13 +5898,13 @@ def main() -> int:
             kernels[-1]["by_batch_at_l_tp"] = by_batch("LTP/", dtype, path)
         if path == "general":  # forced on at the L, Ti, S and H shapes
             kernels[-1]["by_batch_at_ti"] = by_batch("", dtype, path)
+            kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
             if dtype == "bfloat16":
                 kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
-                kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
     # bias_act's one caller is filtered_lrelu (the kernel phase's check); no
     # model path calls it, which the count over the other runs shows
     other_launches = sum(r["bias_act_launches"] for r in (
-        serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, serve_h, train_h,
+        serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, serve_h, train_h, serve_h32,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
         cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families, ddp, fsdp,
         *layouts.values()))

@@ -3,7 +3,7 @@ PyTorch version and their gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
 (dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches one of
-six hand-written kernels, chosen from the shapes alone before any launch,
+seven hand-written kernels, chosen from the shapes alone before any launch,
 or raises:
   - "hopper" (`dpot_tpu_torch/csrc/afno_hopper.cu`): bf16 at the shapes
     `hopper_supported` admits (AFNO blocks of 128 channels, DPOT-Ti, S and
@@ -23,6 +23,10 @@ or raises:
   - "hopper_f32_l" (`dpot_tpu_torch/csrc/afno_hopper_f32_l.cu`): f32 at the
     shapes `hopper_f32_l_supported` admits (AFNO blocks of 96 channels, as
     "hopper_l"); "hopper_f32"'s arithmetic, two launches;
+  - "hopper_f32_wide" (`dpot_tpu_torch/csrc/afno_hopper_f32_wide.cu`): f32
+    at the shapes `hopper_f32_wide_supported` admits (AFNO blocks of 256
+    channels, DPOT-H and a tensor-parallel rank's share of it, a latent as
+    "hopper_f32"); "hopper_f32"'s arithmetic, two launches;
   - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): every other shape, in
     either type; five launches.
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
@@ -205,7 +209,7 @@ def _check(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, act):
 
 # ---------------------------------------------------------------- the Hopper path
 HOPPER_BS = 128       # the AFNO block size of afno_hopper.cu and afno_hopper_f32.cu
-HOPPER_WIDE_BS = 256  # the AFNO block size of afno_hopper_wide.cu
+HOPPER_WIDE_BS = 256  # the AFNO block size of afno_hopper_wide.cu and afno_hopper_f32_wide.cu
 HOPPER_L_BS = 96      # the AFNO block size of afno_hopper_l.cu and afno_hopper_f32_l.cu
 HOPPER_MAX_NK = 5     # 64-row blocks of o (2K rows) a synthesis CTA holds: MAX_NK
 HOPPER_TILE_C = 128   # channels per bf16 synthesis CTA (hopper_tma.cuh): TILE_C
@@ -307,10 +311,21 @@ def hopper_f32_l_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int
             and _l_blocks(B, C, nb, groups, HOPPER_F32_TILE_C))
 
 
+def hopper_f32_wide_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                              dtype: torch.dtype) -> bool:
+    """Whether afno_hopper_f32_wide.cu takes these shapes: f32,
+    `_f32_hopper_latent`, AFNO blocks of 256 channels with groups of 8 to
+    256 (`_hopper_blocks`). A pure function of the shapes, mirrored by
+    dpot_afno_hopper_f32_wide_supported in the source."""
+    return (dtype == torch.float32 and _f32_hopper_latent(HW, K)
+            and _hopper_blocks(B, C, nb, groups, HOPPER_WIDE_BS))
+
+
 # every kernel a call may launch, in the order kernel_path asks the gates
-PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l", "general")
+PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l",
+         "hopper_f32_wide", "general")
 _GATES = (hopper_supported, hopper_wide_supported, hopper_l_supported,
-          hopper_f32_supported, hopper_f32_l_supported)
+          hopper_f32_supported, hopper_f32_l_supported, hopper_f32_wide_supported)
 
 
 def kernel_path(B: int, HW: int, C: int, K: int, nb: int, groups: int,
@@ -414,14 +429,14 @@ def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, 
     else:
         # these kernels read f32 weights: a bf16 working copy is upcast (exact)
         args = (*args[:5], w1.float(), b1, w2.float(), b2)
-        if path in ("hopper_f32", "hopper_f32_l"):
-            ptrs = (*args, stats, o, out)
-            flags = (aid,)
-        else:
+        if path == "general":
             z = torch.empty_like(o)
             h = torch.empty((B * K, nb, 2 * (C // nb)), device=dev, dtype=x.dtype)
             ptrs = (*args, stats, z, h, o, out)
             flags = (int(x.dtype == torch.bfloat16), aid)
+        else:  # the f32 Hopper kernels
+            ptrs = (*args, stats, o, out)
+            flags = (aid,)
     with torch.cuda.device(dev):
         err = _kernel_fn(path)(
             *flags, *[t.data_ptr() for t in ptrs], B, HW, C, K, nb, groups,

@@ -77,10 +77,11 @@ def test_f32_gate_admits_edge_shapes(shapes):
 @pytest.mark.parametrize("name", ["L", "H"])
 def test_f32_gate_refuses_other_block_sizes(name):
     """L (blocks of 96 channels) takes the f32 kernel for 96-channel blocks
-    (afno_hopper_f32_l.cu); H (256) keeps the five-launch kernel."""
+    (afno_hopper_f32_l.cu); H (256) the f32 kernel for 256-channel blocks
+    (afno_hopper_f32_wide.cu)."""
     shapes = preset_shapes(name)
     assert not hopper_f32_supported(*shapes, F32)
-    assert kernel_path(*shapes, F32) == ("hopper_f32_l" if name == "L" else "general")
+    assert kernel_path(*shapes, F32) == ("hopper_f32_l" if name == "L" else "hopper_f32_wide")
 
 
 @pytest.mark.parametrize("shapes", [

@@ -92,11 +92,11 @@ def test_ragged_and_unfit_shapes_are_refused(shapes):
 def test_f32_always_takes_the_general_kernel(name):
     """f32 never takes the bf16 Hopper kernel: Ti, S and M (AFNO blocks of
     128 channels) take the f32 Hopper kernel (afno_hopper_f32.cu), L (96)
-    the f32 kernel for 96-channel blocks (afno_hopper_f32_l.cu), H the
-    five-launch general kernel."""
+    the f32 kernel for 96-channel blocks (afno_hopper_f32_l.cu), H (256)
+    the f32 kernel for 256-channel blocks (afno_hopper_f32_wide.cu)."""
     shapes = preset_shapes(name)
     assert not hopper_supported(*shapes, F32)
-    want = {"L": "hopper_f32_l", "H": "general"}.get(name, "hopper_f32")
+    want = {"L": "hopper_f32_l", "H": "hopper_f32_wide"}.get(name, "hopper_f32")
     assert kernel_path(*shapes, F32) == want
 
 
@@ -130,7 +130,8 @@ def test_bf16_weight_blocks_are_cached_until_the_weight_changes():
 
 def test_launch_counts_by_path_start_at_zero_keys():
     assert set(afno_fused.fused_gn_afno.launches_by_path) == {
-        "hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l", "general"}
+        "hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l", "hopper_f32_wide",
+        "general"}
 
 
 def test_bf16_weight_copies_are_made_inside_a_profiler_range():

@@ -42,11 +42,11 @@ def test_dpot_l_takes_the_kernels_for_96_channel_blocks(dtype, B):
 @pytest.mark.parametrize("name", ["Ti", "S", "M", "H"])
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_other_presets_keep_their_kernels(name, dtype):
-    """Ti, S and M keep hopper / hopper_f32, H in bf16 hopper_wide, f32 at
-    H the five-launch kernel."""
+    """Ti, S and M keep hopper / hopper_f32, H hopper_wide in bf16 and
+    hopper_f32_wide in f32."""
     shapes = preset_shapes(name)
     assert not hopper_l_supported(*shapes, dtype) and not hopper_f32_l_supported(*shapes, dtype)
-    want = {"H": {BF16: "hopper_wide", F32: "general"}}.get(
+    want = {"H": {BF16: "hopper_wide", F32: "hopper_f32_wide"}}.get(
         name, {BF16: "hopper", F32: "hopper_f32"})[dtype]
     assert kernel_path(*shapes, dtype) == want
 

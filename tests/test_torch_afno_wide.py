@@ -45,13 +45,15 @@ def test_blocks_of_128_still_take_the_hopper_kernel(name, B):
 @pytest.mark.parametrize("name,dtype", [("L", BF16), ("L", F32), ("H", F32)])
 def test_l_and_f32_h_keep_the_general_kernel(name, dtype):
     """L (blocks of 96 channels) takes the kernel for 96-channel blocks of
-    its type (hopper_l, hopper_f32_l); f32 at H (blocks of 256) has no
-    Hopper kernel and keeps the five-launch one. Neither takes the wide or
-    the 128-channel kernels."""
+    its type (hopper_l, hopper_f32_l); f32 at H (blocks of 256) takes the
+    f32 kernel for 256-channel blocks (hopper_f32_wide), no longer the
+    five-launch one. Neither takes the bf16 wide or the 128-channel
+    kernels."""
     shapes = preset_shapes(name)
     assert not hopper_wide_supported(*shapes, dtype)
     assert not hopper_supported(*shapes, dtype) and not hopper_f32_supported(*shapes, dtype)
-    want = {"L": {BF16: "hopper_l", F32: "hopper_f32_l"}, "H": {F32: "general"}}[name][dtype]
+    want = {"L": {BF16: "hopper_l", F32: "hopper_f32_l"},
+            "H": {F32: "hopper_f32_wide"}}[name][dtype]
     assert kernel_path(*shapes, dtype) == want
 
 

@@ -423,6 +423,84 @@ def test_non_gelu_activations_on_the_l_kernels(cuda, dtype, act):
     check_l(ti_block_args(3, dtype, cuda, seed=33, **L_BLOCK), dtype, act)
 
 
+def check_f32_wide(args, act="gelu"):
+    """One f32 call on the kernel for blocks of 256 channels
+    (afno_hopper_f32_wide.cu) against the plain version, as chip_smoke.py
+    holds it: 5e-5 absolute and 1e-5 relative L2 (3xTF32 products, so
+    summation order); gelu in its erf form, as the f32 model runs it."""
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=False, act=act)
+    want = fused_gn_afno_ref(*args, approximate=False, act=act)
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper_f32_wide"] == before["hopper_f32_wide"] + 1
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 5e-5
+    assert rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 20])
+def test_hopper_f32_wide_kernel_at_the_dpot_h_block_shapes(cuda, B):
+    """f32 at the DPOT-H block shapes (8 AFNO blocks of 256 channels, a
+    group each) takes the two-launch f32 kernel for 256-channel blocks; B =
+    1 runs 16-mode chunks (72 CTAs), 8 and 20 32-mode ones."""
+    check_f32_wide(ti_block_args(B, torch.float32, cuda, seed=120 + B, **H_BLOCK))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(C=1024, nb=4, groups=4),                    # a TP rank's share of H
+    dict(C=1024, nb=4, groups=8),                    # the same, groups of 128
+    dict(H_BLOCK, H=8, W=8, modes=4),                # 64 px, K 16: one pixel tile
+    dict(H_BLOCK, H=16, W=8, modes=16),              # 128 px, K 80: a partial chunk
+    dict(C=512, nb=2, groups=2, H=64, W=64, modes=12),  # 4096 px: 128 pixel chunks
+    dict(H_BLOCK, modes=2),                          # K 4: 2K = 8
+    dict(H_BLOCK, groups=16),                        # groups of 128, two per block
+    dict(H_BLOCK, groups=256),                       # groups of 8
+    dict(C=256, nb=1, groups=1),                     # one AFNO block, one group
+])
+def test_hopper_f32_wide_kernel_at_admitted_edge_shapes(cuda, shape):
+    """Each kind of shape that hopper_f32_wide_supported admits besides H
+    (tests/test_torch_afno_f32_wide.py lists the same kinds) runs on the
+    kernel and matches the plain version."""
+    args = ti_block_args(2, torch.float32, cuda, seed=46, **shape)
+    x, *_, K, groups = args
+    assert afno_fused.kernel_path(*x.shape, K, shape["nb"], groups,
+                                  torch.float32) == "hopper_f32_wide"
+    check_f32_wide(args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu", "tanh", "relu", "sigmoid", "leaky_relu",
+                                 "softplus", "elu", "gelu"])
+def test_non_gelu_activations_on_the_f32_wide_kernel(cuda, act):
+    """The f32 wide kernel's mode MLP applies the act it is given, at the
+    DPOT-H block shapes."""
+    check_f32_wide(ti_block_args(3, torch.float32, cuda, seed=34, **H_BLOCK), act)
+
+
+@pytest.mark.gpu
+def test_gradient_at_the_dpot_h_f32_block_shapes(cuda):
+    """At H in f32 the forward that FusedGnAfno saves for its VJP runs on the
+    f32 kernel for 256-channel blocks: the gradient against autograd
+    through the plain version, 1e-4 relative L2 (summation order)."""
+    x, gs, gb, A, Ainv, w1, b1, w2, b2, K, groups = ti_block_args(
+        4, torch.float32, cuda, seed=8, **H_BLOCK)
+    leaves = [t.requires_grad_() for t in (x, gs, gb, w1, b1, w2, b2)]
+    args = (x, gs, gb, A, Ainv, w1, b1, w2, b2, K, groups)
+    before = fused_gn_afno.launches_by_path["hopper_f32_wide"]
+    out = fused_gn_afno(*args, approximate=False)
+    assert fused_gn_afno.launches_by_path["hopper_f32_wide"] == before + 1
+    assert type(out.grad_fn).__name__ == "FusedGnAfnoBackward"
+    g = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    got = torch.autograd.grad(out, leaves, g)
+    want = torch.autograd.grad(fused_gn_afno_ref(*args, approximate=False), leaves, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and rel_l2(a, b) <= 1e-4
+
+
 @pytest.mark.gpu
 def test_evaluate_on_the_card_matches_the_cpu(cuda):
     """evaluate() of one small f32 DPOT on the card (the kernels) and on the

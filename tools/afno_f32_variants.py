@@ -1,13 +1,15 @@
-"""Where the f32 Hopper kernel of fused_gn_afno spends its time, on the card.
+"""Where the f32 Hopper kernels of fused_gn_afno spend their time, on the card.
 
-    python3 tools/afno_f32_variants.py [variant ...]
+    python3 tools/afno_f32_variants.py [--wide] [variant ...]
 
-Builds copies of dpot_tpu_torch/csrc/afno_hopper_f32.cu, each with one part
-changed or taken out (VARIANTS below: text substitutions, so each copy is
-the kernel minus exactly that part), into build/afno_f32_variants/, one
-nvcc each, all at once. Then, at the DPOT-Ti block shapes (B = 1, 8, 20,
-N(0, 0.05^2) weights, erf-GELU), it calls each copy through its C entry
-point on the same inputs and prints, per batch, each copy's time per call
+Builds copies of dpot_tpu_torch/csrc/afno_hopper_f32.cu (with --wide, of
+afno_hopper_f32_wide.cu, with the 128-channel file it includes written
+inline), each with one part changed or taken out (VARIANTS below: text
+substitutions, so each copy is the kernel minus exactly that part), into
+build/afno_f32_variants/, one nvcc each, all at once. Then, at the DPOT-Ti
+block shapes (with --wide, DPOT-H's: C 2048, 8 blocks of 256 channels)
+(B = 1, 8, 20, N(0, 0.05^2) weights, erf-GELU), it calls each copy through
+its C entry point on the same inputs and prints, per batch, each copy's time per call
 (CUDA events over 50 back-to-back calls, twice, in the order given and
 then reversed) and its max abs error against the plain version. A copy
 that takes work out computes a wrong answer; its time says what that work
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -32,7 +35,10 @@ from dpot_tpu_torch.ops.cuda.afno_fused import act_id, fused_gn_afno_ref  # noqa
 from dpot_tpu_torch.ops.spectral import combined_spectral_ops, kept_modes  # noqa: E402
 
 SRC = build.SRC_DIR / "afno_hopper_f32.cu"
+WIDE_SRC = build.SRC_DIR / "afno_hopper_f32_wide.cu"
 OUT = build.BUILD_DIR.parent / "afno_f32_variants"
+# the block geometry of each kernel's model: (C, nb)
+GEOMETRY = {False: (512, 4), True: (2048, 8)}
 
 _PROMOTED = """      float d[4] = {0.f, 0.f, 0.f, 0.f};
       mma_tf32(d, al[mt], bh[nt]);
@@ -69,6 +75,9 @@ VARIANTS = {
     # the GroupNorm statistics pass over the slab skipped
     "no_stats": [("for (int p = tid >> 5; p < HW; p += 8) {",
                   "for (int p = tid >> 5; p < 0; p += 8) {")],
+    # launch 1's three products at a third: the weights still streamed, so
+    # what is left is the rest of the kernel's time
+    "one_mma_no_weight_stream": [],
     # launch 2 left out: launch 1 alone
     "no_synthesis": [(_SYN_LAUNCH, "")],
     # one warp-tile height whatever the batch: 32-mode chunks and 64-px
@@ -102,25 +111,58 @@ VARIANTS = {
 }
 
 
-def make(name: str) -> tuple[str, int, str, Path]:
-    src = SRC.read_text()
+VARIANTS["one_mma_no_weight_stream"] = VARIANTS["one_mma"] + VARIANTS["no_weight_stream"]
+# the wide kernel's own text where it differs from the 128-channel one's
+WIDE_TEXT = {"for (int p = tid >> 5; p < HW; p += 8) {":
+             "for (int p = tid / COLS; p < HW; p += RSTEP) {",
+             "for (int p = tid >> 5; p < 0; p += 8) {":
+             "for (int p = tid / COLS; p < 0; p += RSTEP) {"}
+
+
+def make(name: str, wide: bool) -> tuple[str, int, str, Path]:
+    """Variant `name` of the kernel built into OUT. For the wide kernel a
+    substitution applies to its own text where that holds the text once,
+    else to the included 128-channel file's (the split, the products)."""
+    parts = [SRC.read_text()]
+    if wide:
+        parts = WIDE_SRC.read_text().split('#include "afno_hopper_f32.cu"')
+        parts.insert(1, SRC.read_text())
     for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
+        if wide:
+            old, new = WIDE_TEXT.get(old, old), WIDE_TEXT.get(new, new)
+        where = [i for i in ([2, 1] if wide else [0]) if parts[i].count(old) == 1]
+        if not where:
             raise ValueError(f"variant {name}: the text to replace is not in the source once")
-        src = src.replace(old, new)
-    cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
+        parts[where[0]] = parts[where[0]].replace(old, new)
+    src = "".join(parts)
+    tag = f"{name}_wide" if wide else name
+    cu, so = OUT / f"{tag}.cu", OUT / f"{tag}.so"
     cu.write_text(src)
     r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.SRC_DIR),
                         "-Xptxas", "-v", "-o", str(so), str(cu)], capture_output=True, text=True)
     log = r.stdout + r.stderr
-    spills = sorted({ln.strip() for ln in log.splitlines()
-                     if "spill stores" in ln and not ln.strip().startswith("0 bytes stack")})
-    return name, r.returncode, log[-3000:] if r.returncode else "; ".join(spills), so
+    return name, r.returncode, log[-3000:] if r.returncode else ptxas_usage(log), so
 
 
-def ti_args(B: int, seed: int):
+def ptxas_usage(log: str) -> dict[str, str]:
+    """Registers and spill stores of each kernel instance that ptxas -v
+    reports, by kernel name and template arguments (<ActId, MT>)."""
+    usage, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?((?:spectral|synthesis)\w*?_kernel)"
+                      r"I((?:Li\d+E)*)", ln)
+        if m:
+            fn = f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
+        elif fn and (m := re.search(r"(\d+) bytes spill stores", ln)):
+            usage[fn] = f"{m[1]} B spilled"
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            usage[fn] = f"{m[1]} registers, {usage.get(fn, '0 B spilled')}"
+    return usage
+
+
+def block_args(B: int, seed: int, C: int, nb: int):
     H = W = 16
-    C, nb, modes, groups = 512, 4, 32, 8
+    modes, groups = 32, 8
     bs = C // nb
     kh, kw = kept_modes(H, W, modes)
     rng = np.random.default_rng(seed)
@@ -140,22 +182,24 @@ def main() -> int:
         print("afno_f32_variants: needs a CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = sys.argv[1:] or list(VARIANTS)
+    wide = "--wide" in sys.argv[1:]
+    names = [a for a in sys.argv[1:] if a != "--wide"] or list(VARIANTS)
     OUT.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(names)) as ex:
-        built = list(ex.map(make, names))
+        built = list(ex.map(lambda n: make(n, wide), names))
     fns = {}
     for name, rc, note, so in built:
-        print(json.dumps({"variant": name, "nvcc_rc": rc, "spills_or_log": note}), flush=True)
+        print(json.dumps({"variant": name, "nvcc_rc": rc, "ptxas_or_log": note}), flush=True)
         if rc == 0:
-            fn = ctypes.CDLL(str(so)).dpot_afno_hopper_f32
+            lib = ctypes.CDLL(str(so))
+            fn = lib.dpot_afno_hopper_f32_wide if wide else lib.dpot_afno_hopper_f32
             p, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [i] + [p] * 12 + [i] * 6 + [p]
             fn.restype = i
             fns[name] = fn
     aid = act_id("gelu", False)
     for B in (1, 8, 20):
-        args, K, groups = ti_args(B, seed=B)
+        args, K, groups = block_args(B, B, *GEOMETRY[wide])
         x = args[0]
         _, HW, C = x.shape
         nb = args[5].shape[1]
@@ -163,7 +207,7 @@ def main() -> int:
         o = torch.empty((B, 2 * K, C), device="cuda")
         want = fused_gn_afno_ref(*args, K, groups, False)
         stream = torch.cuda.current_stream().cuda_stream
-        row: dict = {"batch": B}
+        row: dict = {"kernel": WIDE_SRC.name if wide else SRC.name, "batch": B}
         for order in (names, names[::-1]):
             for name in order:
                 if name not in fns:
