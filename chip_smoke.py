@@ -22,7 +22,14 @@ Phases, each printing its results as JSON lines:
        of 192) bf16 on afno_hopper_l.cu and f32 on afno_hopper_f32_l.cu in
        the same way, bf16 also at B = 16 (L's pretraining batch); f32 at
        the DPOT-H block shapes on afno_hopper_f32_wide.cu in the same way;
-       the six shape gates against their mirrors in the CUDA sources;
+       at the block shapes of configs/afno_config_single.yaml (C 512, 8
+       AFNO blocks of 64 channels, one group each; B in {1, 8, 32}, 32 its
+       batch) bf16 and f32 on the pair paths (each pair of blocks packed
+       into one 128-channel block with block-diagonal weights, launched on
+       afno_hopper.cu and afno_hopper_f32.cu) in the same way; the six
+       shape gates against their mirrors in the CUDA sources, and the two
+       pair gates against the mirrors of the kernels they launch, asked at
+       the packed shapes;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -102,14 +109,15 @@ Phases, each printing its results as JSON lines:
      configs/pretrain_large.yaml>` in-process, the copy's data cut (twelve
      synthetic sets of their namesakes' grids, channels and lengths, 2
      train and 2 test trajectories each, 2 epochs) and every other key the
-     file's: DPOT-L at full width and depth, bf16, lamb, batch 16, remat.
+     file's but the depth, cut to 6 blocks: DPOT-L at full width, bf16,
+     lamb, batch 16, remat.
      The steps exact, launches = depth x (2 x train + eval applications),
      all on afno_hopper_l.cu, every loss finite, the checkpoint restoring
      through restore_params; where a step's time goes as in phase 5, with
      the dense layers' f32->bf16 weight copies, and peak memory;
   10. remat_L: one bf16 L step at batch 16 with remat and without, from the
-     same weights, batch and noise, train_L's model cut to its first 6
-     blocks (a comparison of two runs of one model holds at any depth):
+     same weights, batch and noise, train_L's model at its 6 blocks (a
+     comparison of two runs of one model holds at any depth):
      the losses and every gradient compared (expected identical), each
      way's step time and peak memory;
   11. params_lp_L: five bf16 lamb L steps at batch 16 with the bf16 working
@@ -283,6 +291,22 @@ start up, the 2-rank jobs once the nccl rank is done (phase_parallel):
      ranks and grad_accum 2 (control: each rank's own statistics); and L
      served over pipe = 2 and data = 2 (serve_pp_l, serve_dp_l) against
      one process's answers.
+The single-dataset AFNO baseline, after phase 15:
+  29. afno_single: `python -m dpot_tpu_torch.cli.sweep --config_file <copy
+     of configs/afno_config_single.yaml>` in-process, the copy's data cut
+     (its one corpus, ns2d_pdb_M1_eta1e-1_zeta1e-1, stood in for by a
+     synthetic set of its grid, channels and length, 96 train and 4 test
+     trajectories, one epoch) and every other key the file's: width 512,
+     depth 4, 8 AFNO blocks of 64 channels, f32, adam, batch 32. The steps
+     exact, launches = depth x (train + eval applications), all on the f32
+     pair path, every loss finite, the checkpoint restoring; the first
+     train step (AFNO weights redrawn) on the kernel against the plain
+     mixer's (loss 1e-5 relative, every gradient 1e-4 relative L2), a
+     control with the pairs packed in swapped order above; then cli.evaluate
+     --config_from_ckpt --dtype bfloat16 on the checkpoint: launches exact,
+     all on the bf16 pair path, and the rollout of the test batch (AFNO
+     weights redrawn) within MIXER_TOL["A/bfloat16"] of the plain mixer's,
+     faulty plain mixers above it.
 `python3 chip_smoke.py layouts` builds the kernels and runs phases 27
 and 28 alone, printing their rows.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
@@ -316,13 +340,16 @@ import torch
 from dpot_tpu_torch.ops.bias_act import activation_funcs, bias_act_ref
 from dpot_tpu_torch.ops.cuda import afno_fused, build
 from dpot_tpu_torch.ops.cuda.afno_fused import (
+    BF16_WEIGHT_PATHS,
     fused_gn_afno,
     fused_gn_afno_ref,
     fused_gn_afno_vjp,
     hopper_f32_l_supported,
+    hopper_f32_pairs_supported,
     hopper_f32_supported,
     hopper_f32_wide_supported,
     hopper_l_supported,
+    hopper_pairs_supported,
     hopper_supported,
     hopper_wide_supported,
 )
@@ -349,6 +376,11 @@ DPOT_L = dict(H=16, W=16, C=1536, nb=16, modes=32, groups=8, depth=24)
 # a tensor-parallel rank's share of DPOT-L over model = 2 (tp_l, tp_serve_l):
 # half the channels, AFNO blocks and norm1 groups
 DPOT_L_TP = dict(DPOT_L, C=768, nb=8, groups=4)
+# configs/afno_config_single.yaml (width 512, depth 4, 8 blocks, modes 32,
+# patch 8 on its dataset's 128^2 grid): AFNO blocks of 64 channels, one
+# GroupNorm(8) group each, which the pair paths pack two at a time into the
+# kernels for 128-channel blocks (afno_hopper.cu, afno_hopper_f32.cu)
+AFNO_SINGLE = dict(H=16, W=16, C=512, nb=8, modes=32, groups=8, depth=4)
 TI_FLAGS = [
     "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "512",
     "--n_layers", "4", "--n_blocks", "4", "--modes", "32", "--mlp_ratio", "1",
@@ -398,10 +430,16 @@ L_PATH = {"bfloat16": "hopper_l", "float32": "hopper_f32_l"}
 # between the readings on the card (NVIDIA H100 80GB HBM3, 700 W): L bf16
 # kernel 4.7e-3, faults 3.7e-2 and up; L f32 kernel 8.7e-7, faults 1.9e-3
 # and up; the Ti sweep at 41 px kernel 1.1e-3, faults 3.5e-3 and up; the
-# served f32 H (phase_serve_h) kernel 2.3e-6, faults 1.5e-2 and up
+# served f32 H (phase_serve_h) kernel 2.3e-6, faults 1.5e-2 and up; the
+# bf16 evaluation of configs/afno_config_single.yaml (phase_afno_single,
+# 11 steps at 128^2, all 144 modes) the pair kernel 2.6e-3 and 3.0e-3, the
+# faults 4.6e-2 and up. On that rollout the other bf16 kernels read as
+# much: the five-launch kernel forced on 2.6e-3, Ti's model on afno_hopper.cu
+# 2.3e-3 (tools/bf16_mixer_readings.py), above the Ti sweep's 2e-3, so that
+# configuration has a limit of its own
 MIXER_SCALE = 0.05
 MIXER_TOL = {"L/bfloat16": 1.3e-2, "L/float32": 2e-4, "Ti/bfloat16": 2e-3,
-             "H/float32": 2e-4}
+             "H/float32": 2e-4, "A/bfloat16": 1e-2}
 MIXER_FAULTS = ("block_groups", "conj_w2", "drop_mode")
 # bf16 rounding through the model moves the predictions by about as much as
 # the kernel's reading, whatever changes upstream: a fault smaller than that
@@ -506,10 +544,10 @@ RUN_DIR = ROOT / "build" / "chip_smoke"
 # directory (log_path). Every other key is the file's: width 1536, depth 24,
 # 16 blocks, bf16, lamb, remat, batch 16, noise 5e-4, lr 5e-4, cycle
 L_CONFIG = ROOT / "configs" / "pretrain_large.yaml"
-# train_l's model (and so dispatch_l's, which trains it on) is cut to 12 of
-# L's 24 blocks, to keep the cold smoke under 1000 s with the parallel
-# layouts' jobs; its widths stay L's
-TRAIN_L = dict(epochs=2, ntrain=2, ntest=2, depth=12)
+# train_l's model (and so dispatch_l's, which trains it on) is cut to 6 of
+# L's 24 blocks, CUT_L_DEPTH, to keep the cold smoke within its time with the
+# parallel layouts' jobs and the AFNO baseline's phase; its widths stay L's
+TRAIN_L = dict(epochs=2, ntrain=2, ntest=2, depth=6)
 # one bf16 L step at batch 16 with remat and without, from the same weights,
 # batch and noise: the recomputation runs the same kernels on the same
 # inputs, so the two are expected to be identical
@@ -524,6 +562,28 @@ REMAT_TOL = dict(loss=1e-6, grad=1e-3)
 # (PERF.md, section 6)
 PARAMS_LP = dict(steps=5, loss_rel=0.05, lr=5e-5)
 L_BATCH = 16
+# the single-dataset AFNO baseline through the sweep CLI from a copy of
+# configs/afno_config_single.yaml with only its data cut as train_L's: its
+# one corpus (ns2d_pdb_M1_eta1e-1_zeta1e-1: 128^2, 4 channels, 21 frames)
+# stood in for by a synthetic set of that grid, channel count and length,
+# `ntrain` trajectories to train and `ntest` to test, one epoch; every other
+# key the file's: width 512, depth 4, 8 blocks of 64, f32, adam, batch 32
+AFNO_CONFIG = ROOT / "configs" / "afno_config_single.yaml"
+AFNO_BATCH = 32
+TRAIN_AFNO = dict(epochs=1, ntrain=3 * AFNO_BATCH, ntest=4)
+# the kernel that serves its mixer in each compute type
+AFNO_PATH = {"bfloat16": "hopper_pairs", "float32": "hopper_f32_pairs"}
+# its first train step (f32, batch 32, AFNO weights redrawn from N(0,
+# MIXER_SCALE^2) so that the mixer matters) on the pair kernel against the
+# same step with the plain mixer: the loss relative and every gradient's
+# relative L2; the f32 sums' order differs, as card against CPU for Ti
+# (TRAIN_CPU_TOL). A control, the pairs packed in swapped order, must land
+# above the limits
+AFNO_STEP_TOL = dict(loss=1e-5, grad=1e-4)
+# the faulty plain mixers its bf16 rollout check must catch: its GroupNorm
+# groups are its AFNO blocks (8 of 64 channels), so "block_groups" computes
+# what the plain mixer computes there
+AFNO_CAUGHT = ("conj_w2", "swap_pairs")
 # remat_L and params_lp_L compare two runs of one model, so they run train_L's
 # model cut to its first CUT_L_DEPTH blocks (cut_depth), at L's widths
 CUT_L_DEPTH = 6
@@ -948,10 +1008,9 @@ def afno_case(B: int, dtype: torch.dtype, weight_scale: float | None, seed: int,
     return args, kh * kw, groups
 
 
-# the kernels that read the bf16 weight copies, and those whose products are
-# 3xTF32 on the tensor cores
-BF16_WEIGHT_PATHS = ("hopper", "hopper_wide", "hopper_l")
-TF32_PATHS = ("hopper_f32", "hopper_f32_l", "hopper_f32_wide")
+# the kernels whose products are 3xTF32 on the tensor cores (those that read
+# the bf16 weight copies: afno_fused.BF16_WEIGHT_PATHS)
+TF32_PATHS = ("hopper_f32", "hopper_f32_l", "hopper_f32_wide", "hopper_f32_pairs")
 
 
 def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str,
@@ -962,7 +1021,10 @@ def afno_bound_ms(B: int, dtype: torch.dtype, K: int, path: str,
     larger. The bf16 Hopper kernels read the cached bf16 copies of w1 and
     w2, the other kernels the f32 weights. The f32 Hopper kernels do each
     product three times (3xTF32) on the TF32 tensor cores (495 TFLOP/s);
-    the general kernel's f32 products run on the FMA pipes (67 TFLOP/s)."""
+    the general kernel's f32 products run on the FMA pipes (67 TFLOP/s).
+    The work is the logical one of blocks of C / nb channels: the pair paths'
+    products with the zero blocks of their packed weights are the design's
+    own cost, not the function's."""
     HW, C, nb = geo["H"] * geo["W"], geo["C"], geo["nb"]
     bs = C // nb
     s = torch.empty((), dtype=dtype).element_size()
@@ -1014,7 +1076,11 @@ def check_gate_mirror() -> int:
     """Each Hopper kernel's gate in afno_fused.py (hopper_supported, ...,
     hopper_f32_wide_supported) against its mirror in the CUDA source
     (dpot_afno_hopper_supported, ...), on the presets and on shapes any of
-    them may refuse."""
+    them may refuse; and each pair gate (hopper_pairs_supported,
+    hopper_f32_pairs_supported) against the source's gate of the kernel it
+    launches, asked at the packed shapes (nb/2 blocks of 128), wherever the
+    blocks are 64 channels in an even count with groups of at most 64
+    channels, and refusing every other shape."""
     gates = []
     for lib, gate, dtype in (("afno_hopper", hopper_supported, torch.bfloat16),
                              ("afno_hopper_wide", hopper_wide_supported, torch.bfloat16),
@@ -1027,6 +1093,15 @@ def check_gate_mirror() -> int:
         fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
         gates.append((fn, gate, dtype))
+    for (fn, _, dtype), gate in zip([gates[0], gates[3]],
+                                    (hopper_pairs_supported, hopper_f32_pairs_supported)):
+
+        def packed(B, HW, C, K, nb, groups, fn=fn):
+            pairs = (nb >= 2 and not nb % 2 and C == 64 * nb and groups >= 1
+                     and not C % groups and C // groups <= 64)
+            return pairs and fn(B, HW, C, K, nb // 2, groups)
+
+        gates.append((packed, gate, dtype))
     shapes = [(B, 256, C, 144, nb, 8) for B in (1, 20)
               for C, nb in ((512, 4), (1024, 8), (1536, 16), (2048, 8))]
     shapes += [(3, 64, 96, 9, 4, 8), (3, 48, 40, 15, 2, 4), (1, 128, 512, 40, 4, 8),
@@ -1064,6 +1139,16 @@ def check_gate_mirror() -> int:
     shapes += [(2, 64, 2048, 16, 8, 8), (2, 4096, 512, 144, 2, 2), (2, 1024, 1024, 144, 4, 4),
                (2, 96, 2048, 40, 8, 8), (2, 256, 2048, 143, 8, 8), (2, 256, 2048, 2, 8, 8),
                (2, 8192, 2048, 144, 8, 8), (0, 256, 1024, 144, 4, 4)]
+    # the pair gates': the config of 64-channel blocks and a TP rank's share
+    # of it, an odd block count, groups of 128, 16 and 4 channels, the
+    # latents and K each type refuses, the batch's limits
+    shapes += [(B, 256, 512, 144, 8, 8) for B in (1, AFNO_BATCH, 65535, 65536, 0)]
+    shapes += [(2, 256, 256, 144, 4, g) for g in (2, 4, 8, 16, 64)]
+    shapes += [(2, 256, 448, 144, 7, 7), (2, 256, 64, 144, 1, 1), (2, 256, 128, 144, 2, 2),
+               (2, 128, 512, 40, 8, 8), (2, 64, 512, 16, 8, 8), (2, 512, 512, 144, 8, 8),
+               (2, 4096, 512, 144, 8, 8), (2, 96, 512, 40, 8, 8), (2, 256, 512, 142, 8, 8),
+               (2, 256, 512, 143, 8, 8), (2, 256, 512, 160, 8, 8), (2, 256, 512, 164, 8, 8),
+               (2, 256, 512, 144, 8, 24), (2, 256, 384, 144, 8, 8)]
     for fn, gate, dtype in gates:
         for sh in shapes:
             if bool(fn(*sh)) != gate(*sh, dtype):
@@ -1084,6 +1169,8 @@ def time_afno(r: dict, path: str) -> dict:
 # the kernel phase's cases: (key prefix, block geometry, dtype, the
 # five-launch kernel and the kernel that serves the shapes)
 KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
+                ("A/", AFNO_SINGLE, torch.bfloat16, ("general", "hopper_pairs")),
+                ("A/", AFNO_SINGLE, torch.float32, ("general", "hopper_f32_pairs")),
                 ("", TI, torch.float32, ("general", "hopper_f32")),
                 ("S/", DPOT_S, torch.bfloat16, ("general", "hopper")),
                 ("H/", DPOT_H, torch.bfloat16, ("general", "hopper_wide")),
@@ -1094,7 +1181,9 @@ KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
 KERNEL_BATCHES = (1, 8, TRAIN["batch"])
 # the batches of each case: L in bf16 also at the batch of its pretraining
 CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"]),
-                ("LTP/", torch.bfloat16): (1, 4, L_BATCH)}
+                ("LTP/", torch.bfloat16): (1, 4, L_BATCH),
+                ("A/", torch.bfloat16): (1, 8, AFNO_BATCH),
+                ("A/", torch.float32): (1, 8, AFNO_BATCH)}
 
 
 def phase_kernels() -> dict:
@@ -1503,8 +1592,9 @@ def faulty_mixer(fault: str):
     """fused_gn_afno's plain version with one fault a kernel could make:
     GroupNorm statistics per AFNO block instead of per group
     ("block_groups"), the second layer's imaginary weights negated
-    ("conj_w2"), or the last kept mode left out of the synthesis
-    ("drop_mode")."""
+    ("conj_w2"), the last kept mode left out of the synthesis
+    ("drop_mode"), or the weights of each block pair (2i, 2i+1) swapped, as
+    a wrong packing for the pair paths would swap them ("swap_pairs")."""
 
     def mix(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups=8, approximate=True,
             act="gelu"):
@@ -1512,6 +1602,8 @@ def faulty_mixer(fault: str):
             groups = w1.shape[1]
         elif fault == "conj_w2":
             w2 = torch.stack([w2[0], -w2[1]])
+        elif fault == "swap_pairs":
+            w1, w2 = swap_pairs(w1), swap_pairs(w2)
         elif fault == "drop_mode":
             # two single-column fills: an index list would be a host-to-device
             # copy, which a CUDA graph's capture refuses
@@ -1526,6 +1618,11 @@ def faulty_mixer(fault: str):
     return mix
 
 
+def swap_pairs(w: torch.Tensor) -> torch.Tensor:
+    """w (2, nb, bs, bs) with blocks 2i and 2i+1 swapped."""
+    return torch.stack([w[:, 1::2], w[:, 0::2]], dim=2).flatten(1, 2)
+
+
 def draw_mixer_weights(model, seed: int) -> None:
     """Every AFNO weight and bias of `model` from N(0, MIXER_SCALE^2)."""
     g = torch.Generator().manual_seed(seed)
@@ -1535,13 +1632,14 @@ def draw_mixer_weights(model, seed: int) -> None:
                 w.copy_(torch.randn(w.shape, generator=g) * MIXER_SCALE)
 
 
-def mixer_readings(preds, model: str, dtype: str, what: str) -> dict:
+def mixer_readings(preds, model: str, dtype: str, what: str, caught=None) -> dict:
     """Relative L2 of the predictions `preds()` (B, H, W, T, C) on the
     kernel and with each faulty plain mixer from the plain mixer's, over
     the rollout and per step; the kernel's must be at most
-    MIXER_TOL[model/dtype] and each fault of MIXER_CAUGHT[dtype] above it.
-    The plain runs must launch no kernel."""
+    MIXER_TOL[model/dtype] and each fault of `caught` (by default
+    MIXER_CAUGHT[dtype]) above it. The plain runs must launch no kernel."""
     limit = MIXER_TOL[f"{model}/{dtype}"]
+    caught = caught or MIXER_CAUGHT[dtype]
     got = preds()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite predictions on the kernel")
@@ -1549,7 +1647,7 @@ def mixer_readings(preds, model: str, dtype: str, what: str) -> dict:
     with plain_mixer():
         want = preds()
     runs = {"kernel": got}
-    for fault in MIXER_FAULTS:
+    for fault in dict.fromkeys(MIXER_FAULTS + tuple(caught)):
         with plain_mixer(faulty_mixer(fault)):
             runs[fault] = preds()
     check_no_launch(before, f"{what} with the plain mixers")
@@ -1557,12 +1655,12 @@ def mixer_readings(preds, model: str, dtype: str, what: str) -> dict:
     readings = {name: dict(rel_l2=rel_l2(p, want), per_step=(
         norm(p.float() - want.float()) / norm(want.float())).tolist())
         for name, p in runs.items()}
-    log("mixer_check", what=what, limit=limit, caught=MIXER_CAUGHT[dtype], **readings)
-    wrong = min(readings[f]["rel_l2"] for f in MIXER_CAUGHT[dtype])
+    log("mixer_check", what=what, limit=limit, caught=caught, **readings)
+    wrong = min(readings[f]["rel_l2"] for f in caught)
     if not readings["kernel"]["rel_l2"] <= limit < wrong:
         raise AssertionError(
             f"{what}: predictions' rel-L2 from the plain mixer's {readings['kernel']['rel_l2']} "
-            f"on the kernel, {wrong} at the least with a fault of {MIXER_CAUGHT[dtype]}: the "
+            f"on the kernel, {wrong} at the least with a fault of {caught}: the "
             f"limit {limit} must lie between")
     return {name: r["rel_l2"] for name, r in readings.items()}
 
@@ -2444,28 +2542,43 @@ def phase_convert_resume_serve() -> dict:
     return row
 
 
+def sweep_corpora(doc: dict) -> list[str]:
+    """The corpora of a sweep file: its top-level train_paths, common to
+    every job (pretrain_large.yaml), or the one grid value of train_paths
+    under tasks: (afno_config_single.yaml)."""
+    if "train_paths" in doc:
+        return doc["train_paths"]
+    (paths,) = doc["tasks"]["train_paths"]
+    return paths
+
+
 def sweep_file(config: Path, tag: str, cut: dict, run_dir: Path) -> tuple[Path, list]:
     """Write the copy of the sweep file `config` with only its data cut
     (`cut`: ntrain and ntest trajectories of each corpus, epochs; and the
-    depth, n_layers, where `cut` names one) into run_dir, its corpora the synthetic sets synthetic_{tag}_{corpus} of
-    their namesakes' grids, channels and lengths, its logs under
-    run_dir/train_{tag}; returns its path and the sets' specs, in the
-    file's order of corpora."""
+    depth, n_layers, where `cut` names one) into run_dir, its corpora
+    (`sweep_corpora`, set where the file sets them) the synthetic sets
+    synthetic_{tag}_{corpus} of their namesakes' grids, channels and
+    lengths, its logs under run_dir/train_{tag}; returns its path and the
+    sets' specs, in the file's order of corpora."""
     import yaml
 
     from dpot_tpu_torch.data.registry import get_spec, make_synthetic_spec
 
     doc = yaml.safe_load(config.read_text())
     specs = []
-    for name in doc["train_paths"]:
+    for name in sweep_corpora(doc):
         real = get_spec(name)
         specs.append(make_synthetic_spec(
             f"synthetic_{tag}_{name}", train_size=cut["ntrain"], test_size=cut["ntest"],
             t_total=real.t_total, t_test=real.t_test, in_size=real.in_size,
             n_channels=real.n_channels))
     names = [spec.name for spec in specs]
-    doc.update(train_paths=names, test_paths=names, ntrain_list=[cut["ntrain"]] * len(names),
-               log_path=str(run_dir / f"train_{tag.lower()}"))
+    data = dict(train_paths=names, test_paths=names, ntrain_list=[cut["ntrain"]] * len(names))
+    if "train_paths" in doc:
+        doc.update(data)
+    else:  # one grid value under tasks:
+        doc["tasks"].update({k: [v] for k, v in data.items()})
+    doc["log_path"] = str(run_dir / f"train_{tag.lower()}")
     doc["tasks"]["epochs"] = [cut["epochs"]]
     if "depth" in cut:
         doc["tasks"]["n_layers"] = [cut["depth"]]
@@ -2571,10 +2684,10 @@ def corpus_batches(config: Path, tag: str, cut: dict, batch: int, x_dtype: torch
     from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
 
     doc = yaml.safe_load(config.read_text())
-    names = [f"synthetic_{tag}_{name}" for name in doc["train_paths"]]
+    names = [f"synthetic_{tag}_{name}" for name in sweep_corpora(doc)]
     ds = MixedTemporalDataset(names, [cut["ntrain"]] * len(names),
                               res=doc["tasks"]["res"][0], t_in=10, t_ar=1, train=True,
-                              data_weights=doc["data_weights"])
+                              data_weights=doc.get("data_weights"))
     loader = iter(DataLoader(ds, batch, shuffle=True, num_workers=8, seed=seed,
                              drop_last=True))
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2591,6 +2704,191 @@ def l_corpus_batches(n: int, seed: int) -> list[dict]:
     """n train batches of batch 16 of the cut L corpora that train_L
     registered, x in bf16."""
     return corpus_batches(L_CONFIG, "L", TRAIN_L, L_BATCH, torch.bfloat16, n, seed)
+
+
+@contextlib.contextmanager
+def swapped_packing():
+    """The pair paths pack each pair of blocks in swapped order: a control
+    that the step check must catch."""
+    real = afno_fused.pack_pairs
+    afno_fused.pack_pairs = lambda w: real(swap_pairs(w))
+    try:
+        yield
+    finally:
+        afno_fused.pack_pairs = real
+
+
+def afno_single_step_check(model, job: dict) -> dict:
+    """The first train step of configs/afno_config_single.yaml's model (a
+    copy of `model`, its AFNO weights redrawn from N(0, MIXER_SCALE^2) so
+    that the mixer matters) on a batch of the cut corpus, on the pair
+    kernel, with the plain mixer, and with the pairs packed in swapped
+    order (the control): the loss relative and the worst gradient's
+    relative L2 against the plain mixer's, within AFNO_STEP_TOL on the
+    kernel and not within it for the control."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    base = copy.deepcopy(model)
+    draw_mixer_weights(base, seed=7)
+    (b,) = corpus_batches(AFNO_CONFIG, "A", TRAIN_AFNO, job["batch_size"], torch.float32, 1,
+                          seed=3)
+    step_fn = make_train_step(noise_scale=job["noise_scale"], ones_mask=True)
+    runs = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_mixer()),
+                      ("swapped_pairs", swapped_packing())):
+        m = copy.deepcopy(base)
+        state = TrainState.create(m, build_optimizer("adam", m.parameters(), 0.0), seed=0)
+        before = fused_gn_afno.launches_by_path["hopper_f32_pairs"]
+        with ctx:
+            loss = step_fn(state, b)[1]["loss_step"].item()
+        launched = fused_gn_afno.launches_by_path["hopper_f32_pairs"] - before
+        if launched != (0 if name == "plain" else job["n_layers"]):
+            raise AssertionError(f"afno_single step {name}: {launched} pair launches")
+        runs[name] = (loss, {n: p.grad for n, p in m.named_parameters() if p.grad is not None})
+    want_loss, want = runs["plain"]
+    readings = {}
+    for name in ("kernel", "swapped_pairs"):
+        loss, grads = runs[name]
+        if grads.keys() != want.keys():
+            raise AssertionError(f"afno_single step {name}: gradients of other parameters")
+        g = {n: rel_l2(grads[n], want[n]) for n in want}
+        worst = max(g, key=g.get)
+        readings[name] = dict(loss=loss, loss_rel=abs(loss - want_loss) / abs(want_loss),
+                              worst_grad=worst, worst_grad_rel_l2=g[worst])
+    tol = AFNO_STEP_TOL
+
+    def within(r):
+        return r["loss_rel"] <= tol["loss"] and r["worst_grad_rel_l2"] <= tol["grad"]
+
+    if not within(readings["kernel"]) or within(readings["swapped_pairs"]):
+        raise AssertionError(f"afno_single first step against the plain mixer: {readings} "
+                             f"(limits {tol}): the kernel must be within, the control not")
+    return dict(plain_loss=want_loss, limits=tol, n_grads=len(want), **readings)
+
+
+def phase_afno_single() -> tuple[dict, dict]:
+    """configs/afno_config_single.yaml (AFNO blocks of 64 channels) on the
+    pair paths. Pretrained through the sweep CLI (in-process) from a copy
+    with only its data cut (`sweep_file`): f32 (the file sets no dtype),
+    adam, batch 32, width 512, depth 4, 8 blocks; the steps and launches
+    exact (depth x (train + eval applications), all on hopper_f32_pairs),
+    every loss finite, the checkpoint restoring to the state's weights; the
+    first step against the plain mixer's (`afno_single_step_check`). Then
+    the run's checkpoint through cli.evaluate --config_from_ckpt --dtype
+    bfloat16: launches exact, all on hopper_pairs, every number finite; and
+    the evaluation's rollout of the test batch, its AFNO weights redrawn,
+    against the plain mixer's on the card within MIXER_TOL["A/bfloat16"],
+    with faulty plain mixers (AFNO_CAUGHT) above it. Returns the f32 and
+    the bf16 rows."""
+    import yaml
+
+    from dpot_tpu_torch.cli.evaluate import main as evaluate_main
+    from dpot_tpu_torch.cli.sweep import main as sweep_main
+    from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.train.checkpoint import restore_params
+    from dpot_tpu_torch.train.step import make_eval_rollout
+    from dpot_tpu_torch.utils.config import expand_tasks
+
+    cfg_path, specs = sweep_file(AFNO_CONFIG, "A", TRAIN_AFNO, RUN_DIR)
+    (job,) = expand_tasks(yaml.safe_load(cfg_path.read_text()))
+    batch, depth = job["batch_size"], job["n_layers"]
+    if (job["model"], job["opt"], job.get("dtype", "float32"), batch, job["width"], depth,
+            job["n_blocks"]) != ("AFNO", "adam", "float32", AFNO_BATCH, AFNO_SINGLE["C"],
+                                 AFNO_SINGLE["depth"], AFNO_SINGLE["nb"]):
+        raise AssertionError(f"{AFNO_CONFIG.name} no longer trains the model this phase "
+                             "expects")
+    names = [sp.name for sp in specs]
+    steps, eval_apps = sweep_applications(specs, [1] * len(specs), batch, TRAIN_AFNO["epochs"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (out,) = sweep_main(["--config_file", str(cfg_path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
+    bias_act_launches = bias_act.launches
+    state, model = out["state"], out["model"]
+    if state.step != steps or tuple(model.blocks[0].filter.w1.shape) != (2, 8, 64, 64):
+        raise AssertionError(f"afno_single: {state.step} steps, expected {steps}; w1 "
+                             f"{tuple(model.blocks[0].filter.w1.shape)}")
+    if launches != depth * (steps + eval_apps):
+        raise AssertionError(f"afno_single: fused_gn_afno launched {launches} times, expected "
+                             f"depth x (train + eval applications) = "
+                             f"{depth * (steps + eval_apps)}")
+    by_path = check_paths("float32", launches, AFNO_PATH["float32"])
+    metrics = read_metrics(out["log_dir"])
+    losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
+    losses += [out["train_l2_step"], out["train_l2_full"], *out["test_l2_steps"],
+               *out["test_l2_fulls"]]
+    if len(metrics.get("train_loss_step", [])) != steps or not finite(losses):
+        raise AssertionError(f"afno_single losses missing or not finite: {metrics}")
+    ckpt = str(Path(out["log_dir"]) / "model")
+    saved, mine = restore_params(ckpt), state.params_state_dict()
+    if saved.keys() != mine.keys() or not all(torch.equal(saved[k], mine[k].cpu())
+                                               for k in saved):
+        raise AssertionError("afno_single: the checkpoint does not restore to the state's "
+                             "weights")
+    step = afno_single_step_check(model, job)
+    row = dict(dtype="float32", batch=batch, steps=steps, train_applications=steps,
+               eval_applications=eval_apps, launches=launches, launches_by_path=by_path,
+               bias_act_launches=bias_act_launches, run_s=run_s,
+               loop_step_s=out["step_seconds"], train_l2_step=out["train_l2_step"],
+               test_l2_fulls=out["test_l2_fulls"], first_step=step,
+               params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+               corpora={sp.name: dict(channels=sp.n_channels, in_size=sp.in_size,
+                                      t_total=sp.t_total, t_test=sp.t_test) for sp in specs})
+    log("train_afno_single", **row)
+    del out, state, model, saved, mine
+
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_main(["--config_from_ckpt", "true", "--resume_path", ckpt,
+                             "--test_paths", *names, "--batch_size", str(batch),
+                             "--dtype", "bfloat16", "--num_workers", "4", "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_launches = fused_gn_afno.launches
+    bf16_apps = eval_apps // TRAIN_AFNO["epochs"]
+    if eval_launches != depth * bf16_apps:
+        raise AssertionError(f"afno_single evaluate bf16: {eval_launches} launches, expected "
+                             f"{depth * bf16_apps}")
+    eval_by_path = check_paths("bfloat16", eval_launches, AFNO_PATH["bfloat16"])
+    if not finite(v for n in names for v in got[n].values()):
+        raise AssertionError(f"afno_single evaluate bf16: {got}")
+    eval_bias_act = bias_act.launches
+
+    bf16 = build_model(job["model"], img_size=job["res"], patch_size=job["patch_size"],
+                       in_channels=specs[0].n_channels, in_timesteps=10,
+                       embed_dim=job["width"], modes=job["modes"], depth=depth,
+                       n_blocks=job["n_blocks"], mlp_ratio=job["mlp_ratio"], act=job["act"],
+                       n_cls=len(names), dtype=torch.bfloat16, device="cuda", seed=0)
+    bf16.load_state_dict(restore_params(ckpt), strict=True)
+    draw_mixer_weights(bf16, seed=8)
+    ds = MixedTemporalDataset(names, res=job["res"], t_in=10, t_ar=-1,
+                              n_channels=specs[0].n_channels, train=False)
+    x, y, msk, _ = next(iter(DataLoader(ds, batch, shuffle=False, num_workers=0)))
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in (("x", x), ("y", y), ("msk", msk))}
+
+    def graphed_preds() -> torch.Tensor:
+        # a fresh rollout each time, as eval_L's: eager, then captured and
+        # replayed under the mixer in force
+        roll = make_eval_rollout()
+        roll(bf16, b)
+        return roll(bf16, b)["pred"]
+
+    rels = mixer_readings(graphed_preds, "A", "bfloat16", "afno_single evaluate bf16",
+                          caught=AFNO_CAUGHT)
+    eval_row = dict(dtype="bfloat16", batch=batch, applications=bf16_apps,
+                    launches=eval_launches, launches_by_path=eval_by_path,
+                    bias_act_launches=eval_bias_act,
+                    results={n: got[n] for n in names}, avg_step_time_s=got["avg_step_time"],
+                    plain_mixer_rel_l2=rels, plain_mixer_limit=MIXER_TOL["A/bfloat16"],
+                    caught=AFNO_CAUGHT)
+    log("eval_afno_single", **eval_row)
+    del bf16, b
+    torch.cuda.empty_cache()
+    return row, eval_row
 
 
 @contextlib.contextmanager
@@ -4542,20 +4840,20 @@ def rank_fsdp(args: dict) -> dict:
     calls: list = []
     stale: dict = {}
 
-    def check(w, out):
-        fresh = afno_fused._convert_blocks(w.detach())
+    def check(w, out, pairs=False):
+        fresh = afno_fused._convert_blocks(w.detach(), pairs)
         calls.append((torch.equal(out, fresh), (w.data_ptr(), w._version),
                       getattr(w, "_dpot_block_cache", True)))
         return out
 
-    def spy(w):
-        out = check(w, real(w))
+    def spy(w, pairs=False):
+        out = check(w, real(w, pairs), pairs)
         stale[id(w)] = out  # what the control serves in the next step
         return out
 
-    def stale_spy(w):
+    def stale_spy(w, pairs=False):
         # the control: a cache keyed on the tensor alone
-        return check(w, stale[id(w)] if id(w) in stale else real(w))
+        return check(w, stale[id(w)] if id(w) in stale else real(w, pairs), pairs)
 
     reset_launch_counts()
     steps = []
@@ -5777,6 +6075,7 @@ def main() -> int:
     RUN_DIR.mkdir(parents=True, exist_ok=True)
     train = {dtype: phase_train(dtype) for dtype in ("float32", "bfloat16")}
     dispatch_ti = phase_dispatch_ti()
+    train_afno, eval_afno = phase_afno_single()
     shutil.rmtree(RUN_DIR)
     phase_train_card_vs_cpu()
     serve_h, model_h = phase_serve_h()
@@ -5855,22 +6154,27 @@ def main() -> int:
              "afno_hopper_wide.cu", {"serve_h": serve_h, "train_h": train_h}),
             ("fused_gn_afno[bf16,hopper_l]", ("L/", "LTP/"), "bfloat16", "hopper_l",
              "afno_hopper_l.cu", l_runs),
+            ("fused_gn_afno[bf16,hopper_pairs]", ("A/",), "bfloat16", "hopper_pairs",
+             "afno_hopper.cu", {"eval_afno_single[bfloat16]": eval_afno}),
             ("fused_gn_afno[bf16,general]", ("L/",), "bfloat16", "general", "afno_fused.cu",
-             {**l_runs, **bf16_runs}),
+             {**l_runs, **bf16_runs, "eval_afno_single[bfloat16]": eval_afno}),
             ("fused_gn_afno[f32,hopper]", ("",), "float32", "hopper_f32", "afno_hopper_f32.cu",
              f32_runs),
             ("fused_gn_afno[f32,hopper_l]", ("L/",), "float32", "hopper_f32_l",
              "afno_hopper_f32_l.cu", {"eval_l[float32]": eval_l["float32"]}),
             ("fused_gn_afno[f32,hopper_f32_wide]", ("H/",), "float32", "hopper_f32_wide",
              "afno_hopper_f32_wide.cu", {"serve_h[float32]": serve_h32}),
+            ("fused_gn_afno[f32,hopper_pairs]", ("A/",), "float32", "hopper_f32_pairs",
+             "afno_hopper_f32.cu", {"train_afno_single": train_afno}),
             ("fused_gn_afno[f32,general]", ("L/",), "float32", "general", "afno_fused.cu",
              {"eval_l[float32]": eval_l["float32"], "serve_h[float32]": serve_h32,
-              **f32_runs}))
+              "train_afno_single": train_afno, **f32_runs}))
     for name, prefixes, dtype, path, src, runs in rows:
         prefix = prefixes[0]
         # the row's times at the batch of the shapes' main path: L's
-        # pretraining in bf16, else 8
-        B_row = L_BATCH if L_BATCH in batches(prefix, dtype) else 8
+        # pretraining in bf16, the AFNO baseline's batch, else 8
+        B_row = {"A/": AFNO_BATCH}.get(
+            prefix, L_BATCH if L_BATCH in batches(prefix, dtype) else 8)
         r = k[f"{prefix}{dtype}/{path}/B{B_row}"]
         by_phase = {phase: run["launches_by_path"][path] for phase, run in runs.items()}
         kernels.append(dict(
@@ -5896,15 +6200,17 @@ def main() -> int:
             kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
         if "LTP/" in prefixes:  # a TP rank's shapes: C = 768, 8 blocks, 4 groups
             kernels[-1]["by_batch_at_l_tp"] = by_batch("LTP/", dtype, path)
-        if path == "general":  # forced on at the L, Ti, S and H shapes
+        if path == "general":  # forced on at the L, Ti, S, H and 64-channel shapes
             kernels[-1]["by_batch_at_ti"] = by_batch("", dtype, path)
             kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
+            kernels[-1]["by_batch_at_afno_single"] = by_batch("A/", dtype, path)
             if dtype == "bfloat16":
                 kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
     # bias_act's one caller is filtered_lrelu (the kernel phase's check); no
     # model path calls it, which the count over the other runs shows
     other_launches = sum(r["bias_act_launches"] for r in (
-        serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, serve_h, train_h, serve_h32,
+        serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, train_afno, eval_afno,
+        serve_h, train_h, serve_h32,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
         cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families, ddp, fsdp,
         *layouts.values()))

@@ -3,8 +3,8 @@ PyTorch version and their gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
 (dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches one of
-seven hand-written kernels, chosen from the shapes alone before any launch,
-or raises:
+seven hand-written kernels through one of nine paths, chosen from the
+shapes alone before any launch, or raises:
   - "hopper" (`dpot_tpu_torch/csrc/afno_hopper.cu`): bf16 at the shapes
     `hopper_supported` admits (AFNO blocks of 128 channels, DPOT-Ti, S and
     M at a 16x16 latent); wgmma fed by TMA, two launches;
@@ -27,6 +27,14 @@ or raises:
     at the shapes `hopper_f32_wide_supported` admits (AFNO blocks of 256
     channels, DPOT-H and a tensor-parallel rank's share of it, a latent as
     "hopper_f32"); "hopper_f32"'s arithmetic, two launches;
+  - "hopper_pairs" and "hopper_f32_pairs": AFNO blocks of 64 channels
+    (configs/afno_config_single.yaml: C 512, 8 blocks) at the shapes
+    `hopper_pairs_supported` and `hopper_f32_pairs_supported` admit; each
+    pair of blocks (2i, 2i+1) packed into one 128-channel block with
+    block-diagonal weights (`pack_pairs`), launched on afno_hopper.cu (bf16)
+    or afno_hopper_f32.cu (f32) with nb/2 blocks. The zero products are
+    exact and the activation is elementwise, so the result is the
+    64-channel mixer's up to the order of the f32 sums;
   - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): every other shape, in
     either type; five launches.
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
@@ -321,11 +329,49 @@ def hopper_f32_wide_supported(B: int, HW: int, C: int, K: int, nb: int, groups: 
             and _hopper_blocks(B, C, nb, groups, HOPPER_WIDE_BS))
 
 
+PAIR_BS = 64  # the AFNO block size that the pair paths pack two at a time
+
+
+def _pair_blocks(B: int, C: int, nb: int, groups: int) -> bool:
+    """AFNO blocks of 64 channels, an even count of them, and GroupNorm
+    groups of a power of two channels between 8 and 64, so that every group
+    lies inside one 64-channel block; the packed pairs are then the layout
+    of the kernels for blocks of 128 channels (`_hopper_blocks` at nb/2)."""
+    return (nb >= 2 and not nb % 2 and C == nb * PAIR_BS and groups >= 1
+            and not C % groups and C // groups <= PAIR_BS
+            and _hopper_blocks(B, C, nb // 2, groups))
+
+
+def hopper_pairs_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether the pair path runs afno_hopper.cu at these shapes: bf16,
+    `_bf16_hopper_latent`, an even count of 64-channel AFNO blocks with
+    groups of 8 to 64 (`_pair_blocks`). dpot_afno_hopper_supported at
+    (nb/2, blocks of 128) admits every such shape."""
+    return (dtype == torch.bfloat16 and _bf16_hopper_latent(HW, K)
+            and _pair_blocks(B, C, nb, groups))
+
+
+def hopper_f32_pairs_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                               dtype: torch.dtype) -> bool:
+    """Whether the pair path runs afno_hopper_f32.cu at these shapes: f32,
+    `_f32_hopper_latent`, an even count of 64-channel AFNO blocks with
+    groups of 8 to 64 (`_pair_blocks`). dpot_afno_hopper_f32_supported at
+    (nb/2, blocks of 128) admits every such shape."""
+    return (dtype == torch.float32 and _f32_hopper_latent(HW, K)
+            and _pair_blocks(B, C, nb, groups))
+
+
 # every kernel a call may launch, in the order kernel_path asks the gates
 PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l",
-         "hopper_f32_wide", "general")
+         "hopper_f32_wide", "hopper_pairs", "hopper_f32_pairs", "general")
 _GATES = (hopper_supported, hopper_wide_supported, hopper_l_supported,
-          hopper_f32_supported, hopper_f32_l_supported, hopper_f32_wide_supported)
+          hopper_f32_supported, hopper_f32_l_supported, hopper_f32_wide_supported,
+          hopper_pairs_supported, hopper_f32_pairs_supported)
+# the pair paths and the kernel each launches at nb/2 blocks of 128 channels
+PAIR_KERNELS = {"hopper_pairs": "hopper", "hopper_f32_pairs": "hopper_f32"}
+# the paths whose kernels read the bf16 copies of the block weights
+BF16_WEIGHT_PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_pairs")
 
 
 def kernel_path(B: int, HW: int, C: int, K: int, nb: int, groups: int,
@@ -363,31 +409,59 @@ def tf32_split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 BF16_BLOCKS_RANGE = "fused_gn_afno.bf16_blocks"
 
 
-def _bf16_blocks(w: torch.Tensor) -> torch.Tensor:
-    """w (2, nb, bs, bs), f32 or a bf16 working copy, as bf16 with each block
-    transposed to (out, in), the layout the bf16 Hopper kernels load with
-    TMA. Cached on w until w changes (its version counter or storage), so
-    serving converts once and training once per optimizer step. A CUDA
-    graph being captured always converts, and keeps nothing: a cached copy
-    would be frozen into the graph, which must read w as it is at each
-    replay (ops/cuda/graphs.py). Nor does a weight marked
+def pack_pairs(w: torch.Tensor) -> torch.Tensor:
+    """w (2, nb, bs, bs) -> (2, nb/2, 2bs, 2bs): blocks 2i and 2i+1 on the
+    diagonal of block i, zeros off it, for the real and the imaginary part
+    alike. The complex block MLP with such weights is block-diagonal, so
+    block i of the packed mixer is blocks 2i and 2i+1 of w side by side."""
+    two, nb, bs, _ = w.shape
+    out = w.new_zeros((two, nb // 2, 2 * bs, 2 * bs))
+    out[:, :, :bs, :bs] = w[:, 0::2]
+    out[:, :, bs:, bs:] = w[:, 1::2]
+    return out
+
+
+def _cached(w: torch.Tensor, attr: str, convert) -> torch.Tensor:
+    """convert(w), cached on w under `attr` until w changes (its version
+    counter or storage), so serving converts once and training once per
+    optimizer step. A CUDA graph being captured always converts, and keeps
+    nothing: a cached copy would be frozen into the graph, which must read
+    w as it is at each replay (ops/cuda/graphs.py). Nor does a weight marked
     `_dpot_block_cache = False`: a parameter of a model sharded by FSDP2,
     which gathers new values into the same tensor, at the same address and
     under the same version, at every step (parallel/fsdp.py `no_block_cache`)."""
     if (w.is_inference() or capturing()
             or not getattr(w, "_dpot_block_cache", True)):  # convert every call
-        return _convert_blocks(w)
+        return convert(w)
     key = (w.data_ptr(), w._version)
-    cached = getattr(w, "_dpot_bf16_blocks", None)
+    cached = getattr(w, attr, None)
     if cached is None or cached[0] != key:
-        cached = (key, _convert_blocks(w.detach()))
-        w._dpot_bf16_blocks = cached
+        cached = (key, convert(w.detach()))
+        setattr(w, attr, cached)
     return cached[1]
 
 
-def _convert_blocks(w: torch.Tensor) -> torch.Tensor:
+def _bf16_blocks(w: torch.Tensor, pairs: bool = False) -> torch.Tensor:
+    """w (2, nb, bs, bs), f32 or a bf16 working copy, as bf16 with each block
+    transposed to (out, in), the layout the bf16 Hopper kernels load with
+    TMA; with `pairs`, packed first (`pack_pairs`). Cached by `_cached`."""
+    if pairs:
+        return _cached(w, "_dpot_bf16_pairs", functools.partial(_convert_blocks, pairs=True))
+    return _cached(w, "_dpot_bf16_blocks", _convert_blocks)
+
+
+def _convert_blocks(w: torch.Tensor, pairs: bool = False) -> torch.Tensor:
     with torch.profiler.record_function(BF16_BLOCKS_RANGE):
+        if pairs:
+            w = pack_pairs(w)
         return w.transpose(-1, -2).to(torch.bfloat16).contiguous()
+
+
+def _f32_pairs(w: torch.Tensor) -> torch.Tensor:
+    """w (2, nb, 64, 64), f32 or a bf16 working copy (upcast, exact), packed
+    (`pack_pairs`) in f32 in the reference layout that afno_hopper_f32.cu
+    reads. Cached by `_cached`."""
+    return _cached(w, "_dpot_f32_pairs", lambda t: pack_pairs(t.float()))
 
 
 @functools.cache
@@ -395,6 +469,7 @@ def _kernel_fn(path: str):
     from dpot_tpu_torch.ops.cuda.build import load_library
 
     p, i = ctypes.c_void_p, ctypes.c_int
+    path = PAIR_KERNELS.get(path, path)
     if path != "general":
         fn = getattr(load_library("afno_" + path), "dpot_afno_" + path)
         fn.argtypes = [i] + [p] * 12 + [i] * 6 + [p]
@@ -422,13 +497,20 @@ def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, 
     o = torch.empty((B, 2 * K, C), device=dev, dtype=x.dtype)
     out = torch.empty_like(x)
     path = kernel_path(B, HW, C, K, nb, groups, x.dtype)
-    if path in ("hopper", "hopper_wide", "hopper_l"):
-        ptrs = (x, gscale, gbias, A, Ainv, _bf16_blocks(w1), b1, _bf16_blocks(w2), b2,
-                stats, o, out)
+    pairs = path in PAIR_KERNELS
+    if pairs:
+        # b1 and b2 (2, nb, 64) are the same memory as (2, nb/2, 128)
+        nb //= 2
+    if path in BF16_WEIGHT_PATHS:
+        ptrs = (x, gscale, gbias, A, Ainv, _bf16_blocks(w1, pairs), b1,
+                _bf16_blocks(w2, pairs), b2, stats, o, out)
         flags = (aid,)
     else:
         # these kernels read f32 weights: a bf16 working copy is upcast (exact)
-        args = (*args[:5], w1.float(), b1, w2.float(), b2)
+        if pairs:
+            args = (*args[:5], _f32_pairs(w1), b1, _f32_pairs(w2), b2)
+        else:
+            args = (*args[:5], w1.float(), b1, w2.float(), b2)
         if path == "general":
             z = torch.empty_like(o)
             h = torch.empty((B * K, nb, 2 * (C // nb)), device=dev, dtype=x.dtype)

@@ -23,9 +23,9 @@ The hazards of capture, and what the port does about each:
   `grid_patches`) raise on a miss under capture, so every capture site runs
   the same function eagerly first (its warm-up), which fills them; those
   caches never evict, because a graph reads their tensors by address;
-- a decision taken on the host is frozen into the graph: the bf16 weight
-  copies of `fused_gn_afno` are made inside every capture, never taken from
-  their cache (`ops/cuda/afno_fused.py` `_bf16_blocks`); the optimizer
+- a decision taken on the host is frozen into the graph: the weight copies
+  of `fused_gn_afno` (bf16, packed pairs) are made inside every capture,
+  never taken from their cache (`ops/cuda/afno_fused.py` `_cached`); the optimizer
   reads its per-step scalars from a device buffer (`train/optimizers.py`);
 - a replay changes tensors behind autograd's back: `mutated` tensors get
   their version counters bumped after every replay, so that a cache keyed

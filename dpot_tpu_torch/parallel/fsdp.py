@@ -21,8 +21,8 @@ gathered parameter is the same tensor either way.
 
 Under FSDP2 the all-gather writes the gathered values into the same
 unsharded parameter, at what is usually the same address, and keeps its
-version counter; the bf16 Hopper kernels' cache of converted weights
-(ops/cuda/afno_fused.py `_bf16_blocks`), keyed on both, would then serve
+version counter; the Hopper kernels' cache of converted weights
+(ops/cuda/afno_fused.py `_cached`), keyed on both, would then serve
 the previous step's weights. So `no_block_cache` gives every AFNO module of
 a sharded model a forward pre-hook that marks the weights it is about to
 read (the gathered ones) as not to be cached, and the kernels convert them
@@ -108,8 +108,8 @@ def _mark_uncached(module, args) -> None:
 
 def no_block_cache(model) -> None:
     """Before each forward of an AFNO module of `model`, mark the w1 and w2
-    it reads (FSDP2's gathered parameters) so that the bf16 kernels convert
-    them afresh (ops/cuda/afno_fused.py `_bf16_blocks`)."""
+    it reads (FSDP2's gathered parameters) so that the kernels convert
+    them afresh (ops/cuda/afno_fused.py `_cached`)."""
     from dpot_tpu_torch.models.dpot import AFNO2D
 
     for m in model.modules():

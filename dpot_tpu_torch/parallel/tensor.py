@@ -209,8 +209,8 @@ def count_tp_leaves(model: nn.Module, tp: int) -> int:
 
 def shard_model_tp(model: nn.Module, axis: Axis) -> dict[str, int]:
     """Cut this rank's shards out of the full weights of `model` in place
-    (each a contiguous parameter of its own: the bf16 kernels' weight cache,
-    ops/cuda/afno_fused.py `_bf16_blocks`, keys on a tensor's address and
+    (each a contiguous parameter of its own: the kernels' weight cache,
+    ops/cuda/afno_fused.py `_cached`, keys on a tensor's address and
     version, so no view of a full tensor may reach it) and set each block to
     run on them; returns `tp_specs`."""
     specs = tp_specs(model, axis.size)

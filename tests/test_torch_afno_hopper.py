@@ -131,7 +131,7 @@ def test_bf16_weight_blocks_are_cached_until_the_weight_changes():
 def test_launch_counts_by_path_start_at_zero_keys():
     assert set(afno_fused.fused_gn_afno.launches_by_path) == {
         "hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l", "hopper_f32_wide",
-        "general"}
+        "hopper_pairs", "hopper_f32_pairs", "general"}
 
 
 def test_bf16_weight_copies_are_made_inside_a_profiler_range():

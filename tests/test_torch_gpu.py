@@ -501,6 +501,102 @@ def test_gradient_at_the_dpot_h_f32_block_shapes(cuda):
         assert torch.isfinite(a).all() and rel_l2(a, b) <= 1e-4
 
 
+# configs/afno_config_single.yaml's blocks: C 512 in 8 AFNO blocks of 64
+# channels, GroupNorm(8); the pair paths pack them two at a time
+SINGLE_BLOCK = dict(C=512, nb=8)
+PAIR_PATHS = {torch.bfloat16: "hopper_pairs", torch.float32: "hopper_f32_pairs"}
+
+
+def check_pairs(args, dtype, act="gelu"):
+    """One call on the pair path of the compute type (afno_hopper.cu or
+    afno_hopper_f32.cu at nb/2 packed blocks of 128) against the plain
+    version at nb blocks of 64, at check_l's limits."""
+    path, approx = PAIR_PATHS[dtype], dtype == torch.bfloat16
+    x, *_, w1, _, _, _, K, groups = args
+    assert afno_fused.kernel_path(*x.shape, K, w1.shape[1], groups, dtype) == path
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=approx, act=act).float()
+    want = fused_gn_afno_ref(*args, approximate=approx, act=act).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path[path] == before[path] + 1
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 1
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 5e-5
+        assert rel_l2(got, want) <= 1e-5
+    else:
+        assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+        assert rel_l2(got, want) <= 4e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pair_paths_at_the_afno_single_block_shapes(cuda, dtype, B):
+    """The config's blocks in each compute type on its pair path; B = 32 is
+    the config's batch."""
+    check_pairs(ti_block_args(B, dtype, cuda, seed=170 + B, **SINGLE_BLOCK), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    dict(C=256, nb=4, groups=4),                        # a TP rank's share (model = 2)
+    dict(C=512, nb=8, groups=64),                       # groups of 8
+    dict(H=16, W=8, C=128, nb=2, modes=8, groups=2),    # one pair, a 128-px latent
+])
+def test_pair_paths_at_admitted_edge_shapes(cuda, dtype, shape):
+    check_pairs(ti_block_args(3, dtype, cuda, seed=180, **shape), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["silu", "relu"])
+def test_non_gelu_activations_on_the_pair_paths(cuda, dtype, act):
+    check_pairs(ti_block_args(4, dtype, cuda, seed=190, **SINGLE_BLOCK), dtype, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_step_at_the_afno_single_widths_lands_on_the_pair_paths(cuda, dtype, monkeypatch):
+    """One train step of configs/afno_config_single.yaml's model (width 512,
+    8 AFNO blocks, depth cut to 2, 128^2, patch 8, T_in 10, 4 channels;
+    AFNO weights redrawn from N(0, 0.05^2) so that the mixer matters) at
+    batch 2: every launch on the pair path of the compute type, and the
+    loss against the same step with the plain mixer (f32 1e-5 relative,
+    bf16 3e-2: its roundings may fall the other way)."""
+    from dpot_tpu_torch.models import build_model, dpot
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    def step(mixer=None):
+        model = build_model("AFNO", img_size=128, patch_size=8, in_channels=4,
+                            in_timesteps=10, embed_dim=512, depth=2, n_blocks=8, modes=32,
+                            n_cls=1, dtype=dtype, device=cuda, seed=4)
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for blk in model.blocks:
+                for w in (blk.filter.w1, blk.filter.b1, blk.filter.w2, blk.filter.b2):
+                    w.copy_(torch.randn(w.shape, generator=g) * 0.05)
+        state = TrainState.create(model, build_optimizer("adam", model.parameters(), 1e-3), 0)
+        batch = {k: v[0] for k, v in ti_batches(cuda, 1, seed=6).items()}
+        if mixer is not None:
+            monkeypatch.setattr(dpot, "fused_gn_afno", mixer)
+        return step_fn(state, batch)[1]["loss_step"].item()
+
+    step_fn = make_train_step(noise_scale=0.0, ones_mask=True)
+    path = PAIR_PATHS[dtype]
+    before = dict(fused_gn_afno.launches_by_path)
+    got = step()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path[path] == before[path] + 2
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 2
+    want = step(fused_gn_afno_ref)
+    assert np.isfinite(got) and abs(got - want) / abs(want) <= (
+        1e-5 if dtype == torch.float32 else 3e-2)
+
+
 @pytest.mark.gpu
 def test_evaluate_on_the_card_matches_the_cpu(cuda):
     """evaluate() of one small f32 DPOT on the card (the kernels) and on the

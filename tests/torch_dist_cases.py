@@ -248,16 +248,16 @@ def case_cache_check(args: dict) -> dict:
     step_fn = make_train_step(noise_scale=1e-3, ones_mask=True)
     real, same, stale = afno_fused._bf16_blocks, [], {}
 
-    def check(w, out):
-        same.append(torch.equal(out, afno_fused._convert_blocks(w.detach())))
+    def check(w, out, pairs=False):
+        same.append(torch.equal(out, afno_fused._convert_blocks(w.detach(), pairs)))
         return out
 
-    def spy(w):
-        return check(w, real(w))
+    def spy(w, pairs=False):
+        return check(w, real(w, pairs), pairs)
 
-    def stale_spy(w):
-        stale.setdefault(id(w), afno_fused._convert_blocks(w.detach()))
-        return check(w, stale[id(w)])
+    def stale_spy(w, pairs=False):
+        stale.setdefault(id(w), afno_fused._convert_blocks(w.detach(), pairs))
+        return check(w, stale[id(w)], pairs)
 
     steps, first = [], None
     for i in range(args["steps"] + args["control"]):
