@@ -26,10 +26,14 @@ Phases, each printing its results as JSON lines:
        AFNO blocks of 64 channels, one group each; B in {1, 8, 32}, 32 its
        batch) bf16 and f32 on the pair paths (each pair of blocks packed
        into one 128-channel block with block-diagonal weights, launched on
-       afno_hopper.cu and afno_hopper_f32.cu) in the same way; the six
-       shape gates against their mirrors in the CUDA sources, and the two
-       pair gates against the mirrors of the kernels they launch, asked at
-       the packed shapes;
+       afno_hopper.cu and afno_hopper_f32.cu) in the same way; bf16 at
+       DPOT-M's block shapes at res 256 and 64 (C 1024, 8 blocks of 128; a
+       32^2 latent, K 544, and an 8^2 latent, K 40; B in {1, 8, 20}) and at
+       DPOT-L's at res 256 (B in {1, 8, 16}) on the streamed kernel
+       (afno_hopper_stream.cu) in the same way; the seven shape gates
+       against their mirrors in the CUDA sources, and the two pair gates
+       against the mirrors of the kernels they launch, asked at the packed
+       shapes;
      - its gradient (fused_gn_afno_vjp, torch ops, not a kernel) against
        torch.autograd through the plain version at the Ti block shapes of
        training (B = 20), with the plain version made to raise while the
@@ -171,9 +175,9 @@ The 3D fine-tuning path and the separable route (torch.fft, cuFFT on the
 card, and einsums: no kernel, as in the JAX package, whose code there is
 XLA), after phase 14:
   19. finetune3d_L: `python -m dpot_tpu_torch.cli.finetune3d` in-process,
-     DPOT3D at DPOT-L's widths (embed 1536, depth 24, 16 AFNO blocks of 96,
-     mlp_ratio 4, out_layer_dim 128; 598 M parameters) on a synthetic set
-     of ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5 channels, 21
+     DPOT3D at DPOT-L's widths (embed 1536, 16 AFNO blocks of 96, mlp_ratio
+     4, out_layer_dim 128), its depth cut to 12 of L's 24 blocks, on a
+     synthetic set of ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5 channels, 21
      frames, t_test 11; 8 train and 4 test trajectories), patch 8, modes 32
      and temporal_modes 8, bf16, batch 4, 2 epochs, inflated from eval_L's
      seeded L .pth (4 channels, 128^2): the inflated count, finite losses,
@@ -307,12 +311,32 @@ The single-dataset AFNO baseline, after phase 15:
      all on the bf16 pair path, and the rollout of the test batch (AFNO
      weights redrawn) within MIXER_TOL["A/bfloat16"] of the plain mixer's,
      faulty plain mixers above it.
+DPOT-M at grids other than 128^2, after phase 29:
+  30. pretrain_m_grids: `python -m dpot_tpu_torch.cli.sweep --config_file
+     <copy of configs/pretrain_medium.yaml>` in-process, the copy's data cut
+     as train_L's (twelve synthetic sets, 2 + 2 trajectories, one epoch) and
+     its tasks.res [64, 256], so that the sweep makes two jobs; every other
+     key the file's: DPOT-M, width 1024, depth 12, 8 blocks of 128, bf16,
+     lamb, batch 20. In each job the steps exact, launches = depth x (train
+     + eval applications), all on the streamed kernel (afno_hopper_stream.cu),
+     none on the five-launch one, every loss finite; each job's first train
+     step (AFNO weights redrawn) on the kernel against the plain mixer's
+     (the loss relative and the worst gradient's relative L2, within
+     MIXER_TOL["M/bfloat16"]), with two controls above it: conj_w2 in the
+     plain mixer, and the kernel with its last mode chunk left out; at res
+     64 also the f32 step (the f32 Hopper kernel) against the plain mixer
+     within AFNO_STEP_TOL.
 `python3 chip_smoke.py layouts` builds the kernels and runs phases 27
 and 28 alone, printing their rows.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 float32 matrix products run in full float32 (TF32 off, set below).
 Any failure raises, so the script exits non-zero and prints no result. It
 needs one CUDA device and exits non-zero without one.
+Every process the run starts (nvcc, torchrun, its ranks in their own
+sessions, and what those start) inherits RUN_TOKEN in its environment;
+before the result lines, and on any failure, the script ends whatever of
+them is still alive and reaps its own children (`end_leftovers`), so that
+it leaves no process behind; what it had to end is in the `teardown` line.
 """
 
 from __future__ import annotations
@@ -327,6 +351,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -350,6 +375,7 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     hopper_f32_wide_supported,
     hopper_l_supported,
     hopper_pairs_supported,
+    hopper_stream_supported,
     hopper_supported,
     hopper_wide_supported,
 )
@@ -381,6 +407,13 @@ DPOT_L_TP = dict(DPOT_L, C=768, nb=8, groups=4)
 # GroupNorm(8) group each, which the pair paths pack two at a time into the
 # kernels for 128-channel blocks (afno_hopper.cu, afno_hopper_f32.cu)
 AFNO_SINGLE = dict(H=16, W=16, C=512, nb=8, modes=32, groups=8, depth=4)
+# DPOT-M (preset M, configs/pretrain_medium.yaml: embed 1024, 8 AFNO blocks
+# of 128, depth 12) at res 64 and 256, patch 8: an 8^2 latent (K 40) and a
+# 32^2 latent (K 544), which the streamed bf16 kernel (afno_hopper_stream.cu)
+# takes; DPOT-L's blocks at the 32^2 latent too
+M_64 = dict(H=8, W=8, C=1024, nb=8, modes=32, groups=8, depth=12)
+M_256 = dict(M_64, H=32, W=32)
+L_256 = dict(DPOT_L, H=32, W=32)
 TI_FLAGS = [
     "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "512",
     "--n_layers", "4", "--n_blocks", "4", "--modes", "32", "--mlp_ratio", "1",
@@ -436,10 +469,13 @@ L_PATH = {"bfloat16": "hopper_l", "float32": "hopper_f32_l"}
 # faults 4.6e-2 and up. On that rollout the other bf16 kernels read as
 # much: the five-launch kernel forced on 2.6e-3, Ti's model on afno_hopper.cu
 # 2.3e-3 (tools/bf16_mixer_readings.py), above the Ti sweep's 2e-3, so that
-# configuration has a limit of its own
+# configuration has a limit of its own. DPOT-M's first bf16 train step
+# (phase_pretrain_m_grids; another reading, see M_CAUGHT) on the stream
+# kernel reads 2.4e-3 at res 64 and 1.23e-2 at res 256 (both pos_embed's
+# gradient), its controls 6.0e-2 (the dropped chunk at res 256) and up
 MIXER_SCALE = 0.05
 MIXER_TOL = {"L/bfloat16": 1.3e-2, "L/float32": 2e-4, "Ti/bfloat16": 2e-3,
-             "H/float32": 2e-4, "A/bfloat16": 1e-2}
+             "H/float32": 2e-4, "A/bfloat16": 1e-2, "M/bfloat16": 3e-2}
 MIXER_FAULTS = ("block_groups", "conj_w2", "drop_mode")
 # bf16 rounding through the model moves the predictions by about as much as
 # the kernel's reading, whatever changes upstream: a fault smaller than that
@@ -535,6 +571,8 @@ TRAIN_CPU_TOL = dict(loss=1e-5, grad=1e-4)
 RESUME_TOL = 1e-6
 ROOT = Path(__file__).resolve().parent
 RUN_DIR = ROOT / "build" / "chip_smoke"
+# the environment variable that marks the processes of one run (end_leftovers)
+RUN_TOKEN = "DPOT_CHIP_SMOKE_RUN"
 # DPOT-L pretraining through the sweep CLI from a copy of
 # configs/pretrain_large.yaml with only its data cut: each of the file's
 # twelve corpora is stood in for by an in-memory synthetic set with its
@@ -578,12 +616,30 @@ AFNO_PATH = {"bfloat16": "hopper_pairs", "float32": "hopper_f32_pairs"}
 # same step with the plain mixer: the loss relative and every gradient's
 # relative L2; the f32 sums' order differs, as card against CPU for Ti
 # (TRAIN_CPU_TOL). A control, the pairs packed in swapped order, must land
-# above the limits
+# above the limits; DPOT-M's first f32 step at res 64 (phase_pretrain_m_grids)
+# is held to the same limits
 AFNO_STEP_TOL = dict(loss=1e-5, grad=1e-4)
 # the faulty plain mixers its bf16 rollout check must catch: its GroupNorm
 # groups are its AFNO blocks (8 of 64 channels), so "block_groups" computes
 # what the plain mixer computes there
 AFNO_CAUGHT = ("conj_w2", "swap_pairs")
+# DPOT-M pretraining (configs/pretrain_medium.yaml: width 1024, depth 12, 8
+# blocks of 128, bf16, lamb, batch 20) through the sweep CLI from a copy with
+# its data cut as train_L's (twelve synthetic sets of their namesakes' grids,
+# `ntrain` + `ntest` trajectories each, one epoch) and its tasks.res the two
+# grids [64, 256], so that the sweep makes two jobs; every other key the
+# file's, the depth too
+M_CONFIG = ROOT / "configs" / "pretrain_medium.yaml"
+M_BATCH = 20
+TRAIN_M = dict(epochs=1, ntrain=2, ntest=2, res=[64, 256])
+# the first bf16 step of each job (AFNO weights redrawn from N(0,
+# MIXER_SCALE^2)) on the kernel against the same step with the plain mixer:
+# the reading is the larger of the loss's relative difference and the worst
+# gradient's relative L2, at most MIXER_TOL["M/bfloat16"];
+# the controls M_CAUGHT must land above it: the plain mixer with conj_w2,
+# and the stream kernel with its last mode chunk left out ("drop_chunk",
+# the ragged 8 of K 40 at res 64, 32 of 544 at res 256)
+M_CAUGHT = ("conj_w2", "drop_chunk")
 # remat_L and params_lp_L compare two runs of one model, so they run train_L's
 # model cut to its first CUT_L_DEPTH blocks (cut_depth), at L's widths
 CUT_L_DEPTH = 6
@@ -593,24 +649,27 @@ CUT_L_DEPTH = 6
 # L2 GRAPH_TOL, unless the eager path's own run-to-run spread, measured in
 # the same phase and logged, is larger: that spread is then the limit
 GRAPH_TOL = 1e-6
-# finetune3d_L: DPOT3D at DPOT-L's widths (embed 1536, depth 24, 16 AFNO
-# blocks of 96, groups of 192, mlp_ratio 4, out_layer_dim 128) on a
-# synthetic set of ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5
-# channels, 21 frames, t_test 11), 8 train and 4 test trajectories, patch 8
-# (an 8^3 latent), T_in 10, modes 32 and temporal_modes 8, bf16, batch 4,
-# 2 epochs, inflated from the L .pth that eval_L writes (4 channels, 128^2)
+# finetune3d_L: DPOT3D at DPOT-L's widths (embed 1536, 16 AFNO blocks of
+# 96, groups of 192, mlp_ratio 4, out_layer_dim 128) on a synthetic set of
+# ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5 channels, 21
+# frames, t_test 11), 8 train and 4 test trajectories, patch 8 (an 8^3
+# latent), T_in 10, modes 32 and temporal_modes 8, bf16, batch 4, 2 epochs,
+# inflated from the L .pth that eval_L writes (4 channels, 128^2); its depth
+# cut to FT3D_DEPTH of L's 24 blocks (the first 12 inflated) to keep the cold
+# smoke within its time with DPOT-M's phase at two grids
+FT3D_DEPTH = 12
 FT3D_SPEC = dict(name="synthetic_ns3d_l", train_size=8, test_size=4, t_total=21, t_test=11,
                  in_size=(64, 64, 64), n_channels=5)
 FT3D = dict(batch=4, epochs=2)
 L3D = dict(img_size=64, patch_size=8, in_channels=5, in_timesteps=10, embed_dim=1536,
            n_blocks=16, mlp_ratio=4.0, out_layer_dim=128, modes=32, n_cls=1)
-L3D_ARCH = ["--res", "64", "--patch_size", "8", "--width", "1536", "--n_layers", "24",
+L3D_ARCH = ["--res", "64", "--patch_size", "8", "--width", "1536", "--n_layers", str(FT3D_DEPTH),
             "--n_blocks", "16", "--mlp_ratio", "4", "--out_layer_dim", "128", "--modes", "32",
             "--T_in", "10"]
-# the entries the 2D->3D inflation copies from L: 12 a trunk block (both
-# norms, the four AFNO tensors, the MLP's two weights and biases) and the
-# time aggregator's w and gamma
-FT3D_INFLATED = 12 * DPOT_L["depth"] + 2
+# the entries the 2D->3D inflation copies from L: 12 a trunk block of the 3D
+# model (both norms, the four AFNO tensors, the MLP's two weights and
+# biases) and the time aggregator's w and gamma
+FT3D_INFLATED = 12 * FT3D_DEPTH + 2
 # card_vs_cpu_3d: that model at depth 2, f32, B = 1, its AFNO weights
 # redrawn; the 3D eval rollout's steps for the graph against eager
 CPU3D_DEPTH = 2
@@ -867,7 +926,8 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 GENERAL_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
                    "mode_out_kernel", "synthesis_kernel")
 HOPPER_KERNELS = ("spectral_kernel", "spectral_wide_kernel", "spectral_l_kernel",
-                  "tma_synthesis_kernel")
+                  "tma_synthesis_kernel", "stream_stats_kernel", "stream_spectral_kernel",
+                  "stream_synthesis_kernel")
 HOPPER_F32_KERNELS = ("spectral_f32_kernel", "spectral_f32_l_kernel",
                       "spectral_f32_wide_kernel", "synthesis_f32_kernel")
 SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS + HOPPER_F32_KERNELS
@@ -1074,9 +1134,9 @@ def check_afno(B, dtype, weight_scale, seed, path, act="gelu", geo=TI) -> dict:
 
 def check_gate_mirror() -> int:
     """Each Hopper kernel's gate in afno_fused.py (hopper_supported, ...,
-    hopper_f32_wide_supported) against its mirror in the CUDA source
-    (dpot_afno_hopper_supported, ...), on the presets and on shapes any of
-    them may refuse; and each pair gate (hopper_pairs_supported,
+    hopper_f32_wide_supported, hopper_stream_supported) against its mirror
+    in the CUDA source (dpot_afno_hopper_supported, ...), on the presets
+    and on shapes any of them may refuse; and each pair gate (hopper_pairs_supported,
     hopper_f32_pairs_supported) against the source's gate of the kernel it
     launches, asked at the packed shapes (nb/2 blocks of 128), wherever the
     blocks are 64 channels in an even count with groups of at most 64
@@ -1088,12 +1148,13 @@ def check_gate_mirror() -> int:
                              ("afno_hopper_f32", hopper_f32_supported, torch.float32),
                              ("afno_hopper_f32_l", hopper_f32_l_supported, torch.float32),
                              ("afno_hopper_f32_wide", hopper_f32_wide_supported,
-                              torch.float32)):
+                              torch.float32),
+                             ("afno_hopper_stream", hopper_stream_supported, torch.bfloat16)):
         fn = getattr(build.load_library(lib), f"dpot_{lib}_supported")
         fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
         gates.append((fn, gate, dtype))
-    for (fn, _, dtype), gate in zip([gates[0], gates[3]],
+    for (fn, _, dtype), gate in zip([gates[0], gates[3]],  # the 128-channel kernels
                                     (hopper_pairs_supported, hopper_f32_pairs_supported)):
 
         def packed(B, HW, C, K, nb, groups, fn=fn):
@@ -1149,6 +1210,22 @@ def check_gate_mirror() -> int:
                (2, 4096, 512, 144, 8, 8), (2, 96, 512, 40, 8, 8), (2, 256, 512, 142, 8, 8),
                (2, 256, 512, 143, 8, 8), (2, 256, 512, 160, 8, 8), (2, 256, 512, 164, 8, 8),
                (2, 256, 512, 144, 8, 24), (2, 256, 384, 144, 8, 8)]
+    # the stream gate's: DPOT-M, L, H and Ti at 64^2 and 256^2 (patch 8), the
+    # block sizes and group layouts it takes, the latents it leaves to the
+    # other bf16 kernels, odd K, 160-channel blocks, 144 px, the batch's limits
+    shapes += [(B, 64, C, 40, nb, 8) for B in (1, M_BATCH) for C, nb in (
+        (1024, 8), (1536, 16), (2048, 8), (512, 4))]
+    shapes += [(B, 1024, C, 544, nb, 8) for B in (1, M_BATCH) for C, nb in (
+        (1024, 8), (1536, 16), (2048, 8), (512, 4))]
+    shapes += [(2, 64, 320, 40, 5, 5), (2, 64, 192, 40, 3, 24), (2, 1024, 768, 544, 8, 4),
+               (2, 64, 384, 40, 4, 4), (2, 4096, 256, 144, 2, 8), (2, 512, 512, 144, 4, 8),
+               (2, 256, 512, 164, 4, 8), (2, 256, 512, 142, 4, 8), (2, 1024, 128, 2, 1, 1),
+               (2, 64, 512, 4, 2, 2), (2, 144, 512, 60, 4, 8), (2, 1024, 1024, 543, 8, 8),
+               (2, 1024, 1280, 544, 8, 8), (2, 1024, 1024, 544, 8, 2),
+               (2, 1024, 1024, 544, 8, 256), (2, 1024, 480, 544, 5, 5),
+               (2, 1024, 384, 544, 4, 1), (2, 8192, 1024, 544, 8, 8), (2, 32, 512, 10, 4, 8),
+               (0, 64, 1024, 40, 8, 8), (65535, 64, 1024, 40, 8, 8), (65536, 64, 1024, 40, 8, 8),
+               (2, 64, 1024, 40, 16, 8), (2, 64, 1000, 40, 8, 8)]
     for fn, gate, dtype in gates:
         for sh in shapes:
             if bool(fn(*sh)) != gate(*sh, dtype):
@@ -1177,13 +1254,17 @@ KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
                 ("L/", DPOT_L, torch.bfloat16, ("general", "hopper_l")),
                 ("LTP/", DPOT_L_TP, torch.bfloat16, ("general", "hopper_l")),
                 ("L/", DPOT_L, torch.float32, ("general", "hopper_f32_l")),
-                ("H/", DPOT_H, torch.float32, ("general", "hopper_f32_wide")))
+                ("H/", DPOT_H, torch.float32, ("general", "hopper_f32_wide")),
+                ("M256/", M_256, torch.bfloat16, ("general", "hopper_stream")),
+                ("M64/", M_64, torch.bfloat16, ("general", "hopper_stream")),
+                ("L256/", L_256, torch.bfloat16, ("general", "hopper_stream")))
 KERNEL_BATCHES = (1, 8, TRAIN["batch"])
 # the batches of each case: L in bf16 also at the batch of its pretraining
 CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"]),
                 ("LTP/", torch.bfloat16): (1, 4, L_BATCH),
                 ("A/", torch.bfloat16): (1, 8, AFNO_BATCH),
-                ("A/", torch.float32): (1, 8, AFNO_BATCH)}
+                ("A/", torch.float32): (1, 8, AFNO_BATCH),
+                ("L256/", torch.bfloat16): (1, 8, L_BATCH)}
 
 
 def phase_kernels() -> dict:
@@ -2555,7 +2636,8 @@ def sweep_corpora(doc: dict) -> list[str]:
 def sweep_file(config: Path, tag: str, cut: dict, run_dir: Path) -> tuple[Path, list]:
     """Write the copy of the sweep file `config` with only its data cut
     (`cut`: ntrain and ntest trajectories of each corpus, epochs; and the
-    depth, n_layers, where `cut` names one) into run_dir, its corpora
+    depth, n_layers, or the grids, res, where `cut` names them) into
+    run_dir, its corpora
     (`sweep_corpora`, set where the file sets them) the synthetic sets
     synthetic_{tag}_{corpus} of their namesakes' grids, channels and
     lengths, its logs under run_dir/train_{tag}; returns its path and the
@@ -2582,6 +2664,8 @@ def sweep_file(config: Path, tag: str, cut: dict, run_dir: Path) -> tuple[Path, 
     doc["tasks"]["epochs"] = [cut["epochs"]]
     if "depth" in cut:
         doc["tasks"]["n_layers"] = [cut["depth"]]
+    if "res" in cut:
+        doc["tasks"]["res"] = list(cut["res"])
     path = run_dir / f"{config.stem}_data_cut.yaml"
     path.write_text(yaml.safe_dump(doc, sort_keys=False))
     return path, specs
@@ -2675,10 +2759,11 @@ def phase_train_l() -> tuple[dict, torch.nn.Module]:
 
 
 def corpus_batches(config: Path, tag: str, cut: dict, batch: int, x_dtype: torch.dtype,
-                   n: int, seed: int) -> list[dict]:
+                   n: int, seed: int, res: int | None = None) -> list[dict]:
     """n train batches of the cut corpora that sweep_file registered for
     `config`, as the loop ships them to the card (x in x_dtype, one target
-    frame, no mask), each with the noise draws of its step."""
+    frame, no mask) at the file's first res or at `res`, each with the
+    noise draws of its step."""
     import yaml
 
     from dpot_tpu_torch.data import DataLoader, MixedTemporalDataset
@@ -2686,8 +2771,8 @@ def corpus_batches(config: Path, tag: str, cut: dict, batch: int, x_dtype: torch
     doc = yaml.safe_load(config.read_text())
     names = [f"synthetic_{tag}_{name}" for name in sweep_corpora(doc)]
     ds = MixedTemporalDataset(names, [cut["ntrain"]] * len(names),
-                              res=doc["tasks"]["res"][0], t_in=10, t_ar=1, train=True,
-                              data_weights=doc.get("data_weights"))
+                              res=res or doc["tasks"]["res"][0], t_in=10, t_ar=1,
+                              train=True, data_weights=doc.get("data_weights"))
     loader = iter(DataLoader(ds, batch, shuffle=True, num_workers=8, seed=seed,
                              drop_last=True))
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2718,6 +2803,52 @@ def swapped_packing():
         afno_fused.pack_pairs = real
 
 
+def first_step_runs(base, b: dict, noise_scale: float, path: str, runs: dict) -> dict:
+    """One train step of a copy of `base` on batch b under each context of
+    `runs` (name -> (context, the launches it must make on kernel `path`)):
+    name -> (its loss, its gradients by parameter name)."""
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    step_fn = make_train_step(noise_scale=noise_scale, ones_mask=True)
+    out = {}
+    for name, (ctx, want) in runs.items():
+        m = copy.deepcopy(base)
+        state = TrainState.create(m, build_optimizer("adam", m.parameters(), 0.0), seed=0)
+        before = fused_gn_afno.launches_by_path[path]
+        with ctx:
+            loss = step_fn(state, b)[1]["loss_step"].item()
+        launched = fused_gn_afno.launches_by_path[path] - before
+        if launched != want:
+            raise AssertionError(f"first step {name}: {launched} launches on {path}, "
+                                 f"expected {want}")
+        out[name] = (loss, {n: p.grad for n, p in m.named_parameters() if p.grad is not None})
+        del m, state
+    return out
+
+
+def step_readings(runs: dict, ref: str = "plain") -> dict:
+    """Each run of `first_step_runs` but `ref` against `ref`: the loss's
+    relative difference, the worst gradient's relative L2 and the relative
+    L2 of all gradients together."""
+    want_loss, want = runs[ref]
+    flat_want = torch.cat([g.float().flatten() for g in want.values()])
+    readings = {}
+    for name, (loss, grads) in runs.items():
+        if name == ref:
+            continue
+        if grads.keys() != want.keys():
+            raise AssertionError(f"first step {name}: gradients of other parameters")
+        g = {n: rel_l2(grads[n], want[n]) for n in want}
+        worst = max(g, key=g.get)
+        flat = torch.cat([grads[n].float().flatten() for n in want])
+        readings[name] = dict(loss=loss, loss_rel=abs(loss - want_loss) / abs(want_loss),
+                              worst_grad=worst, worst_grad_rel_l2=g[worst],
+                              grad_rel_l2=rel_l2(flat, flat_want))
+    return readings
+
+
 def afno_single_step_check(model, job: dict) -> dict:
     """The first train step of configs/afno_config_single.yaml's model (a
     copy of `model`, its AFNO weights redrawn from N(0, MIXER_SCALE^2) so
@@ -2726,37 +2857,15 @@ def afno_single_step_check(model, job: dict) -> dict:
     order (the control): the loss relative and the worst gradient's
     relative L2 against the plain mixer's, within AFNO_STEP_TOL on the
     kernel and not within it for the control."""
-    from dpot_tpu_torch.train.optimizers import build_optimizer
-    from dpot_tpu_torch.train.state import TrainState
-    from dpot_tpu_torch.train.step import make_train_step
-
     base = copy.deepcopy(model)
     draw_mixer_weights(base, seed=7)
     (b,) = corpus_batches(AFNO_CONFIG, "A", TRAIN_AFNO, job["batch_size"], torch.float32, 1,
                           seed=3)
-    step_fn = make_train_step(noise_scale=job["noise_scale"], ones_mask=True)
-    runs = {}
-    for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_mixer()),
-                      ("swapped_pairs", swapped_packing())):
-        m = copy.deepcopy(base)
-        state = TrainState.create(m, build_optimizer("adam", m.parameters(), 0.0), seed=0)
-        before = fused_gn_afno.launches_by_path["hopper_f32_pairs"]
-        with ctx:
-            loss = step_fn(state, b)[1]["loss_step"].item()
-        launched = fused_gn_afno.launches_by_path["hopper_f32_pairs"] - before
-        if launched != (0 if name == "plain" else job["n_layers"]):
-            raise AssertionError(f"afno_single step {name}: {launched} pair launches")
-        runs[name] = (loss, {n: p.grad for n, p in m.named_parameters() if p.grad is not None})
-    want_loss, want = runs["plain"]
-    readings = {}
-    for name in ("kernel", "swapped_pairs"):
-        loss, grads = runs[name]
-        if grads.keys() != want.keys():
-            raise AssertionError(f"afno_single step {name}: gradients of other parameters")
-        g = {n: rel_l2(grads[n], want[n]) for n in want}
-        worst = max(g, key=g.get)
-        readings[name] = dict(loss=loss, loss_rel=abs(loss - want_loss) / abs(want_loss),
-                              worst_grad=worst, worst_grad_rel_l2=g[worst])
+    depth = job["n_layers"]
+    runs = first_step_runs(base, b, job["noise_scale"], "hopper_f32_pairs", {
+        "kernel": (contextlib.nullcontext(), depth), "plain": (plain_mixer(), 0),
+        "swapped_pairs": (swapped_packing(), depth)})
+    readings = step_readings(runs)
     tol = AFNO_STEP_TOL
 
     def within(r):
@@ -2765,7 +2874,8 @@ def afno_single_step_check(model, job: dict) -> dict:
     if not within(readings["kernel"]) or within(readings["swapped_pairs"]):
         raise AssertionError(f"afno_single first step against the plain mixer: {readings} "
                              f"(limits {tol}): the kernel must be within, the control not")
-    return dict(plain_loss=want_loss, limits=tol, n_grads=len(want), **readings)
+    return dict(plain_loss=runs["plain"][0], limits=tol, n_grads=len(runs["plain"][1]),
+                **readings)
 
 
 def phase_afno_single() -> tuple[dict, dict]:
@@ -2889,6 +2999,171 @@ def phase_afno_single() -> tuple[dict, dict]:
     del bf16, b
     torch.cuda.empty_cache()
     return row, eval_row
+
+
+@contextlib.contextmanager
+def dropped_last_chunk():
+    """The stream path launches afno_hopper_stream.cu's control entry
+    instead of the kernel's: the same call with the spectral launch's last
+    mode chunk left out (its rows of o zero), a fault in the chunk
+    arithmetic that the step check must catch."""
+    fn = build.load_library("afno_hopper_stream").dpot_afno_hopper_stream_drop_last_chunk
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    real = afno_fused._kernel_fn
+    afno_fused._kernel_fn = lambda path: fn if path == "hopper_stream" else real(path)
+    try:
+        yield
+    finally:
+        afno_fused._kernel_fn = real
+
+
+def m_step_check(model, job: dict) -> dict:
+    """The first train step of a DPOT-M job of pretrain_m_grids (a copy of
+    its trained `model`, AFNO weights redrawn from N(0, MIXER_SCALE^2)) on a
+    batch of its cut corpora at its res: bf16 on the stream kernel, with the
+    plain mixer and with the controls of M_CAUGHT; each run's reading (the
+    larger of the loss's relative difference and the worst gradient's
+    relative L2 against the plain mixer's) within MIXER_TOL["M/bfloat16"] on
+    the kernel and above it for every control. At res 64 also the step in f32
+    (the f32 Hopper kernel) against the plain mixer within AFNO_STEP_TOL."""
+    from dpot_tpu_torch.cli.sweep import job_to_argv
+    from dpot_tpu_torch.models import build_model
+    from dpot_tpu_torch.utils.config import load_config
+
+    res, depth, noise = job["res"], job["n_layers"], job["noise_scale"]
+    base = copy.deepcopy(model)
+    draw_mixer_weights(base, seed=9)
+    (b,) = corpus_batches(M_CONFIG, "M", TRAIN_M, M_BATCH, torch.bfloat16, 1, seed=3, res=res)
+    runs = first_step_runs(base, b, noise, "hopper_stream", {
+        "kernel": (contextlib.nullcontext(), depth), "plain": (plain_mixer(), 0),
+        "conj_w2": (plain_mixer(faulty_mixer("conj_w2")), 0),
+        "drop_chunk": (dropped_last_chunk(), depth)})
+    readings = step_readings(runs)
+    for r in readings.values():
+        r["reading"] = max(r["loss_rel"], r["worst_grad_rel_l2"])
+    limit = MIXER_TOL["M/bfloat16"]
+    log("mixer_check", what=f"pretrain_m_grids res {res}: the first bf16 step", limit=limit,
+        caught=M_CAUGHT, **readings)
+    wrong = min(readings[f]["reading"] for f in M_CAUGHT)
+    if not readings["kernel"]["reading"] <= limit < wrong:
+        raise AssertionError(
+            f"pretrain_m_grids res {res}: the first bf16 step reads "
+            f"{readings['kernel']['reading']} on the kernel, {wrong} at the least with a "
+            f"control of {M_CAUGHT}: the limit {limit} must lie between")
+    out = dict(plain_loss=runs["plain"][0], limit=limit, bf16=readings)
+    del runs, b
+    if res != 64:
+        return out
+    # the same step in f32, on the f32 Hopper kernel at the 8^2 latent
+    cfg = load_config(job_to_argv(job))
+    f32 = build_model(
+        cfg.model, img_size=res, patch_size=cfg.patch_size, in_channels=model.in_channels,
+        in_timesteps=cfg.T_in, out_timesteps=cfg.T_bundle, embed_dim=cfg.width,
+        modes=cfg.modes, depth=cfg.n_layers, n_blocks=cfg.n_blocks, mlp_ratio=cfg.mlp_ratio,
+        out_layer_dim=cfg.out_layer_dim, act=cfg.act, n_cls=len(cfg.train_paths),
+        normalize=cfg.normalize, use_ln=cfg.use_ln, dtype=torch.float32, device="cuda", seed=0)
+    f32.load_state_dict(base.state_dict(), strict=True)
+    (b,) = corpus_batches(M_CONFIG, "M", TRAIN_M, M_BATCH, torch.float32, 1, seed=3, res=res)
+    runs = first_step_runs(f32, b, noise, "hopper_f32", {
+        "kernel": (contextlib.nullcontext(), depth), "plain": (plain_mixer(), 0)})
+    r32 = step_readings(runs)["kernel"]
+    tol = AFNO_STEP_TOL
+    if not (r32["loss_rel"] <= tol["loss"] and r32["worst_grad_rel_l2"] <= tol["grad"]):
+        raise AssertionError(f"pretrain_m_grids res 64: the first f32 step against the plain "
+                             f"mixer {r32} (limits {tol})")
+    out["f32"] = dict(plain_loss=runs["plain"][0], limits=tol, **r32)
+    return out
+
+
+def phase_pretrain_m_grids() -> dict:
+    """configs/pretrain_medium.yaml (DPOT-M: width 1024, depth 12, 8 blocks
+    of 128, bf16, lamb, batch 20) at res 64 and 256 on the stream kernel.
+    Pretrained through the sweep CLI (in-process) from a copy with its data
+    cut and its tasks.res [64, 256] (`sweep_file`, TRAIN_M), two jobs: in
+    each the steps exact and the launches exact (depth x (train + eval
+    applications), every one on hopper_stream, none on general), every loss
+    finite; then each job's first step against the plain mixer
+    (`m_step_check`). Returns the row."""
+    import yaml
+
+    import dpot_tpu_torch.cli.train as train_cli
+    from dpot_tpu_torch.cli.sweep import main as sweep_main
+    from dpot_tpu_torch.utils.config import expand_tasks
+
+    cfg_path, specs = sweep_file(M_CONFIG, "M", TRAIN_M, RUN_DIR)
+    doc = yaml.safe_load(cfg_path.read_text())
+    jobs = expand_tasks(doc)
+    depth = M_64["depth"]
+    if ([j["res"] for j in jobs] != TRAIN_M["res"] or (doc["opt"], doc["dtype"]) != (
+            "lamb", "bfloat16") or any(
+            (j["batch_size"], j["width"], j["n_layers"], j["n_blocks"], j["patch_size"])
+            != (M_BATCH, M_64["C"], depth, M_64["nb"], 8) for j in jobs)):
+        raise AssertionError(f"{M_CONFIG.name} no longer pretrains M as this phase expects")
+    steps, eval_apps = sweep_applications(specs, doc["data_weights"], M_BATCH,
+                                          TRAIN_M["epochs"])
+    per_job = []
+    real_main = train_cli.main
+
+    def counted(argv):
+        # each job's own launches and wall, read around its run
+        before = dict(fused_gn_afno.launches_by_path)
+        t0 = time.perf_counter()
+        out = real_main(argv)
+        torch.cuda.synchronize()
+        per_job.append(dict(run_s=time.perf_counter() - t0, launches_by_path={
+            p: n - before[p] for p, n in fused_gn_afno.launches_by_path.items()}))
+        return out
+
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(train_cli, "main", counted), contextlib.redirect_stdout(io.StringIO()):
+        outs = sweep_main(["--config_file", str(cfg_path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, run_s = fused_gn_afno.launches, time.perf_counter() - t0
+    want = depth * (steps + eval_apps)
+    if launches != len(jobs) * want:
+        raise AssertionError(f"pretrain_m_grids: fused_gn_afno launched {launches} times, "
+                             f"expected jobs x depth x (train + eval applications) = "
+                             f"{len(jobs) * want}")
+    by_path = check_paths("bfloat16", launches, "hopper_stream")
+    bias_act_launches = bias_act.launches
+    rows = {}
+    for job, out, counts in zip(jobs, outs, per_job):
+        res = job["res"]
+        state, model = out["state"], out["model"]
+        mine = counts["launches_by_path"]
+        if state.step != steps or len(model.blocks) != depth or model.img_size != res:
+            raise AssertionError(f"pretrain_m_grids res {res}: {state.step} steps, "
+                                 f"{len(model.blocks)} blocks, img {model.img_size}")
+        if mine["hopper_stream"] != want or sum(mine.values()) != want:
+            raise AssertionError(f"pretrain_m_grids res {res}: launches by path {mine}, "
+                                 f"expected all {want} on hopper_stream")
+        metrics = read_metrics(out["log_dir"])
+        losses = [v for k, vs in metrics.items() if "loss" in k for v in vs]
+        losses += [out["train_l2_step"], out["train_l2_full"], *out["test_l2_steps"],
+                   *out["test_l2_fulls"]]
+        if len(metrics.get("train_loss_step", [])) != steps or not finite(losses):
+            raise AssertionError(f"pretrain_m_grids res {res} losses missing or not finite: "
+                                 f"{metrics}")
+        rows[f"res{res}"] = dict(
+            latent=res // 8, K=(res // 8) * (res // 16 + 1), run_s=counts["run_s"],
+            launches_by_path=mine, loop_step_s=out["step_seconds"],
+            train_l2_step=out["train_l2_step"], test_l2_fulls=out["test_l2_fulls"],
+            first_step=m_step_check(model, job))
+        del out, state, model
+        torch.cuda.empty_cache()
+    row = dict(dtype="bfloat16", batch=M_BATCH, depth=depth, steps=steps,
+               train_applications=steps, eval_applications=eval_apps, launches=launches,
+               launches_by_path=by_path, bias_act_launches=bias_act_launches, run_s=run_s,
+               corpora={s.name: dict(channels=s.n_channels, in_size=s.in_size,
+                                     t_total=s.t_total, t_test=s.t_test) for s in specs},
+               **rows)
+    log("pretrain_m_grids", **row)
+    del outs
+    torch.cuda.empty_cache()
+    return row
 
 
 @contextlib.contextmanager
@@ -4564,6 +4839,67 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def run_processes(token: str) -> dict[int, str]:
+    """The processes other than this one that carry RUN_TOKEN=token in
+    their environment or descend from this one, by pid, with their command
+    lines (a zombie's is empty)."""
+    mark, me = f"{RUN_TOKEN}={token}".encode(), os.getpid()
+    parents, found = {}, {}
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit() or int(entry.name) == me:
+            continue
+        pid = int(entry.name)
+        with contextlib.suppress(OSError, ValueError, IndexError):
+            # the fields after the command's closing parenthesis: state, ppid
+            parents[pid] = int((entry / "stat").read_text().rsplit(")", 1)[1].split()[1])
+            if mark in (entry / "environ").read_bytes().split(b"\0"):
+                found[pid] = ""
+    for pid in parents:
+        up, seen = parents.get(pid), set()
+        while up and up not in seen and pid not in found:
+            if up == me:
+                found[pid] = ""
+            seen.add(up)
+            up = parents.get(up)
+    for pid in found:
+        with contextlib.suppress(OSError):
+            found[pid] = (Path("/proc") / str(pid) / "cmdline").read_bytes().replace(
+                b"\0", b" ").decode(errors="replace").strip()
+    return found
+
+
+def reap_children() -> None:
+    """Wait for every child of this process that has ended."""
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
+
+
+def end_leftovers(token: str) -> dict:
+    """End every process of this run that is still alive (`run_processes`):
+    SIGTERM, then SIGKILL after 10 s to what is left; reap this process's
+    children. Returns what it found, by pid, and how long it took."""
+    t0 = time.perf_counter()
+    reap_children()
+    found = run_processes(token)
+    for pid in found:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.kill(pid, signal.SIGTERM)
+    while run_processes(token) and time.perf_counter() - t0 < 10:
+        time.sleep(0.1)
+        reap_children()
+    killed = []
+    for pid in run_processes(token):
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.kill(pid, signal.SIGKILL)
+            killed.append(pid)
+    if killed:
+        time.sleep(0.1)
+        reap_children()
+    return dict(found={str(p): c for p, c in found.items()}, sigkilled=killed,
+                still_alive=sorted(run_processes(token)), seconds=time.perf_counter() - t0)
+
+
 class Launch:
     """RANK_JOBS[job] on `nproc` ranks through torchrun (`python -m
     torch.distributed.run`, this script as the rank program), started in
@@ -6048,6 +6384,31 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["rank"]:  # a rank of a multi-process phase, under torchrun
         return rank_main(*sys.argv[2:4])
+    token = f"{os.getpid()}-{time.time_ns()}"
+    os.environ[RUN_TOKEN] = token
+    try:
+        kernels = smoke()
+    except BaseException:
+        left = end_leftovers(token)
+        if left["found"]:
+            print(f"chip_smoke: ended the run's processes {left}", file=sys.stderr, flush=True)
+        raise
+    left = end_leftovers(token)
+    log("teardown", **left)
+    if left["still_alive"]:
+        raise AssertionError(f"processes of this run outlived SIGKILL: {left}")
+    if kernels is None:  # the layout jobs alone
+        return 0
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def smoke() -> list | None:
+    """Every phase; the kernels line's rows (None for `layouts`)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -6062,7 +6423,7 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
     if sys.argv[1:2] == ["layouts"]:  # this slice's layout jobs alone
         phase_layouts_alone()
-        return 0
+        return None
 
     k = phase_kernels()
     vjp = phase_vjp()
@@ -6076,6 +6437,7 @@ def main() -> int:
     train = {dtype: phase_train(dtype) for dtype in ("float32", "bfloat16")}
     dispatch_ti = phase_dispatch_ti()
     train_afno, eval_afno = phase_afno_single()
+    m_grids = phase_pretrain_m_grids()
     shutil.rmtree(RUN_DIR)
     phase_train_card_vs_cpu()
     serve_h, model_h = phase_serve_h()
@@ -6156,8 +6518,11 @@ def main() -> int:
              "afno_hopper_l.cu", l_runs),
             ("fused_gn_afno[bf16,hopper_pairs]", ("A/",), "bfloat16", "hopper_pairs",
              "afno_hopper.cu", {"eval_afno_single[bfloat16]": eval_afno}),
+            ("fused_gn_afno[bf16,hopper_stream]", ("M256/", "M64/", "L256/"), "bfloat16",
+             "hopper_stream", "afno_hopper_stream.cu", {"pretrain_m_grids": m_grids}),
             ("fused_gn_afno[bf16,general]", ("L/",), "bfloat16", "general", "afno_fused.cu",
-             {**l_runs, **bf16_runs, "eval_afno_single[bfloat16]": eval_afno}),
+             {**l_runs, **bf16_runs, "eval_afno_single[bfloat16]": eval_afno,
+              "pretrain_m_grids": m_grids}),
             ("fused_gn_afno[f32,hopper]", ("",), "float32", "hopper_f32", "afno_hopper_f32.cu",
              f32_runs),
             ("fused_gn_afno[f32,hopper_l]", ("L/",), "float32", "hopper_f32_l",
@@ -6172,8 +6537,8 @@ def main() -> int:
     for name, prefixes, dtype, path, src, runs in rows:
         prefix = prefixes[0]
         # the row's times at the batch of the shapes' main path: L's
-        # pretraining in bf16, the AFNO baseline's batch, else 8
-        B_row = {"A/": AFNO_BATCH}.get(
+        # pretraining in bf16, the AFNO baseline's and M's batch, else 8
+        B_row = {"A/": AFNO_BATCH, "M256/": M_BATCH}.get(
             prefix, L_BATCH if L_BATCH in batches(prefix, dtype) else 8)
         r = k[f"{prefix}{dtype}/{path}/B{B_row}"]
         by_phase = {phase: run["launches_by_path"][path] for phase, run in runs.items()}
@@ -6200,6 +6565,11 @@ def main() -> int:
             kernels[-1]["by_batch_at_s"] = by_batch("S/", dtype, path)
         if "LTP/" in prefixes:  # a TP rank's shapes: C = 768, 8 blocks, 4 groups
             kernels[-1]["by_batch_at_l_tp"] = by_batch("LTP/", dtype, path)
+        if "M64/" in prefixes or path == "general" and dtype == "bfloat16":
+            # M's 8^2 and L's 32^2 latents beside M's 32^2
+            kernels[-1]["by_batch_at_m64"] = by_batch("M64/", dtype, path)
+            kernels[-1]["by_batch_at_m256"] = by_batch("M256/", dtype, path)
+            kernels[-1]["by_batch_at_l256"] = by_batch("L256/", dtype, path)
         if path == "general":  # forced on at the L, Ti, S, H and 64-channel shapes
             kernels[-1]["by_batch_at_ti"] = by_batch("", dtype, path)
             kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)
@@ -6210,6 +6580,7 @@ def main() -> int:
     # model path calls it, which the count over the other runs shows
     other_launches = sum(r["bias_act_launches"] for r in (
         serve_bf16, serve_f32, loader, *train.values(), dispatch_ti, train_afno, eval_afno,
+        m_grids,
         serve_h, train_h, serve_h32,
         *eval_l.values(), rollouts, stale, train_l, dispatch_l, finetune_s, finetune3d,
         cpu_3d, *separable.values(), train_cdpot, serve_cdpot, families, ddp, fsdp,
@@ -6237,12 +6608,7 @@ def main() -> int:
                 "bias_act_device_ms", "bias_act_bound_ms", "max_abs_err", "grad_rel_l2")}
                 for k, v in path_rows.items()},
         ))
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

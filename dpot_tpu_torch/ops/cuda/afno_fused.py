@@ -3,7 +3,7 @@ PyTorch version and their gradient.
 
 `fused_gn_afno` replaces the TPU kernel of the same name
 (dpot_tpu/ops/pallas/afno_fused.py). For a CUDA tensor it launches one of
-seven hand-written kernels through one of nine paths, chosen from the
+eight hand-written kernels through one of ten paths, chosen from the
 shapes alone before any launch, or raises:
   - "hopper" (`dpot_tpu_torch/csrc/afno_hopper.cu`): bf16 at the shapes
     `hopper_supported` admits (AFNO blocks of 128 channels, DPOT-Ti, S and
@@ -35,6 +35,12 @@ shapes alone before any launch, or raises:
     or afno_hopper_f32.cu (f32) with nb/2 blocks. The zero products are
     exact and the activation is elementwise, so the result is the
     64-channel mixer's up to the order of the f32 sums;
+  - "hopper_stream" (`dpot_tpu_torch/csrc/afno_hopper_stream.cu`): bf16 at
+    the shapes `hopper_stream_supported` admits (the latents of a multiple
+    of 64 pixels that the other bf16 kernels refuse: a 64^2 or 256^2 grid
+    at patch 8; AFNO blocks of 64, 96, 128 or 256 channels); x, A, the
+    weights, o and Ainv streamed through shared memory, mma.sync, three
+    launches (the GroupNorm statistics, the spectral part, the synthesis);
   - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): every other shape, in
     either type; five launches.
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
@@ -267,6 +273,13 @@ def _f32_hopper_latent(HW: int, K: int) -> bool:
             and K >= 1 and not K % 2)
 
 
+def _stream_latent(HW: int, K: int) -> bool:
+    """The latent and modes afno_hopper_stream.cu takes: the f32 kernels'
+    (`_f32_hopper_latent`: x, A, o and Ainv all stream in chunks) but none
+    that `_bf16_hopper_latent` admits, which the other bf16 kernels keep."""
+    return _f32_hopper_latent(HW, K) and not _bf16_hopper_latent(HW, K)
+
+
 def hopper_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
                      dtype: torch.dtype) -> bool:
     """Whether afno_hopper.cu takes these shapes: bf16, `_bf16_hopper_latent`,
@@ -362,16 +375,39 @@ def hopper_f32_pairs_supported(B: int, HW: int, C: int, K: int, nb: int, groups:
             and _pair_blocks(B, C, nb, groups))
 
 
+def _stream_blocks(B: int, C: int, nb: int, groups: int) -> bool:
+    """The layouts afno_hopper_stream.cu is written for: AFNO blocks of 96
+    channels as `_l_blocks` states them (groups of one block or a block
+    pair), or of 64, 128 or 256 channels, any count, with groups of a power
+    of two channels inside a block (`_hopper_blocks`); C a multiple of its
+    synthesis tile of 64 channels."""
+    if nb < 1 or C % nb:
+        return False
+    bs = C // nb
+    if bs == HOPPER_L_BS:
+        return _l_blocks(B, C, nb, groups, HOPPER_F32_TILE_C)
+    return bs in (PAIR_BS, HOPPER_BS, HOPPER_WIDE_BS) and _hopper_blocks(B, C, nb, groups, bs)
+
+
+def hopper_stream_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
+                            dtype: torch.dtype) -> bool:
+    """Whether afno_hopper_stream.cu takes these shapes: bf16,
+    `_stream_latent`, `_stream_blocks`. A pure function of the shapes,
+    mirrored by dpot_afno_hopper_stream_supported in the source."""
+    return (dtype == torch.bfloat16 and _stream_latent(HW, K)
+            and _stream_blocks(B, C, nb, groups))
+
+
 # every kernel a call may launch, in the order kernel_path asks the gates
 PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l",
-         "hopper_f32_wide", "hopper_pairs", "hopper_f32_pairs", "general")
+         "hopper_f32_wide", "hopper_pairs", "hopper_f32_pairs", "hopper_stream", "general")
 _GATES = (hopper_supported, hopper_wide_supported, hopper_l_supported,
           hopper_f32_supported, hopper_f32_l_supported, hopper_f32_wide_supported,
-          hopper_pairs_supported, hopper_f32_pairs_supported)
+          hopper_pairs_supported, hopper_f32_pairs_supported, hopper_stream_supported)
 # the pair paths and the kernel each launches at nb/2 blocks of 128 channels
 PAIR_KERNELS = {"hopper_pairs": "hopper", "hopper_f32_pairs": "hopper_f32"}
 # the paths whose kernels read the bf16 copies of the block weights
-BF16_WEIGHT_PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_pairs")
+BF16_WEIGHT_PATHS = ("hopper", "hopper_wide", "hopper_l", "hopper_pairs", "hopper_stream")
 
 
 def kernel_path(B: int, HW: int, C: int, K: int, nb: int, groups: int,

@@ -19,6 +19,7 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno,
     fused_gn_afno_ref,
     hopper_f32_wide_supported,
+    hopper_stream_supported,
     hopper_wide_supported,
     kernel_path,
 )
@@ -90,9 +91,11 @@ def test_f32_wide_gate_refuses_unfit_shapes(shapes, why):
 def test_f32_wide_gate_refuses_bf16(shapes):
     """bf16 at these shapes is the bf16 kernel for 256-channel blocks' where
     its gate admits it (a 128- or 256-px latent, K a multiple of 4 with 2K
-    <= 320), else the five-launch kernel's; never the f32 one's."""
+    <= 320), else the streamed kernel's where its gate admits it, else the
+    five-launch kernel's; never the f32 one's."""
     assert not hopper_f32_wide_supported(*shapes, BF16)
-    want = "hopper_wide" if hopper_wide_supported(*shapes, BF16) else "general"
+    want = ("hopper_wide" if hopper_wide_supported(*shapes, BF16)
+            else "hopper_stream" if hopper_stream_supported(*shapes, BF16) else "general")
     assert kernel_path(*shapes, BF16) == want
 
 

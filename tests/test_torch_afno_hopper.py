@@ -11,7 +11,11 @@ import torch
 
 from dpot_tpu_torch.models import MODEL_PRESETS
 from dpot_tpu_torch.ops.cuda import afno_fused
-from dpot_tpu_torch.ops.cuda.afno_fused import hopper_supported, kernel_path
+from dpot_tpu_torch.ops.cuda.afno_fused import (
+    hopper_stream_supported,
+    hopper_supported,
+    kernel_path,
+)
 from dpot_tpu_torch.ops.spectral import kept_modes
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -84,8 +88,12 @@ def test_presets_with_other_block_sizes_take_the_general_kernel(name):
     (0, 256, 512, 144, 4, 8),  # empty batch
 ])
 def test_ragged_and_unfit_shapes_are_refused(shapes):
+    """Refused shapes go to the streamed kernel (afno_hopper_stream.cu)
+    where its gate admits them (a latent of a multiple of 64 px that this
+    gate refuses, K even), else to the five-launch kernel."""
     assert not hopper_supported(*shapes, BF16)
-    assert kernel_path(*shapes, BF16) == "general"
+    stream = hopper_stream_supported(*shapes, BF16)
+    assert kernel_path(*shapes, BF16) == ("hopper_stream" if stream else "general")
 
 
 @pytest.mark.parametrize("name", ["Ti", "S", "M", "L", "H"])
@@ -131,7 +139,7 @@ def test_bf16_weight_blocks_are_cached_until_the_weight_changes():
 def test_launch_counts_by_path_start_at_zero_keys():
     assert set(afno_fused.fused_gn_afno.launches_by_path) == {
         "hopper", "hopper_wide", "hopper_l", "hopper_f32", "hopper_f32_l", "hopper_f32_wide",
-        "hopper_pairs", "hopper_f32_pairs", "general"}
+        "hopper_pairs", "hopper_f32_pairs", "hopper_stream", "general"}
 
 
 def test_bf16_weight_copies_are_made_inside_a_profiler_range():

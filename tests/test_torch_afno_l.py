@@ -17,6 +17,7 @@ from dpot_tpu_torch.ops.cuda import afno_fused, build
 from dpot_tpu_torch.ops.cuda.afno_fused import (
     hopper_f32_l_supported,
     hopper_l_supported,
+    hopper_stream_supported,
     kernel_path,
 )
 from test_torch_afno_hopper import preset_shapes
@@ -113,10 +114,15 @@ def test_ragged_and_unfit_l_shapes_are_refused(dtype, shapes):
 ])
 def test_bf16_l_gate_refuses_what_only_f32_takes(shapes):
     """Shapes the f32 kernel takes (a 64-channel synthesis tile, latents of
-    a multiple of 64 px, any even K) and the bf16 one does not."""
+    a multiple of 64 px, any even K) and the bf16 one does not. In bf16 the
+    streamed kernel takes those whose latent the bf16 kernels' rule refuses
+    (all but C 192 at a 256-px latent, which goes to the five-launch
+    kernel)."""
     assert not hopper_l_supported(*shapes, BF16)
     assert hopper_f32_l_supported(*shapes, F32)
-    assert kernel_path(*shapes, BF16) == "general"
+    want = "general" if shapes[2] == 192 else "hopper_stream"
+    assert hopper_stream_supported(*shapes, BF16) == (want == "hopper_stream")
+    assert kernel_path(*shapes, BF16) == want
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])

@@ -25,6 +25,7 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno_ref,
     hopper_f32_pairs_supported,
     hopper_pairs_supported,
+    hopper_stream_supported,
     kernel_path,
     pack_pairs,
 )
@@ -121,9 +122,11 @@ def test_the_pair_gates_refuse(shapes, why, dtype):
 ])
 def test_the_bf16_pair_gate_refuses_what_only_f32_takes(shapes):
     """The bf16 latent rule (128 or 256 px, K a multiple of 4, 2K <= 320)
-    against the f32 one (a multiple of 64 px, K even)."""
+    against the f32 one (a multiple of 64 px, K even). In bf16 the streamed
+    kernel takes each of them (64-channel blocks, unpacked)."""
     assert not hopper_pairs_supported(*shapes, BF16)
-    assert kernel_path(*shapes, BF16) == "general"
+    assert hopper_stream_supported(*shapes, BF16)
+    assert kernel_path(*shapes, BF16) == "hopper_stream"
     assert hopper_f32_pairs_supported(*shapes, F32)
 
 
@@ -140,10 +143,17 @@ def test_each_pair_gate_refuses_the_other_type(B):
 def test_all_gates_are_disjoint_pure_functions_of_shapes():
     """At most one gate admits any shape, the path is that gate's, and a
     gate's answer does not depend on what was asked before; the pair paths
-    come before "general" and have launch counts."""
+    come before "general" and have launch counts. The shapes include the
+    streamed kernel's (every preset at 64^2 and 256^2, patch 8, and its
+    edges), which no other gate may admit in bf16."""
+    from test_torch_afno_stream import ADMITTED_STREAM_EDGES
+
     gates = dict(zip(PATHS, afno_fused._GATES))
     shapes = [single_shapes(B) for B in (1, 8, 32)] + ADMITTED_PAIR_EDGES
     shapes += [preset_shapes(n, B) for n in ("Ti", "S", "L", "H") for B in (1, 7)]
+    shapes += [preset_shapes(n, B, res=r) for n in ("Ti", "S", "M", "L", "H") for B in (1, 20)
+               for r in (64, 256)]
+    shapes += ADMITTED_STREAM_EDGES
     shapes += [(2, 256, 1536, 144, 16, 8), (2, 256, 256, 144, 4, 4), (2, 256, 256, 144, 1, 1)]
     asks = [(*s, dt) for s in shapes for dt in (F32, BF16)]
     for gate in gates.values():

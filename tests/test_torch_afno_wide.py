@@ -14,6 +14,7 @@ import torch
 from dpot_tpu_torch.ops.cuda import build
 from dpot_tpu_torch.ops.cuda.afno_fused import (
     hopper_f32_supported,
+    hopper_stream_supported,
     hopper_supported,
     hopper_wide_supported,
     kernel_path,
@@ -91,10 +92,14 @@ def test_admitted_wide_edge_shapes(shapes):
     (65536, 256, 2048, 144, 8, 8),  # a batch beyond the grid's z dimension
 ])
 def test_ragged_and_unfit_wide_shapes_are_refused(shapes):
-    """Refused by the wide gate: the five-launch kernel, but for L's blocks
-    of 96 channels, which take their own kernel (tests/test_torch_afno_l.py)."""
+    """Refused by the wide gate: the streamed kernel where its gate admits
+    them (the latents of a multiple of 64 px the bf16 kernels' rule
+    refuses), else the five-launch kernel, but for L's blocks of 96
+    channels, which take their own kernel (tests/test_torch_afno_l.py)."""
     assert not hopper_wide_supported(*shapes, BF16)
-    assert kernel_path(*shapes, BF16) == ("hopper_l" if shapes[2] == 1536 else "general")
+    stream = hopper_stream_supported(*shapes, BF16)
+    assert kernel_path(*shapes, BF16) == (
+        "hopper_l" if shapes[2] == 1536 else "hopper_stream" if stream else "general")
 
 
 def test_f32_never_takes_the_wide_kernel():

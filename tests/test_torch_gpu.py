@@ -597,6 +597,140 @@ def test_a_step_at_the_afno_single_widths_lands_on_the_pair_paths(cuda, dtype, m
         1e-5 if dtype == torch.float32 else 3e-2)
 
 
+# the streamed bf16 kernel (afno_hopper_stream.cu): DPOT-M's blocks (C 1024,
+# 8 of 128) at the 8^2 latent of a 64^2 grid (K 40) and the 32^2 latent of a
+# 256^2 grid (K 544), patch 8, modes 32
+M_BLOCK = dict(C=1024, nb=8, modes=32, groups=8)
+STREAM_LATENTS = {"8x8": dict(H=8, W=8), "32x32": dict(H=32, W=32)}
+
+
+def check_stream(args, act="gelu", approximate=True):
+    """One bf16 call on the streamed kernel against the plain version, at
+    check_pairs' bf16 limits (4 bf16 ulps of the output's magnitude, 4e-3
+    relative L2)."""
+    x, *_, w1, _, _, _, K, groups = args
+    assert afno_fused.kernel_path(*x.shape, K, w1.shape[1], groups, x.dtype) == "hopper_stream"
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=approximate, act=act).float()
+    want = fused_gn_afno_ref(*args, approximate=approximate, act=act).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper_stream"] == before["hopper_stream"] + 1
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+    assert rel_l2(got, want) <= 4e-3
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 20])
+@pytest.mark.parametrize("latent", sorted(STREAM_LATENTS))
+def test_stream_kernel_at_the_dpot_m_block_shapes(cuda, latent, B):
+    """DPOT-M in bf16 at res 64 and 256 (configs/pretrain_medium.yaml's
+    widths); B = 20 is the config's batch, B = 1 takes 16-mode chunks."""
+    check_stream(ti_block_args(B, torch.bfloat16, cuda, seed=200 + B,
+                               **STREAM_LATENTS[latent], **M_BLOCK))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(H=32, W=32, C=1536, nb=16, modes=32, groups=8),   # L: 96-ch blocks, groups of a pair
+    dict(H=8, W=8, C=384, nb=4, modes=32, groups=4),       # 96-ch blocks, a group a block
+    dict(H=8, W=8, C=2048, nb=8, modes=32, groups=8),      # H: 256-ch blocks
+    dict(H=8, W=8, C=512, nb=2, modes=32, groups=64),      # 256-ch blocks, groups of 8
+    dict(H=8, W=8, C=320, nb=5, modes=32, groups=5),       # 64-ch blocks in an odd count
+    dict(H=8, W=8, C=192, nb=3, modes=32, groups=24),      # 64-ch blocks, groups of 8
+    dict(H=64, W=64, C=256, nb=2, modes=12, groups=8),     # a 4096-px latent
+    dict(H=32, W=16, C=512, nb=4, modes=32, groups=8),     # 512 px, K 288
+    dict(H=16, W=16, C=512, nb=4, modes=10, groups=8),     # 256 px, K 90: not a multiple of 4
+    dict(H=64, W=4, C=512, nb=4, modes=64, groups=16),     # 256 px, K 192: 2K = 384 > 320
+    dict(H=32, W=32, C=128, nb=1, modes=2, groups=1),      # K 4: one short mode chunk
+])
+def test_stream_kernel_at_admitted_edge_shapes(cuda, shape):
+    """Each kind of shape hopper_stream_supported admits besides M."""
+    check_stream(ti_block_args(2, torch.bfloat16, cuda, seed=210, **shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,approximate", [("silu", True), ("relu", True), ("gelu", False)])
+def test_non_gelu_activations_on_the_stream_kernel(cuda, act, approximate):
+    """The activation is a runtime argument of the kernel: silu, relu and
+    erf-GELU against the plain version."""
+    check_stream(ti_block_args(4, torch.bfloat16, cuda, seed=220, H=8, W=8, **M_BLOCK), act,
+                 approximate)
+
+
+def stream_drop_last_chunk():
+    """afno_hopper_stream.cu's control entry: the same call with the
+    spectral launch's last mode chunk left out."""
+    import ctypes
+
+    from dpot_tpu_torch.ops.cuda.build import load_library
+
+    fn = load_library("afno_hopper_stream").dpot_afno_hopper_stream_drop_last_chunk
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("latent", sorted(STREAM_LATENTS))
+def test_the_dropped_chunk_control_fails_the_check(cuda, latent, monkeypatch):
+    """The control the smoke's step check must catch: with the last mode
+    chunk left out (8 of K 40 at the 8^2 latent, 32 of 544 at the 32^2),
+    the output misses the 4e-3 relative L2 of check_stream."""
+    args = ti_block_args(20, torch.bfloat16, cuda, seed=230, **STREAM_LATENTS[latent],
+                         **M_BLOCK)
+    monkeypatch.setattr(afno_fused, "_kernel_fn", lambda path: stream_drop_last_chunk())
+    got = fused_gn_afno(*args, approximate=True).float()
+    monkeypatch.undo()
+    want = fused_gn_afno_ref(*args, approximate=True).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and rel_l2(got, want) > 4e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [64, 256])
+def test_a_step_at_the_medium_widths_lands_on_the_stream_kernel(cuda, res, monkeypatch):
+    """One bf16 train step of DPOT-M's widths (embed 1024, 8 blocks, depth
+    cut to 2, patch 8, modes 32, 4 channels, T_in 10; AFNO weights redrawn
+    from N(0, 0.05^2) so that the mixer matters) at res 64 and 256, batch
+    2: every launch on the stream kernel, and the loss within 3e-2 of the
+    same step with the plain mixer (its roundings may fall the other way)."""
+    from dpot_tpu_torch.models import build_model, dpot
+    from dpot_tpu_torch.train.optimizers import build_optimizer
+    from dpot_tpu_torch.train.state import TrainState
+    from dpot_tpu_torch.train.step import make_train_step
+
+    gen = torch.Generator(cuda).manual_seed(9)
+    batch = {"x": torch.randn((2, res, res, 10, 4), generator=gen, device=cuda),
+             "y": torch.randn((2, res, res, 1, 4), generator=gen, device=cuda),
+             "cls": torch.zeros(2, dtype=torch.long, device=cuda)}
+
+    def step(mixer=None):
+        model = build_model("DPOT", img_size=res, patch_size=8, in_channels=4,
+                            in_timesteps=10, embed_dim=1024, depth=2, n_blocks=8, modes=32,
+                            mlp_ratio=4.0, n_cls=1, dtype=torch.bfloat16, device=cuda, seed=4)
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for blk in model.blocks:
+                for w in (blk.filter.w1, blk.filter.b1, blk.filter.w2, blk.filter.b2):
+                    w.copy_(torch.randn(w.shape, generator=g) * 0.05)
+        state = TrainState.create(model, build_optimizer("lamb", model.parameters(), 1e-3), 0)
+        if mixer is not None:
+            monkeypatch.setattr(dpot, "fused_gn_afno", mixer)
+        return step_fn(state, batch)[1]["loss_step"].item()
+
+    step_fn = make_train_step(noise_scale=0.0, ones_mask=True)
+    before = dict(fused_gn_afno.launches_by_path)
+    got = step()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path["hopper_stream"] == before["hopper_stream"] + 2
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 2
+    want = step(fused_gn_afno_ref)
+    assert np.isfinite(got) and abs(got - want) / abs(want) <= 3e-2
+
+
 @pytest.mark.gpu
 def test_evaluate_on_the_card_matches_the_cpu(cuda):
     """evaluate() of one small f32 DPOT on the card (the kernels) and on the
