@@ -30,7 +30,14 @@ Phases, each printing its results as JSON lines:
        DPOT-M's block shapes at res 256 and 64 (C 1024, 8 blocks of 128; a
        32^2 latent, K 544, and an 8^2 latent, K 40; B in {1, 8, 20}) and at
        DPOT-L's at res 256 (B in {1, 8, 16}) on the streamed kernel
-       (afno_hopper_stream.cu) in the same way; the seven shape gates
+       (afno_hopper_stream.cu) in the same way; DPOT-M's blocks at the
+       ragged latents of res 96 (12^2, K 84), 72 (9^2, K 45), 160 (20^2,
+       K 220) and 64 at patch 16 (4^2, K 12), B in {1, 8, 20}, bf16 on the
+       streamed kernel and f32 on afno_hopper_f32.cu (both on operators
+       zero-padded to whole 64-px tiles and an even K), and L's and H's at
+       12^2 in f32 on their f32 kernels (B 8), in the same way; a control
+       that puts a 16 in the padded operators (M at 12^2 and 9^2, both
+       types, B 8), which must miss the limits; the seven shape gates
        against their mirrors in the CUDA sources, and the two pair gates
        against the mirrors of the kernels they launch, asked at the packed
        shapes;
@@ -113,14 +120,14 @@ Phases, each printing its results as JSON lines:
      configs/pretrain_large.yaml>` in-process, the copy's data cut (twelve
      synthetic sets of their namesakes' grids, channels and lengths, 2
      train and 2 test trajectories each, 2 epochs) and every other key the
-     file's but the depth, cut to 6 blocks: DPOT-L at full width, bf16,
+     file's but the depth, cut to 3 blocks: DPOT-L at full width, bf16,
      lamb, batch 16, remat.
      The steps exact, launches = depth x (2 x train + eval applications),
      all on afno_hopper_l.cu, every loss finite, the checkpoint restoring
      through restore_params; where a step's time goes as in phase 5, with
      the dense layers' f32->bf16 weight copies, and peak memory;
   10. remat_L: one bf16 L step at batch 16 with remat and without, from the
-     same weights, batch and noise, train_L's model at its 6 blocks (a
+     same weights, batch and noise, train_L's model at its 3 blocks (a
      comparison of two runs of one model holds at any depth):
      the losses and every gradient compared (expected identical), each
      way's step time and peak memory;
@@ -176,7 +183,7 @@ card, and einsums: no kernel, as in the JAX package, whose code there is
 XLA), after phase 14:
   19. finetune3d_L: `python -m dpot_tpu_torch.cli.finetune3d` in-process,
      DPOT3D at DPOT-L's widths (embed 1536, 16 AFNO blocks of 96, mlp_ratio
-     4, out_layer_dim 128), its depth cut to 12 of L's 24 blocks, on a
+     4, out_layer_dim 128), its depth cut to 6 of L's 24 blocks, on a
      synthetic set of ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5 channels, 21
      frames, t_test 11; 8 train and 4 test trajectories), patch 8, modes 32
      and temporal_modes 8, bf16, batch 4, 2 epochs, inflated from eval_L's
@@ -315,7 +322,8 @@ DPOT-M at grids other than 128^2, after phase 29:
   30. pretrain_m_grids: `python -m dpot_tpu_torch.cli.sweep --config_file
      <copy of configs/pretrain_medium.yaml>` in-process, the copy's data cut
      as train_L's (twelve synthetic sets, 2 + 2 trajectories, one epoch) and
-     its tasks.res [64, 256], so that the sweep makes two jobs; every other
+     its tasks.res [64, 96, 256], so that the sweep makes three jobs (res 96
+     a 12^2 latent, whole 64-px tiles of none); every other
      key the file's: DPOT-M, width 1024, depth 12, 8 blocks of 128, bf16,
      lamb, batch 20. In each job the steps exact, launches = depth x (train
      + eval applications), all on the streamed kernel (afno_hopper_stream.cu),
@@ -324,8 +332,8 @@ DPOT-M at grids other than 128^2, after phase 29:
      (the loss relative and the worst gradient's relative L2, within
      MIXER_TOL["M/bfloat16"]), with two controls above it: conj_w2 in the
      plain mixer, and the kernel with its last mode chunk left out; at res
-     64 also the f32 step (the f32 Hopper kernel) against the plain mixer
-     within AFNO_STEP_TOL.
+     64 and 96 also the f32 step (the f32 Hopper kernel) against the plain
+     mixer within AFNO_STEP_TOL.
 `python3 chip_smoke.py layouts` builds the kernels and runs phases 27
 and 28 alone, printing their rows.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
@@ -366,6 +374,7 @@ from dpot_tpu_torch.ops.bias_act import activation_funcs, bias_act_ref
 from dpot_tpu_torch.ops.cuda import afno_fused, build
 from dpot_tpu_torch.ops.cuda.afno_fused import (
     BF16_WEIGHT_PATHS,
+    PATHS,
     fused_gn_afno,
     fused_gn_afno_ref,
     fused_gn_afno_vjp,
@@ -414,6 +423,17 @@ AFNO_SINGLE = dict(H=16, W=16, C=512, nb=8, modes=32, groups=8, depth=4)
 M_64 = dict(H=8, W=8, C=1024, nb=8, modes=32, groups=8, depth=12)
 M_256 = dict(M_64, H=32, W=32)
 L_256 = dict(DPOT_L, H=32, W=32)
+# ragged latents: DPOT-M at res 96 (12^2, K 84), 72 (9^2, K 45: odd), 160
+# (20^2, K 220) and 64 at patch 16 (4^2, K 12), which the streamed kernel
+# (bf16) and afno_hopper_f32.cu (f32) take on zero-padded operators; L's and
+# H's blocks at 12^2 on their f32 kernels
+M_96 = dict(M_64, H=12, W=12)
+M_72 = dict(M_64, H=9, W=9)
+M_160 = dict(M_64, H=20, W=20)
+M_P16 = dict(M_64, H=4, W=4)
+L_96 = dict(DPOT_L, H=12, W=12)
+H_96 = dict(DPOT_H, H=12, W=12)
+RAGGED = {"M96/": M_96, "M72/": M_72, "M160/": M_160, "M4/": M_P16}
 TI_FLAGS = [
     "--model", "DPOT", "--res", "128", "--patch_size", "8", "--width", "512",
     "--n_layers", "4", "--n_blocks", "4", "--modes", "32", "--mlp_ratio", "1",
@@ -472,7 +492,8 @@ L_PATH = {"bfloat16": "hopper_l", "float32": "hopper_f32_l"}
 # configuration has a limit of its own. DPOT-M's first bf16 train step
 # (phase_pretrain_m_grids; another reading, see M_CAUGHT) on the stream
 # kernel reads 2.4e-3 at res 64 and 1.23e-2 at res 256 (both pos_embed's
-# gradient), its controls 6.0e-2 (the dropped chunk at res 256) and up
+# gradient), its controls 6.0e-2 (the dropped chunk at res 256) and up;
+# res 96 is held to the same limit
 MIXER_SCALE = 0.05
 MIXER_TOL = {"L/bfloat16": 1.3e-2, "L/float32": 2e-4, "Ti/bfloat16": 2e-3,
              "H/float32": 2e-4, "A/bfloat16": 1e-2, "M/bfloat16": 3e-2}
@@ -582,10 +603,11 @@ RUN_TOKEN = "DPOT_CHIP_SMOKE_RUN"
 # directory (log_path). Every other key is the file's: width 1536, depth 24,
 # 16 blocks, bf16, lamb, remat, batch 16, noise 5e-4, lr 5e-4, cycle
 L_CONFIG = ROOT / "configs" / "pretrain_large.yaml"
-# train_l's model (and so dispatch_l's, which trains it on) is cut to 6 of
-# L's 24 blocks, CUT_L_DEPTH, to keep the cold smoke within its time with the
-# parallel layouts' jobs and the AFNO baseline's phase; its widths stay L's
-TRAIN_L = dict(epochs=2, ntrain=2, ntest=2, depth=6)
+# train_l's model (and so dispatch_l's, which trains it on) is cut to 3 of
+# L's 24 blocks, CUT_L_DEPTH, to keep the cold smoke within its time with
+# the parallel layouts' jobs, the AFNO baseline's phase and DPOT-M's at
+# three grids; its widths stay L's
+TRAIN_L = dict(epochs=2, ntrain=2, ntest=2, depth=3)
 # one bf16 L step at batch 16 with remat and without, from the same weights,
 # batch and noise: the recomputation runs the same kernels on the same
 # inputs, so the two are expected to be identical
@@ -616,8 +638,8 @@ AFNO_PATH = {"bfloat16": "hopper_pairs", "float32": "hopper_f32_pairs"}
 # same step with the plain mixer: the loss relative and every gradient's
 # relative L2; the f32 sums' order differs, as card against CPU for Ti
 # (TRAIN_CPU_TOL). A control, the pairs packed in swapped order, must land
-# above the limits; DPOT-M's first f32 step at res 64 (phase_pretrain_m_grids)
-# is held to the same limits
+# above the limits; DPOT-M's first f32 step at res 64 and 96
+# (phase_pretrain_m_grids) is held to the same limits
 AFNO_STEP_TOL = dict(loss=1e-5, grad=1e-4)
 # the faulty plain mixers its bf16 rollout check must catch: its GroupNorm
 # groups are its AFNO blocks (8 of 64 channels), so "block_groups" computes
@@ -626,12 +648,15 @@ AFNO_CAUGHT = ("conj_w2", "swap_pairs")
 # DPOT-M pretraining (configs/pretrain_medium.yaml: width 1024, depth 12, 8
 # blocks of 128, bf16, lamb, batch 20) through the sweep CLI from a copy with
 # its data cut as train_L's (twelve synthetic sets of their namesakes' grids,
-# `ntrain` + `ntest` trajectories each, one epoch) and its tasks.res the two
-# grids [64, 256], so that the sweep makes two jobs; every other key the
-# file's, the depth too
+# `ntrain` + `ntest` trajectories each, one epoch) and its tasks.res the
+# three grids [64, 96, 256], so that the sweep makes three jobs; every other
+# key the file's, the depth too
 M_CONFIG = ROOT / "configs" / "pretrain_medium.yaml"
 M_BATCH = 20
-TRAIN_M = dict(epochs=1, ntrain=2, ntest=2, res=[64, 256])
+TRAIN_M = dict(epochs=1, ntrain=2, ntest=2, res=[64, 96, 256])
+# the jobs whose first step is also taken in f32 (afno_hopper_f32.cu: an 8^2
+# latent, and a 12^2 one on padded operators)
+M_F32_RES = (64, 96)
 # the first bf16 step of each job (AFNO weights redrawn from N(0,
 # MIXER_SCALE^2)) on the kernel against the same step with the plain mixer:
 # the reading is the larger of the loss's relative difference and the worst
@@ -641,8 +666,10 @@ TRAIN_M = dict(epochs=1, ntrain=2, ntest=2, res=[64, 256])
 # the ragged 8 of K 40 at res 64, 32 of 544 at res 256)
 M_CAUGHT = ("conj_w2", "drop_chunk")
 # remat_L and params_lp_L compare two runs of one model, so they run train_L's
-# model cut to its first CUT_L_DEPTH blocks (cut_depth), at L's widths
-CUT_L_DEPTH = 6
+# model cut to its first CUT_L_DEPTH blocks (cut_depth), at L's widths; the
+# parallel layouts' jobs at L's widths run LAYOUT_L_DEPTH blocks
+CUT_L_DEPTH = 3
+LAYOUT_L_DEPTH = 6
 # one dispatch (CUDA graphs): graph against eager runs the same kernels on
 # the same inputs, so the two are expected to be bitwise equal. Losses are
 # held to relative GRAPH_TOL, weights, moments and predictions to relative
@@ -655,9 +682,9 @@ GRAPH_TOL = 1e-6
 # frames, t_test 11), 8 train and 4 test trajectories, patch 8 (an 8^3
 # latent), T_in 10, modes 32 and temporal_modes 8, bf16, batch 4, 2 epochs,
 # inflated from the L .pth that eval_L writes (4 channels, 128^2); its depth
-# cut to FT3D_DEPTH of L's 24 blocks (the first 12 inflated) to keep the cold
-# smoke within its time with DPOT-M's phase at two grids
-FT3D_DEPTH = 12
+# cut to FT3D_DEPTH of L's 24 blocks (the first 6 inflated) to
+# keep the cold smoke within its time with DPOT-M's phase at three grids
+FT3D_DEPTH = 6
 FT3D_SPEC = dict(name="synthetic_ns3d_l", train_size=8, test_size=4, t_total=21, t_test=11,
                  in_size=(64, 64, 64), n_channels=5)
 FT3D = dict(batch=4, epochs=2)
@@ -814,7 +841,7 @@ LAYOUT_TOL = {"tp_l": dict(loss=FSDP_L["tol"], pred=2e-2, grad=5e-2, delta=5e-2)
               "sp_l": dict(loss=1e-4, pred=2e-5, grad=2e-3, delta=3e-3)}
 # phase 28's layout jobs, in the same launch after phase 27's, each held to
 # one process as those are (a rank's readings, controls above their
-# limits). L's widths at CUT_L_DEPTH blocks (bf16, fsdp_l's optimization and
+# limits). L's widths at LAYOUT_L_DEPTH blocks (bf16, fsdp_l's optimization and
 # batches): fsdp_lp_l, tp_lp_l and pp_lp_l with the bf16 working copy under
 # FSDP2 (data = 2), TP and the pipeline, against one process's working-copy
 # run; fsdp_pp_l, FSDP2 with the pipeline on data 1 x pipe 2 (the 2 ranks
@@ -848,15 +875,15 @@ LAYOUT_JOBS = {
     "tp_l": dict(cfg=dict(shard_params="tp", mesh_model=2), faults="tp_l"),
     "pp_l": dict(cfg=dict(mesh_pipe=2, pipe_microbatches=LAYOUT_L["micro"]), faults="pp_l"),
     "sp_l": dict(cfg=dict(mesh_spatial=2), dtype="float32", faults="sp_l", route=None),
-    "fsdp_lp_l": dict(cfg=dict(shard_params="fsdp"), depth=CUT_L_DEPTH, lp=True,
+    "fsdp_lp_l": dict(cfg=dict(shard_params="fsdp"), depth=LAYOUT_L_DEPTH, lp=True,
                       faults="ckpt"),
-    "tp_lp_l": dict(cfg=dict(shard_params="tp", mesh_model=2), depth=CUT_L_DEPTH, lp=True,
+    "tp_lp_l": dict(cfg=dict(shard_params="tp", mesh_model=2), depth=LAYOUT_L_DEPTH, lp=True,
                     faults="tp_l"),
     "pp_lp_l": dict(cfg=dict(mesh_pipe=2, pipe_microbatches=LAYOUT_L["micro"]),
-                    depth=CUT_L_DEPTH, lp=True, faults="pp_l"),
+                    depth=LAYOUT_L_DEPTH, lp=True, faults="pp_l"),
     "fsdp_pp_l": dict(cfg=dict(shard_params="fsdp", mesh_pipe=2,
                                pipe_microbatches=LAYOUT_L["micro"]),
-                      depth=CUT_L_DEPTH, faults="pp_l"),
+                      depth=LAYOUT_L_DEPTH, faults="pp_l"),
     "dpot3d_tp_l": dict(cfg=dict(shard_params="tp", mesh_model=2), model="DPOT3D",
                         faults="tp_l", route=None),
     "cdpot_tp": dict(cfg=dict(shard_params="tp", mesh_model=2), model="CDPOT",
@@ -1132,6 +1159,65 @@ def check_afno(B, dtype, weight_scale, seed, path, act="gelu", geo=TI) -> dict:
                 max_abs_err=max_abs, rel_l2=rel_l2, max_abs_limit=lim)
 
 
+# the entry that the padded-operator control puts in the padded operators:
+# 16 against A's entries of 1/sqrt(HW), so that the control moves the
+# output well past both bf16 limits through the N(0, 0.05^2) mode MLP
+# (rel-L2 0.04 at M's 12^2 latent, B = 8, in the CPU emulation of
+# tests/test_torch_afno_ragged.py)
+PADDED_CONTROL_ENTRY = 16.0
+
+
+@contextlib.contextmanager
+def padded_with_entry(value: float = PADDED_CONTROL_ENTRY):
+    """The kernels read operators padded with a `value` in A's first
+    padded pixel column (row 0) and, for an odd K, in Ainv's padded mode
+    column (row 0): a control that shows the kernels read the padded
+    entries, so that their zeros are what makes the padding exact."""
+    real = afno_fused.padded_ops
+
+    def padded(A, Ainv, K):
+        Ap, Ainvp = (t.clone() for t in real(A, Ainv, K))
+        HW = A.shape[1]
+        if Ap.shape[1] > HW:
+            Ap[0, HW] = value
+        if Ap.shape[0] // 2 > K:
+            Ainvp[0, K] = value
+        return Ap, Ainvp
+
+    afno_fused.padded_ops = padded
+    try:
+        yield
+    finally:
+        afno_fused.padded_ops = real
+
+
+def check_padded_control(B, dtype, path, geo) -> dict:
+    """One call on kernel `path` under `padded_with_entry` against the
+    plain version, at N(0, 0.05^2) AFNO weights (the init's scale leaves
+    the mode MLP's output near zero, whatever z is): it must miss
+    check_afno's limits (either of them)."""
+    args, K, groups = afno_case(B, dtype, 0.05, 100 + B, geo)
+    approx = dtype == torch.bfloat16
+    before = fused_gn_afno.launches_by_path[path]
+    with padded_with_entry():
+        got = fused_gn_afno(*args, K, groups, approx).float()
+    want = fused_gn_afno_ref(*args, K, groups, approx).float()
+    torch.cuda.synchronize()
+    if fused_gn_afno.launches_by_path[path] != before + 1:
+        raise AssertionError(f"padded control {dtype} B={B}: no launch on {path}")
+    max_abs = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    tol = TOL[dtype]
+    lim = tol.get("max_abs") or tol["max_abs_ulps"] * BF16_EPS * want.abs().max().item()
+    if not (max_abs > lim or rel > tol["rel_l2"]):
+        raise AssertionError(
+            f"padded control {dtype} {path} HW={geo['H'] * geo['W']} K={K}: max_abs {max_abs} "
+            f"(limit {lim}), rel_l2 {rel} (limit {tol['rel_l2']}): the kernel does not read "
+            "the padded operators")
+    return dict(path=path, HW=geo["H"] * geo["W"], K=K, max_abs_err=max_abs, rel_l2=rel,
+                max_abs_limit=lim, rel_l2_limit=tol["rel_l2"], caught=True)
+
+
 def check_gate_mirror() -> int:
     """Each Hopper kernel's gate in afno_fused.py (hopper_supported, ...,
     hopper_f32_wide_supported, hopper_stream_supported) against its mirror
@@ -1226,6 +1312,16 @@ def check_gate_mirror() -> int:
                (2, 1024, 384, 544, 4, 1), (2, 8192, 1024, 544, 8, 8), (2, 32, 512, 10, 4, 8),
                (0, 64, 1024, 40, 8, 8), (65535, 64, 1024, 40, 8, 8), (65536, 64, 1024, 40, 8, 8),
                (2, 64, 1024, 40, 16, 8), (2, 64, 1000, 40, 8, 8)]
+    # ragged latents and odd K: M, L, H, Ti and the 64-channel blocks at res
+    # 96, 72, 80, 160 and 64 at patch 16, a 128-px latent with K odd, the
+    # extremes 1 and 4095 px, K 1, and what stays refused (K 0, 4097 px)
+    shapes += [(B, HW, C, K, nb, 8) for B in (1, M_BATCH)
+               for HW, K in ((144, 84), (81, 45), (100, 60), (400, 220), (16, 12))
+               for C, nb in ((1024, 8), (1536, 16), (2048, 8), (512, 4), (512, 8))]
+    shapes += [(2, 128, 1024, 45, 8, 8), (2, 256, 512, 45, 8, 8), (2, 1, 256, 1, 2, 8),
+               (2, 4095, 256, 144, 2, 8), (2, 4097, 256, 144, 2, 8), (2, 144, 1024, 0, 8, 8),
+               (2, 144, 320, 84, 5, 5), (2, 81, 1536, 45, 16, 4), (2, 81, 768, 45, 8, 4),
+               (0, 144, 1024, 84, 8, 8), (65536, 81, 1024, 45, 8, 8)]
     for fn, gate, dtype in gates:
         for sh in shapes:
             if bool(fn(*sh)) != gate(*sh, dtype):
@@ -1257,14 +1353,20 @@ KERNEL_CASES = (("", TI, torch.bfloat16, ("general", "hopper")),
                 ("H/", DPOT_H, torch.float32, ("general", "hopper_f32_wide")),
                 ("M256/", M_256, torch.bfloat16, ("general", "hopper_stream")),
                 ("M64/", M_64, torch.bfloat16, ("general", "hopper_stream")),
-                ("L256/", L_256, torch.bfloat16, ("general", "hopper_stream")))
+                ("L256/", L_256, torch.bfloat16, ("general", "hopper_stream")),
+                *((prefix, geo, dtype, ("general", path)) for prefix, geo in RAGGED.items()
+                  for dtype, path in ((torch.bfloat16, "hopper_stream"),
+                                      (torch.float32, "hopper_f32"))),
+                ("L96/", L_96, torch.float32, ("general", "hopper_f32_l")),
+                ("H96/", H_96, torch.float32, ("general", "hopper_f32_wide")))
 KERNEL_BATCHES = (1, 8, TRAIN["batch"])
 # the batches of each case: L in bf16 also at the batch of its pretraining
 CASE_BATCHES = {("L/", torch.bfloat16): (1, 8, L_BATCH, TRAIN["batch"]),
                 ("LTP/", torch.bfloat16): (1, 4, L_BATCH),
                 ("A/", torch.bfloat16): (1, 8, AFNO_BATCH),
                 ("A/", torch.float32): (1, 8, AFNO_BATCH),
-                ("L256/", torch.bfloat16): (1, 8, L_BATCH)}
+                ("L256/", torch.bfloat16): (1, 8, L_BATCH),
+                ("L96/", torch.float32): (8,), ("H96/", torch.float32): (8,)}
 
 
 def phase_kernels() -> dict:
@@ -1304,6 +1406,11 @@ def phase_kernels() -> dict:
                 if path in TF32_PATHS:  # its work against the FMA peak too
                     results[key]["bound_fma_ms"] = afno_bound_ms(B, dtype, K, "general", geo)[0]
                 log("kernel", name="fused_gn_afno", config=key, **results[key])
+    for prefix in ("M96/", "M72/"):
+        for dtype, path in ((torch.bfloat16, "hopper_stream"), (torch.float32, "hopper_f32")):
+            key = f"{prefix}{str(dtype).replace('torch.', '')}/padded_control/B8"
+            results[key] = check_padded_control(8, dtype, path, RAGGED[prefix])
+            log("kernel", name="fused_gn_afno", config=key, **results[key])
     return results
 
 
@@ -3025,8 +3132,9 @@ def m_step_check(model, job: dict) -> dict:
     plain mixer and with the controls of M_CAUGHT; each run's reading (the
     larger of the loss's relative difference and the worst gradient's
     relative L2 against the plain mixer's) within MIXER_TOL["M/bfloat16"] on
-    the kernel and above it for every control. At res 64 also the step in f32
-    (the f32 Hopper kernel) against the plain mixer within AFNO_STEP_TOL."""
+    the kernel and above it for every control. At the res of M_F32_RES also
+    the step in f32 (the f32 Hopper kernel) against the plain mixer within
+    AFNO_STEP_TOL, its launches kept as the row's f32 launches by path."""
     from dpot_tpu_torch.cli.sweep import job_to_argv
     from dpot_tpu_torch.models import build_model
     from dpot_tpu_torch.utils.config import load_config
@@ -3053,9 +3161,9 @@ def m_step_check(model, job: dict) -> dict:
             f"control of {M_CAUGHT}: the limit {limit} must lie between")
     out = dict(plain_loss=runs["plain"][0], limit=limit, bf16=readings)
     del runs, b
-    if res != 64:
+    if res not in M_F32_RES:
         return out
-    # the same step in f32, on the f32 Hopper kernel at the 8^2 latent
+    # the same step in f32, on the f32 Hopper kernel
     cfg = load_config(job_to_argv(job))
     f32 = build_model(
         cfg.model, img_size=res, patch_size=cfg.patch_size, in_channels=model.in_channels,
@@ -3065,22 +3173,28 @@ def m_step_check(model, job: dict) -> dict:
         normalize=cfg.normalize, use_ln=cfg.use_ln, dtype=torch.float32, device="cuda", seed=0)
     f32.load_state_dict(base.state_dict(), strict=True)
     (b,) = corpus_batches(M_CONFIG, "M", TRAIN_M, M_BATCH, torch.float32, 1, seed=3, res=res)
+    before = dict(fused_gn_afno.launches_by_path)
     runs = first_step_runs(f32, b, noise, "hopper_f32", {
         "kernel": (contextlib.nullcontext(), depth), "plain": (plain_mixer(), 0)})
+    launched = {p: n - before[p] for p, n in fused_gn_afno.launches_by_path.items()}
+    if launched["hopper_f32"] != depth or sum(launched.values()) != depth:
+        raise AssertionError(f"pretrain_m_grids res {res}: the f32 steps launched {launched}, "
+                             f"expected {depth} on hopper_f32")
     r32 = step_readings(runs)["kernel"]
     tol = AFNO_STEP_TOL
     if not (r32["loss_rel"] <= tol["loss"] and r32["worst_grad_rel_l2"] <= tol["grad"]):
-        raise AssertionError(f"pretrain_m_grids res 64: the first f32 step against the plain "
-                             f"mixer {r32} (limits {tol})")
-    out["f32"] = dict(plain_loss=runs["plain"][0], limits=tol, **r32)
+        raise AssertionError(f"pretrain_m_grids res {res}: the first f32 step against the "
+                             f"plain mixer {r32} (limits {tol})")
+    out["f32"] = dict(plain_loss=runs["plain"][0], limits=tol, launches_by_path=launched, **r32)
     return out
 
 
 def phase_pretrain_m_grids() -> dict:
     """configs/pretrain_medium.yaml (DPOT-M: width 1024, depth 12, 8 blocks
-    of 128, bf16, lamb, batch 20) at res 64 and 256 on the stream kernel.
-    Pretrained through the sweep CLI (in-process) from a copy with its data
-    cut and its tasks.res [64, 256] (`sweep_file`, TRAIN_M), two jobs: in
+    of 128, bf16, lamb, batch 20) at res 64, 96 and 256 on the stream
+    kernel. Pretrained through the sweep CLI (in-process) from a copy with
+    its data cut and its tasks.res [64, 96, 256] (`sweep_file`, TRAIN_M),
+    three jobs: in
     each the steps exact and the launches exact (depth x (train + eval
     applications), every one on hopper_stream, none on general), every loss
     finite; then each job's first step against the plain mixer
@@ -3154,9 +3268,12 @@ def phase_pretrain_m_grids() -> dict:
             first_step=m_step_check(model, job))
         del out, state, model
         torch.cuda.empty_cache()
+    f32_steps = {p: sum(r["first_step"].get("f32", {}).get("launches_by_path", {}).get(p, 0)
+                        for r in rows.values()) for p in PATHS}
     row = dict(dtype="bfloat16", batch=M_BATCH, depth=depth, steps=steps,
                train_applications=steps, eval_applications=eval_apps, launches=launches,
                launches_by_path=by_path, bias_act_launches=bias_act_launches, run_s=run_s,
+               f32_first_steps=dict(res=list(M_F32_RES), launches_by_path=f32_steps),
                corpora={s.name: dict(channels=s.n_channels, in_size=s.in_size,
                                      t_total=s.t_total, t_test=s.t_test) for s in specs},
                **rows)
@@ -6518,16 +6635,18 @@ def smoke() -> list | None:
              "afno_hopper_l.cu", l_runs),
             ("fused_gn_afno[bf16,hopper_pairs]", ("A/",), "bfloat16", "hopper_pairs",
              "afno_hopper.cu", {"eval_afno_single[bfloat16]": eval_afno}),
-            ("fused_gn_afno[bf16,hopper_stream]", ("M256/", "M64/", "L256/"), "bfloat16",
-             "hopper_stream", "afno_hopper_stream.cu", {"pretrain_m_grids": m_grids}),
+            ("fused_gn_afno[bf16,hopper_stream]", ("M256/", "M64/", "L256/", *RAGGED),
+             "bfloat16", "hopper_stream", "afno_hopper_stream.cu",
+             {"pretrain_m_grids": m_grids}),
             ("fused_gn_afno[bf16,general]", ("L/",), "bfloat16", "general", "afno_fused.cu",
              {**l_runs, **bf16_runs, "eval_afno_single[bfloat16]": eval_afno,
               "pretrain_m_grids": m_grids}),
-            ("fused_gn_afno[f32,hopper]", ("",), "float32", "hopper_f32", "afno_hopper_f32.cu",
-             f32_runs),
-            ("fused_gn_afno[f32,hopper_l]", ("L/",), "float32", "hopper_f32_l",
+            ("fused_gn_afno[f32,hopper]", ("", *RAGGED), "float32", "hopper_f32",
+             "afno_hopper_f32.cu",
+             {**f32_runs, "pretrain_m_grids[f32 first steps]": m_grids["f32_first_steps"]}),
+            ("fused_gn_afno[f32,hopper_l]", ("L/", "L96/"), "float32", "hopper_f32_l",
              "afno_hopper_f32_l.cu", {"eval_l[float32]": eval_l["float32"]}),
-            ("fused_gn_afno[f32,hopper_f32_wide]", ("H/",), "float32", "hopper_f32_wide",
+            ("fused_gn_afno[f32,hopper_f32_wide]", ("H/", "H96/"), "float32", "hopper_f32_wide",
              "afno_hopper_f32_wide.cu", {"serve_h[float32]": serve_h32}),
             ("fused_gn_afno[f32,hopper_pairs]", ("A/",), "float32", "hopper_f32_pairs",
              "afno_hopper_f32.cu", {"train_afno_single": train_afno}),
@@ -6570,6 +6689,17 @@ def smoke() -> list | None:
             kernels[-1]["by_batch_at_m64"] = by_batch("M64/", dtype, path)
             kernels[-1]["by_batch_at_m256"] = by_batch("M256/", dtype, path)
             kernels[-1]["by_batch_at_l256"] = by_batch("L256/", dtype, path)
+        if "M96/" in prefixes or path == "general":
+            # the ragged latents: M's 12^2, 9^2, 20^2 and 4^2
+            for prefix in RAGGED:
+                kernels[-1][f"by_batch_at_{prefix[:-1].lower()}"] = by_batch(prefix, dtype, path)
+        controls = {key: v for key, v in k.items() if "padded_control" in key
+                    and v["path"] == path}
+        if controls:  # an entry in the padded operators, which the checks caught
+            kernels[-1]["padded_control"] = controls
+        for prefix in ("L96/", "H96/"):  # L's and H's blocks at 12^2, f32
+            if prefix in prefixes or path == "general" and dtype == "float32":
+                kernels[-1][f"by_batch_at_{prefix[:-1].lower()}"] = by_batch(prefix, dtype, path)
         if path == "general":  # forced on at the L, Ti, S, H and 64-channel shapes
             kernels[-1]["by_batch_at_ti"] = by_batch("", dtype, path)
             kernels[-1]["by_batch_at_h"] = by_batch("H/", dtype, path)

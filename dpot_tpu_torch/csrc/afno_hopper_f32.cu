@@ -43,6 +43,17 @@
 //      hold SMs while launch 1 runs, it was 0.013 ms slower at B = 8 and
 //      no faster at B = 1 or 20 on the H100: a plain launch.)
 //
+// Ragged latents and odd K, as in afno_hopper_stream.cu: the launches work
+// on whole 64-pixel tiles and an even count of modes (HWp = HW rounded up to
+// 64, Kp = K rounded up to even, so that Ainv's rows are whole 16-byte
+// units), on A (2Kp, HWp) and Ainv (HWp, 2Kp) padded with zeros by the
+// caller and o (B, 2Kp, C); x rows past HW load as zeros (cp.async with a
+// source size of 0, never read), the statistics run over the HW real rows
+// (each thread's count of them its weight in Chan's rule), and the
+// synthesis stores rows below HW only. Exact: a padded pixel meets a zero
+// column of A, a padded mode a zero column of Ainv. afno_hopper_f32_l.cu
+// and afno_hopper_f32_wide.cu do the same.
+//
 // A warp computes a (16 MT) x 32 tile: MC = 16 MT modes per spectral CTA
 // and TP = 32 MT pixels per synthesis CTA. MT = 2 when the batch fills the
 // card; MT = 1 (twice the CTAs, each half the work) when the spectral grid
@@ -82,6 +93,13 @@ constexpr int LDO = TC + 8;    // o tiles [KC][LDO]
 constexpr int SYN_STAGES = 3;
 constexpr float EPS = 1e-5f;   // torch.nn.GroupNorm default
 constexpr int MAX_HW = 4096;   // the combined-operator DFT's limit
+
+// the padded operators' sizes: the latent in whole synthesis tiles, the
+// modes an even count
+__host__ __device__ constexpr int padded_hw(int HW) {
+  return (HW + MAX_TP - 1) / MAX_TP * MAX_TP;
+}
+__host__ __device__ constexpr int padded_k(int K) { return K + K % 2; }
 
 // spectral_f32_kernel's shared memory, in floats
 constexpr int STAGE = 2 * KC * LDX;         // the larger of a W stage and an x + A stage
@@ -254,18 +272,67 @@ __device__ __forceinline__ void complex_layer(WarpAcc<MT>& acc, float* sm, const
   }
 }
 
+// x rows [KC][LDX] of chunk kc (rows past HW zero-filled), then A rows
+// [2 MC][LDA] (rows 0 .. MC - 1 the chunk's real parts, then its imaginary
+// parts; modes past K zero-filled) into ring slot xs, by the NTH threads:
+// the z phase's stage of the spectral kernels at block size BSZ (x's stride
+// C, xb its block's first channel of sample b, A's stride HWp)
+template <int BSZ, int LDXZ, int NTH, int MC>
+__device__ __forceinline__ void load_z_chunk(float* xs, const float* xb, const float* A, int kc,
+                                             int m0, int HW, int HWp, int C, int K) {
+  float* as = xs + KC * LDXZ;
+  const int p0 = kc * KC;
+  for (int q = threadIdx.x; q < KC * (BSZ / 4); q += NTH) {
+    const int r = q / (BSZ / 4), c4 = q % (BSZ / 4), p = p0 + r;
+    cp16(xs + r * LDXZ + 4 * c4, xb + static_cast<size_t>(p < HW ? p : 0) * C + 4 * c4, p < HW);
+  }
+  for (int q = threadIdx.x; q < 2 * MC * (KC / 4); q += NTH) {
+    const int r = q / (KC / 4), c4 = q % (KC / 4), m = m0 + (r % MC);
+    const bool valid = m < K;
+    const int row = (r < MC ? 0 : K) + (valid ? m : 0);
+    cp16(as + r * LDA + 4 * c4, A + static_cast<size_t>(row) * HWp + p0 + 4 * c4, valid);
+  }
+}
+
+// One thread's part of a GroupNorm statistics pass: the 4-channel column
+// col (x's stride C, from its first row) over rows r0, r0 + step, ... below
+// HW. cnt: the values it read; m: their mean; q: their sum of squared
+// deviations (shifted by its first value); all 0 where it read none.
+__device__ __forceinline__ void column_stats(const float* col, int C, int r0, int step, int HW,
+                                             float& cnt, float& m, float& q) {
+  cnt = m = q = 0.f;
+  if (r0 >= HW) return;
+  const float shift = __ldg(col + static_cast<size_t>(r0) * C);
+  float p1[4] = {}, p2[4] = {};
+#pragma unroll 4
+  for (int p = r0; p < HW; p += step) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(col + static_cast<size_t>(p) * C));
+    const float d[4] = {v.x - shift, v.y - shift, v.z - shift, v.w - shift};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p1[e] += d[e];
+      p2[e] += d[e] * d[e];
+    }
+  }
+  cnt = 4.f * ((HW - r0 + step - 1) / step);
+  const float s1 = (p1[0] + p1[1]) + (p1[2] + p1[3]);
+  m = shift + s1 / cnt;
+  q = ((p2[0] + p2[1]) + (p2[2] + p2[3])) - s1 * s1 / cnt;
+}
+
 // grid (ceil(K / MC), nb, B), MC = 16 MT: modes chunk * MC .. + MC - 1 of
-// AFNO block j of sample b, from x to o (B, 2K, C). stats (B, groups, 2)
-// gets the GroupNorm mean and 1/std of the block's groups from the chunk-0
-// CTA. ACT is the mode MLP's activation (an ActId).
+// AFNO block j of sample b, from x (B, HW, C) and A (2K, HWp) to o (B, 2K,
+// C); K even (the padded Kp). stats (B, groups, 2) gets the GroupNorm mean
+// and 1/std of the block's groups from the chunk-0 CTA. ACT is the mode
+// MLP's activation (an ActId).
 template <int ACT, int MT>
 __global__ void __launch_bounds__(NT, 2)
 spectral_f32_kernel(const float* __restrict__ x, const float* __restrict__ gscale,
                     const float* __restrict__ gbias, const float* __restrict__ A,
                     const float* __restrict__ w1, const float* __restrict__ b1,
                     const float* __restrict__ w2, const float* __restrict__ b2,
-                    float* __restrict__ stats, float* __restrict__ o, int HW, int C, int K,
-                    int nb, int groups) {
+                    float* __restrict__ stats, float* __restrict__ o, int HW, int HWp, int C,
+                    int K, int nb, int groups) {
   constexpr int MC = 16 * MT;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -274,30 +341,18 @@ spectral_f32_kernel(const float* __restrict__ x, const float* __restrict__ gscal
   const int g = lane_g(), t = lane_t();
   const float* xb = x + static_cast<size_t>(b) * HW * C + j * BS;
 
-  // ring slot s of the z phase: x rows [KC][LDX], then A rows [2 MC][LDA]
-  // (rows 0 .. MC - 1 the chunk's real parts, then its imaginary parts)
+  // ring slot s of the z phase: load_z_chunk
   auto load_z_stage = [&](int s, int kc) {
-    float* xs = sm + s * STAGE;
-    float* as = xs + KC * LDX;
-    const int p0 = kc * KC;
-    for (int q = tid; q < KC * (BS / 4); q += NT) {
-      const int r = q / (BS / 4), c4 = q % (BS / 4);
-      cp16(xs + r * LDX + 4 * c4, xb + static_cast<size_t>(p0 + r) * C + 4 * c4, true);
-    }
-    for (int q = tid; q < 2 * MC * (KC / 4); q += NT) {
-      const int r = q / (KC / 4), c4 = q % (KC / 4), m = m0 + (r % MC);
-      const bool valid = m < K;
-      const int row = (r < MC ? 0 : K) + (valid ? m : 0);
-      cp16(as + r * LDA + 4 * c4, A + static_cast<size_t>(row) * HW + p0 + 4 * c4, valid);
-    }
+    load_z_chunk<BS, LDX, NT, MC>(sm + s * STAGE, xb, A, kc, m0, HW, HWp, C, K);
   };
   load_z_stage(0, 0);
   cp_commit();
 
   // GroupNorm statistics of the slab's groups, one pass from L2: thread tid
-  // owns channels 4 (tid % 32) .. + 3 of rows tid / 32, tid / 32 + 8, ...;
-  // its mean m and sum q of squared deviations (shifted by its first value)
-  // combine into each group's mean and variance (Chan's pairwise rule).
+  // owns channels 4 (tid % 32) .. + 3 of rows tid / 32, tid / 32 + 8, ...
+  // below HW; its mean m and sum q of squared deviations (shifted by its
+  // first value) combine into each group's mean and variance (Chan's
+  // pairwise rule, weighted by its count cnt).
   const int cpg = C / groups, gsz = cpg / 4, ng = BS / cpg;
   float* s_mean = sm + F_COL;
   float* s_rs = s_mean + BS;
@@ -305,34 +360,16 @@ spectral_f32_kernel(const float* __restrict__ x, const float* __restrict__ gscal
   float* red = sm + F_RED;
   float* s_sum = sm + F_GRP;
   float* s_dev = s_sum + 32;
-  const float cnt = 4.f * (HW / 8), per_group = cnt * gsz * 8, n = static_cast<float>(HW) * cpg;
-  float m, q;
-  {
-    const float4* col = reinterpret_cast<const float4*>(xb) + (tid & 31);
-    const int stride = C / 4;
-    const float shift = __ldg(col + static_cast<size_t>(tid >> 5) * stride).x;
-    float p1[4] = {}, p2[4] = {};
-#pragma unroll 4
-    for (int p = tid >> 5; p < HW; p += 8) {
-      const float4 v = __ldg(col + static_cast<size_t>(p) * stride);
-      const float d[4] = {v.x - shift, v.y - shift, v.z - shift, v.w - shift};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p1[e] += d[e];
-        p2[e] += d[e] * d[e];
-      }
-    }
-    const float s1 = (p1[0] + p1[1]) + (p1[2] + p1[3]);
-    m = shift + s1 / cnt;
-    q = ((p2[0] + p2[1]) + (p2[2] + p2[3])) - s1 * s1 / cnt;
-  }
+  const float n = static_cast<float>(HW) * cpg;  // a group's values
+  float cnt, m, q;
+  column_stats(xb + 4 * (tid & 31), C, tid >> 5, 8, HW, cnt, m, q);
   slab_group_sum(m * cnt, gsz, ng, red, s_sum);
   const int grp = (tid & 31) / gsz;
-  const float mean = s_sum[grp] / per_group;
+  const float mean = s_sum[grp] / n;
   slab_group_sum(q + cnt * (m - mean) * (m - mean), gsz, ng, red, s_dev);
   if (tid < BS) {
     const int gc = tid / cpg;
-    const float gm = s_sum[gc] / per_group, rstd = rsqrtf(s_dev[gc] / n + EPS);
+    const float gm = s_sum[gc] / n, rstd = rsqrtf(s_dev[gc] / n + EPS);
     s_mean[tid] = gm;
     s_rs[tid] = rstd * __ldg(gscale + j * BS + tid);
     s_bi[tid] = __ldg(gbias + j * BS + tid);
@@ -357,7 +394,7 @@ spectral_f32_kernel(const float* __restrict__ x, const float* __restrict__ gscal
   }
   WarpAcc<MT> acc;
   zero<MT>(acc);
-  const int nkc = HW / KC;
+  const int nkc = HWp / KC;
   for (int kc = 0; kc < nkc; ++kc) {
     if (kc + 1 < nkc) {
       load_z_stage((kc + 1) & 1, kc + 1);
@@ -439,10 +476,11 @@ spectral_f32_kernel(const float* __restrict__ x, const float* __restrict__ gscal
   }
 }
 
-// grid (HW / TP, C / 64, B), TP = 32 MT: out[b] = Ainv . o[b] + xn[b] for
+// grid (HWp / TP, C / 64, B), TP = 32 MT: out[b] = Ainv . o[b] + xn[b] for
 // TP pixels and 64 channels, xn recomputed in f32 from x and the
-// statistics. Warp w computes pixels 16 MT (w / 2) .. by channels 32 (w % 2)
-// ...
+// statistics; Ainv (HWp, 2K), K even (the padded Kp); rows past HW
+// (Ainv's padded zero rows) are computed and not stored. Warp w computes
+// pixels 16 MT (w / 2) .. by channels 32 (w % 2) ...
 template <int MT>
 __global__ void __launch_bounds__(NT_SYN)
 synthesis_f32_kernel(const float* __restrict__ Ainv, const float* __restrict__ o,
@@ -514,7 +552,7 @@ synthesis_f32_kernel(const float* __restrict__ Ainv, const float* __restrict__ o
     __syncthreads();
   }
 
-  // out = acc + xn
+  // out = acc + xn, rows below HW
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     const int cl = cb + 8 * nt + 2 * t, c = n0 + cl;
@@ -522,7 +560,9 @@ synthesis_f32_kernel(const float* __restrict__ Ainv, const float* __restrict__ o
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const size_t at = (static_cast<size_t>(b) * HW + p0 + rb + 16 * mt + g + 8 * h) * C + c;
+        const int p = p0 + rb + 16 * mt + g + 8 * h;
+        if (p >= HW) continue;
+        const size_t at = (static_cast<size_t>(b) * HW + p) * C + c;
         const float2 xv = __ldg(reinterpret_cast<const float2*>(x + at));
         const float xn0 = (xv.x - col_mean[cl]) * col_rs[cl] + col_bias[cl];
         const float xn1 = (xv.y - col_mean[cl + 1]) * col_rs[cl + 1] + col_bias[cl + 1];
@@ -551,19 +591,20 @@ template <int ACT, int MT> cudaError_t allow_smem(int dev) {
   return cudaSuccess;
 }
 
-// Both launches at warp-tile height MT, on stream s.
+// Both launches at warp-tile height MT, on stream s; K is the padded Kp.
 template <int ACT, int MT>
 cudaError_t launch(int dev, const float* x, const float* gscale, const float* gbias,
                    const float* A, const float* Ainv, const float* w1, const float* b1,
                    const float* w2, const float* b2, float* stats, float* o, float* out, int B,
                    int HW, int C, int K, int nb, int groups, cudaStream_t s) {
   constexpr int MC = 16 * MT, TP = 32 * MT;
+  const int HWp = padded_hw(HW);
   cudaError_t e;
   if ((e = allow_smem<ACT, MT>(dev)) != cudaSuccess) return e;
   spectral_f32_kernel<ACT, MT><<<dim3((K + MC - 1) / MC, nb, B), NT, SPECTRAL_SMEM, s>>>(
-      x, gscale, gbias, A, w1, b1, w2, b2, stats, o, HW, C, K, nb, groups);
+      x, gscale, gbias, A, w1, b1, w2, b2, stats, o, HW, HWp, C, K, nb, groups);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  synthesis_f32_kernel<MT><<<dim3(HW / TP, C / TC, B), NT_SYN, SYN_SMEM, s>>>(
+  synthesis_f32_kernel<MT><<<dim3(HWp / TP, C / TC, B), NT_SYN, SYN_SMEM, s>>>(
       Ainv, o, x, stats, gscale, gbias, out, HW, C, K, groups);
   return cudaGetLastError();
 }
@@ -579,15 +620,16 @@ cudaError_t launch(int dev, const float* x, const float* gscale, const float* gb
 // dpot_tpu_torch/ops/cuda/afno_fused.py states them (the dtype is f32).
 extern "C" int dpot_afno_hopper_f32_supported(int B, int HW, int C, int K, int nb, int groups) {
   if (B < 1 || B > 65535 || nb < 1 || C != nb * BS || groups < 1 || C % groups) return 0;
-  if (HW < MAX_TP || HW > MAX_HW || HW % MAX_TP || K < 1 || K % 2) return 0;
+  if (HW < 1 || HW > MAX_HW || K < 1) return 0;
   const int cpg = C / groups;
   return cpg >= 8 && cpg <= BS && (cpg & (cpg - 1)) == 0;
 }
 
-// x, out (B, HW, C), A (2K, HW), Ainv (HW, 2K), w1/w2 (2, nb, bs, bs) in
-// the reference layout, gscale/gbias (C), b1/b2 (2, nb, bs), the stats
-// scratch (B * groups * 2) and the o scratch (B, 2K, C), all f32. act is an
-// ActId. Returns 0 or a CUDA error.
+// x, out (B, HW, C), A (2Kp, HWp), Ainv (HWp, 2Kp) (HWp = padded_hw(HW),
+// Kp = padded_k(K), zero past HW and at mode K of an odd K: padded_ops in
+// the wrapper), w1/w2 (2, nb, bs, bs) in the reference layout, gscale/gbias
+// (C), b1/b2 (2, nb, bs), the stats scratch (B * groups * 2) and the o
+// scratch (B, 2Kp, C), all f32. act is an ActId. Returns 0 or a CUDA error.
 extern "C" int dpot_afno_hopper_f32(int act, const float* x, const float* gscale,
                                     const float* gbias, const float* A, const float* Ainv,
                                     const float* w1, const float* b1, const float* w2,
@@ -609,13 +651,14 @@ extern "C" int dpot_afno_hopper_f32(int act, const float* x, const float* gscale
       return e;
     if (dev < 64) sm_count[dev] = sms;
   }
-  const bool small = static_cast<long long>((K + 15) / 16) * nb * B <= sms;
+  const int Kp = padded_k(K);
+  const bool small = static_cast<long long>((Kp + 15) / 16) * nb * B <= sms;
   return dispatch_act(act, [&](auto tag) {
     constexpr int ACT = decltype(tag)::id;
     return small ? launch<ACT, 1>(dev, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, stats, o, out,
-                                  B, HW, C, K, nb, groups, s)
+                                  B, HW, C, Kp, nb, groups, s)
                  : launch<ACT, 2>(dev, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, stats, o, out,
-                                  B, HW, C, K, nb, groups, s);
+                                  B, HW, C, Kp, nb, groups, s);
   });
 }
 

@@ -138,17 +138,18 @@ __device__ __forceinline__ void complex_layer(WarpAcc<MT>& acc, float* sm, const
 }
 
 // grid (ceil(K / MC), nb, B), MC = 16 MT: modes chunk * MC .. + MC - 1 of
-// AFNO block j of sample b, from x to o (B, 2K, C). stats (B, groups, 2)
-// gets the GroupNorm mean and 1/std of the block's groups from the chunk-0
-// CTA. ACT is the mode MLP's activation (an ActId).
+// AFNO block j of sample b, from x (B, HW, C) and A (2K, HWp) to o (B, 2K,
+// C); K even (the padded Kp, as in afno_hopper_f32.cu). stats (B, groups,
+// 2) gets the GroupNorm mean and 1/std of the block's groups from the
+// chunk-0 CTA. ACT is the mode MLP's activation (an ActId).
 template <int ACT, int MT>
 __global__ void __launch_bounds__(NT, 1)
 spectral_f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ gscale,
                          const float* __restrict__ gbias, const float* __restrict__ A,
                          const float* __restrict__ w1, const float* __restrict__ b1,
                          const float* __restrict__ w2, const float* __restrict__ b2,
-                         float* __restrict__ stats, float* __restrict__ o, int HW, int C, int K,
-                         int nb, int groups) {
+                         float* __restrict__ stats, float* __restrict__ o, int HW, int HWp,
+                         int C, int K, int nb, int groups) {
   constexpr int MC = 16 * MT;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -157,31 +158,18 @@ spectral_f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int g = lane_g(), t = lane_t();
   const float* xb = x + static_cast<size_t>(b) * HW * C + j * BS;
 
-  // ring slot s of the z phase: x rows [KC][LDX], then A rows [2 MC][LDA]
-  // (rows 0 .. MC - 1 the chunk's real parts, then its imaginary parts)
+  // ring slot s of the z phase: load_z_chunk (afno_hopper_f32.cu)
   auto load_z_stage = [&](int s, int kc) {
-    float* xs = sm + s * STAGE;
-    float* as = xs + KC * LDX;
-    const int p0 = kc * KC;
-    for (int q = tid; q < KC * (BS / 4); q += NT) {
-      const int r = q / (BS / 4), c4 = q % (BS / 4);
-      cp16(xs + r * LDX + 4 * c4, xb + static_cast<size_t>(p0 + r) * C + 4 * c4, true);
-    }
-    for (int q = tid; q < 2 * MC * (KC / 4); q += NT) {
-      const int r = q / (KC / 4), c4 = q % (KC / 4), m = m0 + (r % MC);
-      const bool valid = m < K;
-      const int row = (r < MC ? 0 : K) + (valid ? m : 0);
-      cp16(as + r * LDA + 4 * c4, A + static_cast<size_t>(row) * HW + p0 + 4 * c4, valid);
-    }
+    load_z_chunk<BS, LDX, NT, MC>(sm + s * STAGE, xb, A, kc, m0, HW, HWp, C, K);
   };
   load_z_stage(0, 0);
   cp_commit();
 
   // GroupNorm statistics of the block's groups, one pass from L2: thread
   // tid owns channels 4 (tid % COLS) .. + 3 of rows tid / COLS, + RSTEP,
-  // ...; its mean m and sum q of squared deviations (shifted by its first
-  // value) combine into each group's mean and variance (Chan's pairwise
-  // rule).
+  // ... below HW; its mean m and sum q of squared deviations (shifted by
+  // its first value) combine into each group's mean and variance (Chan's
+  // pairwise rule, weighted by its count cnt).
   const int cpg = C / groups, gsz = cpg / 4, ng = BS / cpg;
   float* s_mean = sm + F_COL;
   float* s_rs = s_mean + BS;
@@ -189,35 +177,16 @@ spectral_f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ 
   float* red = sm + F_RED;
   float* s_sum = sm + F_GRP;
   float* s_dev = s_sum + 32;
-  const float cnt = 4.f * (HW / RSTEP), per_group = cnt * gsz * RSTEP,
-              n = static_cast<float>(HW) * cpg;
-  float m, q;
-  {
-    const float4* col = reinterpret_cast<const float4*>(xb) + tid % COLS;
-    const int stride = C / 4;
-    const float shift = __ldg(col + static_cast<size_t>(tid / COLS) * stride).x;
-    float p1[4] = {}, p2[4] = {};
-#pragma unroll 4
-    for (int p = tid / COLS; p < HW; p += RSTEP) {
-      const float4 v = __ldg(col + static_cast<size_t>(p) * stride);
-      const float d[4] = {v.x - shift, v.y - shift, v.z - shift, v.w - shift};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p1[e] += d[e];
-        p2[e] += d[e] * d[e];
-      }
-    }
-    const float s1 = (p1[0] + p1[1]) + (p1[2] + p1[3]);
-    m = shift + s1 / cnt;
-    q = ((p2[0] + p2[1]) + (p2[2] + p2[3])) - s1 * s1 / cnt;
-  }
+  const float n = static_cast<float>(HW) * cpg;  // a group's values
+  float cnt, m, q;
+  column_stats(xb + 4 * (tid % COLS), C, tid / COLS, RSTEP, HW, cnt, m, q);
   block_group_sum(m * cnt, gsz, ng, red, s_sum);
   const int grp = (tid % COLS) / gsz;
-  const float mean = s_sum[grp] / per_group;
+  const float mean = s_sum[grp] / n;
   block_group_sum(q + cnt * (m - mean) * (m - mean), gsz, ng, red, s_dev);
   if (tid < BS) {
     const int gc = tid / cpg;
-    const float gm = s_sum[gc] / per_group, rstd = rsqrtf(s_dev[gc] / n + EPS);
+    const float gm = s_sum[gc] / n, rstd = rsqrtf(s_dev[gc] / n + EPS);
     s_mean[tid] = gm;
     s_rs[tid] = rstd * __ldg(gscale + j * BS + tid);
     s_bi[tid] = __ldg(gbias + j * BS + tid);
@@ -242,7 +211,7 @@ spectral_f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
   WarpAcc<MT> acc;
   zero<MT>(acc);
-  const int nkc = HW / KC;
+  const int nkc = HWp / KC;
   for (int kc = 0; kc < nkc; ++kc) {
     if (kc + 1 < nkc) {
       load_z_stage((kc + 1) & 1, kc + 1);
@@ -341,19 +310,20 @@ template <int ACT, int MT> cudaError_t allow_smem(int dev) {
   return cudaSuccess;
 }
 
-// Both launches at warp-tile height MT, on stream s.
+// Both launches at warp-tile height MT, on stream s; K is the padded Kp.
 template <int ACT, int MT>
 cudaError_t launch(int dev, const float* x, const float* gscale, const float* gbias,
                    const float* A, const float* Ainv, const float* w1, const float* b1,
                    const float* w2, const float* b2, float* stats, float* o, float* out, int B,
                    int HW, int C, int K, int nb, int groups, cudaStream_t s) {
   constexpr int MC = 16 * MT, TP = 32 * MT;
+  const int HWp = padded_hw(HW);
   cudaError_t e;
   if ((e = allow_smem<ACT, MT>(dev)) != cudaSuccess) return e;
   spectral_f32_wide_kernel<ACT, MT><<<dim3((K + MC - 1) / MC, nb, B), NT, SPECTRAL_SMEM, s>>>(
-      x, gscale, gbias, A, w1, b1, w2, b2, stats, o, HW, C, K, nb, groups);
+      x, gscale, gbias, A, w1, b1, w2, b2, stats, o, HW, HWp, C, K, nb, groups);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  synthesis_f32_kernel<MT><<<dim3(HW / TP, C / TC, B), NT_SYN, SYN_SMEM, s>>>(
+  synthesis_f32_kernel<MT><<<dim3(HWp / TP, C / TC, B), NT_SYN, SYN_SMEM, s>>>(
       Ainv, o, x, stats, gscale, gbias, out, HW, C, K, groups);
   return cudaGetLastError();
 }
@@ -366,15 +336,16 @@ cudaError_t launch(int dev, const float* x, const float* gscale, const float* gb
 extern "C" int dpot_afno_hopper_f32_wide_supported(int B, int HW, int C, int K, int nb,
                                                    int groups) {
   if (B < 1 || B > 65535 || nb < 1 || C != nb * w256::BS || groups < 1 || C % groups) return 0;
-  if (HW < MAX_TP || HW > MAX_HW || HW % MAX_TP || K < 1 || K % 2) return 0;
+  if (HW < 1 || HW > MAX_HW || K < 1) return 0;
   const int cpg = C / groups;
   return cpg >= 8 && cpg <= w256::BS && (cpg & (cpg - 1)) == 0;
 }
 
-// x, out (B, HW, C), A (2K, HW), Ainv (HW, 2K), w1/w2 (2, nb, bs, bs) in
-// the reference layout, gscale/gbias (C), b1/b2 (2, nb, bs), the stats
-// scratch (B * groups * 2) and the o scratch (B, 2K, C), all f32. act is an
-// ActId. Returns 0 or a CUDA error.
+// x, out (B, HW, C), A (2Kp, HWp), Ainv (HWp, 2Kp) (padded as
+// dpot_afno_hopper_f32 states), w1/w2 (2, nb, bs, bs) in the reference
+// layout, gscale/gbias (C), b1/b2 (2, nb, bs), the stats scratch (B *
+// groups * 2) and the o scratch (B, 2Kp, C), all f32. act is an ActId.
+// Returns 0 or a CUDA error.
 extern "C" int dpot_afno_hopper_f32_wide(int act, const float* x, const float* gscale,
                                          const float* gbias, const float* A, const float* Ainv,
                                          const float* w1, const float* b1, const float* w2,
@@ -398,12 +369,13 @@ extern "C" int dpot_afno_hopper_f32_wide(int act, const float* x, const float* g
       return e;
     if (dev < 64) sm_count[dev] = sms;
   }
-  const bool small = static_cast<long long>((K + 15) / 16) * nb * B <= sms;
+  const int Kp = padded_k(K);
+  const bool small = static_cast<long long>((Kp + 15) / 16) * nb * B <= sms;
   return dispatch_act(act, [&](auto tag) {
     constexpr int ACT = decltype(tag)::id;
     return small ? w256::launch<ACT, 1>(dev, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, stats,
-                                        o, out, B, HW, C, K, nb, groups, s)
+                                        o, out, B, HW, C, Kp, nb, groups, s)
                  : w256::launch<ACT, 2>(dev, x, gscale, gbias, A, Ainv, w1, b1, w2, b2, stats,
-                                        o, out, B, HW, C, K, nb, groups, s);
+                                        o, out, B, HW, C, Kp, nb, groups, s);
   });
 }

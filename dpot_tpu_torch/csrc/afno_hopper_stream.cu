@@ -1,8 +1,8 @@
-// Fused GroupNorm + AFNO spectral mixer in bf16 for every latent of a
-// multiple of 64 pixels, designed for Hopper (sm_90a): three launches, z and
-// h kept on chip, x, A, the block weights, o and Ainv streamed through
-// shared memory in chunks, so that neither the latent (up to 4096 px) nor
-// the kept modes (2K) are capped by what a CTA holds.
+// Fused GroupNorm + AFNO spectral mixer in bf16 for every latent up to 4096
+// pixels and every mode count, designed for Hopper (sm_90a): three launches,
+// z and h kept on chip, x, A, the block weights, o and Ainv streamed through
+// shared memory in chunks, so that neither the latent nor the kept modes
+// (2K) are capped by what a CTA holds.
 //
 // Replaces, for bf16 operands at the shapes that `hopper_stream_supported`
 // (dpot_tpu_torch/ops/cuda/afno_fused.py) admits, the TPU kernel
@@ -51,6 +51,18 @@
 //      Ainv's columns and o's rows through a three-stage cp.async ring (the
 //      chunk past 2K zero-filled in both, so no cap on 2K), with an epilogue
 //      that adds the f32 xn recomputed from x and the statistics.
+//
+// Ragged latents and odd K. The launches work on whole 64-pixel tiles and an
+// even count of modes: HWp = HW rounded up to 64, Kp = K rounded up to even
+// (so that Ainv's rows are whole 8-byte units). The caller passes A (2Kp,
+// HWp) and Ainv (HWp, 2Kp) padded with zeros (`padded_ops` in the wrapper)
+// and o (B, 2Kp, C); x and out keep their HW rows. x rows past HW load as
+// zeros (cp.async with a source size of 0, never read), the statistics run
+// over the HW real rows, and the synthesis stores rows below HW only. A
+// padded pixel meets a zero column of A and a padded mode a zero column of
+// Ainv, so the result is the unpadded one exactly. (Masking A's and Ainv's
+// ragged edges in the kernel instead would break the 16- and 8-byte copies
+// of their rows, whose strides HW and 2K are then not whole units.)
 //
 // Products are warp-level mma.sync m16n8k16 bf16 with f32 accumulation,
 // fragments loaded with ldmatrix (.trans for the operands whose channels
@@ -374,16 +386,17 @@ stream_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int H
 }
 
 // grid (chunks, nb, B), chunks = ceil(K / MC), MC = 16 MT: modes chunk * MC
-// .. + MC - 1 of AFNO block j of sample b, from x to o (B, 2K, C), with the
-// GroupNorm statistics (B, groups, 2) of stream_stats_kernel.
+// .. + MC - 1 of AFNO block j of sample b, from x (B, HW, C) and A (2K, HWp)
+// to o (B, 2K, C), with the GroupNorm statistics (B, groups, 2) of
+// stream_stats_kernel. K is even here (the padded Kp).
 template <int BS, int MT>
 __global__ void __launch_bounds__(Geo<BS>::NT, Geo<BS>::MIN_CTAS)
 stream_spectral_kernel(const bf16* __restrict__ x, const float* __restrict__ gscale,
                        const float* __restrict__ gbias, const bf16* __restrict__ A,
                        const bf16* __restrict__ w1, const float* __restrict__ b1,
                        const bf16* __restrict__ w2, const float* __restrict__ b2,
-                       const float* __restrict__ stats, bf16* __restrict__ o, int HW, int C,
-                       int K, int nb, int groups, int act) {
+                       const float* __restrict__ stats, bf16* __restrict__ o, int HW, int HWp,
+                       int C, int K, int nb, int groups, int act) {
   using G = Geo<BS>;
   constexpr int MC = 16 * MT, NT = G::NT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -398,25 +411,26 @@ stream_spectral_kernel(const bf16* __restrict__ x, const float* __restrict__ gsc
   const int m0 = chunk * MC;
   const bf16* xb = x + static_cast<size_t>(b) * HW * C + j * BS;
 
-  // ring slot s of the z phase: x rows [KC][LDX], then A rows [2 MC][LDA]
-  // (rows 0 .. MC - 1 the chunk's real parts, then its imaginary parts;
-  // modes past K zero-filled)
+  // ring slot s of the z phase: x rows [KC][LDX] (rows past HW zero-filled),
+  // then A rows [2 MC][LDA] (rows 0 .. MC - 1 the chunk's real parts, then
+  // its imaginary parts; modes past K zero-filled)
   auto load_x_stage = [&](int s, int kc) {
     bf16* xs = ring + s * G::STAGE;
     bf16* as = xs + KC * G::LDX;
     const int p0 = kc * KC;
     for (int q = tid; q < KC * (BS / 8); q += NT) {
-      const int r = q / (BS / 8), c8 = q % (BS / 8);
-      cp16(xs + r * G::LDX + 8 * c8, xb + static_cast<size_t>(p0 + r) * C + 8 * c8, true);
+      const int r = q / (BS / 8), c8 = q % (BS / 8), p = p0 + r;
+      cp16(xs + r * G::LDX + 8 * c8, xb + static_cast<size_t>(p < HW ? p : 0) * C + 8 * c8,
+           p < HW);
     }
     for (int q = tid; q < 2 * MC * (KC / 8); q += NT) {
       const int r = q / (KC / 8), c8 = q % (KC / 8), m = m0 + (r % MC);
       const bool valid = m < K;
       const int row = (r < MC ? 0 : K) + (valid ? m : 0);
-      cp16(as + r * LDA + 8 * c8, A + static_cast<size_t>(row) * HW + p0 + 8 * c8, valid);
+      cp16(as + r * LDA + 8 * c8, A + static_cast<size_t>(row) * HWp + p0 + 8 * c8, valid);
     }
   };
-  const int nkc = HW / KC;
+  const int nkc = HWp / KC;
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < nkc) load_x_stage(s, s);
@@ -532,11 +546,12 @@ stream_spectral_kernel(const bf16* __restrict__ x, const float* __restrict__ gsc
   }
 }
 
-// grid (HW / TP, C / 64, B), TP = 32 MT: out[b] = Ainv . o[b] + xn[b] for
+// grid (HWp / TP, C / 64, B), TP = 32 MT: out[b] = Ainv . o[b] + xn[b] for
 // TP pixels and 64 channels, xn recomputed in f32 from x and the
-// statistics. Warp w computes pixels 16 MT (w / 2) .. by channels 32 (w % 2)
-// ... Ainv's rows are 4K bytes, a multiple of 8 (K even), so its tiles load
-// in 8-byte units, which never straddle 2K (a multiple of 4).
+// statistics; rows past HW (Ainv's padded zero rows) are computed and not
+// stored. Warp w computes pixels 16 MT (w / 2) .. by channels 32 (w % 2)
+// ... Ainv's rows are 4K bytes, a multiple of 8 (K even, the padded Kp), so
+// its tiles load in 8-byte units, which never straddle 2K (a multiple of 4).
 template <int MT>
 __global__ void __launch_bounds__(SYN_NT)
 stream_synthesis_kernel(const bf16* __restrict__ Ainv, const bf16* __restrict__ o,
@@ -603,7 +618,7 @@ stream_synthesis_kernel(const bf16* __restrict__ Ainv, const bf16* __restrict__ 
     __syncthreads();
   }
 
-  // out = round(acc + xn)
+  // out = round(acc + xn), rows below HW
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     const int cl = cb + 8 * nt + 2 * t, c = n0 + cl;
@@ -611,7 +626,9 @@ stream_synthesis_kernel(const bf16* __restrict__ Ainv, const bf16* __restrict__ 
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const size_t at = (static_cast<size_t>(b) * HW + p0 + rb + 16 * mt + g + 8 * h) * C + c;
+        const int p = p0 + rb + 16 * mt + g + 8 * h;
+        if (p >= HW) continue;
+        const size_t at = (static_cast<size_t>(b) * HW + p) * C + c;
         const float2 xv = unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(x + at)));
         const float xn0 = (xv.x - col_mean[cl]) * col_rs[cl] + col_bias[cl];
         const float xn1 = (xv.y - col_mean[cl + 1]) * col_rs[cl + 1] + col_bias[cl + 1];
@@ -640,12 +657,13 @@ template <int BS, int MT> cudaError_t allow_smem(int dev) {
   return cudaSuccess;
 }
 
+// HW is the latent's pixels, HWp and K (even) the padded operators' sizes
 struct Args {
   const bf16 *x, *A, *Ainv, *w1, *w2;
   const float *gscale, *gbias, *b1, *b2;
   float* stats;
   bf16 *o, *out;
-  int B, HW, C, K, nb, groups, act;
+  int B, HW, HWp, C, K, nb, groups, act;
 };
 
 // The three launches at block size BS and warp-tile height MT, on stream s;
@@ -659,10 +677,10 @@ template <int BS, int MT> cudaError_t launch(int dev, const Args& a, int drop, c
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   stream_spectral_kernel<BS, MT>
       <<<dim3((a.K + MC - 1) / MC - drop, a.nb, a.B), Geo<BS>::NT, Geo<BS>::SMEM, s>>>(
-          a.x, a.gscale, a.gbias, a.A, a.w1, a.b1, a.w2, a.b2, a.stats, a.o, a.HW, a.C, a.K,
-          a.nb, a.groups, a.act);
+          a.x, a.gscale, a.gbias, a.A, a.w1, a.b1, a.w2, a.b2, a.stats, a.o, a.HW, a.HWp, a.C,
+          a.K, a.nb, a.groups, a.act);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  stream_synthesis_kernel<MT><<<dim3(a.HW / TP, a.C / TC, a.B), SYN_NT, SYN_SMEM, s>>>(
+  stream_synthesis_kernel<MT><<<dim3(a.HWp / TP, a.C / TC, a.B), SYN_NT, SYN_SMEM, s>>>(
       a.Ainv, a.o, a.x, a.stats, a.gscale, a.gbias, a.out, a.HW, a.C, a.K, a.groups);
   return cudaGetLastError();
 }
@@ -676,15 +694,15 @@ template <int BS> cudaError_t launch_bs(int dev, bool small, const Args& a, int 
 
 // The shapes this kernel takes, as `hopper_stream_supported` in
 // dpot_tpu_torch/ops/cuda/afno_fused.py states them (the dtype is bf16):
-// a latent of a multiple of 64 px up to 4096 with K even, but not one the
-// other bf16 Hopper kernels take (128 or 256 px, K a multiple of 4, 2K <=
-// 320); AFNO blocks of 64, 128 or 256 channels with groups of a power of
-// two channels from 8 to the block, or of 96 channels with groups of one
-// block or a block pair; C a multiple of the synthesis tile (64).
+// a latent up to 4096 px with any K, but not one the other bf16 Hopper
+// kernels take (128 or 256 px, K a multiple of 4, 2K <= 320); AFNO blocks
+// of 64, 128 or 256 channels with groups of a power of two channels from 8
+// to the block, or of 96 channels with groups of one block or a block pair;
+// C a multiple of the synthesis tile (64).
 extern "C" int dpot_afno_hopper_stream_supported(int B, int HW, int C, int K, int nb,
                                                  int groups) {
   if (B < 1 || B > 65535 || nb < 1 || C % nb || C % TC || groups < 1 || C % groups) return 0;
-  if (HW < MAX_TP || HW > MAX_HW || HW % MAX_TP || K < 1 || K % 2) return 0;
+  if (HW < 1 || HW > MAX_HW || K < 1) return 0;
   if ((HW == 128 || HW == 256) && K % 4 == 0 && (2 * K + 63) / 64 <= 5) return 0;
   const int bs = C / nb, cpg = C / groups;
   if (bs == 96) return cpg == 96 || cpg == 192;
@@ -715,9 +733,10 @@ int run(int act, const void* x, const float* gscale, const float* gbias, const v
       return e;
     if (dev < 64) sm_count[dev] = sms;
   }
-  const bool small = static_cast<long long>((K + 15) / 16) * nb * B <= sms;
+  const int HWp = (HW + KC - 1) / KC * KC, Kp = K + K % 2;  // the padded operators'
+  const bool small = static_cast<long long>((Kp + 15) / 16) * nb * B <= sms;
   const int mc = small ? 16 : MAX_MC;
-  if (drop < 0 || drop >= (K + mc - 1) / mc) return cudaErrorInvalidValue;
+  if (drop < 0 || drop >= (Kp + mc - 1) / mc) return cudaErrorInvalidValue;
   const Args a{static_cast<const bf16*>(x),    static_cast<const bf16*>(A),
                static_cast<const bf16*>(Ainv), static_cast<const bf16*>(w1t),
                static_cast<const bf16*>(w2t),  gscale,
@@ -725,9 +744,9 @@ int run(int act, const void* x, const float* gscale, const float* gbias, const v
                b2,                             stats,
                static_cast<bf16*>(o),          static_cast<bf16*>(out),
                B,                              HW,
-               C,                              K,
-               nb,                             groups,
-               act};
+               HWp,                            C,
+               Kp,                             nb,
+               groups,                         act};
   switch (C / nb) {
     case 64: return launch_bs<64>(dev, small, a, drop, s);
     case 96: return launch_bs<96>(dev, small, a, drop, s);
@@ -738,8 +757,10 @@ int run(int act, const void* x, const float* gscale, const float* gbias, const v
 
 }  // namespace
 
-// x, out (B, HW, C), A (2K, HW), Ainv (HW, 2K), o scratch (B, 2K, C) are
-// bf16; w1t/w2t are the bf16 block weights (2, nb, bs, bs), each block
+// x, out (B, HW, C), A (2Kp, HWp), Ainv (HWp, 2Kp), o scratch (B, 2Kp, C)
+// are bf16, HWp = HW rounded up to 64 and Kp = K rounded up to even, the
+// operators zero past HW and at mode K of an odd K (padded_ops in the
+// wrapper); w1t/w2t are the bf16 block weights (2, nb, bs, bs), each block
 // transposed to (out, in); gscale/gbias (C), b1/b2 (2, nb, bs) and the
 // stats scratch (B * groups * 2) are f32. act is an ActId. Returns 0 or a
 // CUDA error.
@@ -762,7 +783,8 @@ extern "C" int dpot_afno_hopper_stream_drop_last_chunk(
     const void* Ainv, const void* w1t, const float* b1, const void* w2t, const float* b2,
     float* stats, void* o, void* out, int B, int HW, int C, int K, int nb, int groups,
     void* stream) {
-  const cudaError_t e = cudaMemsetAsync(o, 0, static_cast<size_t>(B) * 2 * K * C * sizeof(bf16),
+  const size_t Kp = K + K % 2;
+  const cudaError_t e = cudaMemsetAsync(o, 0, static_cast<size_t>(B) * 2 * Kp * C * sizeof(bf16),
                                         static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return run(act, x, gscale, gbias, A, Ainv, w1t, b1, w2t, b2, stats, o, out, B, HW, C, K, nb,

@@ -17,8 +17,8 @@ shapes alone before any launch, or raises:
     groups of one block or a block pair, DPOT-L at a 16x16 latent); wgmma
     fed by TMA, each CTA computing its group's statistics, two launches;
   - "hopper_f32" (`dpot_tpu_torch/csrc/afno_hopper_f32.cu`): f32 at the
-    shapes `hopper_f32_supported` admits (AFNO blocks of 128 channels, a
-    latent of a multiple of 64 pixels); every product as 3xTF32 on the
+    shapes `hopper_f32_supported` admits (AFNO blocks of 128 channels, any
+    latent up to 4096 pixels, any K); every product as 3xTF32 on the
     tensor cores (the split `tf32_split` states), two launches;
   - "hopper_f32_l" (`dpot_tpu_torch/csrc/afno_hopper_f32_l.cu`): f32 at the
     shapes `hopper_f32_l_supported` admits (AFNO blocks of 96 channels, as
@@ -36,13 +36,19 @@ shapes alone before any launch, or raises:
     exact and the activation is elementwise, so the result is the
     64-channel mixer's up to the order of the f32 sums;
   - "hopper_stream" (`dpot_tpu_torch/csrc/afno_hopper_stream.cu`): bf16 at
-    the shapes `hopper_stream_supported` admits (the latents of a multiple
-    of 64 pixels that the other bf16 kernels refuse: a 64^2 or 256^2 grid
+    the shapes `hopper_stream_supported` admits (the latents up to 4096
+    pixels, any K, that the other bf16 kernels refuse: every grid but 128^2
     at patch 8; AFNO blocks of 64, 96, 128 or 256 channels); x, A, the
     weights, o and Ainv streamed through shared memory, mma.sync, three
     launches (the GroupNorm statistics, the spectral part, the synthesis);
   - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): every other shape, in
-    either type; five launches.
+    either type (blocks of other sizes, groups the block rules refuse, an
+    odd count of 64-channel blocks in f32 or in bf16 at 128/256 px); five
+    launches.
+The streamed and f32 kernels work on whole 64-pixel tiles and on an even
+count of modes: where the latent or K is ragged they read copies of A and
+Ainv padded with zeros (`padded_ops`), which is exact, and leave the pixels
+past HW out of the statistics and the output.
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
 arithmetic with torch ops and rounds at the same points.
 `fused_gn_afno.launches` counts the wrapper calls that launched a kernel,
@@ -265,19 +271,63 @@ def _bf16_hopper_latent(HW: int, K: int) -> bool:
 
 
 def _f32_hopper_latent(HW: int, K: int) -> bool:
-    """The latent and modes both f32 Hopper kernels take: a multiple of 64
-    pixels up to COMBINED_MAX_PIXELS (x and A stream through shared memory
-    in 32-pixel chunks, and the synthesis tiles are 64 pixels); K even, so
-    that Ainv's rows are whole 16-byte units."""
-    return (HOPPER_F32_TILE_P <= HW <= COMBINED_MAX_PIXELS and not HW % HOPPER_F32_TILE_P
-            and K >= 1 and not K % 2)
+    """The latent and modes the f32 Hopper kernels take: any latent up to
+    COMBINED_MAX_PIXELS and any K. They work on whole 64-pixel tiles and an
+    even count of modes (Ainv's rows whole 16-byte units), on copies of A
+    and Ainv padded to that (`padded_ops`), and mask the pixels past HW."""
+    return 1 <= HW <= COMBINED_MAX_PIXELS and K >= 1
 
 
 def _stream_latent(HW: int, K: int) -> bool:
     """The latent and modes afno_hopper_stream.cu takes: the f32 kernels'
-    (`_f32_hopper_latent`: x, A, o and Ainv all stream in chunks) but none
-    that `_bf16_hopper_latent` admits, which the other bf16 kernels keep."""
+    (`_f32_hopper_latent`: x, A, o and Ainv all stream in chunks, the
+    operators padded) but none that `_bf16_hopper_latent` admits, which the
+    other bf16 kernels keep."""
     return _f32_hopper_latent(HW, K) and not _bf16_hopper_latent(HW, K)
+
+
+def padded_dims(HW: int, K: int) -> tuple[int, int]:
+    """(HWp, Kp): the latent rounded up to whole 64-pixel tiles
+    (HOPPER_F32_TILE_P) and K rounded up to even, the shapes the streamed
+    and f32 kernels read A (2Kp, HWp) and Ainv (HWp, 2Kp) at. The kernels
+    compute the same from HW and K."""
+    return -(-HW // HOPPER_F32_TILE_P) * HOPPER_F32_TILE_P, K + K % 2
+
+
+def padded_ops(A: torch.Tensor, Ainv: torch.Tensor, K: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A (2K, HW) and Ainv (HW, 2K) at `padded_dims`: zero columns of A past
+    HW and zero rows of Ainv past HW; for an odd K a zero mode K in both
+    halves (rows K and 2Kp - 1 of A, the same columns of Ainv). Exact: a
+    padded pixel meets a zero column of A, and a padded mode's o (act(B1) .
+    W2 + B2) a zero column of Ainv. A and Ainv themselves where nothing is
+    padded.
+    The copies are constants, as the operators are (ops/spectral.py
+    `combined_spectral_ops`): kept on A for as long as A lives, never
+    evicted (a CUDA graph reads them by address), made outside inference
+    mode. A miss while a graph is being captured raises: the capture's
+    warm-up must have made them."""
+    HW = A.shape[1]
+    HWp, Kp = padded_dims(HW, K)
+    if (HWp, Kp) == (HW, K):
+        return A, Ainv
+    versions = tuple(-1 if t.is_inference() else t._version for t in (A, Ainv))
+    cached = getattr(A, "_dpot_padded", None)
+    if cached is not None and cached[0] is Ainv and cached[1] == versions:
+        return cached[2]
+    if capturing():
+        raise RuntimeError(
+            f"the padded DFT operators of a {HW}-px latent with K {K} are not cached: a "
+            "CUDA graph cannot make them during its capture; run the function once "
+            "eagerly first")
+    with torch.inference_mode(False):
+        Ap = A.new_zeros((2 * Kp, HWp))
+        Ap[:K, :HW] = A[:K]
+        Ap[Kp:Kp + K, :HW] = A[K:]
+        Ainvp = Ainv.new_zeros((HWp, 2 * Kp))
+        Ainvp[:HW, :K] = Ainv[:, :K]
+        Ainvp[:HW, Kp:Kp + K] = Ainv[:, K:]
+    A._dpot_padded = (Ainv, versions, (Ap, Ainvp))
+    return Ap, Ainvp
 
 
 def hopper_supported(B: int, HW: int, C: int, K: int, nb: int, groups: int,
@@ -527,12 +577,16 @@ def _forward(x, gscale, gbias, A, Ainv, w1, b1, w2, b2, K, groups, approximate, 
     nb = w1.shape[1]
     aid = act_id(act, approximate)
     dev = x.device
+    path = kernel_path(B, HW, C, K, nb, groups, x.dtype)
+    if path != "general":  # the Hopper kernels' operators, padded where ragged
+        A, Ainv = padded_ops(A, Ainv, K)
+        args = (*args[:3], A, Ainv, *args[5:])
+    Kp = A.shape[0] // 2
     # The scratch is freed on return, before the kernels have run; the caching
     # allocator hands it out again only to later work on this same stream.
     stats = torch.empty(B * groups * 2, device=dev, dtype=torch.float32)
-    o = torch.empty((B, 2 * K, C), device=dev, dtype=x.dtype)
+    o = torch.empty((B, 2 * Kp, C), device=dev, dtype=x.dtype)
     out = torch.empty_like(x)
-    path = kernel_path(B, HW, C, K, nb, groups, x.dtype)
     pairs = path in PAIR_KERNELS
     if pairs:
         # b1 and b2 (2, nb, 64) are the same memory as (2, nb/2, 128)

@@ -112,6 +112,12 @@ class Graph:
             torch.autograd.graph.increment_version(self.mutated)
         return self.outputs
 
+    def close(self) -> None:
+        """Free the graph now. Freeing a graph is illegal while any graph of
+        the process is being captured, and one left to the garbage collector
+        may be freed at any moment, during another capture included."""
+        self.graph.reset()
+
 
 class GraphCache:
     """Graphs of one function of named tensors, one per key and input
@@ -142,6 +148,12 @@ class GraphCache:
         self._graphs[full_key] = (static, Graph(lambda: fn(static), pool=self._pool))
         self.captures += 1
         return out
+
+    def close(self) -> None:
+        """Free every graph now (`Graph.close`); the cache is then empty."""
+        for _, graph in self._graphs.values():
+            graph.close()
+        self._graphs.clear()
 
 
 def copy_into(dst: dict[str, torch.Tensor], src: dict[str, torch.Tensor]) -> None:

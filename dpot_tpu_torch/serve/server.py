@@ -401,7 +401,10 @@ class RolloutServer:
 
     def stop(self, drain: bool = False) -> None:
         """Stop the worker. drain=True rejects new submissions, finishes
-        everything already queued (queue and holdover), then joins."""
+        everything already queued (queue and holdover), then joins. Once
+        the worker has ended, the rollout graphs are freed, so that the
+        garbage collector does not free them during a later capture
+        (ops/cuda/graphs.py `Graph.close`)."""
         self._accepting = False
         if drain:
             while not self._queue.empty() or self._holdover:
@@ -409,6 +412,8 @@ class RolloutServer:
         self._stop.set()
         if drain and self._worker.is_alive():
             self._worker.join(timeout=30.0)
+        if not self._worker.is_alive():
+            self._graphs.close()
 
     def submit(self, x: Request, steps: int) -> np.ndarray:
         """Blocking rollout request (thread-safe). x: (B, H, W, T, C) as a

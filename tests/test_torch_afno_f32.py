@@ -65,6 +65,10 @@ ADMITTED_F32_EDGES = [
     (2, 256, 512, 144, 4, 64),    # groups of 8
     (2, 256, 128, 144, 1, 8),     # one AFNO block
     (2, 256, 1024, 144, 8, 128),  # S/M width, groups of 8
+    (1, 96, 512, 40, 4, 8),       # 12x8 latent: 96 px, padded to 128
+    (1, 32, 512, 10, 4, 8),       # 32 px: below one synthesis tile, padded to one
+    (1, 256, 512, 9, 4, 8),       # K odd: Ainv's rows padded to 16-byte units
+    (1, 256, 512, 143, 4, 8),     # K odd
 ]
 
 
@@ -87,11 +91,7 @@ def test_f32_gate_refuses_other_block_sizes(name):
 @pytest.mark.parametrize("shapes", [
     (3, 64, 96, 9, 4, 8),        # 8x8 latent, modes 3: bs 24
     (3, 48, 40, 15, 2, 4),       # 4x12 latent, modes 5: bs 20
-    (1, 96, 512, 40, 4, 8),      # 12x8 latent: 96 px, not whole 64-px tiles
-    (1, 32, 512, 10, 4, 8),      # 32 px: below one synthesis tile
     (1, 8192, 512, 144, 4, 8),   # above the combined-operator DFT's limit
-    (1, 256, 512, 9, 4, 8),      # K odd: Ainv's rows are not 16-byte units
-    (1, 256, 512, 143, 4, 8),    # K odd
     (1, 256, 512, 144, 4, 2),    # groups of 256 channels straddle AFNO blocks
     (1, 256, 512, 144, 4, 128),  # groups of 4 channels
     (0, 256, 512, 144, 4, 8),    # empty batch

@@ -53,6 +53,10 @@ ADMITTED_F32_WIDE_EDGES = [
     (2, 256, 2048, 144, 8, 16),   # groups of 128 channels, two per block
     (2, 256, 2048, 144, 8, 256),  # groups of 8
     (2, 256, 256, 144, 1, 1),     # one AFNO block, one group
+    (1, 256, 2048, 143, 8, 8),    # K odd: Ainv's rows padded to 16-byte units
+    (1, 256, 2048, 9, 8, 8),      # K odd
+    (1, 96, 2048, 40, 8, 8),      # 96 px: padded to whole 64-px tiles
+    (1, 32, 2048, 10, 8, 8),      # 32 px: below one synthesis tile, padded to one
 ]
 
 
@@ -70,10 +74,6 @@ def test_admitted_f32_wide_edge_shapes(shapes):
     ((1, 256, 2048, 144, 8, 1), "one group over all eight blocks"),
     ((1, 256, 2048, 144, 8, 512), "groups of 4 channels"),
     ((1, 256, 2048, 144, 8, 24), "C % groups: groups of 85.3 channels"),
-    ((1, 256, 2048, 143, 8, 8), "K odd: Ainv's rows are not 16-byte units"),
-    ((1, 256, 2048, 9, 8, 8), "K odd"),
-    ((1, 96, 2048, 40, 8, 8), "96 px: not whole 64-px tiles"),
-    ((1, 32, 2048, 10, 8, 8), "32 px: below one synthesis tile"),
     ((1, 8192, 2048, 144, 8, 8), "above the combined-operator DFT's limit"),
     ((0, 256, 2048, 144, 8, 8), "empty batch"),
     ((65536, 256, 2048, 144, 8, 8), "a batch beyond the grid's z dimension"),

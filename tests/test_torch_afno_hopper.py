@@ -89,8 +89,8 @@ def test_presets_with_other_block_sizes_take_the_general_kernel(name):
 ])
 def test_ragged_and_unfit_shapes_are_refused(shapes):
     """Refused shapes go to the streamed kernel (afno_hopper_stream.cu)
-    where its gate admits them (a latent of a multiple of 64 px that this
-    gate refuses, K even), else to the five-launch kernel."""
+    where its gate admits them (a latent up to 4096 px that this gate
+    refuses, any K), else to the five-launch kernel."""
     assert not hopper_supported(*shapes, BF16)
     stream = hopper_stream_supported(*shapes, BF16)
     assert kernel_path(*shapes, BF16) == ("hopper_stream" if stream else "general")

@@ -71,6 +71,8 @@ ADMITTED_L_EDGES = {
         (2, 64, 1536, 16, 16, 8),    # 8x8 latent: one synthesis pixel tile
         (2, 1024, 384, 144, 4, 2),   # 32x32 latent: 32 pixel chunks
         (2, 256, 1536, 4, 16, 8),    # modes 2: 2K = 8
+        (2, 256, 1536, 143, 16, 8),  # K odd: Ainv's rows padded to 16-byte units
+        (2, 96, 1536, 40, 16, 8),    # 96 px: padded to whole 64-px tiles
     ],
 }
 
@@ -95,9 +97,7 @@ def test_admitted_l_edge_shapes(dtype, shapes):
     (2, 256, 288, 144, 3, 3),       # three blocks: C 288 fits no synthesis tile
     (0, 256, 1536, 144, 16, 8),     # empty batch
     (65536, 256, 1536, 144, 16, 8), # a batch beyond the grid's z dimension
-    (2, 256, 1536, 143, 16, 8),     # K odd
     (2, 8192, 1536, 144, 16, 8),    # above the combined-operator DFT's limit
-    (2, 96, 1536, 40, 16, 8),       # 96 px: no whole 64- or 128-px tiles
 ])
 def test_ragged_and_unfit_l_shapes_are_refused(dtype, shapes):
     gate, _ = GATES[dtype]
@@ -111,10 +111,12 @@ def test_ragged_and_unfit_l_shapes_are_refused(dtype, shapes):
     (2, 256, 1536, 142, 16, 8),     # K not a multiple of 4
     (2, 512, 1536, 144, 16, 8),     # a 512-px latent: the slab does not fit
     (2, 64, 1536, 16, 16, 8),       # a 64-px latent: no 128-px synthesis tile
+    (2, 256, 1536, 143, 16, 8),     # K odd
+    (2, 96, 1536, 40, 16, 8),       # 96 px: no whole 128-px tiles
 ])
 def test_bf16_l_gate_refuses_what_only_f32_takes(shapes):
-    """Shapes the f32 kernel takes (a 64-channel synthesis tile, latents of
-    a multiple of 64 px, any even K) and the bf16 one does not. In bf16 the
+    """Shapes the f32 kernel takes (a 64-channel synthesis tile, any latent
+    up to 4096 px, any K) and the bf16 one does not. In bf16 the
     streamed kernel takes those whose latent the bf16 kernels' rule refuses
     (all but C 192 at a 256-px latent, which goes to the five-launch
     kernel)."""

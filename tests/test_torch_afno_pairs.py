@@ -99,12 +99,10 @@ def test_admitted_pair_edge_shapes(shapes, dtype):
     ((2, 256, 512, 144, 8, 2), "groups of 256 channels"),
     ((2, 256, 512, 144, 8, 128), "groups of 4 channels"),
     ((2, 256, 512, 144, 8, 24), "C % groups"),
-    ((2, 256, 512, 143, 8, 8), "K odd"),
     ((2, 256, 384, 144, 8, 8), "blocks of 48 channels"),
     ((0, 256, 512, 144, 8, 8), "empty batch"),
     ((65536, 256, 512, 144, 8, 8), "a batch beyond the grid's z dimension"),
     ((2, 8192, 512, 144, 8, 8), "above the combined-operator DFT's limit"),
-    ((2, 96, 512, 40, 8, 8), "96 px: neither a bf16 latent nor whole 64-px tiles"),
 ])
 def test_the_pair_gates_refuse(shapes, why, dtype):
     """Refused shapes go to the five-launch kernel."""
@@ -119,10 +117,12 @@ def test_the_pair_gates_refuse(shapes, why, dtype):
     (2, 1024, 512, 144, 8, 8),   # a 32x32 latent
     (2, 256, 512, 142, 8, 8),    # K even but not a multiple of 4
     (2, 256, 512, 164, 8, 8),    # 2K = 328: o does not fit the synthesis CTA
+    (2, 256, 512, 143, 8, 8),    # K odd
+    (2, 96, 512, 40, 8, 8),      # 96 px: not a bf16 latent
 ])
 def test_the_bf16_pair_gate_refuses_what_only_f32_takes(shapes):
     """The bf16 latent rule (128 or 256 px, K a multiple of 4, 2K <= 320)
-    against the f32 one (a multiple of 64 px, K even). In bf16 the streamed
+    against the f32 one (any latent up to 4096 px, any K). In bf16 the streamed
     kernel takes each of them (64-channel blocks, unpacked)."""
     assert not hopper_pairs_supported(*shapes, BF16)
     assert hopper_stream_supported(*shapes, BF16)

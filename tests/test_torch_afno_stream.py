@@ -1,8 +1,9 @@
 """The streamed bf16 path of the fused op (dpot_tpu_torch/ops/cuda/afno_fused.py
 "hopper_stream", dpot_tpu_torch/csrc/afno_hopper_stream.cu) on the CPU: bf16
-at the latents of a multiple of 64 pixels that the other bf16 kernels refuse
-(a 64^2 grid at patch 8 gives an 8^2 latent, K 40; a 256^2 grid a 32^2
-latent, K 544), AFNO blocks of 64, 96, 128 or 256 channels. Checked here: the
+at the latents up to 4096 pixels that the other bf16 kernels refuse (a 64^2
+grid at patch 8 gives an 8^2 latent, K 40; a 256^2 grid a 32^2 latent, K
+544; ragged latents and odd K, tests/test_torch_afno_ragged.py), AFNO blocks
+of 64, 96, 128 or 256 channels. Checked here: the
 gate and the path choice, the kernel's launch geometry and shared-memory
 plan mirrored from its source's constants, and the plain version and a
 two-layer model at those grids against the JAX package. The kernel itself
@@ -25,6 +26,7 @@ from dpot_tpu_torch.ops.cuda.afno_fused import (
     fused_gn_afno,
     hopper_stream_supported,
     kernel_path,
+    padded_dims,
 )
 from test_torch_afno_hopper import preset_shapes
 from test_torch_afno_kernel import jax_args, make_case, port_args
@@ -85,6 +87,9 @@ ADMITTED_STREAM_EDGES = [
     (2, 256, 512, 142, 4, 8),      # 256 px, K even but not a multiple of 4
     (2, 1024, 128, 2, 1, 1),       # K 2: one short mode chunk
     (2, 64, 512, 4, 2, 2),         # 256-channel blocks, a group a block
+    (2, 144, 512, 60, 4, 8),       # a 96^2 grid at patch 8: 144 px, padded to 192
+    (2, 1024, 1024, 543, 8, 8),    # K odd: Ainv's rows padded to whole 8-byte units
+    (2, 32, 512, 10, 4, 8),        # 32 px: below one 64-px tile, padded to one
 ]
 
 
@@ -95,15 +100,12 @@ def test_admitted_stream_edge_shapes(shapes):
 
 
 @pytest.mark.parametrize("shapes,why", [
-    ((2, 144, 512, 60, 4, 8), "a 96^2 grid at patch 8: 144 px, not whole 64-px tiles"),
-    ((2, 1024, 1024, 543, 8, 8), "K odd: Ainv's rows are not 8-byte units"),
     ((2, 1024, 1280, 544, 8, 8), "blocks of 160 channels"),
     ((2, 1024, 1024, 544, 8, 2), "groups of 512 channels straddle 128-channel blocks"),
     ((2, 1024, 1024, 544, 8, 256), "groups of 4 channels"),
     ((2, 1024, 480, 544, 5, 5), "an odd count of 96-channel blocks: C not a multiple of 64"),
     ((2, 1024, 384, 544, 4, 1), "groups of 384 channels over 96-channel blocks"),
     ((2, 8192, 1024, 544, 8, 8), "above the combined-operator DFT's limit"),
-    ((2, 32, 512, 10, 4, 8), "32 px: below one 64-px tile"),
     ((0, 64, 1024, 40, 8, 8), "empty batch"),
     ((65536, 64, 1024, 40, 8, 8), "a batch beyond the grid's z dimension"),
 ])
@@ -165,12 +167,15 @@ def spectral_smem(bs: int, c: dict) -> int:
 
 
 def launch_geometry(B, HW, C, K, nb, groups, sms=132) -> dict:
-    """The grids of the three launches the source makes: MT = 1 (16-mode
-    chunks, 32-px synthesis tiles) when the spectral grid at 16-mode chunks
-    has no more CTAs than the card has SMs, else MT = 2."""
-    mt = 1 if math.ceil(K / 16) * nb * B <= sms else 2
-    return dict(mt=mt, stats=(groups, B), spectral=(math.ceil(K / (16 * mt)), nb, B),
-                synthesis=(HW // (32 * mt), C // 64, B))
+    """The grids of the three launches the source makes, at the padded
+    operators' HWp and Kp (`padded_dims`): MT = 1 (16-mode chunks, 32-px
+    synthesis tiles) when the spectral grid at 16-mode chunks has no more
+    CTAs than the card has SMs, else MT = 2."""
+    HWp, Kp = padded_dims(HW, K)
+    mt = 1 if math.ceil(Kp / 16) * nb * B <= sms else 2
+    return dict(mt=mt, HWp=HWp, Kp=Kp, stats=(groups, B),
+                spectral=(math.ceil(Kp / (16 * mt)), nb, B),
+                synthesis=(HWp // (32 * mt), C // 64, B))
 
 
 @pytest.mark.parametrize("bs", [64, 96, 128, 256])
@@ -190,19 +195,27 @@ def test_shared_memory_plan_fits_a_cta(bs):
 
 @pytest.mark.parametrize("shapes", ADMITTED_STREAM_EDGES
                          + [preset_shapes(n, B, res=r) for n in ("M", "L", "H")
-                            for B in (1, 8, 20) for r in (64, 256)])
+                            for B in (1, 8, 20) for r in (64, 256)]
+                         + [preset_shapes(n, B, res=r) for n in ("M", "L", "H")
+                            for B in (1, 8, 20) for r in (72, 96, 160)]
+                         + [preset_shapes("M", B, res=64, patch=16) for B in (1, 20)])
 def test_launch_geometry_covers_every_mode_and_pixel(shapes):
     """The spectral grid's mode chunks cover K (the last one ragged where
-    the chunk does not divide K: M's 8^2 latent, K 40), the synthesis tiles
-    cover HW and C exactly, and the statistics launch deals whole 8-channel
-    columns of a group to its threads."""
+    the chunk does not divide K: M's 8^2 latent, K 40) and the padded mode
+    of an odd K, the synthesis tiles cover the padded latent HWp and C
+    exactly, HWp is the least whole count of analysis stages that holds HW,
+    and the statistics launch deals whole 8-channel columns of a group to
+    its threads."""
     B, HW, C, K, nb, groups = shapes
     g = launch_geometry(B, HW, C, K, nb, groups)
     mc = 16 * g["mt"]
     chunks = g["spectral"][0]
-    assert (chunks - 1) * mc < K <= chunks * mc
-    assert g["synthesis"][0] * 32 * g["mt"] == HW and g["synthesis"][1] * 64 == C
-    assert HW % _constants()["KC"] == 0
+    HWp, Kp = g["HWp"], g["Kp"]
+    assert Kp in (K, K + 1) and Kp % 2 == 0
+    assert (chunks - 1) * mc < Kp <= chunks * mc
+    assert g["synthesis"][0] * 32 * g["mt"] == HWp and g["synthesis"][1] * 64 == C
+    kc = _constants()["KC"]
+    assert HWp % kc == 0 and HWp - kc < HW <= HWp
     # the statistics launch: a CTA a group, its 8-channel columns dealt to
     # the threads, at least one row each for every column
     cpg, nt = C // groups, _constants()["STATS_NT"]

@@ -93,8 +93,8 @@ def test_admitted_wide_edge_shapes(shapes):
 ])
 def test_ragged_and_unfit_wide_shapes_are_refused(shapes):
     """Refused by the wide gate: the streamed kernel where its gate admits
-    them (the latents of a multiple of 64 px the bf16 kernels' rule
-    refuses), else the five-launch kernel, but for L's blocks of 96
+    them (the latents up to 4096 px the bf16 kernels' rule refuses), else
+    the five-launch kernel, but for L's blocks of 96
     channels, which take their own kernel (tests/test_torch_afno_l.py)."""
     assert not hopper_wide_supported(*shapes, BF16)
     stream = hopper_stream_supported(*shapes, BF16)

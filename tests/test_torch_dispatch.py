@@ -393,13 +393,18 @@ def test_device_constant_miss_under_capture_raises(monkeypatch):
 
 
 class FakeGraph:
-    """A stand-in for graphs.Graph on the CPU: `replay()` runs fn eagerly."""
+    """A stand-in for graphs.Graph on the CPU: `replay()` runs fn eagerly;
+    `close()` marks it freed."""
 
     def __init__(self, fn, pool=None, generators=(), mutated=()):
         self.fn = fn
+        self.closed = False
 
     def replay(self):
         return self.fn()
+
+    def close(self):
+        self.closed = True
 
 
 def test_serve_counts_one_compile_per_bucket_and_steps(monkeypatch):
@@ -431,8 +436,11 @@ def test_serve_counts_one_compile_per_bucket_and_steps(monkeypatch):
                     carry = torch.cat([carry[..., 1:, :], im], dim=-2)
             np.testing.assert_allclose(got, torch.cat(want, dim=-2).numpy(), rtol=0, atol=1e-6)
             assert rs.metrics()["compiles"] == compiles == rs._graphs.captures
+        held = [graph for _, graph in rs._graphs._graphs.values()]
     finally:
         rs.stop(drain=True)
+    # stop() freed the graphs once the worker had ended, and emptied the cache
+    assert len(held) == 4 and all(g.closed for g in held) and not rs._graphs._graphs
 
 
 def test_dpotnet_defaults_to_the_card():

@@ -689,12 +689,130 @@ def test_the_dropped_chunk_control_fails_the_check(cuda, latent, monkeypatch):
     assert torch.isfinite(got).all() and rel_l2(got, want) > 4e-3
 
 
+# ragged latents and odd K: DPOT-M's blocks at res 96 (a 12^2 latent, K 84),
+# 72 (9^2, K 45), 160 (20^2, K 220) and 64 at patch 16 (4^2, K 12), on the
+# streamed kernel in bf16 and the f32 kernels in f32, which read A and Ainv
+# padded to whole 64-px tiles and an even K (afno_fused.padded_ops)
+RAGGED_LATENTS = {"12x12": dict(H=12, W=12), "9x9": dict(H=9, W=9),
+                  "20x20": dict(H=20, W=20), "4x4": dict(H=4, W=4)}
+
+
+def check_on(args, path, act="gelu"):
+    """One call on kernel `path` against the plain version, at the limits
+    of its type: f32 5e-5 absolute and 1e-5 relative L2 (erf-GELU), bf16 4
+    bf16 ulps of the output's magnitude and 4e-3 relative L2 (tanh-GELU)."""
+    x, *_, K, groups = args
+    approx = x.dtype == torch.bfloat16
+    assert afno_fused.kernel_path(*x.shape, K, args[5].shape[1], groups, x.dtype) == path
+    before = dict(fused_gn_afno.launches_by_path)
+    got = fused_gn_afno(*args, approximate=approx, act=act).float()
+    want = fused_gn_afno_ref(*args, approximate=approx, act=act).float()
+    torch.cuda.synchronize()
+    assert fused_gn_afno.launches_by_path[path] == before[path] + 1
+    assert sum(fused_gn_afno.launches_by_path.values()) == sum(before.values()) + 1
+    assert torch.isfinite(got).all()
+    if approx:
+        assert (got - want).abs().max().item() <= 4 * 2.0**-7 * want.abs().max().item()
+        assert rel_l2(got, want) <= 4e-3
+    else:
+        assert (got - want).abs().max().item() <= 5e-5
+        assert rel_l2(got, want) <= 1e-5
+    return got, want
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("res", [64, 256])
+@pytest.mark.parametrize("B", [1, 8, 20])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("latent", sorted(RAGGED_LATENTS))
+def test_ragged_latents_at_the_dpot_m_block_shapes(cuda, latent, dtype, B):
+    """DPOT-M's blocks at the ragged latents: bf16 on the streamed kernel,
+    f32 on the f32 kernel, each against the plain version on the unpadded
+    operators."""
+    path = "hopper_stream" if dtype == torch.bfloat16 else "hopper_f32"
+    check_on(ti_block_args(B, dtype, cuda, seed=240 + B, **RAGGED_LATENTS[latent], **M_BLOCK),
+             path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block,f32_path", [(L_BLOCK, "hopper_f32_l"),
+                                            (dict(H_BLOCK, groups=8), "hopper_f32_wide")])
+def test_ragged_latents_at_the_l_and_h_block_shapes(cuda, block, f32_path, dtype):
+    """L's and H's blocks at the 12^2 and 9^2 latents, B = 8: the masked
+    statistics of the kernels for 96- and 256-channel blocks in f32 (groups
+    of a block pair at L), the streamed kernel in bf16."""
+    path = f32_path if dtype == torch.float32 else "hopper_stream"
+    for latent in ("12x12", "9x9"):
+        check_on(ti_block_args(8, dtype, cuda, seed=250, modes=32, **RAGGED_LATENTS[latent],
+                               **block), path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    dict(H=12, W=8, C=512, nb=4, modes=32, groups=8),     # 96 px, K 60
+    dict(H=16, W=16, C=512, nb=4, modes=3, groups=8),     # 256 px, K 9: odd
+    dict(H=32, W=32, C=1024, nb=8, modes=31, groups=8),   # 1024 px, K 527: odd
+    dict(H=1, W=1, C=256, nb=2, modes=1, groups=8),       # 1 px, K 1
+    dict(H=63, W=65, C=256, nb=2, modes=12, groups=8),    # 4095 px, K 144
+    dict(H=9, W=9, C=320, nb=5, modes=32, groups=5),      # 64-ch blocks, an odd count (bf16)
+])
+def test_ragged_edge_shapes(cuda, shape, dtype):
+    """Ragged latents from 1 to 4095 px and odd K at other widths; f32
+    64-channel blocks in an odd count stay on the five-launch kernel."""
+    args = ti_block_args(3, dtype, cuda, seed=260, **shape)
+    path = afno_fused.kernel_path(*args[0].shape, args[9], shape["nb"], shape["groups"], dtype)
+    want = {torch.bfloat16: "hopper_stream",
+            torch.float32: "general" if shape["C"] == 320 else "hopper_f32"}[dtype]
+    assert path == want
+    if path != "general":
+        check_on(args, path)
+
+
+def padded_with_entry(value: float):
+    """afno_fused.padded_ops with one nonzero entry in A's first padded
+    pixel column (row 0) and, for an odd K, one in Ainv's padded mode
+    column (row 0): the control that shows the kernels read the padded
+    operators and need their zeros."""
+    real = afno_fused.padded_ops
+
+    def padded(A, Ainv, K):
+        Ap, Ainvp = (t.clone() for t in real(A, Ainv, K))
+        HW = A.shape[1]
+        if Ap.shape[1] > HW:
+            Ap[0, HW] = value
+        if Ap.shape[0] // 2 > K:
+            Ainvp[0, K] = value
+        return Ap, Ainvp
+
+    return padded
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("latent", ["12x12", "9x9"])
+def test_a_nonzero_padded_entry_fails_the_check(cuda, latent, dtype, monkeypatch):
+    """The control of the smoke's kernel phase: with a 16 in the padded
+    operators (A's entries are 1/sqrt(HW)) the output misses check_on's
+    limits (either of them) through the N(0, 0.05^2) mode MLP."""
+    args = ti_block_args(8, dtype, cuda, seed=270, **RAGGED_LATENTS[latent], **M_BLOCK)
+    approx = dtype == torch.bfloat16
+    monkeypatch.setattr(afno_fused, "padded_ops", padded_with_entry(16.0))
+    got = fused_gn_afno(*args, approximate=approx).float()
+    monkeypatch.undo()
+    want = fused_gn_afno_ref(*args, approximate=approx).float()
+    torch.cuda.synchronize()
+    lim = 4 * 2.0**-7 * want.abs().max().item() if approx else 5e-5
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() > lim or rel_l2(got, want) > (4e-3 if approx else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [64, 96, 72, 256])
 def test_a_step_at_the_medium_widths_lands_on_the_stream_kernel(cuda, res, monkeypatch):
     """One bf16 train step of DPOT-M's widths (embed 1024, 8 blocks, depth
     cut to 2, patch 8, modes 32, 4 channels, T_in 10; AFNO weights redrawn
-    from N(0, 0.05^2) so that the mixer matters) at res 64 and 256, batch
+    from N(0, 0.05^2) so that the mixer matters) at res 64, 96, 72 and 256, batch
     2: every launch on the stream kernel, and the loss within 3e-2 of the
     same step with the plain mixer (its roundings may fall the other way)."""
     from dpot_tpu_torch.models import build_model, dpot

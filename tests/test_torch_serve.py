@@ -460,3 +460,24 @@ def test_config_flags_and_yaml(tmp_path):
     assert (cfg.width, cfg.modes) == (128, 16)
     with pytest.raises(ValueError):
         TrainConfig(batch_size=3, grad_accum=2)
+
+
+@pytest.mark.parametrize("drain", [True, False])
+def test_stop_frees_the_rollout_graphs_once_the_worker_has_ended(drain):
+    """stop() frees the rollout graphs (ops/cuda/graphs.py GraphCache.close)
+    once the worker has ended, so that the garbage collector cannot free
+    them during a later capture (which makes that capture fail); a worker
+    that may still replay keeps them."""
+    rs = RolloutServer(small_model(), batch_buckets=(1,), device="cpu")
+    closed = []
+    rs._graphs.close = lambda: closed.append(rs._worker.is_alive())
+    rs.start()
+    assert rs.submit(rand((1, *SHAPE), 1), 1).shape == (1, 16, 16, 1, 2)
+    rs.stop(drain=drain)
+    if drain:
+        assert closed == [False]
+    else:
+        rs._worker.join(timeout=30.0)
+        assert closed in ([], [False])
+        rs.stop()
+        assert closed[-1] is False
