@@ -34,7 +34,7 @@ Phases, each printing its results as JSON lines:
        ragged latents of res 96 (12^2, K 84), 72 (9^2, K 45), 160 (20^2,
        K 220) and 64 at patch 16 (4^2, K 12), B in {1, 8, 20}, bf16 on the
        streamed kernel and f32 on afno_hopper_f32.cu (both on operators
-       zero-padded to whole 64-px tiles and an even K), and L's and H's at
+       zero-padded to whole 64-px tiles and K a multiple of 4), and L's and H's at
        12^2 in f32 on their f32 kernels (B 8), in the same way; a control
        that puts a 16 in the padded operators (M at 12^2 and 9^2, both
        types, B 8), which must miss the limits; the seven shape gates
@@ -662,8 +662,9 @@ M_F32_RES = (64, 96)
 # the reading is the larger of the loss's relative difference and the worst
 # gradient's relative L2, at most MIXER_TOL["M/bfloat16"];
 # the controls M_CAUGHT must land above it: the plain mixer with conj_w2,
-# and the stream kernel with its last mode chunk left out ("drop_chunk",
-# the ragged 8 of K 40 at res 64, 32 of 544 at res 256)
+# and the stream kernel with the modes of its last 32-mode chunk left out
+# of o ("drop_chunk": the ragged 8 of K 40 at res 64, 20 of 84 at res 96,
+# 32 of 544 at res 256)
 M_CAUGHT = ("conj_w2", "drop_chunk")
 # remat_L and params_lp_L compare two runs of one model, so they run train_L's
 # model cut to its first CUT_L_DEPTH blocks (cut_depth), at L's widths; the
@@ -805,8 +806,10 @@ PROFILE_STEPS = 5
 # the weights FSDP2 gathered, bit for bit, each of them marked uncached;
 # then "control" forwards through a cache keyed on the weight tensor alone
 # (filled in the last step), stale on purpose, each of which must fail that
-# check
-FSDP_L = dict(steps=3, control=1, tol=2e-2, seed=61, lr=PARAMS_LP["lr"])
+# check. Two steps, to keep the cold smoke within its time: every
+# layout's controls are forward or first-step readings, which the step
+# count does not change
+FSDP_L = dict(steps=2, control=1, tol=2e-2, seed=61, lr=PARAMS_LP["lr"])
 # tp_l, pp_l, sp_l: fsdp_l's seeded DPOT-L at full width and depth, its
 # optimization and its global batches, FSDP_L's steps, in three more layouts
 # on the same 2 gloo ranks: shard_params tp over model = 2 (each rank's mixer
@@ -1170,9 +1173,10 @@ PADDED_CONTROL_ENTRY = 16.0
 @contextlib.contextmanager
 def padded_with_entry(value: float = PADDED_CONTROL_ENTRY):
     """The kernels read operators padded with a `value` in A's first
-    padded pixel column (row 0) and, for an odd K, in Ainv's padded mode
-    column (row 0): a control that shows the kernels read the padded
-    entries, so that their zeros are what makes the padding exact."""
+    padded pixel column (row 0) and, where K is not a multiple of 4, in
+    Ainv's first padded mode column (row 0): a control that shows the
+    kernels read the padded entries, so that their zeros are what makes
+    the padding exact."""
     real = afno_fused.padded_ops
 
     def padded(A, Ainv, K):
@@ -3111,8 +3115,8 @@ def phase_afno_single() -> tuple[dict, dict]:
 @contextlib.contextmanager
 def dropped_last_chunk():
     """The stream path launches afno_hopper_stream.cu's control entry
-    instead of the kernel's: the same call with the spectral launch's last
-    mode chunk left out (its rows of o zero), a fault in the chunk
+    instead of the kernel's: the same call with the modes of the last
+    32-mode chunk left out of o (their rows zero), a fault in the chunk
     arithmetic that the step check must catch."""
     fn = build.load_library("afno_hopper_stream").dpot_afno_hopper_stream_drop_last_chunk
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]

@@ -43,11 +43,13 @@
 //      hold SMs while launch 1 runs, it was 0.013 ms slower at B = 8 and
 //      no faster at B = 1 or 20 on the H100: a plain launch.)
 //
-// Ragged latents and odd K, as in afno_hopper_stream.cu: the launches work
-// on whole 64-pixel tiles and an even count of modes (HWp = HW rounded up to
-// 64, Kp = K rounded up to even, so that Ainv's rows are whole 16-byte
-// units), on A (2Kp, HWp) and Ainv (HWp, 2Kp) padded with zeros by the
-// caller and o (B, 2Kp, C); x rows past HW load as zeros (cp.async with a
+// Ragged latents and any K, as in afno_hopper_stream.cu: the launches work
+// on whole 64-pixel tiles and a count of modes that is a multiple of 4
+// (HWp = HW rounded up to 64, Kp = K rounded up to a multiple of 4: any
+// even Kp makes Ainv's f32 rows whole 16-byte units, and the streamed bf16
+// kernel, whose padded operators these share, needs the 4), on A (2Kp,
+// HWp) and Ainv (HWp, 2Kp) padded with zeros by the caller and o (B, 2Kp,
+// C); x rows past HW load as zeros (cp.async with a
 // source size of 0, never read), the statistics run over the HW real rows
 // (each thread's count of them its weight in Chan's rule), and the
 // synthesis stores rows below HW only. Exact: a padded pixel meets a zero
@@ -95,11 +97,11 @@ constexpr float EPS = 1e-5f;   // torch.nn.GroupNorm default
 constexpr int MAX_HW = 4096;   // the combined-operator DFT's limit
 
 // the padded operators' sizes: the latent in whole synthesis tiles, the
-// modes an even count
+// modes a multiple of 4 (`padded_dims` in the wrapper)
 __host__ __device__ constexpr int padded_hw(int HW) {
   return (HW + MAX_TP - 1) / MAX_TP * MAX_TP;
 }
-__host__ __device__ constexpr int padded_k(int K) { return K + K % 2; }
+__host__ __device__ constexpr int padded_k(int K) { return (K + 3) / 4 * 4; }
 
 // spectral_f32_kernel's shared memory, in floats
 constexpr int STAGE = 2 * KC * LDX;         // the larger of a W stage and an x + A stage
@@ -626,7 +628,7 @@ extern "C" int dpot_afno_hopper_f32_supported(int B, int HW, int C, int K, int n
 }
 
 // x, out (B, HW, C), A (2Kp, HWp), Ainv (HWp, 2Kp) (HWp = padded_hw(HW),
-// Kp = padded_k(K), zero past HW and at mode K of an odd K: padded_ops in
+// Kp = padded_k(K), zero past HW and at the modes K .. Kp - 1: padded_ops in
 // the wrapper), w1/w2 (2, nb, bs, bs) in the reference layout, gscale/gbias
 // (C), b1/b2 (2, nb, bs), the stats scratch (B * groups * 2) and the o
 // scratch (B, 2Kp, C), all f32. act is an ActId. Returns 0 or a CUDA error.

@@ -1,8 +1,8 @@
 // Fused GroupNorm + AFNO spectral mixer in bf16 for every latent up to 4096
 // pixels and every mode count, designed for Hopper (sm_90a): three launches,
-// z and h kept on chip, x, A, the block weights, o and Ainv streamed through
-// shared memory in chunks, so that neither the latent nor the kept modes
-// (2K) are capped by what a CTA holds.
+// wgmma fed by TMA through rings of mbarrier-guarded stages, z and h kept on
+// chip, so that neither the latent nor the kept modes (2K) are capped by
+// what a CTA holds.
 //
 // Replaces, for bf16 operands at the shapes that `hopper_stream_supported`
 // (dpot_tpu_torch/ops/cuda/afno_fused.py) admits, the TPU kernel
@@ -19,307 +19,332 @@
 // in a synthesis CTA, so they take 128- and 256-px latents with 2K <= 320
 // only: a 64^2 grid at patch 8 (an 8^2 latent, K 40) or a 256^2 grid (a
 // 32^2 latent, K 544) left every bf16 trunk block on the five-launch
-// afno_fused.cu, which sends z, h and o through device memory on 64 x 64
-// WMMA tiles staged in registers.
+// afno_fused.cu.
 //
 // What bounds it. At DPOT-M's 32^2 latent (HW 1024, C 1024, K 544, nb 8,
 // bs 128) a sample is 5.7 GFLOP against about 6.6 MB of operands, so from
 // B = 1 up it is bound by tensor-core operations (0.0058 ms a sample at 989
 // TFLOP/s); at the 8^2 latent (HW 64, K 40) a sample is 0.105 GFLOP, bound
-// by bytes up to B ~ 8 and by latency at B = 1. The design is
-// afno_hopper_f32.cu's, in bf16, with the statistics in a launch of their
-// own:
+// by bytes up to B ~ 8 and by latency at B = 1. What holds a streamed design
+// back from that bound is the operands' trips through L2: a CTA reads its
+// x tiles, A rows and weights (spectral) or Ainv rows and o (synthesis)
+// from L2, so the FLOPs it does per byte it reads are set by its tile.
+//
+// The design before (measured on an NVIDIA H100 80GB HBM3, 700 W, by
+// chip_smoke.py's kernel phase): warp-level m16n8k16 products fed by 8 x 8 matrix loads
+// from shared memory, every operand through rings of 16-byte asynchronous
+// copies, spectral CTAs of 16 or 32 modes, synthesis CTAs of 32 or 64 px x
+// 64 channels (32 FLOP a byte from L2). M 32^2 0.0874 / 0.3840 /
+// 0.8342 ms at B = 1 / 8 / 20 against a bound of 0.1154 at B = 20 (the
+// synthesis 0.31 ms of it), M 8^2 0.0192 / 0.0279 / 0.0496, L 32^2 at B =
+// 1 / 8 / 16 0.1213 / 0.5803 / 1.0567, M 12^2 0.0236 / 0.0404 / 0.0794, M
+// 9^2 0.0208 / 0.0321 / 0.0565, M 20^2 0.0355 / 0.1176 / 0.2443, M 4^2
+// 0.0177 / 0.0183 / 0.0287 (device time).
+//
+// This design: every product is a warpgroup wgmma (m64nNk16, N the tile's
+// width: 64, 96, 128 or 256), every operand tile a TMA load into a ring of
+// stages, each with a "full" mbarrier (the TMA bytes) and an "empty" one
+// (one thread of each consumer warpgroup arrives once the products that
+// read the stage have completed); one producer warp issues the loads, two
+// consumer warpgroups compute, one wgmma group kept in flight.
 //
 //   1. stream_stats_kernel, one CTA per (GroupNorm group, sample): the f32
 //      statistics in one pass over the group's columns of x, each thread's
 //      shifted sums over an 8-channel column combined by Chan's pairwise
-//      rule. (In the spectral launch, as afno_hopper_f32.cu has them, every
-//      mode chunk's CTA read its group again: 20 % of a call at M's 32^2
-//      latent and B = 20, 39 % at L's with its groups of a block pair, on
-//      the H100, tools/afno_stream_variants.py no_stats.)
-//   2. stream_spectral_kernel, one CTA of 2 bs / 32 warps per (chunk of MC
-//      modes, AFNO block j, sample b): z = A . xn streams 64-pixel chunks of
-//      x and of the chunk's A rows through a ring of NS (three) cp.async
-//      stages, normalising x in registers as its fragments load (the modes
-//      past K are zero-filled rows of A); z stays in shared memory, rounded
-//      to bf16; both MLP layers stream the block's weights (the cached bf16
-//      copies, each block transposed to (out, in)) in 32-input chunks
-//      through the same ring, h written over z; o (B, 2K, C) bf16 is the
-//      only intermediate that goes to device memory;
-//   3. stream_synthesis_kernel, one CTA of 4 warps per (32 MT pixels, 64
-//      channels, sample b): out = Ainv . o streaming 32-mode chunks of
-//      Ainv's columns and o's rows through a three-stage cp.async ring (the
-//      chunk past 2K zero-filled in both, so no cap on 2K), with an epilogue
-//      that adds the f32 xn recomputed from x and the statistics.
+//      rule. (In the spectral launch every mode chunk's CTA would read its
+//      group again.) It lets the spectral launch start early
+//      (programmatic dependent launch).
+//   2. stream_spectral_kernel<BS>, one CTA per (chunk of 64 modes, AFNO
+//      block j, sample b). The producer streams 64-pixel stages: the x tile
+//      (64 px x the block's channels, rounded up to 64-channel boxes; TMA's
+//      out-of-bounds fill gives the zeros past HW and past C) and the
+//      chunk's A rows (re and im; zeros past Kp). The consumers rewrite
+//      each x tile in place as round(xn) from the statistics, fence the
+//      generic proxy, and run z = A . xn by wgmma with the x tile read
+//      MN-major (the transpose flag), warpgroup w part w (re, im) of the 64
+//      modes over all channels. z goes to shared memory rounded, in the
+//      128-byte-swizzled K-major layout the MLP's A operand needs. Then the
+//      producer streams W1 and W2 (the cached bf16 copies, each block
+//      transposed to (out, in)) in 64-input chunks of one part (wr or wi)
+//      through the same ring; warpgroup 0 computes h_re = z_re . wr - z_im
+//      . wi (the minus through imm-scale-b = -1), warpgroup 1 h_im = z_re .
+//      wi + z_im . wr; h overwrites z, and o overwrites h, from where each
+//      warpgroup stores its part's rows below Kp to o (B, 2Kp, C) in
+//      16-byte units, the only intermediate that goes to device memory.
+//      (32-mode chunks where the grid at 64 would leave SMs idle, as the
+//      design before had, were slower at every such shape measured: each
+//      CTA streams the same stages for half the products, PERF.md.)
+//   3. stream_synthesis_kernel<TN>, one CTA per (128 px, TN channels,
+//      sample), TN 256, 128 or 64 (the widest that divides C and still
+//      fills the card): out = Ainv . o streaming 64-mode k-blocks of
+//      Ainv's rows (K-major) and o's rows (MN-major, the transpose flag)
+//      through a ring (zeros past 2Kp from TMA, so no cap on 2K), an
+//      epilogue that adds the f32 xn recomputed from the x tile (loaded
+//      with the first stages) and the statistics, written over the x tile
+//      and stored by TMA, which drops the rows past HW. A programmatic
+//      dependent of the spectral launch: its x tile and first Ainv rows
+//      load while that grid finishes, o only after it has.
 //
-// Ragged latents and odd K. The launches work on whole 64-pixel tiles and an
-// even count of modes: HWp = HW rounded up to 64, Kp = K rounded up to even
-// (so that Ainv's rows are whole 8-byte units). The caller passes A (2Kp,
-// HWp) and Ainv (HWp, 2Kp) padded with zeros (`padded_ops` in the wrapper)
-// and o (B, 2Kp, C); x and out keep their HW rows. x rows past HW load as
-// zeros (cp.async with a source size of 0, never read), the statistics run
-// over the HW real rows, and the synthesis stores rows below HW only. A
-// padded pixel meets a zero column of A and a padded mode a zero column of
-// Ainv, so the result is the unpadded one exactly. (Masking A's and Ainv's
-// ragged edges in the kernel instead would break the 16- and 8-byte copies
-// of their rows, whose strides HW and 2K are then not whole units.)
+// Ragged latents and odd K. The launches work on whole 64-pixel stages and
+// a mode count that is a multiple of 4: HWp = HW rounded up to 64, Kp = K
+// rounded up to a multiple of 4, so that Ainv's rows (4 Kp bytes) are
+// whole 16-byte units, which a tensor map's strides must be. The caller
+// passes A (2Kp, HWp) and Ainv (HWp, 2Kp) padded with zeros (`padded_ops`
+// in the wrapper) and o (B, 2Kp, C); x and out keep their HW rows. A padded
+// pixel meets a zero column of A and a padded mode a zero column of Ainv,
+// so the result is the unpadded one exactly. The statistics run over the
+// HW real rows.
 //
-// Products are warp-level mma.sync m16n8k16 bf16 with f32 accumulation,
-// fragments loaded with ldmatrix (.trans for the operands whose channels
-// are contiguous: xn and o); every shared-memory row is padded by 16 bytes
-// (an odd number of 16-byte units), so the eight rows an ldmatrix reads fall
-// in distinct bank groups. A warp computes a (16 MT) x 32 tile: MT = 1
-// (16-mode chunks, 32-px synthesis tiles) when the spectral grid at 16-mode
-// chunks has no more CTAs than the card has SMs, else MT = 2, as in
-// afno_hopper_f32.cu. The activation is a runtime argument (it runs once an
-// element of h), so the library holds one instance per block size and MT.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// The activation is a runtime argument (it runs once an element of h), so
+// the library holds one spectral instance per block size, and
+// one synthesis instance per tile width.
 
 #include "activation.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+constexpr int NC = 256;         // consumer threads of a CTA: two warpgroups
+constexpr int NT = NC + 32;     // and one producer warp
+constexpr int PX = 64;          // pixels per analysis stage, HWp's unit
+constexpr int MC = 64;          // modes per spectral CTA
+constexpr int DROP_UNIT = 32;   // the control leaves out the last DROP_UNIT-mode chunk
+constexpr int KP_UNIT = 4;      // Kp's unit: Ainv's rows whole 16-byte units
+constexpr int SYN_P = 128;      // pixels per synthesis CTA
+constexpr int SYN_K = 64;       // modes (rows of o) per synthesis stage
+constexpr int C_UNIT = 64;      // the narrowest synthesis tile; C is a multiple
+constexpr int STATS_NT = 512;   // threads per statistics CTA
+constexpr int EMPTY_ARRIVALS = 2;  // arrivals that hand a stage back: one a consumer warpgroup
+constexpr int BOX = 8192;       // one 64 x 64 bf16 box, 128-byte rows
+constexpr int SMEM_MAX = 232448;  // what a CTA may use on the H100
+constexpr int MAX_HW = 4096;    // the combined-operator DFT's limit
+constexpr float EPS = 1e-5f;    // torch.nn.GroupNorm default
 
-constexpr int PAD = 8;           // bf16 of padding per shared-memory row
-constexpr int KC = 64;           // pixels per analysis stage
-constexpr int KW = 32;           // weight inputs per MLP stage
-constexpr int KS = 32;           // mode rows (of 2K) per synthesis stage
-constexpr int MAX_MC = 32;       // modes per spectral CTA at MT = 2
-constexpr int LDA = KC + PAD;    // A tiles [2 MC][LDA]
-constexpr int LDW = KW + PAD;    // weight tiles [2 parts][bs out][LDW]
-constexpr int TC = 64;           // channels per synthesis CTA
-constexpr int MAX_TP = 64;       // pixels per synthesis CTA at MT = 2
-constexpr int LDI = KS + PAD;    // Ainv tiles [TP][LDI]
-constexpr int LDO = TC + PAD;    // o tiles [KS][LDO]
-constexpr int SYN_NT = 128;      // threads per synthesis CTA
-constexpr int STATS_NT = 256;    // threads per statistics CTA
-constexpr int NS = 3;           // stages of the spectral launch's ring
-constexpr int SYN_STAGES = 3;
-constexpr float EPS = 1e-5f;     // torch.nn.GroupNorm default
-constexpr int MAX_HW = 4096;     // the combined-operator DFT's limit
-
-// stream_spectral_kernel's layout at AFNO block size BS
-template <int BS> struct Geo {
-  static constexpr int WPH = BS / 32;                    // warps per output half
-  static constexpr int NT = 2 * BS;                      // threads: 2 WPH warps
-  static constexpr int LDX = BS + PAD;                   // x tiles [KC][LDX]
-  static constexpr int LDZ = 2 * BS + PAD;               // z and h [MC][LDZ]
-  static constexpr int X_STAGE = KC * LDX + 2 * MAX_MC * LDA;  // bf16
-  static constexpr int W_STAGE = 2 * BS * LDW;                 // bf16
-  static constexpr int STAGE = X_STAGE > W_STAGE ? X_STAGE : W_STAGE;
-  static constexpr int Z_OFF = NS * STAGE * 2;           // bytes
-  static constexpr int COL_OFF = Z_OFF + MAX_MC * LDZ * 2;  // mean, rstd * gscale, gbias
-  static constexpr int SMEM = COL_OFF + 3 * BS * 4;
-  static constexpr int MIN_CTAS = BS <= 64 ? 4 : BS <= 128 ? 2 : 1;
-  static_assert(SMEM <= 232448, "a CTA may use 227 KB of shared memory");
-  static_assert(BS % 32 == 0 && BS % KW == 0, "warp tiles of 32 columns");
+// stream_spectral_kernel's layout at AFNO block size BS; byte offsets from
+// a 1024-aligned base. A ring slot holds one analysis stage (the x tile
+// [XCH / 64][64 px][64], then the A rows [2 parts][MC][64 px]) or one
+// weight stage ([BS out][64 in] of one part and k-chunk).
+template <int BS> struct Spec {
+  static constexpr int NKB = (BS + 63) / 64;  // 64-wide k-blocks of each part of z, h, o
+  static constexpr int XCH = 64 * NKB;  // the x tile's channels, z's width: 64, 128, 128, 256
+  static constexpr int X_BYTES = XCH * 128;
+  static constexpr int A_BYTES = 2 * MC * 128;
+  static constexpr int W_BYTES = BS * 128;
+  static constexpr int SLOT = X_BYTES + A_BYTES > W_BYTES ? X_BYTES + A_BYTES : W_BYTES;
+  static constexpr int NS = BS == 96 || BS == 128 ? 4 : 3;  // ring stages
+  static constexpr int Z_OFF = NS * SLOT;  // z, then h, then o: [2 parts][NKB][64 modes][64]
+  static constexpr int MISC = Z_OFF + 2 * NKB * BOX;  // 2 NS mbarriers, then 3 XCH floats
+  static constexpr int SMEM = MISC + 128 + 12 * XCH + 1024;  // + alignment slack
+  static constexpr int MIN_CTAS = BS == 64 ? 2 : 1;
+  static_assert(SMEM <= SMEM_MAX, "a CTA may use 227 KB of shared memory");
+  static_assert(MIN_CTAS == 1 || 2 * (SMEM + 1024) <= 233472, "two CTAs an SM");
+  static_assert(SLOT % 1024 == 0 && X_BYTES % 1024 == 0, "swizzled tiles 1024-aligned");
 };
-constexpr int SYN_STAGE = MAX_TP * LDI + KS * LDO;  // bf16
-constexpr int SYN_SMEM = SYN_STAGES * SYN_STAGE * 2 + 3 * TC * 4;
+
+// stream_synthesis_kernel's layout at tile width TN: a ring slot holds the
+// Ainv rows [128 px][64 modes] and o [TN / 64][64 modes][64]; the x tile,
+// then out, [TN / 64][128 px][64].
+template <int TN> struct Syn {
+  static constexpr int NS = TN == 256 ? 3 : 4;
+  static constexpr int AINV_BYTES = SYN_P * 128;
+  static constexpr int SLOT = AINV_BYTES + TN * 128;
+  static constexpr int X_OFF = NS * SLOT;
+  static constexpr int MISC = X_OFF + TN * 256;  // 2 NS + 1 mbarriers, then 4 TN floats
+  static constexpr int SMEM = MISC + 128 + 16 * TN + 1024;
+  static_assert(SMEM <= SMEM_MAX, "a CTA may use 227 KB of shared memory");
+};
 
 // ---------------------------------------------------------------- PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// 16 (8) bytes global -> shared, asynchronously; zeros when !valid (src is
-// then not read, but must be a mapped address).
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// Hands a ring stage back to the producer once this warpgroup's products
+// that read it have completed (a wgmma group completes for the whole
+// warpgroup, and the generic writes to the stage came before the barrier
+// that preceded them): one thread a warpgroup arrives. (Every consumer
+// thread arriving timed the same on the H100:
+// tools/afno_stream_variants.py arrive_every_thread.)
+__device__ __forceinline__ void release(uint32_t bar) {
+  if ((threadIdx.x & 127) == 0) mbar_arrive(bar);
 }
 
-// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// Wait until at most N of this warp's wgmma groups are in flight.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Barrier of the NC consumer threads (1 and 2 are the warpgroups').
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
+// The m64 x nN f32 accumulator of one warpgroup, N / 2 registers a thread
+// (element 4 i + 2 h + e at acc_row(h), acc_col(i) + e); mma<SB, TB>: d +=
+// A . (SB * B), bf16 operands from shared-memory descriptors, TB: B is
+// MN-major.
+template <int N> struct Frag;
 
-// The (16 MT) x 32 f32 accumulator of one warp: MT m16 tiles by four n8
-// tiles. Element e of tile (mt, nt) of a thread sits at row 16 mt + lane /
-// 4 + 8 (e / 2) and column 8 nt + 2 (lane % 4) + e % 2.
-template <int MT> using WarpAcc = float[MT][4][4];
+template <> struct Frag<64> {
+  float d[32];
+  template <int SB, int TB> __device__ __forceinline__ void mma(uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, %35, 0, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1), "n"(SB), "n"(TB));
+  }
+};
 
-template <int MT> __device__ __forceinline__ void zero(WarpAcc<MT>& acc) {
+template <> struct Frag<96> {
+  float d[48];
+  template <int SB, int TB> __device__ __forceinline__ void mma(uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, %51, 0, %52;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(1), "n"(SB), "n"(TB));
+  }
+};
+
+template <> struct Frag<128> {
+  float d[64];
+  template <int SB, int TB> __device__ __forceinline__ void mma(uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, %67, 0, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1), "n"(SB), "n"(TB));
+  }
+};
+
+template <> struct Frag<256> {
+  float d[128];
+  template <int SB, int TB> __device__ __forceinline__ void mma(uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+        "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+        "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+        "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+        "%125, %126, %127}, "
+        "%128, %129, p, 1, %131, 0, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+          "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+          "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+          "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+          "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+          "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+          "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+          "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+          "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+          "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1), "n"(SB), "n"(TB));
+  }
+};
+
+template <int N> __device__ __forceinline__ void zero(Frag<N>& f) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int i = 0; i < N / 2; ++i) f.d[i] = 0.f;
+}
+// keep the compiler from moving the registers across wgmma's async use
+template <int N> __device__ __forceinline__ void pin(Frag<N>& f) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(f.d[i])::"memory");
 }
 
-// A fragments of rows r0 .. r0 + 16 MT - 1, depth k0 .. k0 + 15, of a
-// row-major tile [rows][ld] (m16n8k16's a0..a3 per m16 tile)
-template <int MT>
-__device__ __forceinline__ void load_a(uint32_t (&a)[MT][4], const bf16* tile, int ld, int r0,
-                                       int k0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-    ldsm(a[mt], tile + (r0 + 16 * mt + (lane & 15)) * ld + k0 + 8 * (lane >> 4));
+// bf16 pair (v0, v1) at row r, column c of a 128-byte-swizzled tile of
+// 64-column boxes `box` bytes apart, rows of 128 bytes.
+__device__ __forceinline__ __nv_bfloat162* swizzled(uint8_t* tile, int box, int r, int c) {
+  const int cc = c & 63;
+  return reinterpret_cast<__nv_bfloat162*>(tile + (c >> 6) * box + r * 128 +
+                                           (((cc >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2);
 }
 
-// B fragments (b0, b1 of four n8 tiles) of depth k0 .. k0 + 15 and columns
-// n0 .. n0 + 31 of a tile stored [depth][ld] (columns contiguous)
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4][2], const bf16* tile, int ld, int k0,
-                                          int n0) {
-  const int lane = threadIdx.x & 31;
+// h = act(acc + bias), rounded, into the K-major tile [NKB][64][64] at zh
+// (a warpgroup's part of h), ACT the activation's id.
+template <int ACT, int N>
+__device__ __forceinline__ void store_h_act(uint8_t* zh, const Frag<N>& acc, const float* bias) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    uint32_t r[4];
-    ldsm_t(r, tile + (k0 + (lane & 15)) * ld + n0 + 16 * h + 8 * (lane >> 4));
-    b[2 * h][0] = r[0];
-    b[2 * h][1] = r[1];
-    b[2 * h + 1][0] = r[2];
-    b[2 * h + 1][1] = r[3];
+  for (int i = 0; i < N / 8; ++i) {
+    const int c = acc_col(i);
+    const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *swizzled(zh, BOX, acc_row(h), c) =
+          __floats2bfloat162_rn(activate<ACT>(acc.d[4 * i + 2 * h] + bv.x),
+                                activate<ACT>(acc.d[4 * i + 2 * h + 1] + bv.y));
   }
 }
 
-// the same from a tile stored [column][ld] (depth contiguous: the
-// transposed weight copies)
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4][2], const bf16* tile, int ld, int k0,
-                                          int n0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    uint32_t r[4];
-    ldsm(r, tile + (n0 + 16 * h + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1));
-    b[2 * h][0] = r[0];
-    b[2 * h][1] = r[1];
-    b[2 * h + 1][0] = r[2];
-    b[2 * h + 1][1] = r[3];
-  }
-}
-
-template <int MT>
-__device__ __forceinline__ void mma_tile(WarpAcc<MT>& acc, uint32_t (&a)[MT][4],
-                                         uint32_t (&b)[4][2]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
-}
-
-// the activation of the runtime id act (< ACT_COUNT)
-__device__ __forceinline__ float activate_id(int act, float v) {
+// The same for the runtime id act (< ACT_COUNT), chosen once: a switch on
+// act at every element of the unrolled epilogue made the call 1.6-1.7
+// times as slow at DPOT-M's and DPOT-L's 32^2 latents (B = 20, 16) on the
+// H100 (tools/afno_stream_variants.py act_per_element).
+template <int N>
+__device__ __forceinline__ void store_h(int act, uint8_t* zh, const Frag<N>& acc,
+                                        const float* bias) {
   switch (act) {
-    case ACT_GELU_TANH: return activate<ACT_GELU_TANH>(v);
-    case ACT_GELU_ERF: return activate<ACT_GELU_ERF>(v);
-    case ACT_TANH: return activate<ACT_TANH>(v);
-    case ACT_SIGMOID: return activate<ACT_SIGMOID>(v);
-    case ACT_RELU: return activate<ACT_RELU>(v);
-    case ACT_LEAKY_RELU: return activate<ACT_LEAKY_RELU>(v);
-    case ACT_SOFTPLUS: return activate<ACT_SOFTPLUS>(v);
-    case ACT_ELU: return activate<ACT_ELU>(v);
-    default: return activate<ACT_SILU>(v);
-  }
-}
-
-// Inputs 32 ci .. 32 ci + 31 of block j's transposed weights, both parts
-// ([part][bs out][LDW]), into a ring slot.
-template <int BS>
-__device__ __forceinline__ void load_w_chunk(bf16* slot, const bf16* w, int j, int nb, int ci) {
-  for (int q = threadIdx.x; q < 2 * BS * (KW / 8); q += Geo<BS>::NT) {
-    const int p = q / (BS * KW / 8), r = (q / (KW / 8)) % BS, c8 = q % (KW / 8);
-    cp16(slot + (p * BS + r) * LDW + 8 * c8,
-         w + ((static_cast<size_t>(p) * nb + j) * BS + r) * BS + KW * ci + 8 * c8, true);
-  }
-}
-
-// The first NS - 1 chunks of a layer's weights into ring slots 0 .. NS - 2,
-// a cp.async group each (empty past the last chunk).
-template <int BS>
-__device__ __forceinline__ void prefetch_w(bf16* ring, const bf16* w, int j, int nb) {
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < BS / KW) load_w_chunk<BS>(ring + s * Geo<BS>::STAGE, w, j, nb, s);
-    cp_commit();
-  }
-}
-
-// One complex MLP layer of block j for the CTA's 16 MT modes: acc = [a_re |
-// a_im] . [[wr, wi], [-wi, wr]] for the warp's 32 output columns (output
-// half warp / WPH), a in zb [16 MT][LDZ], w the layer's transposed bf16
-// weights (2, nb, out, in) streamed in 32-input chunks through the NS-slot
-// ring, whose first NS - 1 chunks are in flight (prefetch_w). The minus is
-// a flip of the wi fragments' sign bits (exact).
-template <int BS, int MT>
-__device__ __forceinline__ void complex_layer(WarpAcc<MT>& acc, bf16* ring, const bf16* zb,
-                                              const bf16* w, int j, int nb) {
-  using G = Geo<BS>;
-  const int warp = threadIdx.x >> 5, po = warp / G::WPH, o0 = 32 * (warp % G::WPH);
-  zero<MT>(acc);
-  constexpr int NCH = BS / KW;
-  for (int ci = 0; ci < NCH; ++ci) {
-    if (ci + NS - 1 < NCH) load_w_chunk<BS>(ring + (ci + NS - 1) % NS * G::STAGE, w, j, nb,
-                                            ci + NS - 1);
-    cp_commit();
-    cp_wait<NS - 1>();
-    __syncthreads();
-    const bf16* ws = ring + ci % NS * G::STAGE;
-#pragma unroll
-    for (int sp = 0; sp < 2; ++sp) {
-      // source half sp of [a_re | a_im] meets wr when it matches the output
-      // half po, else wi, negated for the real output
-      const bf16* wt = ws + (sp == po ? 0 : BS * LDW);
-      const uint32_t flip = (po == 0 && sp == 1) ? 0x80008000u : 0u;
-      const bf16* at = zb + sp * BS + KW * ci;
-#pragma unroll
-      for (int kk = 0; kk < KW / 16; ++kk) {
-        uint32_t a[MT][4], b[4][2];
-        load_a<MT>(a, at, G::LDZ, 0, 16 * kk);
-        load_b_nk(b, wt, LDW, 16 * kk, o0);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          b[nt][0] ^= flip;
-          b[nt][1] ^= flip;
-        }
-        mma_tile<MT>(acc, a, b);
-      }
-    }
-    __syncthreads();  // the slot is free for the chunk NS - 1 ahead
+    case ACT_GELU_TANH: return store_h_act<ACT_GELU_TANH>(zh, acc, bias);
+    case ACT_GELU_ERF: return store_h_act<ACT_GELU_ERF>(zh, acc, bias);
+    case ACT_TANH: return store_h_act<ACT_TANH>(zh, acc, bias);
+    case ACT_SIGMOID: return store_h_act<ACT_SIGMOID>(zh, acc, bias);
+    case ACT_RELU: return store_h_act<ACT_RELU>(zh, acc, bias);
+    case ACT_LEAKY_RELU: return store_h_act<ACT_LEAKY_RELU>(zh, acc, bias);
+    case ACT_SOFTPLUS: return store_h_act<ACT_SOFTPLUS>(zh, acc, bias);
+    case ACT_ELU: return store_h_act<ACT_ELU>(zh, acc, bias);
+    default: return store_h_act<ACT_SILU>(zh, acc, bias);
   }
 }
 
@@ -347,6 +372,9 @@ __global__ void __launch_bounds__(STATS_NT)
 stream_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int HW, int C,
                     int groups) {
   __shared__ float red[STATS_NT / 32];
+  // the spectral launch may take the SMs this grid leaves free; it waits
+  // for the statistics before it reads them
+  launch_dependents();
   const int tid = threadIdx.x, g = blockIdx.x, b = blockIdx.y;
   const int cpg = C / groups, cols = cpg / 8, rstep = STATS_NT / cols, row0 = tid / cols;
   float cnt = 0.f, m = 0.f, q = 0.f;
@@ -355,22 +383,18 @@ stream_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int H
     const float shift = __bfloat162float(xc[static_cast<size_t>(row0) * C]);
     float p1[8] = {}, p2[8] = {};
     int rows = 0;
-#pragma unroll 4
+#pragma unroll 8
     for (int p = row0; p < HW; p += rstep, ++rows) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(xc + static_cast<size_t>(p) * C));
-      const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+      float f[8];
+      unpack8(__ldg(reinterpret_cast<const uint4*>(xc + static_cast<size_t>(p) * C)), f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = unpack_bf16(w4[e]);
-        const float d0 = f.x - shift, d1 = f.y - shift;
-        p1[2 * e] += d0;
-        p2[2 * e] += d0 * d0;
-        p1[2 * e + 1] += d1;
-        p2[2 * e + 1] += d1 * d1;
+      for (int e = 0; e < 8; ++e) {
+        const float d = f[e] - shift;
+        p1[e] += d;
+        p2[e] += d * d;
       }
     }
-    const float s1 = ((p1[0] + p1[1]) + (p1[2] + p1[3])) + ((p1[4] + p1[5]) + (p1[6] + p1[7]));
-    const float s2 = ((p2[0] + p2[1]) + (p2[2] + p2[3])) + ((p2[4] + p2[5]) + (p2[6] + p2[7]));
+    const float s1 = sum8(p1), s2 = sum8(p2);
     cnt = 8.f * rows;
     m = shift + s1 / cnt;
     q = s2 - s1 * s1 / cnt;
@@ -385,310 +409,463 @@ stream_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int H
   }
 }
 
-// grid (chunks, nb, B), chunks = ceil(K / MC), MC = 16 MT: modes chunk * MC
-// .. + MC - 1 of AFNO block j of sample b, from x (B, HW, C) and A (2K, HWp)
-// to o (B, 2K, C), with the GroupNorm statistics (B, groups, 2) of
-// stream_stats_kernel. K is even here (the padded Kp).
-template <int BS, int MT>
-__global__ void __launch_bounds__(Geo<BS>::NT, Geo<BS>::MIN_CTAS)
-stream_spectral_kernel(const bf16* __restrict__ x, const float* __restrict__ gscale,
-                       const float* __restrict__ gbias, const bf16* __restrict__ A,
-                       const bf16* __restrict__ w1, const float* __restrict__ b1,
-                       const bf16* __restrict__ w2, const float* __restrict__ b2,
-                       const float* __restrict__ stats, bf16* __restrict__ o, int HW, int HWp,
-                       int C, int K, int nb, int groups, int act) {
-  using G = Geo<BS>;
-  constexpr int MC = 16 * MT, NT = G::NT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* zb = reinterpret_cast<bf16*>(smem + G::Z_OFF);
-  float* s_mean = reinterpret_cast<float*>(smem + G::COL_OFF);
-  float* s_rs = s_mean + BS;
-  float* s_bi = s_rs + BS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int chunk = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
-  const int m0 = chunk * MC;
-  const bf16* xb = x + static_cast<size_t>(b) * HW * C + j * BS;
-
-  // ring slot s of the z phase: x rows [KC][LDX] (rows past HW zero-filled),
-  // then A rows [2 MC][LDA] (rows 0 .. MC - 1 the chunk's real parts, then
-  // its imaginary parts; modes past K zero-filled)
-  auto load_x_stage = [&](int s, int kc) {
-    bf16* xs = ring + s * G::STAGE;
-    bf16* as = xs + KC * G::LDX;
-    const int p0 = kc * KC;
-    for (int q = tid; q < KC * (BS / 8); q += NT) {
-      const int r = q / (BS / 8), c8 = q % (BS / 8), p = p0 + r;
-      cp16(xs + r * G::LDX + 8 * c8, xb + static_cast<size_t>(p < HW ? p : 0) * C + 8 * c8,
-           p < HW);
-    }
-    for (int q = tid; q < 2 * MC * (KC / 8); q += NT) {
-      const int r = q / (KC / 8), c8 = q % (KC / 8), m = m0 + (r % MC);
-      const bool valid = m < K;
-      const int row = (r < MC ? 0 : K) + (valid ? m : 0);
-      cp16(as + r * LDA + 8 * c8, A + static_cast<size_t>(row) * HWp + p0 + 8 * c8, valid);
-    }
-  };
-  const int nkc = HWp / KC;
+// One complex MLP layer of block j for the CTA's 64 mode rows, computed by
+// warpgroup WG from z (or h) in the K-major tile [2 parts][NKB][64][64] at
+// z: the layer's 2 NKB weight stages (part p = t / NKB, 64-input k-chunk t
+// % NKB) arrive in the ring in order, from stage `it` on. Real half (WG 0):
+// a_re . wr - a_im . wi; imaginary (WG 1): a_re . wi + a_im . wr. One
+// wgmma group a stage, one kept in flight; a stage goes back to the
+// producer (`release`) once its group has completed. WG is a template
+// argument so that the sign of each product is an immediate and no wgmma
+// sits on a path that depends on the thread.
+template <int BS, int WG>
+__device__ __forceinline__ void mlp_layer(Frag<BS>& acc, uint32_t base, uint32_t z, int& it) {
+  using G = Spec<BS>;
+  zero(acc);
 #pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < nkc) load_x_stage(s, s);
-    cp_commit();
+  for (int t = 0; t < 2 * G::NKB; ++t) {
+    const int part = t / G::NKB, kb = t % G::NKB, s = it % G::NS;
+    mbar_wait(base + G::MISC + 8 * s, (it / G::NS) & 1);
+    pin(acc);
+    wgmma_fence();
+    const uint32_t za = z + ((part ^ WG) * G::NKB + kb) * BOX;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (64 * kb + 16 * kk < BS) {  // BS 96: the second k-chunk is 32 inputs
+        const uint64_t a = desc_k(za + kk * 32), w = desc_k(base + s * G::SLOT + kk * 32);
+        if (WG == 0 && part == 1) acc.template mma<-1, 0>(a, w);
+        else acc.template mma<1, 0>(a, w);
+      }
+    }
+    wgmma_commit();
+    if (t > 0) {
+      wgmma_wait<1>();
+      pin(acc);
+      release(base + G::MISC + 8 * (G::NS + (it - 1) % G::NS));
+    }
+    ++it;
   }
+  wgmma_wait<0>();
+  pin(acc);
+  release(base + G::MISC + 8 * (G::NS + (it - 1) % G::NS));
+}
 
-  // the GroupNorm constants of the block's channels, from the statistics
-  // that stream_stats_kernel left
-  if (tid < BS) {
-    const int c = j * BS + tid;
-    const float* st = stats + 2 * (static_cast<size_t>(b) * groups + c / (C / groups));
-    s_mean[tid] = st[0];
-    s_rs[tid] = st[1] * __ldg(gscale + c);
-    s_bi[tid] = __ldg(gbias + c);
+// grid (ceil(Kp / MC), nb, B), NT threads: modes chunk * MC .. + MC - 1 of
+// AFNO block j of sample b, from x (map_x: (B, HW, C), 64 x 64 boxes) and
+// A (map_a: (2, Kp, HWp), boxes of 64 px x MC modes) to o (B, 2Kp, C), the
+// modes below kstore stored (Kp; less in the control), with the GroupNorm
+// statistics (B, groups, 2) of stream_stats_kernel and the bf16 block
+// weights (map_w1, map_w2: (2, nb, BS out, BS in), boxes of 64 inputs of
+// all BS outputs).
+template <int BS>
+__global__ void __launch_bounds__(NT, Spec<BS>::MIN_CTAS)
+stream_spectral_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_w1,
+                       const __grid_constant__ CUtensorMap map_w2,
+                       const float* __restrict__ gscale, const float* __restrict__ gbias,
+                       const float* __restrict__ b1, const float* __restrict__ b2,
+                       const float* stats, bf16* __restrict__ o, int HWp, int C, int Kp,
+                       int kstore, int nb, int groups, int act) {
+  using G = Spec<BS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int j = blockIdx.y, b = blockIdx.z, m0 = blockIdx.x * MC, nkc = HWp / PX;
+  auto full = [&](int s) { return base + G::MISC + 8 * s; };
+  auto empty = [&](int s) { return base + G::MISC + 8 * (G::NS + s); };
+
+  // the synthesis may take SMs that this grid leaves free; it waits for
+  // this grid's o before it reads it
+  launch_dependents();
+  if (tid == 0) {
+    for (int s = 0; s < G::NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), EMPTY_ARRIVALS);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // z = A . xn: warp w computes rows MC (w / WPH) .. of [re; im] (the real
-  // or imaginary parts of the MC modes) by channels 32 (w % WPH) ..; each
-  // B fragment register holds two pixels of one channel, normalised and
-  // rounded to bf16 in registers
-  const int rb = MC * (warp / G::WPH), cb = 32 * (warp % G::WPH);
-  float nm[4], nr[4], nbias[4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = cb + 8 * nt + g;
-    nm[nt] = s_mean[c];
-    nr[nt] = s_rs[c];
-    nbias[nt] = s_bi[c];
-  }
-  WarpAcc<MT> acc;
-  zero<MT>(acc);
-  for (int kc = 0; kc < nkc; ++kc) {
-    if (kc + NS - 1 < nkc) load_x_stage((kc + NS - 1) % NS, kc + NS - 1);
-    cp_commit();
-    cp_wait<NS - 1>();
-    __syncthreads();
-    const bf16* xs = ring + kc % NS * G::STAGE;
-    const bf16* as = xs + KC * G::LDX;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t a[MT][4], bx[4][2];
-      load_a<MT>(a, as, LDA, rb, 16 * kk);
-      load_b_kn(bx, xs, G::LDX, 16 * kk, cb);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 f = unpack_bf16(bx[nt][i]);
-          bx[nt][i] = pack_bf16((f.x - nm[nt]) * nr[nt] + nbias[nt],
-                                (f.y - nm[nt]) * nr[nt] + nbias[nt]);
+  if (tid >= NC) {  // the producer warp: one thread issues every load
+    if (tid == NC) {
+      int it = 0;
+      // the next stage's slot, once its earlier tenant has been handed back
+      auto acquire = [&](uint32_t bytes) {
+        const int s = it % G::NS, use = it / G::NS;
+        if (use) mbar_wait(empty(s), (use - 1) & 1);
+        mbar_expect_tx(full(s), bytes);
+        ++it;
+        return s;
+      };
+      for (int kc = 0; kc < nkc; ++kc) {
+        const int s = acquire(G::X_BYTES + G::A_BYTES);
+        const uint32_t slot = base + s * G::SLOT;
+        for (int h = 0; h < G::XCH / 64; ++h)
+          tma_load_3d(slot + h * BOX, &map_x, full(s), j * BS + h * 64, kc * PX, b);
+        for (int p = 0; p < 2; ++p)
+          tma_load_3d(slot + G::X_BYTES + p * BOX, &map_a, full(s), kc * PX, m0, p);
+      }
+      for (int layer = 0; layer < 2; ++layer)
+        for (int t = 0; t < 2 * G::NKB; ++t) {
+          const int s = acquire(G::W_BYTES);
+          tma_load_4d(base + s * G::SLOT, layer ? &map_w2 : &map_w1, full(s),
+                      (t % G::NKB) * 64, 0, j, t / G::NKB);
         }
-      mma_tile<MT>(acc, a, bx);
     }
-    __syncthreads();
+    return;
   }
 
-  // z to shared memory as [z_re | z_im] per mode, rounded to bf16; the
-  // first W1 chunks load
-  prefetch_w<BS>(ring, w1, j, nb);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * mt + g + 8 * h, c = (rb ? BS : 0) + cb + 8 * nt + 2 * t;
-        *reinterpret_cast<uint32_t*>(zb + r * G::LDZ + c) =
-            pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
-  __syncthreads();
-
-  // h = act([z_re | z_im] . W1 + B1), rounded to bf16, over z. Warp w:
-  // output half w / WPH (re, im), columns 32 (w % WPH) .. of it.
-  const int po = warp / G::WPH, o0 = 32 * (warp % G::WPH);
-  complex_layer<BS, MT>(acc, ring, zb, w1, j, nb);
-  prefetch_w<BS>(ring, w2, j, nb);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = o0 + 8 * nt + 2 * t;
-    const float* bias = b1 + (static_cast<size_t>(po) * nb + j) * BS + c;
-    const float bb0 = __ldg(bias), bb1 = __ldg(bias + 1);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * mt + g + 8 * h;
-        *reinterpret_cast<uint32_t*>(zb + r * G::LDZ + po * BS + c) =
-            pack_bf16(activate_id(act, acc[mt][nt][2 * h] + bb0),
-                      activate_id(act, acc[mt][nt][2 * h + 1] + bb1));
-      }
-  }
-  __syncthreads();
-
-  // o = [h_re | h_im] . W2 + B2, rounded to bf16, to device memory (rows
-  // past K dropped)
-  complex_layer<BS, MT>(acc, ring, zb, w2, j, nb);
-  bf16* ob = o + (static_cast<size_t>(b) * 2 * K + (po ? K : 0)) * C + j * BS;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = o0 + 8 * nt + 2 * t;
-    const float* bias = b2 + (static_cast<size_t>(po) * nb + j) * BS + c;
-    const float bb0 = __ldg(bias), bb1 = __ldg(bias + 1);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int mode = m0 + 16 * mt + g + 8 * h;
-        if (mode < K)
-          *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(mode) * C + c) =
-              pack_bf16(acc[mt][nt][2 * h] + bb0, acc[mt][nt][2 * h + 1] + bb1);
-      }
-  }
-}
-
-// grid (HWp / TP, C / 64, B), TP = 32 MT: out[b] = Ainv . o[b] + xn[b] for
-// TP pixels and 64 channels, xn recomputed in f32 from x and the
-// statistics; rows past HW (Ainv's padded zero rows) are computed and not
-// stored. Warp w computes pixels 16 MT (w / 2) .. by channels 32 (w % 2)
-// ... Ainv's rows are 4K bytes, a multiple of 8 (K even, the padded Kp), so
-// its tiles load in 8-byte units, which never straddle 2K (a multiple of 4).
-template <int MT>
-__global__ void __launch_bounds__(SYN_NT)
-stream_synthesis_kernel(const bf16* __restrict__ Ainv, const bf16* __restrict__ o,
-                        const bf16* __restrict__ x, const float* __restrict__ stats,
-                        const float* __restrict__ gscale, const float* __restrict__ gbias,
-                        bf16* __restrict__ out, int HW, int C, int K, int groups) {
-  constexpr int TP = 32 * MT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int p0 = blockIdx.x * TP, n0 = blockIdx.y * TC, b = blockIdx.z;
-  const int K2 = 2 * K, nk = (K2 + KS - 1) / KS;
-  const bf16* ob = o + static_cast<size_t>(b) * K2 * C + n0;
-
-  // ring slot s: Ainv [TP][LDI] (columns KS kb ..), then o [KS][LDO] (rows
-  // KS kb ..), both zero past 2K
-  auto load_stage = [&](int s, int kb) {
-    bf16* as = ring + s * SYN_STAGE;
-    bf16* os = as + MAX_TP * LDI;
-    for (int q = tid; q < TP * (KS / 4); q += SYN_NT) {
-      const int r = q / (KS / 4), c4 = q % (KS / 4), k = kb * KS + 4 * c4;
-      cp8(as + r * LDI + 4 * c4, Ainv + static_cast<size_t>(p0 + r) * K2 + (k < K2 ? k : 0),
-          k < K2);
+  // the GroupNorm constants of the x tile's channels (zero past the block)
+  float* s_mean = reinterpret_cast<float*>(sm + G::MISC + 128);
+  float* s_rs = s_mean + G::XCH;
+  float* s_bi = s_rs + G::XCH;
+  wait_primary();
+  for (int t = tid; t < G::XCH; t += NC) {
+    float mean = 0.f, rs = 0.f, bias = 0.f;
+    if (t < BS) {
+      const int c = j * BS + t;
+      const float* st = stats + 2 * (static_cast<size_t>(b) * groups + c / (C / groups));
+      mean = st[0];
+      rs = st[1] * __ldg(gscale + c);
+      bias = __ldg(gbias + c);
     }
-    for (int q = tid; q < KS * (TC / 8); q += SYN_NT) {
-      const int r = q / (TC / 8), c8 = q % (TC / 8), k = kb * KS + r;
-      cp16(os + r * LDO + 8 * c8, ob + static_cast<size_t>(k < K2 ? k : 0) * C + 8 * c8, k < K2);
+    s_mean[t] = mean;
+    s_rs[t] = rs;
+    s_bi[t] = bias;
+  }
+  consumer_sync();
+
+  // z = A . xn, warpgroup wg part wg of the modes. Thread tid normalises the
+  // 8-channel column lc of rows r0, r0 + RSTEP, ... of each x tile in place
+  // (all its cells loaded, then all stored); chunk (p, lc) sits at 16-byte
+  // position (lc % 8) ^ (p % 8) of row p of box lc / 8 (the swizzle). With
+  // four ring stages or more, stage kc + 1 is normalised while the products
+  // of stage kc (and kc - 1) run; with three, that left the producer one
+  // stage of lead and was slower (tools/afno_stream_variants.py
+  // spectral_ring3), so stage kc is normalised just before its products.
+  constexpr int CPR = G::XCH / 8, RSTEP = NC / CPR, ROWS = PX / RSTEP;
+  constexpr bool AHEAD = G::NS >= 4;
+  const int lc = tid % CPR, r0 = tid / CPR;
+  float nm[8], nr[8], nbi[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    nm[e] = s_mean[8 * lc + e];
+    nr[e] = s_rs[8 * lc + e];
+    nbi[e] = s_bi[8 * lc + e];
+  }
+  auto normalise = [&](int kc) {
+    mbar_wait(full(kc % G::NS), (kc / G::NS) & 1);
+    uint8_t* xt = sm + kc % G::NS * G::SLOT;
+    uint4 cells[ROWS];
+#pragma unroll
+    for (int q = 0; q < ROWS; ++q) {
+      const int p = r0 + q * RSTEP;
+      cells[q] = *reinterpret_cast<const uint4*>(xt + (lc >> 3) * BOX + p * 128 +
+                                                 (((lc & 7) ^ (p & 7)) << 4));
     }
+#pragma unroll
+    for (int q = 0; q < ROWS; ++q) {
+      const int p = r0 + q * RSTEP;
+      float f[8];
+      unpack8(cells[q], f);
+      uint4 u;
+      __nv_bfloat162* hq = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        hq[e] = __floats2bfloat162_rn((f[2 * e] - nm[2 * e]) * nr[2 * e] + nbi[2 * e],
+                                      (f[2 * e + 1] - nm[2 * e + 1]) * nr[2 * e + 1] +
+                                          nbi[2 * e + 1]);
+      *reinterpret_cast<uint4*>(xt + (lc >> 3) * BOX + p * 128 + (((lc & 7) ^ (p & 7)) << 4)) = u;
+    }
+    fence_proxy_async();
   };
-  for (int s = 0; s < SYN_STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_commit();
-  }
-  float* col_mean = reinterpret_cast<float*>(smem + SYN_STAGES * SYN_STAGE * 2);
-  float* col_rs = col_mean + TC;
-  float* col_bias = col_rs + TC;
-  if (tid < TC) {
-    const int c = n0 + tid;
-    const size_t s = 2 * (static_cast<size_t>(b) * groups + c / (C / groups));
-    col_mean[tid] = stats[s];
-    col_rs[tid] = stats[s + 1] * gscale[c];
-    col_bias[tid] = gbias[c];
-  }
-
-  const int rb = 16 * MT * (warp >> 1), cb = 32 * (warp & 1);
-  WarpAcc<MT> acc;
-  zero<MT>(acc);
-  for (int kb = 0; kb < nk; ++kb) {
-    const int next = kb + SYN_STAGES - 1;
-    if (next < nk) load_stage(next % SYN_STAGES, next);
-    cp_commit();
-    cp_wait<SYN_STAGES - 1>();
-    __syncthreads();
-    const bf16* as = ring + (kb % SYN_STAGES) * SYN_STAGE;
-    const bf16* os = as + MAX_TP * LDI;
+  Frag<G::XCH> za;
+  zero(za);
+  if (AHEAD) normalise(0);
+  int it = 0;
+  for (int kc = 0; kc < nkc; ++kc, ++it) {
+    if (!AHEAD) normalise(kc);
+    consumer_sync();  // the whole tile is xn before either warpgroup reads it
+    pin(za);
+    wgmma_fence();
+    const uint32_t slot = base + it % G::NS * G::SLOT;
 #pragma unroll
-    for (int kk = 0; kk < KS / 16; ++kk) {
-      uint32_t a[MT][4], bo[4][2];
-      load_a<MT>(a, as, LDI, rb, 16 * kk);
-      load_b_kn(bo, os, LDO, 16 * kk, cb);
-      mma_tile<MT>(acc, a, bo);
+    for (int kk = 0; kk < 4; ++kk)
+      za.template mma<1, 1>(desc_k(slot + G::X_BYTES + wg * BOX + kk * 32),
+                            desc_mn(slot + kk * 16 * 128, BOX));
+    wgmma_commit();
+    if (AHEAD && kc + 1 < nkc) normalise(kc + 1);
+    if (kc > 0) {
+      wgmma_wait<1>();
+      pin(za);
+      release(empty((it - 1) % G::NS));
     }
-    __syncthreads();
   }
+  wgmma_wait<0>();
+  pin(za);
+  release(empty((it - 1) % G::NS));
 
-  // out = round(acc + xn), rows below HW
+  // z rounded into [2 parts][NKB][64 modes][64], the block's channels only
+  uint8_t* zb = sm + G::Z_OFF;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int cl = cb + 8 * nt + 2 * t, c = n0 + cl;
+  for (int i = 0; i < G::XCH / 8; ++i) {
+    const int c = acc_col(i);
+    if (c >= BS) continue;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int h = 0; h < 2; ++h)
+      *swizzled(zb + wg * G::NKB * BOX, BOX, acc_row(h), c) =
+          __floats2bfloat162_rn(za.d[4 * i + 2 * h], za.d[4 * i + 2 * h + 1]);
+  }
+  fence_proxy_async();
+  consumer_sync();
+
+  // h = act([z_re | z_im] . W1 + B1), rounded, over z: warpgroup wg writes
+  // part wg once both are done reading z
+  const uint32_t z = base + G::Z_OFF;
+  Frag<BS> acc;
+  if (wg == 0) mlp_layer<BS, 0>(acc, base, z, it);
+  else mlp_layer<BS, 1>(acc, base, z, it);
+  consumer_sync();
+  store_h<BS>(act, zb + wg * G::NKB * BOX, acc, b1 + (static_cast<size_t>(wg) * nb + j) * BS);
+  fence_proxy_async();
+  consumer_sync();
+
+  // o = [h_re | h_im] . W2 + B2, rounded, over h once both warpgroups are
+  // done reading it; then warpgroup wg stores part wg's rows below kstore
+  // to device memory, 16 bytes a thread, the rows' chunks contiguous
+  if (wg == 0) mlp_layer<BS, 0>(acc, base, z, it);
+  else mlp_layer<BS, 1>(acc, base, z, it);
+  consumer_sync();
+  uint8_t* ot = zb + wg * G::NKB * BOX;
+  const float* bias2 = b2 + (static_cast<size_t>(wg) * nb + j) * BS;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = p0 + rb + 16 * mt + g + 8 * h;
-        if (p >= HW) continue;
-        const size_t at = (static_cast<size_t>(b) * HW + p) * C + c;
-        const float2 xv = unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(x + at)));
-        const float xn0 = (xv.x - col_mean[cl]) * col_rs[cl] + col_bias[cl];
-        const float xn1 = (xv.y - col_mean[cl + 1]) * col_rs[cl + 1] + col_bias[cl + 1];
-        *reinterpret_cast<uint32_t*>(out + at) =
-            pack_bf16(acc[mt][nt][2 * h] + xn0, acc[mt][nt][2 * h + 1] + xn1);
+  for (int i = 0; i < BS / 8; ++i) {
+    const int c = acc_col(i);
+    const float2 bv = __ldg(reinterpret_cast<const float2*>(bias2 + c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *swizzled(ot, BOX, acc_row(h), c) =
+          __floats2bfloat162_rn(acc.d[4 * i + 2 * h] + bv.x, acc.d[4 * i + 2 * h + 1] + bv.y);
+  }
+  warpgroup_sync(wg);
+  bf16* ob = o + (static_cast<size_t>(b) * 2 * Kp + (wg ? Kp : 0) + m0) * C + j * BS;
+  const int rows = kstore - m0 < MC ? kstore - m0 : MC;
+  for (int q = tid & 127; q < rows * (BS / 8); q += 128) {
+    const int r = q / (BS / 8), c = 8 * (q % (BS / 8));
+    *reinterpret_cast<uint4*>(ob + static_cast<size_t>(r) * C + c) =
+        *reinterpret_cast<const uint4*>(swizzled(ot, BOX, r, c));
+  }
+}
+
+// grid (ceil(HW / 128), C / TN, B), NT threads: out[b] = Ainv . o[b] + xn[b]
+// for 128 pixels and TN channels, from Ainv (map_ainv: (HWp, 2Kp), boxes of
+// 64 modes x 128 px) and o (map_o: (B, 2Kp, C), 64 x 64 boxes), with xn
+// recomputed in f32 from the x tile (map_x: (B, HW, C), boxes of 64
+// channels x 128 px) and the statistics; out leaves by TMA (map_out), which
+// drops the rows past HW.
+template <int TN>
+__global__ void __launch_bounds__(NT, 1)
+stream_synthesis_kernel(const __grid_constant__ CUtensorMap map_ainv,
+                        const __grid_constant__ CUtensorMap map_o,
+                        const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_out, const float* stats,
+                        const float* __restrict__ gscale, const float* __restrict__ gbias,
+                        int C, int Kp, int groups) {
+  using G = Syn<TN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int p0 = blockIdx.x * SYN_P, n0 = blockIdx.y * TN, b = blockIdx.z;
+  const int nk = (2 * Kp + SYN_K - 1) / SYN_K;
+  auto full = [&](int s) { return base + G::MISC + 8 * s; };
+  auto empty = [&](int s) { return base + G::MISC + 8 * (G::NS + s); };
+  const uint32_t xbar = base + G::MISC + 16 * G::NS;
+
+  if (tid == 0) {
+    for (int s = 0; s < G::NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), EMPTY_ARRIVALS);
+    }
+    mbar_init(xbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {  // the producer warp
+    if (tid == NC) {
+      mbar_expect_tx(xbar, TN * 256);
+      for (int h = 0; h < TN / 64; ++h)
+        tma_load_3d(base + G::X_OFF + h * 2 * BOX, &map_x, xbar, n0 + h * 64, p0, b);
+      // Ainv's first rows while the spectral grid finishes, o after it has
+      const int pre = nk < G::NS ? nk : G::NS;
+      for (int kb = 0; kb < pre; ++kb) {
+        mbar_expect_tx(full(kb), G::SLOT);
+        tma_load_2d(base + kb * G::SLOT, &map_ainv, full(kb), kb * SYN_K, p0);
       }
+      wait_primary();
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % G::NS, use = kb / G::NS;
+        const uint32_t slot = base + s * G::SLOT;
+        if (use) {
+          mbar_wait(empty(s), (use - 1) & 1);
+          mbar_expect_tx(full(s), G::SLOT);
+          tma_load_2d(slot, &map_ainv, full(s), kb * SYN_K, p0);
+        }
+        for (int h = 0; h < TN / 64; ++h)
+          tma_load_3d(slot + G::AINV_BYTES + h * BOX, &map_o, full(s), n0 + h * 64, kb * SYN_K,
+                      b);
+      }
+    }
+    return;
+  }
+
+  wait_primary();
+  float* col_mean = reinterpret_cast<float*>(sm + G::MISC + 128);
+  float* col_rs = col_mean + TN;
+  float* col_bias = col_rs + TN;
+  if (tid < TN) {
+    const int c = n0 + tid;
+    const float* st = stats + 2 * (static_cast<size_t>(b) * groups + c / (C / groups));
+    col_mean[tid] = st[0];
+    col_rs[tid] = st[1] * __ldg(gscale + c);
+    col_bias[tid] = __ldg(gbias + c);
+  }
+
+  Frag<TN> acc;
+  zero(acc);
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % G::NS;
+    mbar_wait(full(s), (kb / G::NS) & 1);
+    pin(acc);
+    wgmma_fence();
+    const uint32_t slot = base + s * G::SLOT;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      acc.template mma<1, 1>(desc_k(slot + wg * BOX + kk * 32),
+                             desc_mn(slot + G::AINV_BYTES + kk * 16 * 128, BOX));
+    wgmma_commit();
+    if (kb > 0) {
+      wgmma_wait<1>();
+      pin(acc);
+      release(empty((kb - 1) % G::NS));
+    }
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  consumer_sync();  // the column constants
+  mbar_wait(xbar, 0);
+
+  // out = acc + xn, written over the x tile
+  uint8_t* xt = sm + G::X_OFF;
+#pragma unroll
+  for (int i = 0; i < TN / 8; ++i) {
+    const int c = acc_col(i);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat162* p = swizzled(xt, 2 * BOX, 64 * wg + acc_row(h), c);
+      const float2 xv = __bfloat1622float2(*p);
+      const float xn0 = (xv.x - col_mean[c]) * col_rs[c] + col_bias[c];
+      const float xn1 = (xv.y - col_mean[c + 1]) * col_rs[c + 1] + col_bias[c + 1];
+      *p = __floats2bfloat162_rn(acc.d[4 * i + 2 * h] + xn0, acc.d[4 * i + 2 * h + 1] + xn1);
+    }
+  }
+  fence_proxy_async();
+  consumer_sync();
+  if (tid == 0) {
+    for (int h = 0; h < TN / 64; ++h)
+      tma_store_3d(&map_out, base + G::X_OFF + h * 2 * BOX, n0 + h * 64, p0, b);
+    tma_store_drain();
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// Lets stream_spectral_kernel<BS, MT> and stream_synthesis_kernel<MT> use
-// the dynamic shared memory they need, once per device.
-template <int BS, int MT> cudaError_t allow_smem(int dev) {
-  static bool done[64] = {};
+// ---------------------------------------------------------------- host
+// A kernel's dynamic shared memory allowed once per device.
+template <typename K> cudaError_t allow_smem(K* kernel, int smem, bool (&done)[64], int dev) {
   if (dev < 64 && done[dev]) return cudaSuccess;
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(stream_spectral_kernel<BS, MT>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<BS>::SMEM)) !=
-          cudaSuccess ||
-      (e = cudaFuncSetAttribute(stream_synthesis_kernel<MT>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, SYN_SMEM)) !=
-          cudaSuccess)
-    return e;
-  if (dev < 64) done[dev] = true;
-  return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
 }
 
-// HW is the latent's pixels, HWp and K (even) the padded operators' sizes
+// kernel<<<grid, NT, smem, s>>>(args...) as a programmatic dependent of
+// the launch just before it on s.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(KArgs...), dim3 grid, int smem, cudaStream_t s,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// HW is the latent's pixels, HWp and Kp the padded operators' sizes, kstore
+// the modes the spectral launch stores (Kp, or less in the control)
 struct Args {
   const bf16 *x, *A, *Ainv, *w1, *w2;
   const float *gscale, *gbias, *b1, *b2;
   float* stats;
   bf16 *o, *out;
-  int B, HW, HWp, C, K, nb, groups, act;
+  int B, HW, HWp, C, Kp, kstore, nb, groups, act;
 };
 
-// The three launches at block size BS and warp-tile height MT, on stream s;
-// the spectral launch runs all ceil(K / MC) mode chunks but the last `drop`.
-template <int BS, int MT> cudaError_t launch(int dev, const Args& a, int drop, cudaStream_t s) {
-  constexpr int MC = 16 * MT, TP = 32 * MT;
+// The spectral launch at block size BS.
+template <int BS> int launch_spectral(int dev, const Args& a, cudaStream_t s) {
+  using G = Spec<BS>;
+  static bool done[64] = {};
+  const uint64_t UB = static_cast<uint64_t>(a.B), UC = a.C, UHW = a.HW, UHWp = a.HWp,
+                 UKp = a.Kp, UBS = BS, UNB = a.nb;
+  const uint64_t dx[3] = {UC, UHW, UB}, da[3] = {UHWp, UKp, 2}, dw[4] = {UBS, UBS, UNB, 2};
+  const uint32_t bx[3] = {64, PX, 1}, ba[3] = {PX, MC, 1}, bw[4] = {64, BS, 1, 1};
+  CUtensorMap mx, ma, mw1, mw2;
+  CUresult r;
+  if ((r = tensor_map(&mx, a.x, 3, dx, bx, false)) != CUDA_SUCCESS ||
+      (r = tensor_map(&ma, a.A, 3, da, ba, true)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mw1, a.w1, 4, dw, bw, true)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mw2, a.w2, 4, dw, bw, true)) != CUDA_SUCCESS)
+    return 10000 + static_cast<int>(r);
   cudaError_t e;
-  if ((e = allow_smem<BS, MT>(dev)) != cudaSuccess) return e;
-  stream_stats_kernel<<<dim3(a.groups, a.B), STATS_NT, 0, s>>>(a.x, a.stats, a.HW, a.C,
-                                                                a.groups);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  stream_spectral_kernel<BS, MT>
-      <<<dim3((a.K + MC - 1) / MC - drop, a.nb, a.B), Geo<BS>::NT, Geo<BS>::SMEM, s>>>(
-          a.x, a.gscale, a.gbias, a.A, a.w1, a.b1, a.w2, a.b2, a.stats, a.o, a.HW, a.HWp, a.C,
-          a.K, a.nb, a.groups, a.act);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  stream_synthesis_kernel<MT><<<dim3(a.HWp / TP, a.C / TC, a.B), SYN_NT, SYN_SMEM, s>>>(
-      a.Ainv, a.o, a.x, a.stats, a.gscale, a.gbias, a.out, a.HW, a.C, a.K, a.groups);
-  return cudaGetLastError();
+  if ((e = allow_smem(stream_spectral_kernel<BS>, G::SMEM, done, dev)) != cudaSuccess) return e;
+  return launch_dependent(stream_spectral_kernel<BS>,
+                          dim3((a.Kp + MC - 1) / MC, a.nb, a.B), G::SMEM, s, mx, ma, mw1, mw2,
+                          a.gscale, a.gbias, a.b1, a.b2, static_cast<const float*>(a.stats), a.o,
+                          a.HWp, a.C, a.Kp, a.kstore, a.nb, a.groups, a.act);
 }
 
-template <int BS> cudaError_t launch_bs(int dev, bool small, const Args& a, int drop,
-                                        cudaStream_t s) {
-  return small ? launch<BS, 1>(dev, a, drop, s) : launch<BS, 2>(dev, a, drop, s);
+// The synthesis launch at tile width TN.
+template <int TN> int launch_synthesis_tn(int dev, const Args& a, cudaStream_t s) {
+  using G = Syn<TN>;
+  static bool done[64] = {};
+  const uint64_t UB = static_cast<uint64_t>(a.B), UC = a.C, UHW = a.HW, UHWp = a.HWp,
+                 UK2 = 2 * static_cast<uint64_t>(a.Kp);
+  const uint64_t dx[3] = {UC, UHW, UB}, dob[3] = {UC, UK2, UB}, dai[2] = {UK2, UHWp};
+  const uint32_t bt[3] = {64, SYN_P, 1}, bo[3] = {64, SYN_K, 1}, bai[2] = {SYN_K, SYN_P};
+  CUtensorMap mx, mout, mo, mainv;
+  CUresult r;
+  if ((r = tensor_map(&mx, a.x, 3, dx, bt, false)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mout, a.out, 3, dx, bt, false)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mo, a.o, 3, dob, bo, false)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mainv, a.Ainv, 2, dai, bai, true)) != CUDA_SUCCESS)
+    return 10000 + static_cast<int>(r);
+  cudaError_t e;
+  if ((e = allow_smem(stream_synthesis_kernel<TN>, G::SMEM, done, dev)) != cudaSuccess) return e;
+  return launch_dependent(stream_synthesis_kernel<TN>,
+                          dim3((a.HW + SYN_P - 1) / SYN_P, a.C / TN, a.B), G::SMEM, s, mainv, mo,
+                          mx, mout, static_cast<const float*>(a.stats), a.gscale, a.gbias, a.C,
+                          a.Kp, a.groups);
 }
+
 
 }  // namespace
 
@@ -698,10 +875,10 @@ template <int BS> cudaError_t launch_bs(int dev, bool small, const Args& a, int 
 // kernels take (128 or 256 px, K a multiple of 4, 2K <= 320); AFNO blocks
 // of 64, 128 or 256 channels with groups of a power of two channels from 8
 // to the block, or of 96 channels with groups of one block or a block pair;
-// C a multiple of the synthesis tile (64).
+// C a multiple of the narrowest synthesis tile (64).
 extern "C" int dpot_afno_hopper_stream_supported(int B, int HW, int C, int K, int nb,
                                                  int groups) {
-  if (B < 1 || B > 65535 || nb < 1 || C % nb || C % TC || groups < 1 || C % groups) return 0;
+  if (B < 1 || B > 65535 || nb < 1 || C % nb || C % C_UNIT || groups < 1 || C % groups) return 0;
   if (HW < 1 || HW > MAX_HW || K < 1) return 0;
   if ((HW == 128 || HW == 256) && K % 4 == 0 && (2 * K + 63) / 64 <= 5) return 0;
   const int bs = C / nb, cpg = C / groups;
@@ -712,81 +889,97 @@ extern "C" int dpot_afno_hopper_stream_supported(int B, int HW, int C, int K, in
 
 namespace {
 
+// The SMs of device dev, asked once.
+int sm_count(int dev) {
+  static int count[64] = {};
+  int n = dev < 64 ? count[dev] : 0;
+  if (!n && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess &&
+      dev < 64)
+    count[dev] = n;
+  return n;
+}
+
 int run(int act, const void* x, const float* gscale, const float* gbias, const void* A,
         const void* Ainv, const void* w1t, const float* b1, const void* w2t, const float* b2,
         float* stats, void* o, void* out, int B, int HW, int C, int K, int nb, int groups,
-        int drop, void* stream) {
+        bool drop, void* stream) {
   if (!dpot_afno_hopper_stream_supported(B, HW, C, K, nb, groups) || act < 0 ||
       act >= ACT_COUNT)
     return cudaErrorInvalidValue;
   const void* ptrs[] = {x, A, Ainv, w1t, w2t, o, out};
   for (const void* p : ptrs)
     if (!aligned16(p)) return cudaErrorMisalignedAddress;
+  if ((reinterpret_cast<uintptr_t>(b1) | reinterpret_cast<uintptr_t>(b2)) & 7)
+    return cudaErrorMisalignedAddress;  // read as float2
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   int dev = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  static int sm_count[64] = {};  // the device's SMs, asked once
-  int sms = dev < 64 ? sm_count[dev] : 0;
-  if (!sms) {
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return e;
-    if (dev < 64) sm_count[dev] = sms;
-  }
-  const int HWp = (HW + KC - 1) / KC * KC, Kp = K + K % 2;  // the padded operators'
-  const bool small = static_cast<long long>((Kp + 15) / 16) * nb * B <= sms;
-  const int mc = small ? 16 : MAX_MC;
-  if (drop < 0 || drop >= (Kp + mc - 1) / mc) return cudaErrorInvalidValue;
-  const Args a{static_cast<const bf16*>(x),    static_cast<const bf16*>(A),
+  const int sms = sm_count(dev);
+  if (!sms) return cudaErrorInvalidDevice;
+  // the padded operators' sizes, as `padded_dims` in the wrapper
+  const int HWp = (HW + PX - 1) / PX * PX, Kp = (K + KP_UNIT - 1) / KP_UNIT * KP_UNIT;
+  if (drop && Kp <= DROP_UNIT) return cudaErrorInvalidValue;
+  const int kstore = drop ? (Kp - 1) / DROP_UNIT * DROP_UNIT : Kp;
+  const Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(A),
                static_cast<const bf16*>(Ainv), static_cast<const bf16*>(w1t),
-               static_cast<const bf16*>(w2t),  gscale,
-               gbias,                          b1,
-               b2,                             stats,
-               static_cast<bf16*>(o),          static_cast<bf16*>(out),
-               B,                              HW,
-               HWp,                            C,
-               Kp,                             nb,
-               groups,                         act};
+               static_cast<const bf16*>(w2t), gscale, gbias, b1, b2, stats,
+               static_cast<bf16*>(o), static_cast<bf16*>(out), B, HW, HWp, C, Kp, kstore, nb,
+               groups, act};
+
+  stream_stats_kernel<<<dim3(groups, B), STATS_NT, 0, s>>>(a.x, stats, HW, C, groups);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  int err;
   switch (C / nb) {
-    case 64: return launch_bs<64>(dev, small, a, drop, s);
-    case 96: return launch_bs<96>(dev, small, a, drop, s);
-    case 128: return launch_bs<128>(dev, small, a, drop, s);
-    default: return launch_bs<256>(dev, small, a, drop, s);
+    case 64: err = launch_spectral<64>(dev, a, s); break;
+    case 96: err = launch_spectral<96>(dev, a, s); break;
+    case 128: err = launch_spectral<128>(dev, a, s); break;
+    default: err = launch_spectral<256>(dev, a, s); break;
   }
+  if (err) return err;
+
+  // the widest synthesis tile that divides C and still fills the card
+  const long long tiles = static_cast<long long>((HW + SYN_P - 1) / SYN_P) * B;
+  if (C % 256 == 0 && tiles * (C / 256) >= sms) return launch_synthesis_tn<256>(dev, a, s);
+  if (C % 128 == 0 && tiles * (C / 128) >= sms) return launch_synthesis_tn<128>(dev, a, s);
+  return launch_synthesis_tn<64>(dev, a, s);
 }
 
 }  // namespace
 
 // x, out (B, HW, C), A (2Kp, HWp), Ainv (HWp, 2Kp), o scratch (B, 2Kp, C)
-// are bf16, HWp = HW rounded up to 64 and Kp = K rounded up to even, the
-// operators zero past HW and at mode K of an odd K (padded_ops in the
-// wrapper); w1t/w2t are the bf16 block weights (2, nb, bs, bs), each block
-// transposed to (out, in); gscale/gbias (C), b1/b2 (2, nb, bs) and the
-// stats scratch (B * groups * 2) are f32. act is an ActId. Returns 0 or a
-// CUDA error.
+// are bf16, HWp = HW rounded up to 64 and Kp = K rounded up to a multiple
+// of 4, the operators zero past HW and at the modes K .. Kp - 1 (padded_ops
+// in the wrapper); w1t/w2t are the bf16 block weights (2, nb, bs, bs), each
+// block transposed to (out, in); gscale/gbias (C), b1/b2 (2, nb, bs) and
+// the stats scratch (B * groups * 2) are f32. act is an ActId. Returns 0, a
+// CUDA error, or 10000 + the CUresult of a failed tensor-map encoding.
 extern "C" int dpot_afno_hopper_stream(int act, const void* x, const float* gscale,
                                        const float* gbias, const void* A, const void* Ainv,
                                        const void* w1t, const float* b1, const void* w2t,
                                        const float* b2, float* stats, void* o, void* out, int B,
                                        int HW, int C, int K, int nb, int groups, void* stream) {
   return run(act, x, gscale, gbias, A, Ainv, w1t, b1, w2t, b2, stats, o, out, B, HW, C, K, nb,
-             groups, 0, stream);
+             groups, false, stream);
 }
 
 // A control for the checks that hold this kernel against its plain
-// version, never called by the port: the same call with the spectral
-// launch's last mode chunk (the ragged one where MC does not divide K) left
-// out, its rows of o zero (o is cleared first), as a fault in the chunk
-// arithmetic would leave them.
+// version, never called by the port: the same call with the modes of the
+// last 32-mode chunk left out of o (o is cleared first, so their rows are
+// zero, as a fault in the chunk arithmetic would leave them): modes 32-39
+// of K 40, 64-83 of K 84, 512-543 of K 544, whatever chunk the spectral
+// launch runs. The spectral launch computes those modes and does not store
+// them. Refused where Kp <= 32 (there would be nothing left).
 extern "C" int dpot_afno_hopper_stream_drop_last_chunk(
     int act, const void* x, const float* gscale, const float* gbias, const void* A,
     const void* Ainv, const void* w1t, const float* b1, const void* w2t, const float* b2,
     float* stats, void* o, void* out, int B, int HW, int C, int K, int nb, int groups,
     void* stream) {
-  const size_t Kp = K + K % 2;
+  const size_t Kp = (K + KP_UNIT - 1) / KP_UNIT * KP_UNIT;
   const cudaError_t e = cudaMemsetAsync(o, 0, static_cast<size_t>(B) * 2 * Kp * C * sizeof(bf16),
                                         static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return run(act, x, gscale, gbias, A, Ainv, w1t, b1, w2t, b2, stats, o, out, B, HW, C, K, nb,
-             groups, 1, stream);
+             groups, true, stream);
 }

@@ -39,16 +39,17 @@ shapes alone before any launch, or raises:
     the shapes `hopper_stream_supported` admits (the latents up to 4096
     pixels, any K, that the other bf16 kernels refuse: every grid but 128^2
     at patch 8; AFNO blocks of 64, 96, 128 or 256 channels); x, A, the
-    weights, o and Ainv streamed through shared memory, mma.sync, three
-    launches (the GroupNorm statistics, the spectral part, the synthesis);
+    weights, o and Ainv streamed by TMA through rings in shared memory,
+    wgmma, three launches (the GroupNorm statistics, the spectral part, the
+    synthesis);
   - "general" (`dpot_tpu_torch/csrc/afno_fused.cu`): every other shape, in
     either type (blocks of other sizes, groups the block rules refuse, an
     odd count of 64-channel blocks in f32 or in bf16 at 128/256 px); five
     launches.
-The streamed and f32 kernels work on whole 64-pixel tiles and on an even
-count of modes: where the latent or K is ragged they read copies of A and
-Ainv padded with zeros (`padded_ops`), which is exact, and leave the pixels
-past HW out of the statistics and the output.
+The streamed and f32 kernels work on whole 64-pixel tiles and on a count of
+modes that is a multiple of 4: where the latent or K is ragged they read
+copies of A and Ainv padded with zeros (`padded_ops`), which is exact, and
+leave the pixels past HW out of the statistics and the output.
 For a CPU tensor it runs `fused_gn_afno_ref`, which repeats the kernels'
 arithmetic with torch ops and rounds at the same points.
 `fused_gn_afno.launches` counts the wrapper calls that launched a kernel,
@@ -235,6 +236,7 @@ HOPPER_MAX_NK = 5     # 64-row blocks of o (2K rows) a synthesis CTA holds: MAX_
 HOPPER_TILE_C = 128   # channels per bf16 synthesis CTA (hopper_tma.cuh): TILE_C
 HOPPER_F32_TILE_P = 64  # pixels per synthesis CTA of afno_hopper_f32.cu: MAX_TP
 HOPPER_F32_TILE_C = 64  # channels per f32 synthesis CTA: TC
+PADDED_K_UNIT = 4     # Kp's unit for the streamed and f32 kernels: KP_UNIT, padded_k
 
 
 def _hopper_blocks(B: int, C: int, nb: int, groups: int, bs: int = HOPPER_BS) -> bool:
@@ -288,19 +290,23 @@ def _stream_latent(HW: int, K: int) -> bool:
 
 def padded_dims(HW: int, K: int) -> tuple[int, int]:
     """(HWp, Kp): the latent rounded up to whole 64-pixel tiles
-    (HOPPER_F32_TILE_P) and K rounded up to even, the shapes the streamed
-    and f32 kernels read A (2Kp, HWp) and Ainv (HWp, 2Kp) at. The kernels
-    compute the same from HW and K."""
-    return -(-HW // HOPPER_F32_TILE_P) * HOPPER_F32_TILE_P, K + K % 2
+    (HOPPER_F32_TILE_P) and K rounded up to a multiple of PADDED_K_UNIT, the
+    shapes the streamed and f32 kernels read A (2Kp, HWp) and Ainv (HWp,
+    2Kp) at: the streamed kernel reads Ainv through a tensor map, whose
+    row stride (4 Kp bytes in bf16) must be a multiple of 16 bytes; the f32
+    kernels take any even Kp, so one padded copy serves both types. The
+    kernels compute the same from HW and K."""
+    return (-(-HW // HOPPER_F32_TILE_P) * HOPPER_F32_TILE_P,
+            -(-K // PADDED_K_UNIT) * PADDED_K_UNIT)
 
 
 def padded_ops(A: torch.Tensor, Ainv: torch.Tensor, K: int) -> tuple[torch.Tensor, torch.Tensor]:
     """A (2K, HW) and Ainv (HW, 2K) at `padded_dims`: zero columns of A past
-    HW and zero rows of Ainv past HW; for an odd K a zero mode K in both
-    halves (rows K and 2Kp - 1 of A, the same columns of Ainv). Exact: a
-    padded pixel meets a zero column of A, and a padded mode's o (act(B1) .
-    W2 + B2) a zero column of Ainv. A and Ainv themselves where nothing is
-    padded.
+    HW and zero rows of Ainv past HW; where K is not a multiple of 4 zero
+    modes K .. Kp - 1 in both halves (rows K .. Kp - 1 and Kp + K .. 2Kp - 1
+    of A, the same columns of Ainv). Exact: a padded pixel meets a zero
+    column of A, and a padded mode's o (act(B1) . W2 + B2) a zero column of
+    Ainv. A and Ainv themselves where nothing is padded.
     The copies are constants, as the operators are (ops/spectral.py
     `combined_spectral_ops`): kept on A for as long as A lives, never
     evicted (a CUDA graph reads them by address), made outside inference

@@ -2,8 +2,8 @@
 (dpot_tpu_torch/ops/cuda/afno_fused.py) on the CPU: the streamed bf16 kernel
 (afno_hopper_stream.cu) and the f32 kernels (afno_hopper_f32{,_l,_wide}.cu)
 take every latent up to 4096 pixels and every K. They work on whole 64-pixel
-tiles and an even count of modes, on copies of A and Ainv padded with zeros
-(`padded_ops`), mask the x rows past HW, take the GroupNorm statistics over
+tiles and a count of modes that is a multiple of 4, on copies of A and Ainv
+padded with zeros (`padded_ops`), mask the x rows past HW, take the GroupNorm statistics over
 the HW real rows and store only those rows. DPOT-M at res 96 (a 12^2 latent,
 K 84), 72 (9^2, K 45), 80, 160 and 192, and at res 64 with patch 16 (4^2, K
 12), all left on the five-launch afno_fused.cu before.
@@ -104,7 +104,19 @@ def test_the_slice_latents(res, patch, HW, K):
     assert (hw, k, C, nb, groups) == (HW, K, 1024, 8, 8)
     HWp, Kp = padded_dims(HW, K)
     assert HWp % 64 == 0 and HWp - 64 < HW <= HWp
-    assert Kp == K + K % 2
+    assert Kp % 4 == 0 and K <= Kp < K + 4
+
+
+@pytest.mark.parametrize("K,Kp", [(45, 48), (40, 40), (84, 84), (220, 220), (544, 544),
+                                  (66, 68), (12, 12), (9, 12), (2, 4), (543, 544), (142, 144)])
+def test_padded_dims_rounds_k_to_a_multiple_of_4(K, Kp):
+    """K rounds up to a multiple of 4, so that Ainv's bf16 rows (4 Kp bytes)
+    are whole 16-byte units, which a tensor map's strides must be (the
+    streamed kernel reads Ainv through one); K 45 (res 72) pads to 48, K 66
+    (an 11^2 latent) to 68; DPOT-M's K 40, 84, 220 and 544 stay as they
+    are. The f32 kernels read the same padded copies."""
+    assert padded_dims(1024, K) == (1024, Kp)
+    assert padded_dims(81, K) == (128, Kp)
 
 
 # (H, W, modes): ragged latents, odd K, both, and one that needs no padding
@@ -116,7 +128,7 @@ OPS_CASES = [(12, 12, 32), (9, 9, 32), (20, 20, 32), (4, 4, 32), (10, 10, 32), (
 @pytest.mark.parametrize("H,W,modes", OPS_CASES)
 def test_padded_copies_are_zero_where_they_must_be(H, W, modes, dtype):
     """A (2Kp, HWp): A's rows at columns below HW, zero columns past HW and
-    zero rows at the padded mode K of an odd K in both halves; Ainv (HWp,
+    zero rows at the padded modes K .. Kp - 1 in both halves; Ainv (HWp,
     2Kp) the same transposed. Where nothing is padded, A and Ainv
     themselves."""
     kh, kw = kept_modes(H, W, modes)
@@ -133,7 +145,7 @@ def test_padded_copies_are_zero_where_they_must_be(H, W, modes, dtype):
         rows = slice(half * Kp, half * Kp + K)
         assert torch.equal(Ap[rows, :HW], A[half * K:(half + 1) * K])
         assert torch.equal(Ainvp[:HW, rows], Ainv[:, half * K:(half + 1) * K])
-        pad = slice(half * Kp + K, (half + 1) * Kp)  # the padded mode, if any
+        pad = slice(half * Kp + K, (half + 1) * Kp)  # the padded modes, if any
         assert not Ap[pad].any() and not Ainvp[:, pad].any()
     assert not Ap[:, HW:].any() and not Ainvp[HW:].any()
 

@@ -88,7 +88,7 @@ ADMITTED_STREAM_EDGES = [
     (2, 1024, 128, 2, 1, 1),       # K 2: one short mode chunk
     (2, 64, 512, 4, 2, 2),         # 256-channel blocks, a group a block
     (2, 144, 512, 60, 4, 8),       # a 96^2 grid at patch 8: 144 px, padded to 192
-    (2, 1024, 1024, 543, 8, 8),    # K odd: Ainv's rows padded to whole 8-byte units
+    (2, 1024, 1024, 543, 8, 8),    # K odd: Kp 544, Ainv's rows whole 16-byte units
     (2, 32, 512, 10, 4, 8),        # 32 px: below one 64-px tile, padded to one
 ]
 
@@ -147,91 +147,232 @@ def test_the_path_reads_the_bf16_weight_copies_and_has_a_launch_count():
     assert "afno_hopper_stream" in build.library_paths()
 
 
+def _source() -> str:
+    return (build.SRC_DIR / "afno_hopper_stream.cu").read_text()
+
+
 def _constants() -> dict[str, int]:
     """The namespace-level `constexpr int NAME = <expression>;` of
     afno_hopper_stream.cu, in order, each evaluated with integer division
     over the ones before."""
-    src = (build.SRC_DIR / "afno_hopper_stream.cu").read_text()
     out: dict[str, int] = {}
-    for m in re.finditer(r"^constexpr int (\w+) = ([^;]+);", src, re.MULTILINE):
+    for m in re.finditer(r"^constexpr int (\w+) = ([^;]+);", _source(), re.MULTILINE):
         out[m[1]] = eval(m[2].replace("/", "//"), {}, dict(out))
     return out
 
 
-def spectral_smem(bs: int, c: dict) -> int:
-    """Geo<BS>::SMEM of the source: NS ring stages (the larger of x + A and
-    the two weight parts), z/h and the column constants."""
-    ldx, ldz = bs + c["PAD"], 2 * bs + c["PAD"]
-    stage = max(c["KC"] * ldx + 2 * c["MAX_MC"] * c["LDA"], 2 * bs * c["LDW"])
-    return c["NS"] * stage * 2 + c["MAX_MC"] * ldz * 2 + 3 * bs * 4
+def _py(expr: str) -> str:
+    """A C++ integer expression (+ - * /, comparisons, && ||, ?:) as Python."""
+    expr = expr.strip()
+    depth, q = 0, None
+    for i, ch in enumerate(expr):
+        depth += (ch == "(") - (ch == ")")
+        if ch == "?" and depth == 0:
+            q = i
+            break
+    if q is None:
+        return expr.replace("&&", " and ").replace("||", " or ").replace("/", "//")
+    depth, nest = 0, 0
+    for i in range(q + 1, len(expr)):
+        ch = expr[i]
+        depth += (ch == "(") - (ch == ")")
+        if depth == 0 and ch == "?":
+            nest += 1
+        elif depth == 0 and ch == ":":
+            if not nest:
+                break
+            nest -= 1
+    return f"(({_py(expr[q + 1:i])}) if ({_py(expr[:q])}) else ({_py(expr[i + 1:])}))"
+
+
+def _plan(struct: str, **params) -> dict[str, int]:
+    """The `static constexpr int` members of template struct `struct` of the
+    source (Spec<BS, MC>, Syn<TN>) at the template arguments `params`,
+    evaluated in order over the namespace constants."""
+    body = re.search(rf"^template <[^>]*> struct {struct} {{\n(.*?)^}};", _source(),
+                     re.MULTILINE | re.DOTALL)[1]
+    env = {**_constants(), **params}
+    for m in re.finditer(r"static constexpr int (\w+) = ([^;]+);", body):
+        env[m[1]] = eval(_py(m[2]), {}, dict(env))
+    return env
+
+
+def spectral_plan(bs: int) -> dict[str, int]:
+    return _plan("Spec", BS=bs)
+
+
+def synthesis_plan(tn: int) -> dict[str, int]:
+    return _plan("Syn", TN=tn)
 
 
 def launch_geometry(B, HW, C, K, nb, groups, sms=132) -> dict:
     """The grids of the three launches the source makes, at the padded
-    operators' HWp and Kp (`padded_dims`): MT = 1 (16-mode chunks, 32-px
-    synthesis tiles) when the spectral grid at 16-mode chunks has no more
-    CTAs than the card has SMs, else MT = 2."""
+    operators' HWp and Kp (`padded_dims`): spectral CTAs of MC (64) modes;
+    synthesis CTAs of 128 px by the widest tile of 256, 128 and 64 channels
+    that divides C and whose grid fills the card (else 64); the statistics
+    a CTA per group and sample."""
+    c = _constants()
     HWp, Kp = padded_dims(HW, K)
-    mt = 1 if math.ceil(Kp / 16) * nb * B <= sms else 2
-    return dict(mt=mt, HWp=HWp, Kp=Kp, stats=(groups, B),
-                spectral=(math.ceil(Kp / (16 * mt)), nb, B),
-                synthesis=(HWp // (32 * mt), C // 64, B))
+    mc = c["MC"]
+    tiles = math.ceil(HW / c["SYN_P"]) * B
+    tn = next((t for t in (256, 128) if C % t == 0 and tiles * (C // t) >= sms), 64)
+    return dict(mc=mc, tn=tn, HWp=HWp, Kp=Kp, stats=(groups, B),
+                spectral=(math.ceil(Kp / mc), nb, B),
+                synthesis=(math.ceil(HW / c["SYN_P"]), C // tn, B))
+
+
+WGMMA_N = {64, 96, 128, 256}  # the widths the source's Frag<N> specialises
 
 
 @pytest.mark.parametrize("bs", [64, 96, 128, 256])
 def test_shared_memory_plan_fits_a_cta(bs):
-    """Every row of a tile is padded by 16 bytes to an odd number of
-    16-byte units (the eight rows an ldmatrix reads in distinct bank
-    groups); the spectral CTA fits the 227 KB, and the synthesis CTA's
-    three stages too."""
-    c = _constants()
-    for ld in (bs + c["PAD"], 2 * bs + c["PAD"], c["LDA"], c["LDW"], c["LDI"], c["LDO"]):
-        assert ld * 2 % 16 == 0 and ld * 2 // 16 % 2 == 1
-    assert spectral_smem(bs, c) <= SMEM_LIMIT
-    assert c["SYN_SMEM"] == 3 * (c["MAX_TP"] * c["LDI"] + c["KS"] * c["LDO"]) * 2 + 3 * 64 * 4
-    assert c["SYN_SMEM"] <= 48 * 1024
-    assert bs % 32 == 0 and bs % c["KW"] == 0 and c["KC"] % 16 == 0 == c["KS"] % 16
+    """The spectral CTA's ring (at least three stages, each the larger of
+    an analysis stage and a weight stage), z/h/o and its mbarriers and
+    column constants fit the 227 KB; every swizzled tile starts
+    1024-aligned; the x tile holds whole 64-channel boxes over the block;
+    the z buffer holds both parts of every 64-wide k-block; the products'
+    widths are ones wgmma takes (and the source specialises); blocks of 64
+    run two CTAs an SM."""
+    g, c = spectral_plan(bs), _constants()
+    mc = c["MC"]
+    assert c["SMEM_MAX"] == SMEM_LIMIT and g["SMEM"] <= SMEM_LIMIT
+    assert g["NS"] >= 3 and g["SLOT"] % 1024 == 0 == g["X_BYTES"] % 1024
+    assert g["SLOT"] >= max(g["X_BYTES"] + g["A_BYTES"], g["W_BYTES"])
+    assert g["X_BYTES"] == 128 * g["XCH"] and g["XCH"] % 64 == 0 and g["XCH"] >= bs
+    assert g["A_BYTES"] == 2 * mc * 128 and g["W_BYTES"] == 128 * bs
+    assert g["NKB"] * 64 >= bs > (g["NKB"] - 1) * 64
+    assert g["Z_OFF"] == g["NS"] * g["SLOT"] and g["MISC"] == g["Z_OFF"] + 2 * g["NKB"] * c["BOX"]
+    assert g["SMEM"] >= g["MISC"] + 16 * g["NS"] + 12 * g["XCH"] + 1023
+    assert g["XCH"] in WGMMA_N and bs in WGMMA_N and g["XCH"] == 64 * g["NKB"]
+    if bs == 64:
+        assert g["MIN_CTAS"] == 2 and 2 * (g["SMEM"] + 1024) <= 233472
+    src = _source()
+    for n in WGMMA_N:
+        assert f"template <> struct Frag<{n}>" in src and f"m64n{n}k16" in src
 
 
-@pytest.mark.parametrize("shapes", ADMITTED_STREAM_EDGES
-                         + [preset_shapes(n, B, res=r) for n in ("M", "L", "H")
-                            for B in (1, 8, 20) for r in (64, 256)]
-                         + [preset_shapes(n, B, res=r) for n in ("M", "L", "H")
-                            for B in (1, 8, 20) for r in (72, 96, 160)]
-                         + [preset_shapes("M", B, res=64, patch=16) for B in (1, 20)])
+@pytest.mark.parametrize("tn", [64, 128, 256])
+def test_synthesis_plan_fits_a_cta(tn):
+    """The synthesis CTA's ring of Ainv rows and o boxes (at least three
+    stages), its x tile and its mbarriers and column constants fit the 227
+    KB, at a width wgmma takes."""
+    g = synthesis_plan(tn)
+    assert g["NS"] >= 3 and g["SMEM"] <= SMEM_LIMIT and tn in WGMMA_N
+    assert g["AINV_BYTES"] == 128 * 128 and g["SLOT"] == g["AINV_BYTES"] + 128 * tn
+    assert g["X_OFF"] == g["NS"] * g["SLOT"] and g["MISC"] == g["X_OFF"] + 256 * tn
+    assert g["SMEM"] >= g["MISC"] + 8 * (2 * g["NS"] + 1) + 16 * tn + 1023
+
+
+def test_the_source_is_wgmma_fed_by_tma():
+    """Both the spectral and the synthesis launch issue their products as
+    wgmma from shared-memory descriptors and load every operand tile by TMA
+    (cp.async.bulk.tensor through hopper_tma.cuh), with full and empty
+    mbarriers; no warp-level mma, no ldmatrix, no 16-byte cp.async."""
+    src = _source()
+    for gone in ("mma.sync", "ldmatrix", "cp.async.cg", "cp.async.ca", "cp.async.commit"):
+        assert gone not in src, gone
+    assert '#include "hopper_tma.cuh"' in src
+    hdr = (build.SRC_DIR / "hopper_tma.cuh").read_text()
+    assert "cp.async.bulk.tensor" in hdr and "wgmma.mma_async" in src
+    for kernel in ("stream_spectral_kernel", "stream_synthesis_kernel"):
+        body = src[src.index(f"\n{kernel}("):]
+        body = body[:body.index("\n}\n")]
+        assert "tma_load_" in body and "mbar_wait" in body and "mma<" in body, kernel
+
+
+# every admitted shape the tests here and on the card use
+GEOMETRY_SHAPES = (ADMITTED_STREAM_EDGES
+                   + [preset_shapes(n, B, res=r) for n in ("M", "L", "H")
+                      for B in (1, 8, 20) for r in (64, 256)]
+                   + [preset_shapes(n, B, res=r) for n in ("M", "L", "H")
+                      for B in (1, 8, 20) for r in (72, 96, 160)]
+                   + [preset_shapes("M", B, res=64, patch=16) for B in (1, 20)])
+
+
+@pytest.mark.parametrize("shapes", GEOMETRY_SHAPES)
 def test_launch_geometry_covers_every_mode_and_pixel(shapes):
-    """The spectral grid's mode chunks cover K (the last one ragged where
-    the chunk does not divide K: M's 8^2 latent, K 40) and the padded mode
-    of an odd K, the synthesis tiles cover the padded latent HWp and C
-    exactly, HWp is the least whole count of analysis stages that holds HW,
-    and the statistics launch deals whole 8-channel columns of a group to
-    its threads."""
+    """The spectral grid's mode chunks cover Kp (the last one ragged where
+    the chunk does not divide Kp: TMA fills A's rows past Kp with zeros),
+    its 64-px stages cover HWp exactly; the synthesis tiles cover HW (the
+    rows past it dropped by the store) and C exactly, each a width wgmma
+    takes; the statistics launch deals whole 8-channel columns of a group
+    to its threads."""
     B, HW, C, K, nb, groups = shapes
-    g = launch_geometry(B, HW, C, K, nb, groups)
-    mc = 16 * g["mt"]
-    chunks = g["spectral"][0]
+    g, c = launch_geometry(B, HW, C, K, nb, groups), _constants()
+    mc, chunks = g["mc"], g["spectral"][0]
     HWp, Kp = g["HWp"], g["Kp"]
-    assert Kp in (K, K + 1) and Kp % 2 == 0
+    assert Kp % c["KP_UNIT"] == 0 and K <= Kp < K + c["KP_UNIT"]
     assert (chunks - 1) * mc < Kp <= chunks * mc
-    assert g["synthesis"][0] * 32 * g["mt"] == HWp and g["synthesis"][1] * 64 == C
-    kc = _constants()["KC"]
-    assert HWp % kc == 0 and HWp - kc < HW <= HWp
-    # the statistics launch: a CTA a group, its 8-channel columns dealt to
-    # the threads, at least one row each for every column
-    cpg, nt = C // groups, _constants()["STATS_NT"]
+    assert HWp % c["PX"] == 0 and HWp - c["PX"] < HW <= HWp
+    rows, tiles_c = g["synthesis"][0] * c["SYN_P"], g["synthesis"][1]
+    assert rows - c["SYN_P"] < HW <= rows and tiles_c * g["tn"] == C and g["tn"] in WGMMA_N
+    assert math.ceil(2 * Kp / c["SYN_K"]) * c["SYN_K"] >= 2 * Kp
+    cpg, nt = C // groups, c["STATS_NT"]
     cols = cpg // 8
     assert cpg % 8 == 0 and 1 <= cols <= nt and HW >= 1
 
 
+@pytest.mark.parametrize("shapes", GEOMETRY_SHAPES)
+def test_tensor_map_strides_are_16_byte_multiples(shapes):
+    """A tensor map's global strides must be multiples of 16 bytes and its
+    box at most 256 elements a side, its inner side 128 bytes under the
+    128-byte swizzle: x and out (B, HW, C), A (2, Kp, HWp), the weights (2,
+    nb, bs, bs), Ainv (HWp, 2Kp) and o (B, 2Kp, C), all bf16, at the
+    padded Kp, a multiple of 4 (Ainv's rows are 4 Kp bytes)."""
+    B, HW, C, K, nb, groups = shapes
+    HWp, Kp = padded_dims(HW, K)
+    bs = C // nb
+    maps = {"x": (C, HW, B), "A": (HWp, Kp, 2), "w": (bs, bs, nb, 2), "Ainv": (2 * Kp, HWp),
+            "o": (C, 2 * Kp, B)}
+    for name, dims in maps.items():
+        stride = 2
+        for d in dims[:-1]:
+            stride *= d
+            assert stride % 16 == 0, (name, dims)
+    c = _constants()
+    boxes = [(64, c["PX"], 1), (c["PX"], c["MC"], 1),
+             (64, bs, 1, 1), (64, c["SYN_P"], 1), (64, c["SYN_K"], 1), (c["SYN_K"], c["SYN_P"])]
+    for box in boxes:
+        assert box[0] * 2 == 128 and max(box) <= 256
+
+
+def _control_kstore(Kp: int) -> int:
+    """The first mode the dropped-chunk control leaves out of o, as the
+    source computes it: the start of the last DROP_UNIT-mode chunk of Kp."""
+    unit = _constants()["DROP_UNIT"]
+    return (Kp - 1) // unit * unit
+
+
 def test_the_ragged_chunk_of_the_slice():
-    """What the smoke's dropped-chunk control leaves out: at M's 8^2 latent
-    (K 40) the last chunk holds the 8 modes 32..39, at B = 1 (MT = 1, three
-    chunks of 16) as at B = 20 (MT = 2, two of 32); at the 32^2 latent (K
-    544, MT = 2 from B = 1) the 32 modes 512..543."""
-    for res, B, first in ((64, 1, 32), (64, 20, 32), (256, 1, 512), (256, 20, 512)):
+    """What the smoke's dropped-chunk control leaves out, whatever chunk the
+    spectral launch runs: at DPOT-M's 8^2 latent (K 40) the 8 modes 32..39,
+    at 12^2 (K 84) the 20 modes 64..83, at 32^2 (K 544) the 32 modes
+    512..543, at B = 1 as at B = 20; the source computes it so, and refuses
+    the control where Kp <= 32 (there would be nothing left)."""
+    for res, B, first in ((64, 1, 32), (64, 20, 32), (96, 1, 64), (96, 20, 64),
+                          (256, 1, 512), (256, 20, 512)):
         _, HW, C, K, nb, groups = preset_shapes("M", B, res=res)
-        g = launch_geometry(B, HW, C, K, nb, groups)
-        assert (g["spectral"][0] - 1) * 16 * g["mt"] == first
+        assert _control_kstore(padded_dims(HW, K)[1]) == first
+    src = _source()
+    assert "const int kstore = drop ? (Kp - 1) / DROP_UNIT * DROP_UNIT : Kp;" in src
+    assert "if (drop && Kp <= DROP_UNIT) return cudaErrorInvalidValue;" in src
+
+
+@pytest.mark.parametrize("B", [1, 8, 20])
+@pytest.mark.parametrize("res", [64, 72, 80, 96, 160, 192, 256])
+def test_the_control_leaves_out_some_modes_and_keeps_some(res, B):
+    """At every grid of configs/pretrain_medium.yaml's model the control
+    leaves out at least one mode and at most DROP_UNIT, and keeps at least
+    one, so that it is a fault and not an empty output. The spectral
+    launch's own chunks (64 modes) need not number two: at the 8^2 latent
+    it runs one; where Kp exceeds 64 they do."""
+    _, HW, C, K, nb, groups = preset_shapes("M", B, res=res)
+    c = _constants()
+    Kp = padded_dims(HW, K)[1]
+    kstore = _control_kstore(Kp)
+    assert 0 < kstore < Kp and Kp - kstore <= c["DROP_UNIT"]
+    g = launch_geometry(B, HW, C, K, nb, groups)
+    assert g["spectral"][0] >= (2 if Kp > c["MC"] else 1)
 
 
 @pytest.mark.parametrize("H,C,nb,groups", [(8, 128, 1, 8), (32, 256, 2, 4)])

@@ -627,7 +627,7 @@ def check_stream(args, act="gelu", approximate=True):
 @pytest.mark.parametrize("latent", sorted(STREAM_LATENTS))
 def test_stream_kernel_at_the_dpot_m_block_shapes(cuda, latent, B):
     """DPOT-M in bf16 at res 64 and 256 (configs/pretrain_medium.yaml's
-    widths); B = 20 is the config's batch, B = 1 takes 16-mode chunks."""
+    widths); B = 20 is the config's batch."""
     check_stream(ti_block_args(B, torch.bfloat16, cuda, seed=200 + B,
                                **STREAM_LATENTS[latent], **M_BLOCK))
 
@@ -692,7 +692,7 @@ def test_the_dropped_chunk_control_fails_the_check(cuda, latent, monkeypatch):
 # ragged latents and odd K: DPOT-M's blocks at res 96 (a 12^2 latent, K 84),
 # 72 (9^2, K 45), 160 (20^2, K 220) and 64 at patch 16 (4^2, K 12), on the
 # streamed kernel in bf16 and the f32 kernels in f32, which read A and Ainv
-# padded to whole 64-px tiles and an even K (afno_fused.padded_ops)
+# padded to whole 64-px tiles and K to a multiple of 4 (afno_fused.padded_ops)
 RAGGED_LATENTS = {"12x12": dict(H=12, W=12), "9x9": dict(H=9, W=9),
                   "20x20": dict(H=20, W=20), "4x4": dict(H=4, W=4)}
 
@@ -771,9 +771,9 @@ def test_ragged_edge_shapes(cuda, shape, dtype):
 
 def padded_with_entry(value: float):
     """afno_fused.padded_ops with one nonzero entry in A's first padded
-    pixel column (row 0) and, for an odd K, one in Ainv's padded mode
-    column (row 0): the control that shows the kernels read the padded
-    operators and need their zeros."""
+    pixel column (row 0) and, where K is not a multiple of 4, one in
+    Ainv's first padded mode column (row 0): the control that shows the
+    kernels read the padded operators and need their zeros."""
     real = afno_fused.padded_ops
 
     def padded(A, Ainv, K):
