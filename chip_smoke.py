@@ -20,7 +20,10 @@ Phases, each printing its results as JSON lines:
        256-channel blocks (afno_hopper_wide.cu) in the same way; at the
        DPOT-L block shapes (C 1536, 16 AFNO blocks of 96 channels, groups
        of 192) bf16 on afno_hopper_l.cu and f32 on afno_hopper_f32_l.cu in
-       the same way, bf16 also at B = 16 (L's pretraining batch); f32 at
+       the same way, bf16 also at B = 16 (L's pretraining batch), and at a
+       tensor-parallel rank's share (C 768) at B in {1, 4, 16}, each bf16
+       batch also through afno_hopper_l.cu's control entry (the walk's last
+       mode chunk, modes 128-143, left out), which must miss the limits; f32 at
        the DPOT-H block shapes on afno_hopper_f32_wide.cu in the same way;
        at the block shapes of configs/afno_config_single.yaml (C 512, 8
        AFNO blocks of 64 channels, one group each; B in {1, 8, 32}, 32 its
@@ -183,7 +186,7 @@ card, and einsums: no kernel, as in the JAX package, whose code there is
 XLA), after phase 14:
   19. finetune3d_L: `python -m dpot_tpu_torch.cli.finetune3d` in-process,
      DPOT3D at DPOT-L's widths (embed 1536, 16 AFNO blocks of 96, mlp_ratio
-     4, out_layer_dim 128), its depth cut to 6 of L's 24 blocks, on a
+     4, out_layer_dim 128), its depth cut to 3 of L's 24 blocks, on a
      synthetic set of ns3d_pdb_M1_turb's grid, channels and lengths (64^3, 5 channels, 21
      frames, t_test 11; 8 train and 4 test trajectories), patch 8, modes 32
      and temporal_modes 8, bf16, batch 4, 2 epochs, inflated from eval_L's
@@ -683,9 +686,9 @@ GRAPH_TOL = 1e-6
 # frames, t_test 11), 8 train and 4 test trajectories, patch 8 (an 8^3
 # latent), T_in 10, modes 32 and temporal_modes 8, bf16, batch 4, 2 epochs,
 # inflated from the L .pth that eval_L writes (4 channels, 128^2); its depth
-# cut to FT3D_DEPTH of L's 24 blocks (the first 6 inflated) to
+# cut to FT3D_DEPTH of L's 24 blocks (the first 3 inflated) to
 # keep the cold smoke within its time with DPOT-M's phase at three grids
-FT3D_DEPTH = 6
+FT3D_DEPTH = 3
 FT3D_SPEC = dict(name="synthetic_ns3d_l", train_size=8, test_size=4, t_total=21, t_test=11,
                  in_size=(64, 64, 64), n_channels=5)
 FT3D = dict(batch=4, epochs=2)
@@ -952,12 +955,12 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 
 
 # fused_gn_afno's launches by kernel name: the general path's five and the
-# two of each Hopper path
+# two or three of each Hopper path
 GENERAL_KERNELS = ("gn_stats_kernel", "analysis_kernel", "mode_hidden_kernel",
                    "mode_out_kernel", "synthesis_kernel")
-HOPPER_KERNELS = ("spectral_kernel", "spectral_wide_kernel", "spectral_l_kernel",
-                  "tma_synthesis_kernel", "stream_stats_kernel", "stream_spectral_kernel",
-                  "stream_synthesis_kernel")
+HOPPER_KERNELS = ("spectral_kernel", "spectral_wide_kernel", "l_stats_kernel",
+                  "spectral_l_kernel", "tma_synthesis_kernel", "stream_stats_kernel",
+                  "stream_spectral_kernel", "stream_synthesis_kernel")
 HOPPER_F32_KERNELS = ("spectral_f32_kernel", "spectral_f32_l_kernel",
                       "spectral_f32_wide_kernel", "synthesis_f32_kernel")
 SUB_KERNELS = GENERAL_KERNELS + HOPPER_KERNELS + HOPPER_F32_KERNELS
@@ -1222,6 +1225,49 @@ def check_padded_control(B, dtype, path, geo) -> dict:
                 max_abs_limit=lim, rel_l2_limit=tol["rel_l2"], caught=True)
 
 
+@contextlib.contextmanager
+def l_dropped_last_chunk():
+    """The hopper_l path launches afno_hopper_l.cu's control entry instead
+    of the kernel's: the same call with the persistent walk's last mode
+    chunk (modes 128-143 of K 144) left out of every block and sample, o's
+    rows for them zero, as a walk that missed those tiles would leave
+    them."""
+    fn = build.load_library("afno_hopper_l").dpot_afno_hopper_l_drop_last_chunk
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    real = afno_fused._kernel_fn
+    afno_fused._kernel_fn = lambda path: fn if path == "hopper_l" else real(path)
+    try:
+        yield
+    finally:
+        afno_fused._kernel_fn = real
+
+
+def check_walk_control(B, geo) -> dict:
+    """One bf16 call on hopper_l under `l_dropped_last_chunk` against the
+    plain version, at N(0, 0.05^2) AFNO weights: it must miss check_afno's
+    limits (either of them)."""
+    args, K, groups = afno_case(B, torch.bfloat16, 0.05, 100 + B, geo)
+    before = fused_gn_afno.launches_by_path["hopper_l"]
+    with l_dropped_last_chunk():
+        got = fused_gn_afno(*args, K, groups, True).float()
+    want = fused_gn_afno_ref(*args, K, groups, True).float()
+    torch.cuda.synchronize()
+    if fused_gn_afno.launches_by_path["hopper_l"] != before + 1:
+        raise AssertionError(f"walk control B={B}: no launch on hopper_l")
+    max_abs = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    tol = TOL[torch.bfloat16]
+    lim = tol["max_abs_ulps"] * BF16_EPS * want.abs().max().item()
+    if not (max_abs > lim or rel > tol["rel_l2"]):
+        raise AssertionError(
+            f"walk control C={geo['C']} B={B}: max_abs {max_abs} (limit {lim}), rel_l2 {rel} "
+            f"(limit {tol['rel_l2']}): the check does not see the walk's last chunk")
+    return dict(path="hopper_l", C=geo["C"], K=K, dropped_modes=[(K - 1) // 64 * 64, K - 1],
+                max_abs_err=max_abs, rel_l2=rel, max_abs_limit=lim,
+                rel_l2_limit=tol["rel_l2"], caught=True)
+
+
 def check_gate_mirror() -> int:
     """Each Hopper kernel's gate in afno_fused.py (hopper_supported, ...,
     hopper_f32_wide_supported, hopper_stream_supported) against its mirror
@@ -1414,6 +1460,11 @@ def phase_kernels() -> dict:
         for dtype, path in ((torch.bfloat16, "hopper_stream"), (torch.float32, "hopper_f32")):
             key = f"{prefix}{str(dtype).replace('torch.', '')}/padded_control/B8"
             results[key] = check_padded_control(8, dtype, path, RAGGED[prefix])
+            log("kernel", name="fused_gn_afno", config=key, **results[key])
+    for prefix, geo in (("L/", DPOT_L), ("LTP/", DPOT_L_TP)):  # the L case's walk control
+        for B in CASE_BATCHES[(prefix, torch.bfloat16)]:
+            key = f"{prefix}bfloat16/walk_control/B{B}"
+            results[key] = check_walk_control(B, geo)
             log("kernel", name="fused_gn_afno", config=key, **results[key])
     return results
 
@@ -6539,7 +6590,7 @@ def smoke() -> list | None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build.build_all()
-    log("build", seconds=time.perf_counter() - t0,
+    log("build", seconds=time.perf_counter() - t0, nvcc_s=dict(build.build_seconds),
         libraries=[p.name for p in build.library_paths().values()],
         torch=torch.__version__, cuda=torch.version.cuda)
     if sys.argv[1:2] == ["layouts"]:  # this slice's layout jobs alone
@@ -6701,6 +6752,9 @@ def smoke() -> list | None:
                     and v["path"] == path}
         if controls:  # an entry in the padded operators, which the checks caught
             kernels[-1]["padded_control"] = controls
+        if path == "hopper_l":  # the walk's last chunk left out, which the checks caught
+            kernels[-1]["walk_control"] = {key: v for key, v in k.items()
+                                           if "/walk_control/" in key}
         for prefix in ("L96/", "H96/"):  # L's and H's blocks at 12^2, f32
             if prefix in prefixes or path == "general" and dtype == "float32":
                 kernels[-1][f"by_batch_at_{prefix[:-1].lower()}"] = by_batch(prefix, dtype, path)

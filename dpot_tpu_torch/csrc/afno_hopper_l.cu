@@ -1,6 +1,8 @@
 // Fused GroupNorm + AFNO spectral mixer in bf16 for AFNO blocks of 96
-// channels (DPOT-L), designed for Hopper (sm_90a): wgmma fed by TMA, two
-// launches, z and h kept on chip.
+// channels at 128- and 256-px latents (DPOT-L at 128^2, patch 8), designed
+// for Hopper (sm_90a): three launches, a persistent warp-specialised
+// spectral launch whose wgmma products are fed by TMA through mbarriers,
+// z and h kept on chip.
 //
 // Replaces, for bf16 operands at the shapes that `hopper_l_supported`
 // (dpot_tpu_torch/ops/cuda/afno_fused.py) admits, the TPU kernel
@@ -13,362 +15,473 @@
 //
 // What bounds it. At DPOT-L (HW 256, C 1536, K 144, nb 16, bs 96) a sample
 // is 793 MFLOP of bf16 products against 2.2 MB of operands, so from B ~ 2
-// up it is bound by tensor-core operations; at B = 1 by latency. The
-// five-launch kernel of afno_fused.cu, which L ran before, sent z, h and o
-// through device memory and took five launches with a grid-wide
-// statistics pass of one CTA per group.
+// up it is bound by tensor-core operations (0.00641 ms at B = 8, 989
+// TFLOP/s); at B = 1 by latency. What keeps a fused design from that bound
+// is first the operands' trips from L2 to the SMs (the design before read
+// 320 KB for 16 MFLOP a CTA), then the work between the products: the
+// normalisation of x, the epilogues of z, h and o, and the synthesis.
 //
-// What differs from afno_hopper.cu (blocks of 128). DPOT-L breaks that
-// kernel's premise that a GroupNorm group lies inside one AFNO block:
-// GroupNorm(8) over 1536 channels makes groups of 192, each spanning the
-// block pair (2i, 2i+1). Here a group is one block or a block pair, so a
-// whole block always lies inside one group, and every CTA computes its
-// group's statistics itself, in one pass over the group's 192 (or 96)
-// channels read from L2 while TMA brings the slab; no CTA waits for
-// another. A 96-channel row is 192 bytes, no multiple of the 128-byte
-// swizzle span, so:
-//   - the x slab is loaded as two 64-channel boxes from the block's first
-//     channel (128 channels: the block and the next 32, which the last
-//     block reads as zeros past C), and z = A . xn runs at N = 128 exactly
-//     as afno_hopper.cu runs it; the 32 columns past the block are
-//     computed and dropped (a tenth of the call's products);
-//   - z and h are the K-major tile [z_re | z_im] of 192 columns, three
-//     64-column k-blocks; each k16 step lies wholly in the real (steps 0-5)
-//     or imaginary (6-11) half;
-//   - the weights arrive as two [96 out][64 in] boxes per part (in 0-63,
-//     then 64-95 with zeros past 96), and both MLP layers run wgmma
-//     m64n96k16;
-//   - o leaves by plain stores from the accumulators (96 channels are not
-//     whole 128-byte TMA boxes).
-// The synthesis launch is afno_hopper.cu's (hopper_tma.cuh): it tiles 128
-// pixels x 128 channels and finds each channel's group as c / (C / groups),
-// whatever the block size, so it takes C a multiple of 128 (nb % 4 == 0).
+// The design before (measured on an NVIDIA H100 80GB HBM3, 700 W, by
+// chip_smoke.py's kernel phase): one CTA per (64-mode chunk, block,
+// sample), 256 threads and 202 KB of shared memory, one CTA an SM, every
+// phase in sequence: the block's GroupNorm group read from L2 for the
+// statistics (192 channels x 256 px, the same 96 KB by the 6 CTAs of a
+// group), the normalisation, z = A . xn at N = 128 (32 columns of the next
+// block computed and dropped), both MLP layers (W2's load issued only
+// after z), o by plain stores; then hopper_tma.cuh's synthesis launch,
+// which holds all of o in a CTA. It read 320 KB from L2 a CTA, 125.8 MB a
+// call at B = 8, and took 0.0199 / 0.0578 / 0.1103 / 0.1459 ms at B = 1 /
+// 8 / 16 / 20 against a bound of 0.00092 / 0.00641 / 0.01282 / 0.01603 (a
+// tensor-parallel rank's C = 768 at B = 1 / 4 / 16: 0.0199 / 0.0209 /
+// 0.0581).
 //
-// Shared memory of a spectral CTA (64 modes x block j x sample b): x slab
-// 64 KB, A rows 64 KB, W1 48 KB, z/h 24 KB, W2 streamed into the slab's
-// bytes once z is done: 202 KB with the barriers and slack. The grid is
-// (ceil(K / 64), nb, B): 48 CTAs at DPOT-L's B = 1, which leaves 84 of the
-// H100's 132 SMs idle for the spectral launch (its cost at B = 1 is
-// latency, PERF.md).
+// This design (0.0185 / 0.0446 / 0.0872 / 0.112 ms at B = 1 / 8 / 16 / 20,
+// C = 768 0.0185 / 0.0199 / 0.0445 at B = 1 / 4 / 16, device time on the
+// same card by tools/afno_l_variants.py, the design before 0.0199 /
+// 0.0578 / 0.1106 / 0.1468 in the same process):
+//   1. the statistics once: l_stats_kernel, one CTA per (group, sample),
+//      f32, Chan's rule over 8-channel columns as afno_hopper_stream.cu's
+//      stream_stats_kernel, each thread's rows all loaded before any is
+//      summed; the spectral launch is its programmatic dependent and no
+//      spectral CTA reads its group from L2;
+//   2. spectral_l_kernel<ACT>, persistent: one CTA an SM (at most one per
+//      tile), each walking a contiguous range of the tiles (64-mode chunk
+//      c, block j, sample b) in the order (j, c, b), b fastest. One
+//      producer warp issues every TMA load, two consumer warpgroups run
+//      the products. The chunk's A rows (re and im, every 64-px k-block:
+//      64 KB) stay in shared memory while the walk keeps its chunk, the
+//      block's W1 and W2 (72 KB) while it keeps its block, each behind its
+//      own full/empty mbarrier pair; the x tiles stream through a ring of
+//      five 64-px stages with full/empty mbarriers. The consumers rewrite a
+//      tile's x stages in place as round(xn) from the statistics while the
+//      tile before runs its MLP products (its first stage under MLP1, the
+//      others under MLP2), fence the generic proxy, and run z = A . xn as
+//      one batch of wgmma m64n96k16, warpgroup w part w (re, im) of the 64
+//      modes; z goes to shared memory as the K-major tile [z_re | z_im]
+//      (192 columns, three 64-column k-blocks), h and then o over it, each
+//      layer 12 wgmma k16 steps from the resident weights; o leaves by
+//      16-byte stores of the rows below K;
+//   3. afno_hopper_stream.cu's synthesis, stream_synthesis_kernel<TN>
+//      (128 px x 256, 128 or 64 channels, o streamed in 64-mode k-blocks),
+//      a programmatic dependent of the spectral launch.
+// Where its time goes (B = 16, the variants of tools/afno_l_variants.py):
+// of 0.087 ms, the synthesis adds 0.022 to the spectral launch's end, the
+// normalisation, the MLP products and the h activation 0.017, 0.017 and
+// 0.013 each when taken out alone, the tail chunk 0.018; the statistics
+// launch runs 0.008 before the spectral consumers may start (no spectral
+// CTA fits in the registers a statistics CTA leaves on its SM). The streamed
+// kernel forced onto these shapes takes 0.0481 / 0.0901 / 0.1114 at B = 8
+// / 16 / 20 in the same process.
+//
+// No padded product at N: a 96-channel row is 192 bytes, no whole 128-byte
+// swizzle span, so the x stage is three boxes of 32 channels with the
+// 64-byte swizzle (64-byte rows), read as one MN-major operand of N = 96
+// (three 32-channel atoms, LBO the box stride); each part of a block's
+// weights is a [96 out][64 in] box with the 128-byte swizzle and a
+// [96 out][32 in] box with the 64-byte one. What stays padded: K 144 makes
+// two full 64-mode chunks and one of 16 modes, whose tiles run all three
+// products at M = 64 with 48 empty rows (3 of every 9 tiles; 25 % of a
+// call's products, 0.018 of 0.087 ms at B = 16). Two samples' tails in one
+// tile (stacked [re | im] rows of A, one sample a warpgroup) would need
+// both samples' x stages in the ring at once, 96 KB beside the resident
+// A and W, which do not fit.
+//
+// The walk's L2 reckoning (DPOT-L, B = 8: 384 tiles over 132 CTAs, 2 or 3
+// each): x 384 x 48 KB = 18.9 MB, A 156 loads x 64 KB = 10.2 MB, W 140
+// loads x 72 KB = 10.3 MB; 39.4 MB against the design before's 125.8 MB,
+// plus the statistics launch's one pass over x (6.3 MB); B = 16: 59.4 MB
+// (251.7 before), B = 20: 68.8 (314.6). The order (c, j, b) reads the same
+// 39.0 MB; (j, b, c), which would keep x and reload A every tile, 54.4 MB.
 
-#include "activation.cuh"
-#include "hopper_tma.cuh"
+#define AFNO_HOPPER_STREAM_PARTS
+#include "afno_hopper_stream.cu"
 
 namespace {
 
-constexpr int BS = 96;          // AFNO block size, the only one admitted
-constexpr int NT = 256;         // threads per CTA: two warpgroups
-constexpr int MODES = 64;       // modes per spectral CTA
-constexpr int MAX_HW = 256;     // the x slab and the A rows fit at most this
-constexpr float EPS = 1e-5f;    // torch.nn.GroupNorm default
-constexpr int W_TILE = 12288;   // one weight box: [96 out][64 in] bf16
-
+constexpr int L_BS = 96;        // AFNO block size, the only one admitted
+constexpr int L_MAX_HW = 256;   // the A rows of a chunk fit at most this
+constexpr int L_NKX = L_MAX_HW / PX;  // 64-px k-blocks of the resident A rows
+constexpr int L_NS = 5;         // x ring stages: a 256-px tile and one stage of the next
+constexpr int L_NORM_T = 192;   // consumer threads that normalise: 12 columns x 16 rows
+constexpr int L_STATS_ROWS = 16;  // rows a statistics thread reads at most
+constexpr int XBOX = 32 * PX * 2;     // one x box: 32 channels x 64 px, 64-byte rows
+constexpr int X_STAGE = 3 * XBOX;     // an x stage: the block's 96 channels
+constexpr int A_BYTES = 2 * L_NKX * BOX;  // A rows [2 parts][L_NKX][64 modes][64 px]
+constexpr int WQ0 = L_BS * 128;       // a weight box [96 out][64 in], 128-byte swizzle
+constexpr int WQ1 = L_BS * 64;        // [96 out][32 in], 64-byte swizzle
+constexpr int W_PART = WQ0 + WQ1;     // one part (wr or wi) of one layer
+constexpr int W_LAYER = 2 * W_PART;
+constexpr int ZH_BYTES = 3 * BOX;     // [z_re | z_im], then h, then o: [3][64 modes][64]
 // spectral_l_kernel's shared memory, byte offsets from a 1024-aligned base
-constexpr int S_X = 0;          // xn [2 halves][HW][64]; then W2 [2 parts][2][96][64]
-constexpr int S_A = 65536;      // A rows [2 parts][HW / 64][64][64]
-constexpr int S_W1 = 131072;    // W1 [2 parts][2 k-blocks][96][64]
-constexpr int S_ZH = 180224;    // z, then h: [3 k-blocks][64][64]
-constexpr int S_MISC = 204800;  // 7 mbarriers, reduction scratch
-constexpr int SPECTRAL_SMEM = S_MISC + 1024 + 1024;  // + alignment slack
-enum { BAR_X = 0, BAR_A = 1, BAR_W1 = 5, BAR_W2 = 6 };
+constexpr int L_A_OFF = 0;
+constexpr int L_W_OFF = L_A_OFF + A_BYTES;   // W1, then W2
+constexpr int L_Z_OFF = L_W_OFF + 2 * W_LAYER;
+constexpr int L_X_OFF = L_Z_OFF + ZH_BYTES;
+constexpr int L_MISC = L_X_OFF + L_NS * X_STAGE;  // 2 L_NS + 4 mbarriers
+constexpr int L_SMEM = L_MISC + 128 + 1024;       // + alignment slack
+static_assert(L_SMEM <= SMEM_MAX, "a CTA may use 227 KB of shared memory");
+static_assert(8 * (2 * L_NS + 4) <= 128, "the mbarriers fit their bytes");
+static_assert(L_STATS_ROWS * (STATS_NT / (2 * L_BS / 8)) >= L_MAX_HW,
+              "a statistics thread's rows cover a group of 192 channels");
+static_assert(L_W_OFF % 1024 == 0 && L_Z_OFF % 1024 == 0 && L_X_OFF % 1024 == 0 &&
+                  WQ0 % 1024 == 0 && W_PART % 1024 == 0 && XBOX % 1024 == 0,
+              "swizzled tiles 1024-aligned");
+
+// wgmma shared-memory descriptor of a tile with the 64-byte swizzle (layout
+// type 2): K-major with 64-byte rows, 8-row groups sbo = 512 bytes apart;
+// MN-major with 32 channels a row, 32-channel atoms lbo bytes apart.
+__device__ __forceinline__ uint64_t desc64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (make_desc(addr, lbo, sbo) & ~(3ull << 62)) | (2ull << 62);
+}
+
 constexpr int ACT_NONE = -1;
 
-struct Acc96 {
-  float d[48];  // m64 x n96 f32 accumulator of one warpgroup
-
-  __device__ __forceinline__ void zero() {
+// Columns 0..95 of a warpgroup's accumulator (+ bias of its columns when
+// BIAS, through ACT unless ACT_NONE), rounded to bf16, at columns col0 ..
+// col0 + 95 of the swizzled K-major tile [3][64][64] at zh.
+template <int ACT, bool BIAS>
+__device__ __forceinline__ void put96(uint8_t* zh, const Frag<96>& acc, const float* bias,
+                                      int col0) {
 #pragma unroll
-    for (int i = 0; i < 48; ++i) d[i] = 0.f;
-  }
-  // keep the compiler from moving the registers across wgmma's async use
-  __device__ __forceinline__ void fence() {
-#pragma unroll
-    for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
-  }
-  // d += A . (SB * B), m64 n96 k16, bf16 operands, both K-major
-  template <int SB> __device__ __forceinline__ void mma(uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "%48, %49, p, 1, %51, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(a), "l"(b), "r"(1), "n"(SB));
-  }
-};
-
-// Columns 0..95 of warpgroup wg's accumulator (+ the bias of its columns
-// when BIAS, through ACT unless ACT_NONE), rounded to bf16, at columns
-// 96 wg .. 96 wg + 95 of the swizzled K-major tile zh [3][64][64]: the
-// warpgroup's half of [z_re | z_im] or [h_re | h_im]. AccT is Acc (the
-// analysis, N = 128, whose columns past 95 are dropped) or Acc96.
-template <int ACT, bool BIAS, typename AccT>
-__device__ __forceinline__ void store_half(uint8_t* zh, const AccT& acc, const float* bias,
-                                           int wg) {
-#pragma unroll
-  for (int i = 0; i < BS / 8; ++i) {
-    const int col = acc_col(i), k = BS * wg + col, kb = k >> 6, cc = k & 63;
+  for (int i = 0; i < L_BS / 8; ++i) {
+    const int c = acc_col(i);
     float2 bv = make_float2(0.f, 0.f);
-    if constexpr (BIAS) bv = __ldg(reinterpret_cast<const float2*>(bias + col));
+    if constexpr (BIAS) bv = __ldg(reinterpret_cast<const float2*>(bias + c));
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = acc_row(h);
       float v0 = acc.d[4 * i + 2 * h] + bv.x, v1 = acc.d[4 * i + 2 * h + 1] + bv.y;
       if constexpr (ACT != ACT_NONE) {
         v0 = activate<ACT>(v0);
         v1 = activate<ACT>(v1);
       }
-      uint8_t* p = zh + kb * 8192 + r * 128 + (((cc >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+      *swizzled(zh, BOX, acc_row(h), col0 + c) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
-// One complex MLP layer of one block, computed by warpgroup WG: acc = WG's
-// half of [a_re | a_im] . W, with a the K-major tile [3][64][64] at a_base
-// and W the weight boxes [part][k-block][96 out][64 in] at w_base (part 0 =
-// wr, 1 = wi), once barrier bar says W has landed. Real half (WG 0):
-// a_re.wr - a_im.wi; imaginary (WG 1): a_re.wi + a_im.wr. k16 step s of
-// the 192 columns of a is in the real half for s < 6; its weight rows are
-// the step's 16 input channels, si = s % 6. WG is a template argument so
-// that the sign is an immediate and no wgmma sits on a path that depends
-// on the thread (ptxas would serialise them).
-template <int WG>
-__device__ __forceinline__ void complex_layer(Acc96& acc, uint32_t a_base, uint32_t w_base,
-                                              uint32_t bar) {
-  mbar_wait(bar, 0);
-  acc.zero();
-  acc.fence();
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < 12; ++s) {
-    const int part = s < 6 ? WG : 1 - WG, si = s % 6;
-    const uint64_t a = desc_k(a_base + (s >> 2) * 8192 + (s & 3) * 32);
-    const uint64_t w = desc_k(w_base + (part * 2 + (si >> 2)) * W_TILE + (si & 3) * 32);
-    if (s >= 6 && WG == 0) acc.mma<-1>(a, w);
-    else acc.mma<1>(a, w);
-  }
-  wgmma_commit();
-  wgmma_wait_all();
-  acc.fence();
-}
-
-// Sum of v over the CTA, returned to every thread. red: 8 floats.
-__device__ __forceinline__ float cta_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) s += red[w];
-  __syncthreads();  // red may be written again
-  return s;
-}
-
-// grid (ceil(K / 64), nb, B): modes chunk * 64 .. + 63 of AFNO block j of
-// sample b, from x to o (B, 2K, C). stats (B, groups, 2) gets the mean and
-// 1/std of the block's group from the chunk-0 CTA of the group's first
-// block. ACT is the mode MLP's activation (an ActId).
-template <int ACT>
-__global__ void __launch_bounds__(NT, 1)
-spectral_l_kernel(const __grid_constant__ CUtensorMap map_x,
-                  const __grid_constant__ CUtensorMap map_a,
-                  const __grid_constant__ CUtensorMap map_w1,
-                  const __grid_constant__ CUtensorMap map_w2, const bf16* __restrict__ x,
-                  const float* __restrict__ gscale, const float* __restrict__ gbias,
-                  const float* __restrict__ b1, const float* __restrict__ b2,
-                  float* __restrict__ stats, bf16* __restrict__ o, int HW, int C, int K,
-                  int nb, int groups) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = align1024(smem_raw);
-  const uint32_t base = smem_u32(sm);
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int chunk = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
-  const int nkx = HW / 64;
-  auto bar = [&](int i) { return base + S_MISC + 8 * i; };
-
-  // the synthesis may take SMs that this grid leaves free; it waits for
-  // this grid's o and statistics before it reads them
+// grid (groups, B): the f32 GroupNorm mean and 1/std of group g of sample b
+// into stats (B, groups, 2), one pass over the group's cpg channels (96 or
+// 192) of x. Thread tid owns the 8-channel column tid % cols over rows
+// tid / cols, + rstep, ... (threads past cols x rstep idle), at most
+// L_STATS_ROWS of them, all loaded before any is summed (in a loop of
+// eight loads and a remainder, most would wait an L2 round trip each,
+// one after another); its mean m and sum
+// q of squared deviations (shifted by its first value) combine into the
+// group's mean and variance by Chan's pairwise rule, as
+// afno_hopper_stream.cu's stream_stats_kernel (STATS_NT threads too)
+// combines them.
+__global__ void __launch_bounds__(STATS_NT, 1)
+l_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int HW, int C,
+               int groups) {
+  __shared__ float red[STATS_NT / 32];
+  // the spectral launch may take the SMs this grid leaves free; it waits
+  // for the statistics before it reads them
   launch_dependents();
-  if (tid == 0) {
-    for (int i = 0; i <= BAR_W2; ++i) mbar_init(bar(i), 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(bar(BAR_X), 2 * HW * 128);
-    for (int h = 0; h < 2; ++h)
-      tma_load_3d(base + S_X + h * HW * 128, &map_x, bar(BAR_X), j * BS + h * 64, 0, b);
-    for (int kb = 0; kb < nkx; ++kb) {
-      mbar_expect_tx(bar(BAR_A + kb), 2 * 8192);
-      for (int p = 0; p < 2; ++p)
-        tma_load_3d(base + S_A + (p * nkx + kb) * 8192, &map_a, bar(BAR_A + kb), kb * 64,
-                    chunk * MODES, p);
+  const int tid = threadIdx.x, g = blockIdx.x, b = blockIdx.y;
+  const int cpg = C / groups, cols = cpg / 8, rstep = STATS_NT / cols, row0 = tid / cols;
+  float cnt = 0.f, m = 0.f, q = 0.f;
+  if (row0 < rstep && row0 < HW) {
+    const bf16* xc = x + static_cast<size_t>(b) * HW * C + g * cpg + 8 * (tid % cols);
+    uint4 cells[L_STATS_ROWS];
+#pragma unroll
+    for (int k = 0; k < L_STATS_ROWS; ++k) {
+      const int p = row0 + k * rstep;
+      cells[k] = p < HW ? __ldg(reinterpret_cast<const uint4*>(xc + static_cast<size_t>(p) * C))
+                        : make_uint4(0u, 0u, 0u, 0u);
     }
-    mbar_expect_tx(bar(BAR_W1), 4 * W_TILE);
-    for (int p = 0; p < 2; ++p)
-      for (int ib = 0; ib < 2; ++ib)
-        tma_load_4d(base + S_W1 + (p * 2 + ib) * W_TILE, &map_w1, bar(BAR_W1), ib * 64, 0, j,
-                    p);
-  }
-
-  // GroupNorm statistics of the block's group (its cpg = 96 or 192
-  // channels, from the group's first channel g0), one pass from L2 while
-  // the slab lands: the group's HW x cpg / 8 chunks of 8 channels are
-  // dealt out evenly, n_per to a thread (HW cpg / 2048, whole at the
-  // admitted shapes); each thread's mean m and sum q of squared deviations
-  // (shifted by its first value) combine into the group's mean and
-  // variance (Chan's pairwise rule, as exact as two passes).
-  const int cpg = C / groups, g0 = j * BS / cpg * cpg, cols = cpg / 8;
-  const int n_per = HW * cols / NT;
-  float* red = reinterpret_cast<float*>(sm + S_MISC + 64);
-  float mean, rstd;
-  {
-    const bf16* xg = x + static_cast<size_t>(b) * HW * C + g0;
-    auto cell = [&](int q) {
-      return __ldg(reinterpret_cast<const uint4*>(xg + static_cast<size_t>(q / cols) * C +
-                                                  (q % cols) * 8));
-    };
-    float f0[8];
-    unpack8(cell(tid), f0);
-    const float shift = f0[0];
+    float f[8];
+    unpack8(cells[0], f);
+    const float shift = f[0];
     float p1[8] = {}, p2[8] = {};
-#pragma unroll 4
-    for (int k = 0; k < n_per; ++k) {
-      float f[8];
-      unpack8(cell(tid + k * NT), f);
+    int rows = 0;
+#pragma unroll
+    for (int k = 0; k < L_STATS_ROWS; ++k) {
+      if (row0 + k * rstep >= HW) break;
+      unpack8(cells[k], f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float d = f[e] - shift;
         p1[e] += d;
         p2[e] += d * d;
       }
+      ++rows;
     }
-    const float cnt = 8.f * n_per, s1 = sum8(p1);
-    const float m = shift + s1 / cnt, q = sum8(p2) - s1 * s1 / cnt;
-    mean = cta_sum(m, red) / NT;
-    const float m2 = cta_sum(q + cnt * (m - mean) * (m - mean), red);
-    rstd = rsqrtf(m2 / (static_cast<float>(HW) * cpg) + EPS);
+    const float s1 = sum8(p1), s2 = sum8(p2);
+    cnt = 8.f * rows;
+    m = shift + s1 / cnt;
+    q = s2 - s1 * s1 / cnt;
   }
-  if (chunk == 0 && j * BS == g0 && tid == 0) {
-    float* st = stats + 2 * (b * groups + g0 / cpg);
+  const float n = static_cast<float>(HW) * cpg;
+  const float mean = cta_sum(m * cnt, red) / n;
+  const float var = cta_sum(q + cnt * (m - mean) * (m - mean), red) / n;
+  if (tid == 0) {
+    float* st = stats + 2 * (static_cast<size_t>(b) * groups + g);
     st[0] = mean;
-    st[1] = rstd;
-  }
-
-  // GroupNorm of the slab's first 96 channels, in place. Thread tid owns
-  // 8-channel chunk column lc of rows tid / 16, tid / 16 + 16, ...; chunk
-  // (p, lc) sits at 16-byte position (lc % 8) ^ (p % 8) of row p of half
-  // lc / 8 (the swizzle). Columns 12-15 (the next block's channels) stay
-  // as they landed: z's columns past 95 are dropped.
-  const int lc = tid & 15;
-  mbar_wait(bar(BAR_X), 0);
-  if (lc < BS / 8) {
-    float sc[8], bi[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      sc[e] = __ldg(gscale + j * BS + lc * 8 + e) * rstd;
-      bi[e] = __ldg(gbias + j * BS + lc * 8 + e);
-    }
-#pragma unroll 4
-    for (int p = tid >> 4; p < HW; p += 16) {
-      uint4* cellp = reinterpret_cast<uint4*>(sm + S_X + (lc >> 3) * HW * 128 + p * 128 +
-                                              (((lc & 7) ^ (p & 7)) << 4));
-      float f[8];
-      unpack8(*cellp, f);
-      uint4 u;
-      __nv_bfloat162* hq = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        hq[e] = __floats2bfloat162_rn((f[2 * e] - mean) * sc[2 * e] + bi[2 * e],
-                                      (f[2 * e + 1] - mean) * sc[2 * e + 1] + bi[2 * e + 1]);
-      *cellp = u;
-    }
-  }
-  fence_proxy_async();
-  __syncthreads();
-
-  // z: warpgroup wg computes part wg (re, im) of the chunk's modes over the
-  // slab's 128 columns, as afno_hopper.cu does (the A rows landed while the
-  // slab was normalised; waiting for all of them first keeps the wait loop
-  // off the path between two wgmmas)
-  for (int kb = 0; kb < nkx; ++kb) mbar_wait(bar(BAR_A + kb), 0);
-  {
-    Acc acc;
-    acc.zero();
-    acc.fence();
-    wgmma_fence();
-    for (int kb = 0; kb < nkx; ++kb) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        acc.mma<1, 1>(desc_k(base + S_A + (wg * nkx + kb) * 8192 + kk * 32),
-                      desc_mn(base + S_X + (kb * 64 + kk * 16) * 128, HW * 128));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    acc.fence();
-    __syncthreads();  // the slab and the A rows are spent
-    if (tid == 0) {
-      mbar_expect_tx(bar(BAR_W2), 4 * W_TILE);
-      for (int p = 0; p < 2; ++p)
-        for (int ib = 0; ib < 2; ++ib)
-          tma_load_4d(base + S_X + (p * 2 + ib) * W_TILE, &map_w2, bar(BAR_W2), ib * 64, 0, j,
-                      p);
-    }
-    store_half<ACT_NONE, false>(sm + S_ZH, acc, nullptr, wg);
-  }
-  fence_proxy_async();
-  __syncthreads();
-
-  // h = act([z_re | z_im] . W1 + B1), into the bytes of z
-  Acc96 acc;
-  if (wg == 0) complex_layer<0>(acc, base + S_ZH, base + S_W1, bar(BAR_W1));
-  else complex_layer<1>(acc, base + S_ZH, base + S_W1, bar(BAR_W1));
-  __syncthreads();  // both warpgroups are done with z
-  store_half<ACT, true>(sm + S_ZH, acc, b1 + (wg * nb + j) * BS, wg);
-  fence_proxy_async();
-  __syncthreads();
-
-  // o = [h_re | h_im] . W2 + B2, rounded, to o's rows wg K + mode (modes
-  // past K dropped), columns j bs ..
-  if (wg == 0) complex_layer<0>(acc, base + S_ZH, base + S_X, bar(BAR_W2));
-  else complex_layer<1>(acc, base + S_ZH, base + S_X, bar(BAR_W2));
-  const float* b2_wg = b2 + (wg * nb + j) * BS;
-  bf16* ob = o + static_cast<size_t>(2 * b + wg) * K * C + j * BS;
-#pragma unroll
-  for (int i = 0; i < BS / 8; ++i) {
-    const int col = acc_col(i);
-    const float2 bv = __ldg(reinterpret_cast<const float2*>(b2_wg + col));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int mode = chunk * MODES + acc_row(h);
-      if (mode < K)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(mode) * C + col) =
-            __floats2bfloat162_rn(acc.d[4 * i + 2 * h] + bv.x, acc.d[4 * i + 2 * h + 1] + bv.y);
-    }
+    st[1] = rsqrtf(var + EPS);
   }
 }
 
-// Lets spectral_l_kernel<ACT> use the dynamic shared memory it needs, once
-// per device.
-template <int ACT> cudaError_t allow_smem(int dev) {
-  static bool done[64] = {};
-  if (dev < 64 && done[dev]) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      spectral_l_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SPECTRAL_SMEM);
-  if (e != cudaSuccess) return e;
-  if (dev < 64) done[dev] = true;
-  return cudaSuccess;
+// One complex MLP layer of one block, computed by warpgroup WG: acc = WG's
+// part of [a_re | a_im] . W, with a the K-major tile [3][64][64] at zh and
+// W the resident layer [part][WQ0 box, WQ1 box] at w (part 0 = wr, 1 = wi).
+// Real part (WG 0): a_re . wr - a_im . wi; imaginary (WG 1): a_re . wi +
+// a_im . wr. k16 step s of a's 192 columns lies in its real half for s < 6;
+// its weight rows are the step's 16 inputs si = s % 6, in the 128-byte box
+// for si < 4 and in the 64-byte one after. WG is a template argument so
+// that each sign is an immediate and no wgmma sits on a path that depends
+// on the thread. The products are committed as one group, in flight on
+// return: the caller waits for them (wgmma_wait) before it reads acc.
+template <int WG>
+__device__ __forceinline__ void mlp96(Frag<96>& acc, uint32_t zh, uint32_t w) {
+  zero(acc);
+  pin(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 12; ++s) {
+    const int half = s / 6, si = s % 6, part = half ? 1 - WG : WG;
+    const uint64_t a = desc_k(zh + (s >> 2) * BOX + (s & 3) * 32);
+    const uint32_t wp = w + part * W_PART;
+    const uint64_t b = si < 4 ? desc_k(wp + si * 32) : desc64(wp + WQ0 + (si - 4) * 32, 16, 512);
+    if (WG == 0 && half) acc.template mma<-1, 0>(a, b);
+    else acc.template mma<1, 0>(a, b);
+  }
+  wgmma_commit();
+}
+
+// The walk's tiles: t -> block j = t / (nch B), chunk c = t / B % nch,
+// sample b = t % B.
+struct Walk {
+  int nch, B;
+  __device__ __forceinline__ int block(int t) const { return t / (nch * B); }
+  __device__ __forceinline__ int chunk(int t) const { return t / B % nch; }
+};
+
+// grid: min(tiles, SMs) CTAs of NT threads, CTA i walking the tiles
+// [i T / G, (i + 1) T / G) of the T = nb nch B tiles (64-mode chunk, block
+// j, sample b), nch the chunks walked (ceil(K / 64), one less in the
+// control). From x (map_x: (B, HW, C), boxes of 32 channels x 64 px), A
+// (map_a: (2, K, HW), boxes of 64 px x 64 modes), the bf16 block weights
+// (map_w1 / map_w2: (2, nb, 96 out, 96 in), boxes of 64 inputs; map_w1h /
+// map_w2h: boxes of the last 32) and the GroupNorm statistics (B, groups, 2)
+// of l_stats_kernel, to o (B, 2K, C), the modes below K. ACT is the mode
+// MLP's activation (an ActId): one instance per activation, since nine
+// inlined activation epilogues chosen at run time made the kernel's code
+// several times as long.
+template <int ACT>
+__global__ void __launch_bounds__(NT, 1)
+spectral_l_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_w1,
+                  const __grid_constant__ CUtensorMap map_w1h,
+                  const __grid_constant__ CUtensorMap map_w2,
+                  const __grid_constant__ CUtensorMap map_w2h,
+                  const float* __restrict__ gscale, const float* __restrict__ gbias,
+                  const float* __restrict__ b1, const float* __restrict__ b2,
+                  const float* stats, bf16* __restrict__ o, int HW, int C, int K, int nb,
+                  int groups, int B, int nch) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int nkx = HW / PX;
+  const Walk walk{nch, B};
+  const int tiles = nb * nch * B;
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles / gridDim.x);
+  const int t1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * tiles / gridDim.x);
+  const uint32_t misc = base + L_MISC;
+  auto full = [&](int s) { return misc + 8 * s; };
+  auto empty = [&](int s) { return misc + 8 * (L_NS + s); };
+  const uint32_t a_full = misc + 16 * L_NS, a_empty = a_full + 8;
+  const uint32_t w_full = a_full + 16, w_empty = a_full + 24;
+  // a tile loads new A rows where its chunk differs from the tile before
+  // it in the walk, new weights where its block does
+  auto new_a = [&](int t) { return t == t0 || walk.chunk(t) != walk.chunk(t - 1); };
+  auto new_w = [&](int t) { return t == t0 || walk.block(t) != walk.block(t - 1); };
+
+  // the synthesis may take SMs that this grid leaves free; it waits for
+  // this grid's o before it reads it
+  launch_dependents();
+  if (tid == 0) {
+    for (int s = 0; s < L_NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), EMPTY_ARRIVALS);
+    }
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, EMPTY_ARRIVALS);
+    mbar_init(w_full, 1);
+    mbar_init(w_empty, EMPTY_ARRIVALS);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {  // the producer warp: one thread issues every load
+    if (tid == NC) {
+      int it = 0, na = 0, nw = 0;
+      for (int t = t0; t < t1; ++t) {
+        const int j = walk.block(t), c = walk.chunk(t), b = t % B;
+        if (new_a(t)) {  // once the tile before has done its products with the old rows
+          if (na) mbar_wait(a_empty, (na - 1) & 1);
+          mbar_expect_tx(a_full, 2 * nkx * BOX);
+          for (int p = 0; p < 2; ++p)
+            for (int kc = 0; kc < nkx; ++kc)
+              tma_load_3d(base + L_A_OFF + (p * L_NKX + kc) * BOX, &map_a, a_full, kc * PX,
+                          c * MC, p);
+          ++na;
+        }
+        for (int kc = 0; kc < nkx; ++kc, ++it) {
+          const int s = it % L_NS, use = it / L_NS;
+          if (use) mbar_wait(empty(s), (use - 1) & 1);
+          mbar_expect_tx(full(s), X_STAGE);
+          for (int h = 0; h < 3; ++h)
+            tma_load_3d(base + L_X_OFF + s * X_STAGE + h * XBOX, &map_x, full(s),
+                        j * L_BS + 32 * h, kc * PX, b);
+        }
+        if (new_w(t)) {  // once the tile before has done its second MLP layer
+          if (nw) mbar_wait(w_empty, (nw - 1) & 1);
+          mbar_expect_tx(w_full, 2 * W_LAYER);
+          for (int layer = 0; layer < 2; ++layer)
+            for (int p = 0; p < 2; ++p) {
+              const uint32_t dst = base + L_W_OFF + layer * W_LAYER + p * W_PART;
+              tma_load_4d(dst, layer ? &map_w2 : &map_w1, w_full, 0, 0, j, p);
+              tma_load_4d(dst + WQ0, layer ? &map_w2h : &map_w1h, w_full, 64, 0, j, p);
+            }
+          ++nw;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers. Thread tid < L_NORM_T normalises the 8-channel column lc
+  // of rows r0, r0 + 16, r0 + 32, r0 + 48 of an x stage in place (all its
+  // cells loaded, then all stored); chunk (p, lc) sits at 16-byte position
+  // (lc % 4) ^ ((p / 2) % 4) of row p of box lc / 4 (the 64-byte swizzle).
+  // A tile's stages are normalised while the tile before runs its MLP
+  // products (the first of them under MLP1, the others under MLP2), so
+  // that its analysis is one run of wgmma with no pass over x between.
+  const bool norm = tid < L_NORM_T;
+  const int lc = tid % 12, r0 = tid / 12, cpg = C / groups;
+  uint8_t* zh = sm + L_Z_OFF;
+  float nm = 0.f, nr[8], nbi[8];
+  // the normalisation constants of tile t for this thread's 8 channels,
+  // which lie in one group
+  auto constants = [&](int t) {
+    if (!norm) return;
+    const int c0 = walk.block(t) * L_BS + 8 * lc;
+    const float* st = stats + 2 * (static_cast<size_t>(t % B) * groups + c0 / cpg);
+    nm = st[0];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      nr[e] = st[1] * __ldg(gscale + c0 + e);
+      nbi[e] = __ldg(gbias + c0 + e);
+    }
+  };
+  // x stage q rewritten as round(xn) in place, visible to wgmma
+  auto normalise = [&](int q) {
+    mbar_wait(full(q % L_NS), (q / L_NS) & 1);
+    if (norm) {
+      uint8_t* xt = sm + L_X_OFF + q % L_NS * X_STAGE + (lc >> 2) * XBOX;
+      uint4 cells[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = r0 + 16 * k;
+        cells[k] = *reinterpret_cast<const uint4*>(xt + p * 64 + (((lc & 3) ^ ((p >> 1) & 3)) << 4));
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = r0 + 16 * k;
+        float f[8];
+        unpack8(cells[k], f);
+        uint4 u;
+        __nv_bfloat162* hq = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hq[e] = __floats2bfloat162_rn((f[2 * e] - nm) * nr[2 * e] + nbi[2 * e],
+                                        (f[2 * e + 1] - nm) * nr[2 * e + 1] + nbi[2 * e + 1]);
+        *reinterpret_cast<uint4*>(xt + p * 64 + (((lc & 3) ^ ((p >> 1) & 3)) << 4)) = u;
+      }
+    }
+    fence_proxy_async();
+  };
+
+  wait_primary();  // the statistics
+  int it = 0, na = 0, nw = 0;
+  constants(t0);
+  for (int q = 0; q < nkx; ++q) normalise(q);
+  for (int t = t0; t < t1; ++t) {
+    const int j = walk.block(t), c = walk.chunk(t), b = t % B;
+    na += new_a(t);
+    nw += new_w(t);
+    const bool last = t + 1 == t1;
+
+    // z = A . xn, warpgroup wg part wg of the chunk's modes, once every
+    // stage of the tile is xn; then its stages go back to the producer
+    mbar_wait(a_full, (na - 1) & 1);
+    consumer_sync();
+    Frag<96> za;
+    zero(za);
+    pin(za);
+    wgmma_fence();
+    for (int kc = 0; kc < nkx; ++kc) {
+      const uint32_t xs = base + L_X_OFF + (it + kc) % L_NS * X_STAGE;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        za.template mma<1, 1>(desc_k(base + L_A_OFF + (wg * L_NKX + kc) * BOX + kk * 32),
+                              desc64(xs + kk * 16 * 64, XBOX, 512));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(za);
+    for (int kc = 0; kc < nkx; ++kc) release(empty((it + kc) % L_NS));
+    it += nkx;
+    if (!last) {
+      if (new_a(t + 1)) release(a_empty);
+      constants(t + 1);
+    }
+
+    // z rounded into [z_re | z_im]: warpgroup wg's columns 96 wg .. 96 wg + 95
+    put96<ACT_NONE, false>(zh, za, nullptr, L_BS * wg);
+    fence_proxy_async();
+    consumer_sync();
+
+    // h = act([z_re | z_im] . W1 + B1), rounded, over z once both
+    // warpgroups are done reading z; the next tile's first stage is
+    // normalised while the products run
+    const uint32_t z = base + L_Z_OFF, w1 = base + L_W_OFF, w2 = w1 + W_LAYER;
+    mbar_wait(w_full, (nw - 1) & 1);
+    Frag<96> acc;
+    if (wg == 0) mlp96<0>(acc, z, w1);
+    else mlp96<1>(acc, z, w1);
+    if (!last) normalise(it);
+    wgmma_wait<0>();
+    pin(acc);
+    consumer_sync();
+    put96<ACT, true>(zh, acc, b1 + (static_cast<size_t>(wg) * nb + j) * L_BS, L_BS * wg);
+    fence_proxy_async();
+    consumer_sync();
+
+    // o = [h_re | h_im] . W2 + B2, rounded, over h once both warpgroups
+    // are done reading it (the next tile's other stages normalised while
+    // the products run); then warpgroup wg stores part wg's rows below K
+    // to o, 16 bytes a thread
+    if (wg == 0) mlp96<0>(acc, z, w2);
+    else mlp96<1>(acc, z, w2);
+    if (!last)
+      for (int q = 1; q < nkx; ++q) normalise(it + q);
+    wgmma_wait<0>();
+    pin(acc);
+    if (!last && new_w(t + 1)) release(w_empty);
+    consumer_sync();
+    put96<ACT_NONE, true>(zh, acc, b2 + (static_cast<size_t>(wg) * nb + j) * L_BS, L_BS * wg);
+    warpgroup_sync(wg);
+    const int m0 = c * MC, rows = K - m0 < MC ? K - m0 : MC;
+    bf16* ob = o + (static_cast<size_t>(b) * 2 * K + (wg ? K : 0) + m0) * C + j * L_BS;
+    for (int q = tid & 127; q < rows * (L_BS / 8); q += 128) {
+      const int r = q / (L_BS / 8), cc = 8 * (q % (L_BS / 8));
+      *reinterpret_cast<uint4*>(ob + static_cast<size_t>(r) * C + cc) =
+          *reinterpret_cast<const uint4*>(swizzled(zh, BOX, r, L_BS * wg + cc));
+    }
+  }
 }
 
 }  // namespace
@@ -376,12 +489,80 @@ template <int ACT> cudaError_t allow_smem(int dev) {
 // The shapes this kernel takes, as `hopper_l_supported` in
 // dpot_tpu_torch/ops/cuda/afno_fused.py states them (the dtype is bf16).
 extern "C" int dpot_afno_hopper_l_supported(int B, int HW, int C, int K, int nb, int groups) {
-  if (B < 1 || B > 65535 || nb < 1 || C != nb * BS || C % TILE_C || groups < 1 || C % groups)
+  if (B < 1 || B > 65535 || nb < 1 || C != nb * L_BS || C % TILE_C || groups < 1 || C % groups)
     return 0;
-  if (HW % TILE_P || HW > MAX_HW || K < 1 || K % 4 || (2 * K + 63) / 64 > MAX_NK) return 0;
+  if (HW % TILE_P || HW > L_MAX_HW || K < 1 || K % 4 || (2 * K + 63) / 64 > MAX_NK) return 0;
   const int cpg = C / groups;
-  return cpg == BS || cpg == 2 * BS;
+  return cpg == L_BS || cpg == 2 * L_BS;
 }
+
+namespace {
+
+int run_l(int act, const void* x, const float* gscale, const float* gbias, const void* A,
+          const void* Ainv, const void* w1t, const float* b1, const void* w2t, const float* b2,
+          float* stats, void* o, void* out, int B, int HW, int C, int K, int nb, int groups,
+          bool drop, void* stream) {
+  if (!dpot_afno_hopper_l_supported(B, HW, C, K, nb, groups) || act < 0 || act >= ACT_COUNT)
+    return cudaErrorInvalidValue;
+  const void* ptrs[] = {x, A, Ainv, w1t, w2t, o, out};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return cudaErrorMisalignedAddress;
+  if ((reinterpret_cast<uintptr_t>(b1) | reinterpret_cast<uintptr_t>(b2)) & 7)
+    return cudaErrorMisalignedAddress;  // read as float2
+  const int nch = (K + MC - 1) / MC - (drop ? 1 : 0);
+  if (nch < 1) return cudaErrorInvalidValue;  // the control needs a chunk left
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  const int sms = sm_count(dev);
+  if (!sms) return cudaErrorInvalidDevice;
+
+  const uint64_t UB = static_cast<uint64_t>(B), UC = C, UHW = HW, UK = K, UBS = L_BS, UNB = nb;
+  const uint64_t dx[3] = {UC, UHW, UB}, da[3] = {UHW, UK, 2}, dw[4] = {UBS, UBS, UNB, 2};
+  const uint32_t bx[3] = {32, PX, 1}, ba[3] = {PX, MC, 1}, bw[4] = {64, L_BS, 1, 1},
+                 bwh[4] = {32, L_BS, 1, 1};
+  constexpr CUtensorMapSwizzle SW64 = CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap mx, ma, mw1, mw1h, mw2, mw2h;
+  CUresult r;
+  if ((r = tensor_map(&mx, x, 3, dx, bx, false, SW64)) != CUDA_SUCCESS ||
+      (r = tensor_map(&ma, A, 3, da, ba, true)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mw1, w1t, 4, dw, bw, true)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mw1h, w1t, 4, dw, bwh, true, SW64)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mw2, w2t, 4, dw, bw, true)) != CUDA_SUCCESS ||
+      (r = tensor_map(&mw2h, w2t, 4, dw, bwh, true, SW64)) != CUDA_SUCCESS)
+    return 10000 + static_cast<int>(r);
+
+  l_stats_kernel<<<dim3(groups, B), STATS_NT, 0, s>>>(static_cast<const bf16*>(x), stats, HW, C,
+                                                      groups);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  const int tiles = nb * nch * B, grid = tiles < sms ? tiles : sms;
+  e = dispatch_act(act, [&](auto tag) {
+    constexpr int ACT = decltype(tag)::id;
+    static bool done[64] = {};
+    const cudaError_t err = allow_smem(spectral_l_kernel<ACT>, L_SMEM, done, dev);
+    if (err != cudaSuccess) return err;
+    return launch_dependent(spectral_l_kernel<ACT>, dim3(grid), L_SMEM, s, mx, ma, mw1, mw1h,
+                            mw2, mw2h, gscale, gbias, b1, b2, static_cast<const float*>(stats),
+                            static_cast<bf16*>(o), HW, C, K, nb, groups, B, nch);
+  });
+  if (e != cudaSuccess) return e;
+
+  // the synthesis tile: 256 channels where C takes them and the grid
+  // still fills half the card, else 128 where it fills the card, else 64
+  const Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(A),
+               static_cast<const bf16*>(Ainv), static_cast<const bf16*>(w1t),
+               static_cast<const bf16*>(w2t), gscale, gbias, b1, b2, stats,
+               static_cast<bf16*>(o), static_cast<bf16*>(out), B, HW, HW, C, K, K, nb, groups,
+               act};
+  const long long ptiles = static_cast<long long>(HW / SYN_P) * B;
+  if (C % 256 == 0 && 2 * ptiles * (C / 256) >= sms) return launch_synthesis_tn<256>(dev, a, s);
+  if (ptiles * (C / 128) >= sms) return launch_synthesis_tn<128>(dev, a, s);
+  return launch_synthesis_tn<64>(dev, a, s);
+}
+
+}  // namespace
 
 // x, out (B, HW, C), A (2K, HW), Ainv (HW, 2K), o scratch (B, 2K, C) are
 // bf16; w1t/w2t are the bf16 block weights (2, nb, bs, bs), each block
@@ -393,37 +574,25 @@ extern "C" int dpot_afno_hopper_l(int act, const void* x, const float* gscale,
                                   const void* w1t, const float* b1, const void* w2t,
                                   const float* b2, float* stats, void* o, void* out, int B,
                                   int HW, int C, int K, int nb, int groups, void* stream) {
-  if (!dpot_afno_hopper_l_supported(B, HW, C, K, nb, groups) || act < 0 || act >= ACT_COUNT)
-    return cudaErrorInvalidValue;
-  const void* ptrs[] = {x, A, Ainv, w1t, w2t, o, out};
-  for (const void* p : ptrs)
-    if (!aligned16(p)) return cudaErrorMisalignedAddress;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint64_t UB = static_cast<uint64_t>(B), UC = C, UHW = HW, UK = K, UBS = BS, UNB = nb;
+  return run_l(act, x, gscale, gbias, A, Ainv, w1t, b1, w2t, b2, stats, o, out, B, HW, C, K, nb,
+               groups, false, stream);
+}
 
-  CUtensorMap mx, ma, mw1, mw2;
-  const uint64_t dx[3] = {UC, UHW, UB}, da[3] = {UHW, UK, 2}, dw[4] = {UBS, UBS, UNB, 2};
-  const uint32_t bx[3] = {64, static_cast<uint32_t>(HW), 1}, ba[3] = {64, MODES, 1},
-                 bw[4] = {64, BS, 1, 1};
-  CUresult r;
-  if ((r = tensor_map(&mx, x, 3, dx, bx, false)) != CUDA_SUCCESS ||
-      (r = tensor_map(&ma, A, 3, da, ba, true)) != CUDA_SUCCESS ||
-      (r = tensor_map(&mw1, w1t, 4, dw, bw, true)) != CUDA_SUCCESS ||
-      (r = tensor_map(&mw2, w2t, 4, dw, bw, true)) != CUDA_SUCCESS)
-    return 10000 + static_cast<int>(r);
-
-  cudaError_t e;
-  int dev = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  e = dispatch_act(act, [&](auto tag) {
-    constexpr int ACT = decltype(tag)::id;
-    cudaError_t err = allow_smem<ACT>(dev);
-    if (err != cudaSuccess) return err;
-    spectral_l_kernel<ACT><<<dim3((K + MODES - 1) / MODES, nb, B), NT, SPECTRAL_SMEM, s>>>(
-        mx, ma, mw1, mw2, static_cast<const bf16*>(x), gscale, gbias, b1, b2, stats,
-        static_cast<bf16*>(o), HW, C, K, nb, groups);
-    return cudaGetLastError();
-  });
+// A control for the checks that hold this kernel against its plain
+// version, never called by the port: the same call with the walk's last
+// mode chunk left out of every block and sample (o is cleared first, so its
+// rows are zero, as a walk that missed those tiles would leave them):
+// modes 128-143 of K 144, 64-79 of K 80. Refused where K <= 64 (one chunk:
+// there would be nothing left).
+extern "C" int dpot_afno_hopper_l_drop_last_chunk(
+    int act, const void* x, const float* gscale, const float* gbias, const void* A,
+    const void* Ainv, const void* w1t, const float* b1, const void* w2t, const float* b2,
+    float* stats, void* o, void* out, int B, int HW, int C, int K, int nb, int groups,
+    void* stream) {
+  if (B < 1 || K < 1) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaMemsetAsync(o, 0, static_cast<size_t>(B) * 2 * K * C * sizeof(bf16),
+                                        static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
-  return launch_synthesis(x, Ainv, o, out, stats, gscale, gbias, B, HW, C, K, groups, s);
+  return run_l(act, x, gscale, gbias, A, Ainv, w1t, b1, w2t, b2, stats, o, out, B, HW, C, K, nb,
+               groups, true, stream);
 }

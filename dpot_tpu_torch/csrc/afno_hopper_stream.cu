@@ -866,8 +866,23 @@ template <int TN> int launch_synthesis_tn(int dev, const Args& a, cudaStream_t s
                           a.Kp, a.groups);
 }
 
+// The SMs of device dev, asked once.
+int sm_count(int dev) {
+  static int count[64] = {};
+  int n = dev < 64 ? count[dev] : 0;
+  if (!n && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess &&
+      dev < 64)
+    count[dev] = n;
+  return n;
+}
 
 }  // namespace
+
+// afno_hopper_l.cu (AFNO blocks of 96 channels at 128- and 256-px latents)
+// includes this file for the parts above and defines
+// AFNO_HOPPER_STREAM_PARTS, which leaves out the entry points below and so
+// every instance of stream_spectral_kernel.
+#ifndef AFNO_HOPPER_STREAM_PARTS
 
 // The shapes this kernel takes, as `hopper_stream_supported` in
 // dpot_tpu_torch/ops/cuda/afno_fused.py states them (the dtype is bf16):
@@ -888,16 +903,6 @@ extern "C" int dpot_afno_hopper_stream_supported(int B, int HW, int C, int K, in
 }
 
 namespace {
-
-// The SMs of device dev, asked once.
-int sm_count(int dev) {
-  static int count[64] = {};
-  int n = dev < 64 ? count[dev] : 0;
-  if (!n && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess &&
-      dev < 64)
-    count[dev] = n;
-  return n;
-}
 
 int run(int act, const void* x, const float* gscale, const float* gbias, const void* A,
         const void* Ainv, const void* w1t, const float* b1, const void* w2t, const float* b2,
@@ -983,3 +988,5 @@ extern "C" int dpot_afno_hopper_stream_drop_last_chunk(
   return run(act, x, gscale, gbias, A, Ainv, w1t, b1, w2t, b2, stats, o, out, B, HW, C, K, nb,
              groups, true, stream);
 }
+
+#endif  // AFNO_HOPPER_STREAM_PARTS

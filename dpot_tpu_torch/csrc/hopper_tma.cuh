@@ -1,10 +1,11 @@
 // What the bf16 Hopper kernels of fused_gn_afno share: afno_hopper.cu
-// (AFNO blocks of 128 channels), afno_hopper_wide.cu (256 channels) and
-// afno_hopper_l.cu (96 channels).
+// (AFNO blocks of 128 channels), afno_hopper_wide.cu (256 channels),
+// afno_hopper_stream.cu and, through it, afno_hopper_l.cu (96 channels).
 //
 //   - PTX wrappers for mbarriers, TMA loads and stores, programmatic
 //     dependent launch and wgmma (m64n128k16, bf16 in, f32 accumulate);
-//   - the synthesis launch, tma_synthesis_kernel: out = Ainv . o + xn, one
+//   - the synthesis launch of afno_hopper.cu and afno_hopper_wide.cu,
+//     tma_synthesis_kernel: out = Ainv . o + xn, one
 //     CTA per (128 pixels, 128 channels, sample), which does not depend on
 //     the AFNO block size (it reads o (B, 2K, C) and the GroupNorm
 //     statistics (B, groups, 2) that the spectral launch leaves);
@@ -343,7 +344,8 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A tensor map of a contiguous row-major bf16 tensor with 128-byte swizzle;
+// A tensor map of a contiguous row-major bf16 tensor with 128-byte swizzle
+// (or `swizzle`: a box whose rows are 64 bytes takes the 64-byte one);
 // dims and box innermost first, out-of-bounds elements read as zero. A map
 // depends only on these values, so the maps of tensors that stay (A, Ainv,
 // the cached weights) are kept in a small per-thread cache.
@@ -352,10 +354,12 @@ struct MapKey {
   int rank;
   uint64_t dims[4];
   uint32_t box[4];
+  int swizzle;
 };
 
 CUresult tensor_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                    const uint32_t* box, bool cached) {
+                    const uint32_t* box, bool cached,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   constexpr int SLOTS = 16;
   thread_local MapKey keys[SLOTS];
   thread_local CUtensorMap maps[SLOTS];
@@ -364,6 +368,7 @@ CUresult tensor_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t*
   std::memset(&key, 0, sizeof key);
   key.ptr = ptr;
   key.rank = rank;
+  key.swizzle = static_cast<int>(swizzle);
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -383,7 +388,7 @@ CUresult tensor_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t*
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
                             reinterpret_cast<const cuuint64_t*>(dims), strides,
                             reinterpret_cast<const cuuint32_t*>(box), estride,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r == CUDA_SUCCESS && cached) {
     keys[next] = key;

@@ -14,8 +14,9 @@ shapes alone before any launch, or raises:
     through a ring in shared memory, two launches;
   - "hopper_l" (`dpot_tpu_torch/csrc/afno_hopper_l.cu`): bf16 at the shapes
     `hopper_l_supported` admits (AFNO blocks of 96 channels, GroupNorm
-    groups of one block or a block pair, DPOT-L at a 16x16 latent); wgmma
-    fed by TMA, each CTA computing its group's statistics, two launches;
+    groups of one block or a block pair, DPOT-L at a 16x16 latent); three
+    launches: the GroupNorm statistics, a persistent spectral launch whose
+    producer warp feeds wgmma through TMA rings, the streamed synthesis;
   - "hopper_f32" (`dpot_tpu_torch/csrc/afno_hopper_f32.cu`): f32 at the
     shapes `hopper_f32_supported` admits (AFNO blocks of 128 channels, any
     latent up to 4096 pixels, any K); every product as 3xTF32 on the

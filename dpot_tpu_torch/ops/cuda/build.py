@@ -14,7 +14,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
@@ -25,6 +27,8 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+# kernel name -> seconds its nvcc took in this process's last build_all()
+build_seconds: dict[str, float] = {}
 _lock = threading.Lock()
 
 
@@ -70,21 +74,31 @@ def build_all() -> dict[str, Path]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = tempfile.TemporaryFile(mode="w+")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs[name] = (
-            subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ),
+            subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True),
+            log,
             tmp,
             out,
         )
+    running = set(procs)
+    while running:  # each source's nvcc seconds, as it finishes
+        for name in list(running):
+            if procs[name][0].poll() is not None:
+                build_seconds[name] = time.perf_counter() - t0
+                running.discard(name)
+        time.sleep(0.05)
     errors = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (proc, log, tmp, out) in procs.items():
+        log.seek(0)
+        text = log.read()
+        log.close()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+            errors.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{text}")
         else:
             os.replace(tmp, out)
     if errors:

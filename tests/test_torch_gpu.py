@@ -423,6 +423,38 @@ def test_non_gelu_activations_on_the_l_kernels(cuda, dtype, act):
     check_l(ti_block_args(3, dtype, cuda, seed=33, **L_BLOCK), dtype, act)
 
 
+def l_drop_last_chunk():
+    """afno_hopper_l.cu's control entry: the same call with the walk's last
+    mode chunk left out of every block and sample."""
+    import ctypes
+
+    from dpot_tpu_torch.ops.cuda.build import load_library
+
+    fn = load_library("afno_hopper_l").dpot_afno_hopper_l_drop_last_chunk
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,shape", [(1, L_BLOCK), (8, L_BLOCK),
+                                     (4, dict(C=768, nb=8, groups=4))])
+def test_the_l_walk_control_fails_the_check(cuda, B, shape, monkeypatch):
+    """The control the smoke's kernel phase must catch: with the tail chunk
+    (modes 128-143 of K 144) left out of the walk at DPOT-L and at a
+    tensor-parallel rank's share of it, the output misses check_l's bf16
+    limits."""
+    args = ti_block_args(B, torch.bfloat16, cuda, seed=240 + B, **shape)
+    monkeypatch.setattr(afno_fused, "_kernel_fn", lambda path: l_drop_last_chunk())
+    got = fused_gn_afno(*args, approximate=True).float()
+    monkeypatch.undo()
+    want = fused_gn_afno_ref(*args, approximate=True).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max().item() > 4 * 2.0**-7 * want.abs().max().item()
+            or rel_l2(got, want) > 4e-3)
+
+
 def check_f32_wide(args, act="gelu"):
     """One f32 call on the kernel for blocks of 256 channels
     (afno_hopper_f32_wide.cu) against the plain version, as chip_smoke.py
